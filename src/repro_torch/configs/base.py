@@ -1,0 +1,58 @@
+"""Model configuration: the dense decoder family's fields of
+``repro.configs.base.ModelConfig`` and the same ``reduced()`` rule, so a
+reduced config here has exactly the reference's dims."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # only "dense" is served by the port so far
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0           # 0 -> d_model // num_heads
+    window: Optional[int] = None        # sliding-window attention
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    act: str = "silu"
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    dtype: str = "bfloat16"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family config for CPU tests (the reference's dims)."""
+        return dataclasses.replace(
+            self, name=self.name + "-smoke", num_layers=2, d_model=64,
+            num_heads=4, num_kv_heads=min(4, max(1, self.num_kv_heads)),
+            head_dim=16, d_ff=128 if self.d_ff else 0, vocab_size=128,
+            window=min(self.window, 32) if self.window else None,
+            dtype="float32")
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    if not _REGISTRY:
+        _load_all()
+    return _REGISTRY[name]
+
+
+def _load_all() -> None:
+    from . import llama3_2_1b  # noqa: F401

@@ -1,0 +1,189 @@
+"""Shared model components: the sparse execution scope, ``griffin_linear``
+(the per-GEMM entry point of the substrate), norms, rope, the KV-slot write
+and the bucketed-prefill helpers — the counterpart of
+``repro/models/common.py`` for the dense decoder.
+
+Batch invariance: the serving engine decodes several rows at once while its
+greedy oracle decodes one, and their tokens must match exactly.  Every
+reduction on the decode path therefore goes through :func:`tree_sum`, a
+fixed pairwise tree of elementwise adds whose order does not depend on the
+batch size (PyTorch's own reductions pick a thread layout from the number of
+rows, which changes the summation order); the GEMMs are the port's kernels,
+whose k order is fixed per output element.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..core.hybrid import SPARSE_THRESHOLD, select_mode
+from ..core.spec import Mode
+from ..kernels.dense_gemm.ops import dense_matmul
+from ..kernels.griffin_spmm.ops import GriffinWeights, griffin_matmul
+
+
+# ---------------------------------------------------------------------------
+# sparse execution substrate
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SparseExecution:
+    """Knobs for ``griffin_linear``.  ``use_kernels`` routes dense GEMMs
+    through the dense kernel too (off: plain ``x @ w``); ``a_sparsity`` is
+    the declared activation sparsity of the workload category.  PyTorch runs
+    eagerly, so the scope is read on every call."""
+
+    use_kernels: bool = False
+    a_sparsity: float = 0.0
+    a_threshold: float = SPARSE_THRESHOLD
+
+
+_EXEC_STACK = [SparseExecution()]
+
+
+@contextlib.contextmanager
+def sparse_execution(use_kernels: bool = True, a_sparsity: float = 0.0,
+                     a_threshold: float = SPARSE_THRESHOLD):
+    """Scope under which ``griffin_linear`` dispatches to the kernels
+    (mode per GEMM via ``core.hybrid.select_mode``)."""
+    _EXEC_STACK.append(SparseExecution(use_kernels=use_kernels,
+                                       a_sparsity=a_sparsity,
+                                       a_threshold=a_threshold))
+    try:
+        yield _EXEC_STACK[-1]
+    finally:
+        _EXEC_STACK.pop()
+
+
+# Dispatch telemetry, one bucket bump per GEMM call:
+#   "kernel"  a kernel wrapper (which runs its plain version on CPU tensors)
+#   "plain"   a plain ``x @ w`` (no kernel requested)
+#   "dual"    GriffinWeights GEMMs whose Mode came out AB
+# Unlike the reference, which counts at trace time and leaves plain
+# single-device dots uncounted, eager calls are counted every time and
+# "plain" counts every plain dot, so a run can show no GEMM bypassed the
+# kernels.
+KERNEL_DISPATCH: Dict[str, int] = {}
+
+
+def reset_kernel_dispatch() -> None:
+    KERNEL_DISPATCH.clear()
+
+
+def kernel_dispatch_counts() -> Dict[str, int]:
+    return dict(KERNEL_DISPATCH)
+
+
+def _dispatched(bucket: str) -> None:
+    KERNEL_DISPATCH[bucket] = KERNEL_DISPATCH.get(bucket, 0) + 1
+
+
+def griffin_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """The weight GEMM of the model stack: ``x @ w`` morphed per call.
+
+      GriffinWeights    -> griffin_spmm kernel (Sparse.B); dual when the
+                           scope declares sparse activations (Sparse.AB)
+      dense w, dense a  -> plain ``x @ w``, or the dense_gemm kernel under
+                           a ``use_kernels`` scope
+      dense w, sparse a -> Sparse.A, whose kernel is not ported yet
+
+    Leading batch/sequence axes are flattened into the GEMM M axis.
+    """
+    ctx = _EXEC_STACK[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if isinstance(w, GriffinWeights):
+        thr = w.a_thr if w.a_thr is not None else ctx.a_threshold
+        dual = select_mode(ctx.a_sparsity, 1.0, threshold=thr) == Mode.AB
+        if dual:
+            _dispatched("dual")
+        _dispatched("kernel")
+        out = griffin_matmul(x2, w, dual=dual)
+        return out.reshape(*lead, w.n).to(x.dtype)
+    if select_mode(ctx.a_sparsity, 0.0, threshold=ctx.a_threshold) == Mode.A:
+        raise NotImplementedError("Sparse.A (the sparse_a kernel) is not "
+                                  "ported yet")
+    if not ctx.use_kernels:
+        _dispatched("plain")
+        return x @ w
+    _dispatched("kernel")
+    out = dense_matmul(x2, w)
+    return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# batch-invariant building blocks
+# ---------------------------------------------------------------------------
+
+def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` by a fixed pairwise tree of elementwise adds (the
+    axis zero-padded to a power of two), so each output's summation order
+    depends only on the length of ``dim`` — never on the other axes or the
+    device's thread layout."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = F.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def write_kv_slot(cache: torch.Tensor, update: torch.Tensor,
+                  slot: torch.Tensor) -> None:
+    """Write a one-token K/V update into a (B, S, ...) cache at ``slot``,
+    in place (the reference returns an updated copy).  ``slot`` is a scalar
+    or a (B,) vector of per-row indices.  ``update``: (B, 1, ...)."""
+    B = cache.shape[0]
+    rows = torch.arange(B, device=cache.device)
+    cache[rows, slot.long().expand(B)] = update[:, 0].to(cache.dtype)
+
+
+def length_mask(lengths: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """(B,) true prompt lengths -> (B, S) bool validity mask."""
+    return torch.arange(seq_len, device=lengths.device)[None, :] < \
+        lengths[:, None]
+
+
+def take_last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Per-row last valid timestep of a right-padded (B, S, D) tensor."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, (lengths - 1).long()]
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    ms = tree_sum(x * x) / x.shape[-1]
+    x = x * torch.rsqrt(ms + eps)[..., None]
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
+         ) -> torch.Tensor:
+    """Rotary embedding.  x: (..., seq, heads, head_dim), positions: (seq,)
+    or broadcastable to (..., seq)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    expo = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(1.0 / theta, expo)
+    ang = positions.float()[..., None] * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    return {"silu": F.silu, "relu": F.relu,
+            "gelu": lambda t: F.gelu(t, approximate="tanh"),
+            "gelu_tanh": lambda t: F.gelu(t, approximate="tanh"),
+            }[name]

@@ -1,0 +1,204 @@
+"""Decoder-only dense transformer (llama-style) — the counterpart of
+``repro/models/transformer.py`` for the dense family.
+
+Parameters are a plain dict of tensors with the reference's layout:
+``embed`` (V, D), ``final_norm`` (D,), ``layers`` holding every per-layer
+leaf stacked along a leading layer axis, and ``head`` (D, V) unless the
+embeddings are tied.  Every weight GEMM goes through
+``common.griffin_linear``, so compacted ``GriffinWeights`` leaves (stacked,
+sliced per layer) run the Sparse.B kernel.  The layer stack is a Python loop.
+
+KV caches: ``{"k", "v": (L, B, S, KVH, hd), "pos": scalar or (B,)}``.
+``decode_step`` writes the new K/V rows into the cache tensors in place
+(the reference's donated update) and returns the cache with the advanced
+position.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from .attention import attention, decode_attention
+from .common import (act_fn, griffin_linear, rms_norm, rope, take_last,
+                     write_kv_slot)
+
+Params = Dict[str, Any]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
+                scale: Optional[float] = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * scale).to(dtype)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Random weights from ``gen`` on ``gen.device``: normal / sqrt(fan_in)
+    GEMMs, unit-normal embeddings, zero norm scales (the reference's
+    scheme; the draws themselves differ from ``jax.random``'s)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    dt = _dtype(cfg)
+    dev = gen.device
+    L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    layers: Params = {
+        "ln1": torch.zeros((L, D), dtype=dt, device=dev),
+        "ln2": torch.zeros((L, D), dtype=dt, device=dev),
+        "wq": _dense_init(gen, (L, D, H * hd), D, dt),
+        "wk": _dense_init(gen, (L, D, KVH * hd), D, dt),
+        "wv": _dense_init(gen, (L, D, KVH * hd), D, dt),
+        "wo": _dense_init(gen, (L, H * hd, D), H * hd, dt),
+        "w_gate": _dense_init(gen, (L, D, F), D, dt),
+        "w_up": _dense_init(gen, (L, D, F), D, dt),
+        "w_down": _dense_init(gen, (L, F, D), F, dt),
+    }
+    if cfg.qk_norm:
+        layers["qn"] = torch.zeros((L, hd), dtype=dt, device=dev)
+        layers["kn"] = torch.zeros((L, hd), dtype=dt, device=dev)
+    params: Params = {
+        "embed": _dense_init(gen, (cfg.vocab_size, D), cfg.vocab_size, dt,
+                             scale=1.0),
+        "final_norm": torch.zeros((D,), dtype=dt, device=dev),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = _dense_init(gen, (D, cfg.vocab_size), D, dt)
+    return params
+
+
+def unembed(cfg: ModelConfig, params: Params):
+    """The unembedding weight; tied embeddings give the strided view
+    ``embed.T``, which the dense kernel reads in place."""
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def _layer(params: Params, i: int) -> Params:
+    return {name: leaf[i] for name, leaf in params["layers"].items()}
+
+
+def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = act_fn(cfg.act)(griffin_linear(x, p["w_gate"])) * \
+        griffin_linear(x, p["w_up"])
+    return griffin_linear(h, p["w_down"]).to(x.dtype)
+
+
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+         positions: torch.Tensor):
+    B, S, _ = x.shape
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = griffin_linear(x, p["wq"]).reshape(B, S, H, hd)
+    k = griffin_linear(x, p["wk"]).reshape(B, S, KVH, hd)
+    v = griffin_linear(x, p["wv"]).reshape(B, S, KVH, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["qn"], cfg.norm_eps)
+        k = rms_norm(k, p["kn"], cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta), \
+        rope(k, positions, cfg.rope_theta), v
+
+
+def block_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: torch.Tensor):
+    """Full-sequence block (prefill).  Right-padded buckets need no mask:
+    pads sit after every real token, so causal attention keeps them out."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, positions)
+    o = attention(q, k, v, causal=True, window=cfg.window)
+    B, S = q.shape[:2]
+    x = x + griffin_linear(o.reshape(B, S, -1), p["wo"]).to(x.dtype)
+    x = (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))).to(x.dtype)
+    return x, k, v
+
+
+def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """One-token block against a (B, S_cache, KVH, hd) cache, written in
+    place.  ``pos``: scalar, or (B,) per-row positions (slot pools)."""
+    cache_len = k_cache.shape[1]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h,
+                   positions=pos[:, None] if pos.dim() else pos[None])
+    rolling = cfg.window is not None and cache_len <= cfg.window
+    if rolling:
+        slot, eff_pos, win = pos % cache_len, pos.clamp(max=cache_len - 1), \
+            None
+    else:
+        slot, eff_pos, win = pos.clamp(max=cache_len - 1), pos, cfg.window
+    write_kv_slot(k_cache, k, slot)
+    write_kv_slot(v_cache, v, slot)
+    o = decode_attention(q, k_cache, v_cache, eff_pos, window=win)
+    B = x.shape[0]
+    x = x + griffin_linear(o.reshape(B, 1, -1), p["wo"]).to(x.dtype)
+    return (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))).to(x.dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int,
+               device: torch.device) -> Params:
+    """Zeroed KV cache; sliding-window archs cap it at the window."""
+    clen = min(length, cfg.window) if cfg.window else length
+    shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            cache_len: Optional[int] = None,
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[Params, torch.Tensor]:
+    """Process a prompt, build the cache, return (cache, last-token logits).
+    ``lengths``: optional (B,) true lengths of a right-padded batch
+    (bucketed prefill); pad K/V rows land in slots the decode loop
+    overwrites before its position mask admits them."""
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    positions = torch.arange(S, device=tokens.device)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, k, v = block_train(cfg, _layer(params, i), x, positions)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    clen = cache_len or S
+    clen = min(clen, cfg.window) if cfg.window else clen
+    kv = torch.stack(ks), torch.stack(vs)
+    if clen >= S:
+        cache_k, cache_v = (t.new_zeros(t.shape[:2] + (clen,) + t.shape[3:])
+                            for t in kv)
+        cache_k[:, :, :S] = kv[0]
+        cache_v[:, :, :S] = kv[1]
+    else:  # keep the last window
+        if lengths is not None:
+            raise ValueError("bucketed prefill must fit the cache window")
+        cache_k, cache_v = (t[:, :, S - clen:].contiguous() for t in kv)
+    if lengths is None:
+        last = x[:, -1]
+        pos = torch.full((), S - 1, dtype=torch.int32, device=tokens.device)
+    else:
+        last = take_last(x, lengths)
+        pos = (lengths - 1).to(torch.int32)
+    logits = griffin_linear(last, unembed(cfg, params))
+    return {"k": cache_k, "v": cache_v, "pos": pos}, logits
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params,
+                token: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """One decode step for the whole batch.  token: (B, 1).  The cache's
+    K/V tensors are updated in place; the returned cache shares them."""
+    x = params["embed"][token]
+    pos = cache["pos"] + 1
+    for i in range(cfg.num_layers):
+        x = block_decode(cfg, _layer(params, i), x, cache["k"][i],
+                         cache["v"][i], pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = griffin_linear(x[:, 0], unembed(cfg, params))
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos}

@@ -1,0 +1,123 @@
+"""Engine configuration — the port's own copy of ``repro/runtime/config.py``.
+
+A frozen ``EngineConfig`` of frozen sections with the reference's field
+names.  The port serves the fixed slot arena through the fused decode path
+on one device: the paging, fault, router and mesh fields keep the
+reference's shape and raise ``NotImplementedError`` when set, as does
+``fused=False``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaConfig:
+    """KV arena shape; ``cache_len=None`` means "derive from the trace"
+    (:meth:`EngineConfig.derive_cache_len`)."""
+
+    num_slots: int = 4
+    cache_len: Optional[int] = None
+    page_size: Optional[int] = None
+    num_pages: Optional[int] = None
+    kv_dtype: str = "fp32"
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedConfig:
+    policy: str = "continuous"
+    max_admissions_per_step: int = 1
+    decode_chunk: int = 8
+    measure_every: int = 8
+    bucket_prompts: bool = True
+    fused: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    use_kernels: bool = False
+    a_sparsity: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    inject: Optional[str] = None
+    snapshot_dir: Optional[str] = None
+    recovery_model_parallel: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RouterConfig:
+    replicas: int = 0
+    queue_bound: Optional[int] = None
+    hedge_after: Optional[int] = None
+    shed_policy: str = "shed"
+
+
+# flat field name -> (section, field), as in the reference
+_FIELDS = {
+    "num_slots": ("arena", "num_slots"),
+    "cache_len": ("arena", "cache_len"),
+    "page_size": ("arena", "page_size"),
+    "num_pages": ("arena", "num_pages"),
+    "kv_dtype": ("arena", "kv_dtype"),
+    "policy": ("sched", "policy"),
+    "max_admissions_per_step": ("sched", "max_admissions_per_step"),
+    "decode_chunk": ("sched", "decode_chunk"),
+    "measure_every": ("sched", "measure_every"),
+    "bucket_prompts": ("sched", "bucket_prompts"),
+    "fused": ("sched", "fused"),
+    "use_kernels": ("kernels", "use_kernels"),
+    "a_sparsity": ("kernels", "a_sparsity"),
+    "snapshot_dir": ("fault", "snapshot_dir"),
+    "recovery_model_parallel": ("fault", "recovery_model_parallel"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    arena: ArenaConfig = dataclasses.field(default_factory=ArenaConfig)
+    sched: SchedConfig = dataclasses.field(default_factory=SchedConfig)
+    kernels: KernelConfig = dataclasses.field(default_factory=KernelConfig)
+    fault: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
+    mesh: Optional[str] = None
+
+    def __post_init__(self):
+        unported = []
+        if self.arena.page_size is not None or \
+                self.arena.num_pages is not None or \
+                self.arena.kv_dtype != "fp32":
+            unported.append("the paged/int8 KV arena")
+        if not self.sched.fused:
+            unported.append("the stepwise (fused=False) path")
+        if self.fault != FaultConfig():
+            unported.append("fault tolerance")
+        if self.router != RouterConfig():
+            unported.append("the multi-replica router")
+        if self.mesh is not None:
+            unported.append("mesh serving")
+        if unported:
+            raise NotImplementedError("not ported yet: " + ", ".join(unported))
+
+    def with_fields(self, **kv: Any) -> "EngineConfig":
+        """Functional update by flat field name (``num_slots=8``)."""
+        out = self
+        for key, val in kv.items():
+            if key == "mesh":
+                out = dataclasses.replace(out, mesh=val)
+                continue
+            if key not in _FIELDS:
+                raise TypeError(f"unknown engine config field {key!r}")
+            section, field = _FIELDS[key]
+            sec = dataclasses.replace(getattr(out, section), **{field: val})
+            out = dataclasses.replace(out, **{section: sec})
+        return out
+
+    @classmethod
+    def derive_cache_len(cls, prompt_lens: Sequence[int],
+                         gen_lens: Sequence[int]) -> int:
+        """The trace-driven arena bound: longest prompt + longest generation
+        + 1 feedback token."""
+        return max(prompt_lens) + max(gen_lens) + 1

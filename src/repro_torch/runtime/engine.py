@@ -1,0 +1,510 @@
+"""Continuous-batching serving engine: fixed slot-pool KV arena, FCFS
+scheduler and the fused decode path — the counterpart of
+``repro/runtime/engine.py`` (single device, fixed arena, fused ticks).
+
+A ``num_slots x cache_len`` cache arena is shared by all in-flight
+requests.  Each tick admits waiting requests into free slots (prefilling
+each alone at a power-of-two bucketed prompt length and writing its cache
+into the slot in place), then advances every running slot by a fused chunk
+of decode steps (``runtime.serve.make_decode_chunk_fn``) that keeps argmax,
+token feedback and per-slot bookkeeping on the device.  One host transfer
+per tick brings back the (chunk, B) token ring, the admissions' first tokens
+and the two measurement scalars.
+
+The engine keeps a running measured activation sparsity (exact-zero
+fraction of the live rows' decode logits), re-invokes
+``core.hybrid.select_mode`` against the offline weight sparsity, and runs
+every prefill and chunk under that mode's ``sparse_execution`` scope.
+``greedy_generate`` is the parity oracle: decode is row-wise independent and
+batch-invariant, so a request's tokens equal a batch-1 greedy run of the
+same bucketed prompt.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import heapq
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.hybrid import SPARSE_THRESHOLD, select_mode
+from ..core.spec import Mode
+from ..kernels.griffin_spmm.ops import GriffinWeights
+from ..models.common import sparse_execution
+from ..models.registry import ModelApi
+from ..sparsity.pruning import GEMM_WEIGHTS, sparsity_of
+from .config import EngineConfig
+from .serve import make_chunk_ladder, pad_prompt_batch
+
+# Category knob handed to the sparse_execution scope when the measured
+# activation sparsity selects an A-side mode and no declared value exists:
+# the scope only consumes the category bit.
+DEFAULT_DECLARED_A = 0.5
+
+# Smallest prefill bucket: the bucket set is {8, 16, ..., cache_len}.
+MIN_BUCKET = 8
+
+
+# ---------------------------------------------------------------------------
+# requests
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    """One generation request; ``arrival`` is the earliest engine step at
+    which the scheduler may admit it.  The SLO fields are carried for the
+    router (not ported yet) and ignored by the engine."""
+
+    rid: int
+    tokens: np.ndarray
+    max_new_tokens: int
+    arrival: int = 0
+    priority: int = 0
+    deadline_ms: Optional[int] = None
+    ttft_deadline_ms: Optional[int] = None
+
+    @property
+    def prompt_len(self) -> int:
+        return int(np.asarray(self.tokens).shape[-1])
+
+    def as_batch(self, device: torch.device,
+                 bucket: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The batch-1 model input this request prefills with — also what
+        oracle replays must feed.  ``bucket`` right-pads the prompt."""
+        toks = torch.as_tensor(np.asarray(self.tokens, np.int64).reshape(1, -1),
+                               device=device)
+        return pad_prompt_batch({"tokens": toks}, bucket)
+
+
+class Attribution(str, enum.Enum):
+    """How a request's output came to be; plain engine runs only produce
+    ``NORMAL`` (the router, not ported yet, stamps the rest)."""
+
+    NORMAL = "normal"
+    SHED = "shed"
+    RETRIED = "retried"
+    HEDGED = "hedged"
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    rid: int
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    admitted: int = -1
+    finished: int = -1
+    token_steps: List[int] = dataclasses.field(default_factory=list)
+    attribution: Attribution = Attribution.NORMAL
+    shed_reason: Optional[str] = None
+
+
+# ---------------------------------------------------------------------------
+# scheduler (pure host bookkeeping)
+# ---------------------------------------------------------------------------
+
+class Scheduler:
+    """FCFS slot scheduler.  ``policy="continuous"`` admits into freed slots
+    every step (at most ``max_admissions_per_step``); ``"static"`` admits
+    only when the pool has drained.  An arrival-ordered heap feeds a ready
+    queue ordered by submission, so admission is amortized O(1)."""
+
+    def __init__(self, num_slots: int, policy: str = "continuous",
+                 max_admissions_per_step: int = 1):
+        if num_slots < 1:
+            raise ValueError("need at least one slot")
+        if policy not in ("continuous", "static"):
+            raise ValueError(f"unknown policy {policy!r}")
+        self.num_slots = num_slots
+        self.policy = policy
+        self.max_admissions = max(1, max_admissions_per_step)
+        self._seq = 0
+        self._by_arrival: List[Tuple[int, int, Request]] = []
+        self._ready: List[Tuple[int, Request]] = []
+        self.running: Dict[int, Request] = {}
+        self.remaining: Dict[int, int] = {}
+        self.finished: List[int] = []
+        self._free = list(range(num_slots - 1, -1, -1))   # pop() -> slot 0
+
+    def add(self, req: Request) -> None:
+        if req.max_new_tokens < 1:
+            raise ValueError(f"request {req.rid}: max_new_tokens must be >=1")
+        heapq.heappush(self._by_arrival, (req.arrival, self._seq, req))
+        self._seq += 1
+
+    @property
+    def waiting_count(self) -> int:
+        return len(self._by_arrival) + len(self._ready)
+
+    def admissions(self, step: int) -> List[Tuple[int, Request]]:
+        """Pop the (slot, request) pairs to admit at ``step``: FCFS over the
+        arrived requests, bounded by free slots and the admission budget."""
+        while self._by_arrival and self._by_arrival[0][0] <= step:
+            _, seq, req = heapq.heappop(self._by_arrival)
+            heapq.heappush(self._ready, (seq, req))
+        if self.policy == "static" and self.running:
+            return []
+        budget = (self.num_slots if self.policy == "static"
+                  else self.max_admissions)
+        out: List[Tuple[int, Request]] = []
+        while self._free and self._ready and len(out) < budget:
+            _, req = heapq.heappop(self._ready)
+            slot = self._free.pop()
+            self.running[slot] = req
+            self.remaining[slot] = req.max_new_tokens
+            out.append((slot, req))
+        return out
+
+    def emit(self, slot: int) -> bool:
+        """Record one emitted token on ``slot``; frees the slot and returns
+        True when that was the request's last token."""
+        self.remaining[slot] -= 1
+        if self.remaining[slot] > 0:
+            return False
+        req = self.running.pop(slot)
+        del self.remaining[slot]
+        self._free.append(slot)
+        self.finished.append(req.rid)
+        return True
+
+    @property
+    def active(self) -> List[int]:
+        return sorted(self.running)
+
+    def next_arrival(self) -> Optional[int]:
+        """Arrival step of the earliest not-yet-arrived request."""
+        return self._by_arrival[0][0] if self._by_arrival else None
+
+    def deferred_ready(self) -> bool:
+        """True when arrived requests still wait (admission budget spent)."""
+        return bool(self._ready)
+
+    def has_work(self) -> bool:
+        return bool(self._by_arrival or self._ready or self.running)
+
+
+# ---------------------------------------------------------------------------
+# arena plumbing
+# ---------------------------------------------------------------------------
+
+def _promote_arena(cache: Dict[str, torch.Tensor], num_slots: int
+                   ) -> Dict[str, torch.Tensor]:
+    """``init_cache``'s tree with scalar counters promoted to per-slot (B,)
+    vectors — the decode paths' per-row position branch."""
+    return {k: (torch.zeros((num_slots,), dtype=v.dtype, device=v.device)
+                if v.dim() == 0 else v) for k, v in cache.items()}
+
+
+def _batch_axes(api: ModelApi) -> Dict[str, int]:
+    """Per-leaf batch-axis index of the cache (-1 for scalar counters),
+    found by diffing the shapes ``init_cache`` gives for batch 2 and 1."""
+    two, one = api.init_cache(2, 1), api.init_cache(1, 1)
+    axes = {}
+    for key in two:
+        diffs = [i for i, (a, b) in enumerate(zip(two[key].shape,
+                                                  one[key].shape)) if a != b]
+        if len(diffs) > 1 or (not diffs and two[key].dim()):
+            raise ValueError(f"cache leaf {key!r} has no single batch axis")
+        axes[key] = diffs[0] if diffs else -1
+    return axes
+
+
+def weight_sparsity(params: Any,
+                    names: Sequence[str] = GEMM_WEIGHTS) -> float:
+    """Mean sparsity of the weight GEMM leaves: ``GriffinWeights`` report
+    ``1 - density``, plain leaves their exact zero fraction — the B-side
+    input to ``select_mode``.  Reads values back to the host; called at
+    engine construction only."""
+    vals: List[float] = []
+
+    def walk(t, name=""):
+        if isinstance(t, GriffinWeights):
+            vals.append(1.0 - t.density)
+        elif isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, k)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v, name)
+        elif name in names and isinstance(t, torch.Tensor) and \
+                t.dim() >= 2 and t.numel() and t.is_floating_point():
+            vals.append(float(sparsity_of(t)))
+
+    walk(params)
+    return float(np.mean(vals)) if vals else 0.0
+
+
+# ---------------------------------------------------------------------------
+# engine
+# ---------------------------------------------------------------------------
+
+class ServeEngine:
+    """Continuous-batching driver over a ``ModelApi``, on the model's
+    device.  Greedy decoding only (argmax), matching ``greedy_generate``.
+
+    ``stats`` counts ``decode_steps``, ``prefill_calls``, ``emitted``,
+    ``idle_steps``, ``retraces`` (function sets built, one per selected
+    Mode), ``chunk_calls`` and ``host_syncs`` exactly as the reference
+    engine does, so a trace gives the same counters on both.
+    """
+
+    def __init__(self, api: ModelApi, params: Any,
+                 config: Optional[EngineConfig] = None):
+        config = config or EngineConfig()
+        if config.arena.cache_len is None:
+            raise ValueError("cache_len is required: set "
+                             "ArenaConfig.cache_len")
+        self.config = config
+        self.api = api
+        self.params = params
+        self.device = api.device
+        self.num_slots = config.arena.num_slots
+        self.cache_len = config.arena.cache_len
+        self.decode_chunk = max(1, config.sched.decode_chunk)
+        self.bucket_prompts = config.sched.bucket_prompts
+        self.use_kernels = config.kernels.use_kernels
+        self.a_declared = config.kernels.a_sparsity
+        self.measure_every = max(1, config.sched.measure_every)
+        self.sched = Scheduler(self.num_slots, config.sched.policy,
+                               config.sched.max_admissions_per_step)
+        self._mode_fns: Dict[Mode, Tuple[Callable, Callable]] = {}
+        self.b_sparsity = weight_sparsity(params)
+        self.a_measured = 0.0
+        self.mode = self._select_mode()
+        self.mode_history: List[Tuple[int, Mode]] = [(0, self.mode)]
+        self.clock = 0
+        self._since_measure = 0
+        self.outputs: Dict[int, RequestOutput] = {}
+        self.events: List[Tuple[int, int, int]] = []    # (step, rid, token)
+        self.stats = {"decode_steps": 0, "prefill_calls": 0, "emitted": 0,
+                      "idle_steps": 0, "retraces": 0, "chunk_calls": 0,
+                      "host_syncs": 0}
+        self.prefill_buckets: set = set()
+        window = api.cfg.window
+        self._bucket_cap = min(self.cache_len, window or self.cache_len)
+        self._axes = _batch_axes(api)
+        self.cache = _promote_arena(
+            api.init_cache(self.num_slots, self.cache_len), self.num_slots)
+        self._tokens = torch.zeros((self.num_slots, 1), dtype=torch.int64,
+                                   device=self.device)
+        self._remaining = torch.zeros((self.num_slots,), dtype=torch.int32,
+                                      device=self.device)
+
+    # -- mode plumbing ------------------------------------------------------
+
+    def _a_now(self) -> float:
+        return (self.a_declared if self.a_declared is not None
+                else self.a_measured)
+
+    def _select_mode(self) -> Mode:
+        return select_mode(self._a_now(), self.b_sparsity)
+
+    def _scope(self):
+        a_scope = 0.0
+        if self.mode in (Mode.A, Mode.AB):
+            a_scope = (self.a_declared if self.a_declared is not None
+                       and self.a_declared > SPARSE_THRESHOLD
+                       else DEFAULT_DECLARED_A)
+        return sparse_execution(use_kernels=self.use_kernels,
+                                a_sparsity=a_scope)
+
+    def _fns(self) -> Tuple[Callable, Callable]:
+        """(prefill_fn, chunk_for) of the current Mode.  Eager PyTorch reads
+        the scope on every call, so each Mode's set is built from the same
+        functions; keying by Mode keeps the reference's bookkeeping."""
+        fns = self._mode_fns.get(self.mode)
+        if fns is None:
+            cache_len = self.cache_len
+
+            def prefill(params, batch):
+                return self.api.prefill(params, batch, cache_len=cache_len)
+
+            fns = (prefill, make_chunk_ladder(self.api, self.decode_chunk))
+            self._mode_fns[self.mode] = fns
+            self.stats["retraces"] += 1
+        return fns
+
+    def _measure(self, zero_frac: float) -> None:
+        """Re-select the category from the fused chunk's measurement; a flip
+        takes effect from the next chunk."""
+        self._since_measure = 0
+        self.a_measured = float(zero_frac)
+        mode = self._select_mode()
+        if mode != self.mode:
+            self.mode = mode
+            self.mode_history.append((self.clock, mode))
+
+    # -- request lifecycle --------------------------------------------------
+
+    def add(self, req: Request) -> None:
+        if req.prompt_len + req.max_new_tokens > self.cache_len:
+            raise ValueError(
+                f"request {req.rid}: prompt {req.prompt_len} + gen "
+                f"{req.max_new_tokens} exceeds cache_len {self.cache_len}")
+        self.sched.add(req)
+
+    def bucket_for(self, prompt_len: int) -> Optional[int]:
+        """Power-of-two prefill bucket (min ``MIN_BUCKET``), or None when it
+        would overflow the usable cache window or bucketing is off."""
+        if not self.bucket_prompts:
+            return None
+        b = MIN_BUCKET
+        while b < prompt_len:
+            b *= 2
+        return b if b <= self._bucket_cap else None
+
+    def _chunk_len(self, admitted_slots: frozenset = frozenset()) -> int:
+        """Fused-chunk length: the largest power of two <= ``decode_chunk``
+        that no live slot finishes inside and that does not overrun a known
+        arrival (or a backlog) while a slot is free — the latter floored at
+        ``decode_chunk / 4``.  Slots admitted this tick owe one step fewer
+        (their prefill token is emitted from the chunk's sync)."""
+        cap = self.decode_chunk
+        bound = min(self.sched.remaining[s] - (s in admitted_slots)
+                    for s in self.sched.active)
+        bound = max(1, bound)
+        if self.sched._free and self.sched.policy == "continuous":
+            floor = max(1, cap // 4)
+            if self.sched.deferred_ready():
+                bound = min(bound, floor)
+            else:
+                na = self.sched.next_arrival()
+                if na is not None:
+                    bound = min(bound, max(floor, na - self.clock))
+        c = 1
+        while c * 2 <= cap and c * 2 <= bound:
+            c *= 2
+        return c
+
+    def _prefill(self, req: Request):
+        prefill_fn = self._fns()[0]
+        batch = req.as_batch(self.device, self.bucket_for(req.prompt_len))
+        self.prefill_buckets.add(batch["tokens"].shape[-1])
+        with self._scope():
+            cache1, logits = prefill_fn(self.params, batch)
+        self.stats["prefill_calls"] += 1
+        return cache1, logits
+
+    def _insert(self, slot: int, sub: Dict[str, torch.Tensor],
+                logits: torch.Tensor, rem: int) -> torch.Tensor:
+        """Admission, in place on the device: write the prefilled
+        single-request cache into ``slot`` of the arena, seed the slot's
+        feedback token from the prefill logits and its owed-token counter.
+        Returns the (1,) first token, fetched with the next sync."""
+        for key, ax in self._axes.items():
+            if ax < 0:
+                self.cache[key][slot] = sub[key].reshape(())
+            else:
+                self.cache[key].select(ax, slot).copy_(
+                    sub[key].select(ax, 0))
+        tok = torch.argmax(logits, dim=-1)                      # (1,)
+        self._tokens[slot] = tok
+        self._remaining[slot] = rem
+        return tok
+
+    def _emit(self, slot: int, token: int) -> None:
+        req = self.sched.running[slot]
+        out = self.outputs[req.rid]
+        out.tokens.append(token)
+        out.token_steps.append(self.clock)
+        self.events.append((self.clock, req.rid, token))
+        self.stats["emitted"] += 1
+        if self.sched.emit(slot):
+            out.finished = self.clock
+
+    def step(self) -> List[Tuple[int, int, int]]:
+        """One engine tick: admissions, then one fused chunk advancing every
+        running slot, then the tick's single host transfer.  Returns the
+        tick's (step, rid, token) events."""
+        ev_start = len(self.events)
+        pending: List[Tuple[int, int, torch.Tensor]] = []
+        for slot, req in self.sched.admissions(self.clock):
+            cache1, logits = self._prefill(req)
+            tok = self._insert(slot, cache1, logits, req.max_new_tokens - 1)
+            self.outputs[req.rid] = RequestOutput(req.rid,
+                                                  admitted=self.clock)
+            pending.append((slot, req.rid, tok))
+        admitted = frozenset(s for s, _, _ in pending)
+        if self.sched.active and all(
+                self.sched.remaining[s] - (s in admitted) <= 0
+                for s in self.sched.active):
+            # pure-admission tick: nothing owes a decode step, so fetch the
+            # prefill tokens without running a dead chunk
+            first = torch.cat([t for _, _, t in pending]).tolist()
+            self.stats["host_syncs"] += 1
+            for (slot, _, _), tok in zip(pending, first):
+                self._emit(slot, int(tok))
+            self.clock += 1
+        elif self.sched.active:
+            chunk = self._chunk_len(admitted)
+            chunk_fn = self._fns()[1](chunk)
+            with self._scope():
+                (self.cache, self._tokens, self._remaining, ring,
+                 zf_num, zf_den) = chunk_fn(self.params, self.cache,
+                                            self._tokens, self._remaining)
+            # the tick's one host transfer: ring, first tokens, measurement
+            parts = [ring.reshape(-1).double()]
+            parts += [t.double() for _, _, t in pending]
+            parts += [zf_num.double().reshape(1), zf_den.double().reshape(1)]
+            host = torch.cat(parts).cpu().numpy()
+            self.stats["host_syncs"] += 1
+            self.stats["chunk_calls"] += 1
+            self.stats["decode_steps"] += chunk
+            ring_h = host[:ring.numel()].reshape(ring.shape).astype(np.int64)
+            first = host[ring.numel():ring.numel() + len(pending)]
+            zf_num_h, zf_den_h = float(host[-2]), float(host[-1])
+            # prefill-boundary emissions first: the chunk consumed these
+            # tokens as its first feedback, so they precede the ring rows
+            for (slot, _, _), tok in zip(pending, first):
+                self._emit(slot, int(tok))
+            for t in range(chunk):
+                live = self.sched.active
+                if not live:
+                    break
+                for slot in live:
+                    self._emit(slot, int(ring_h[t, slot]))
+                self.clock += 1
+            self._since_measure += chunk
+            if zf_den_h > 0 and self._since_measure >= self.measure_every:
+                self._measure(zf_num_h / zf_den_h)
+        else:
+            if self.sched.waiting_count:
+                self.stats["idle_steps"] += 1
+            self.clock += 1
+        return self.events[ev_start:]
+
+    def run(self, requests: Sequence[Request] = (),
+            max_steps: Optional[int] = None) -> Dict[int, RequestOutput]:
+        """Add ``requests`` and tick until every request finished (or
+        ``max_steps``); returns rid -> RequestOutput."""
+        for r in requests:
+            self.add(r)
+        steps = 0
+        while self.sched.has_work():
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        return self.outputs
+
+
+# ---------------------------------------------------------------------------
+# traces
+# ---------------------------------------------------------------------------
+
+def synthetic_trace(cfg, *, num_requests: int, seed: int = 0,
+                    prompt_lens: Sequence[int] = (8, 16, 24),
+                    gen_lens: Sequence[int] = (4, 8, 16),
+                    arrival_every: int = 0) -> List[Request]:
+    """Deterministic mixed prompt/gen-length request trace with fixed
+    arrival staggering: the same ``np.random.default_rng`` draws as the
+    reference's ``synthetic_trace`` defaults, so the traces are equal."""
+    rng = np.random.default_rng(seed)
+    reqs: List[Request] = []
+    for i in range(num_requests):
+        plen = int(rng.choice(np.asarray(prompt_lens)))
+        glen = int(rng.choice(np.asarray(gen_lens)))
+        toks = rng.integers(1, cfg.vocab_size, (plen,), dtype=np.int32)
+        reqs.append(Request(rid=i, tokens=toks, max_new_tokens=glen,
+                            arrival=i * arrival_every))
+    return reqs

@@ -1,0 +1,119 @@
+"""Weight pruning for the Griffin execution paths — the counterpart of
+``repro/sparsity/pruning.py``.
+
+``magnitude_prune`` zeroes elements, ``block_prune`` zeroes (block_k x unit)
+blocks by L2 norm with the reference's ``norms >= thresh`` tie rule, and
+``sparsify_params`` block-prunes the weight GEMM leaves of a parameter tree
+and compacts them into ``GriffinWeights``.  Everything runs with torch ops on
+the weights' own device.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels.griffin_spmm.ops import preprocess_weights, stack_weights
+
+
+def magnitude_prune(w: torch.Tensor, sparsity: float) -> torch.Tensor:
+    """Zero the smallest-|w| fraction ``sparsity`` of entries."""
+    if sparsity <= 0.0:
+        return w
+    k = max(1, int(round(w.numel() * (1.0 - sparsity))))
+    thresh = torch.sort(w.abs().reshape(-1)).values[-k]
+    return torch.where(w.abs() >= thresh, w, torch.zeros((), dtype=w.dtype,
+                                                         device=w.device))
+
+
+def block_prune(w: torch.Tensor, sparsity: float, block_k: int = 128,
+                unit: int = 32) -> torch.Tensor:
+    """Zero the lowest-L2 fraction ``sparsity`` of (block_k x unit) blocks.
+    Shapes not divisible by the block are zero padded (the pad never
+    changes block norms)."""
+    if sparsity <= 0.0:
+        return w
+    k, n = w.shape
+    pk, pn = -(-k // block_k) * block_k, -(-n // unit) * unit
+    wp = w.new_zeros((pk, pn))
+    wp[:k, :n] = w
+    nb_k, nb_n = pk // block_k, pn // unit
+    blocks = wp.reshape(nb_k, block_k, nb_n, unit)
+    norms = torch.sqrt((blocks.float() ** 2).sum(dim=(1, 3)))
+    nkeep = max(1, int(round(norms.numel() * (1.0 - sparsity))))
+    thresh = torch.sort(norms.reshape(-1)).values[-nkeep]
+    keep = (norms >= thresh)[:, None, :, None]
+    # multiplying (not masking) keeps the reference's signed zeros
+    return (blocks * keep).reshape(pk, pn)[:k, :n].to(w.dtype)
+
+
+def sparsity_of(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of exact zeros (the quantity Table IV reports)."""
+    return (x == 0).float().mean()
+
+
+# Trailing param names of the weight GEMMs griffin_linear executes (the
+# reference's list; the dense decoder uses the first seven).
+GEMM_WEIGHTS: Tuple[str, ...] = (
+    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_ff1", "w_ff2",
+    "wz", "wi", "wf", "head")
+
+# Subtrees whose wq/wk/wv are per-head block-diagonal mats, not weight GEMMs
+# (the reference's xlstm m_blocks).
+_BLOCKDIAG_PARENTS: Tuple[str, ...] = ("m_blocks",)
+
+
+def sparsify_params(params: Any, sparsity: float, *, block_k: int = 128,
+                    block_n: int = 128, unit: Optional[int] = None,
+                    names: Sequence[str] = GEMM_WEIGHTS,
+                    min_dim: int = 32, balance: bool = True,
+                    compact: bool = True, plan: Any = None) -> Any:
+    """Block-prune the weight GEMM leaves of a parameter tree.
+
+    With ``compact=True`` each pruned leaf becomes a ``GriffinWeights``
+    (stacked leaves get a stacked one whose members share a padded grid
+    depth); with ``compact=False`` the pruned weights stay plain tensors,
+    the bit-exact dense twin of the compacted run.  Selection is by trailing
+    param name and minimum GEMM dims, as in the reference.  Tuned plans
+    (``plan=``) are not ported yet.
+    """
+    if plan is not None:
+        raise NotImplementedError("tuned kernel plans are not ported yet")
+
+    def convert(w: torch.Tensor):
+        bk = min(block_k, w.shape[-2])
+        bn = min(block_n, w.shape[-1])
+        un = min(unit or max(8, bn // 4), w.shape[-1])
+
+        def pre(m):
+            return preprocess_weights(m, block_k=bk, block_n=bn, unit=un,
+                                      balance=balance)
+
+        if w.dim() == 2:
+            wp = block_prune(w, sparsity, bk, un)
+            return pre(wp) if compact else wp
+        if w.dim() != 3:
+            raise NotImplementedError("only (layers, in, out) stacks are "
+                                      "ported")
+        if w.shape[0] == 0:
+            return w
+        slices = [block_prune(w[i], sparsity, bk, un)
+                  for i in range(w.shape[0])]
+        if not compact:
+            return torch.stack(slices)
+        return stack_weights([pre(s) for s in slices])
+
+    def walk(tree, name="", path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, k, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, name, path) for v in tree)
+        blockdiag = name in ("wq", "wk", "wv") and \
+            any(p in _BLOCKDIAG_PARENTS for p in path)
+        if name in names and not blockdiag and \
+                isinstance(tree, torch.Tensor) and tree.dim() >= 2 and \
+                tree.shape[-2] >= min_dim and tree.shape[-1] >= min_dim:
+            return convert(tree)
+        return tree
+
+    return walk(params)

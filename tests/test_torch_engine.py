@@ -1,0 +1,194 @@
+"""The port's serving engine (repro_torch.runtime) against the JAX package's
+ServeEngine on one synthetic trace: reduced llama3.2-1b in fp32, weights
+block-pruned and compacted (16/16, unit 8), every GEMM through the kernel
+wrappers.  Tokens and the deterministic ``stats`` counters must be equal,
+and every request must match the port's own batch-1 greedy oracle."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.runtime.config import EngineConfig as JaxEngineConfig
+from repro.runtime.engine import ServeEngine as JaxServeEngine
+from repro.runtime.engine import synthetic_trace as jax_synthetic_trace
+from repro.sparsity import sparsify_params as jax_sparsify
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.core.spec import Mode
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model
+from repro_torch.models.common import (kernel_dispatch_counts,
+                                       reset_kernel_dispatch)
+from repro_torch.runtime.config import EngineConfig
+from repro_torch.runtime.engine import (MIN_BUCKET, Request, Scheduler,
+                                        ServeEngine, synthetic_trace)
+from repro_torch.runtime.serve import (greedy_generate, make_chunk_ladder,
+                                       pad_prompt_batch)
+
+STATS = ("emitted", "decode_steps", "chunk_calls", "prefill_calls",
+         "host_syncs", "idle_steps")
+TRACE = dict(num_requests=7, seed=11, prompt_lens=(6, 10, 17),
+             gen_lens=(2, 4, 7), arrival_every=1)
+
+
+@pytest.fixture(scope="module", params=[(3, 4), (2, 8)],
+                ids=["slots3-chunk4", "slots2-chunk8"])
+def served(request):
+    """Both engines on the same weights and trace."""
+    slots, chunk = request.param
+    cfg = jax_get_config("llama3.2-1b").reduced()
+    japi = jax_build_model(cfg)
+    jparams = jax_sparsify(japi.init(jax.random.PRNGKey(0)), 0.6,
+                           block_k=16, block_n=16, unit=8)
+    jconf = JaxEngineConfig().with_fields(
+        num_slots=slots, cache_len=32, decode_chunk=chunk, use_kernels=True,
+        interpret=True)
+    jeng = JaxServeEngine(japi, jparams, config=jconf)
+    jouts = jeng.run(jax_synthetic_trace(cfg, **TRACE))
+
+    tcfg = get_config("llama3.2-1b").reduced()
+    tapi = build_model(tcfg, device="cpu")
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    tconf = EngineConfig().with_fields(num_slots=slots, cache_len=32,
+                                       decode_chunk=chunk, use_kernels=True)
+    reqs = synthetic_trace(tcfg, **TRACE)
+    teng = ServeEngine(tapi, tparams, tconf)
+    reset_kernel_dispatch()
+    touts = teng.run(reqs)
+    dispatch = kernel_dispatch_counts()
+    return jeng, jouts, teng, touts, reqs, tparams, dispatch
+
+
+def test_trace_equals_reference():
+    cfg = jax_get_config("llama3.2-1b").reduced()
+    want = jax_synthetic_trace(cfg, **TRACE)
+    got = synthetic_trace(get_config("llama3.2-1b").reduced(), **TRACE)
+    assert [(r.rid, r.max_new_tokens, r.arrival, list(r.tokens))
+            for r in want] == [(r.rid, r.max_new_tokens, r.arrival,
+                                list(r.tokens)) for r in got]
+
+
+def test_engine_tokens_equal_reference(served):
+    jeng, jouts, teng, touts, reqs, _, _ = served
+    assert sorted(jouts) == sorted(touts) == [r.rid for r in reqs]
+    for r in reqs:
+        assert touts[r.rid].tokens == jouts[r.rid].tokens, r.rid
+        assert touts[r.rid].token_steps == jouts[r.rid].token_steps, r.rid
+        assert (touts[r.rid].admitted, touts[r.rid].finished) == \
+            (jouts[r.rid].admitted, jouts[r.rid].finished)
+
+
+def test_engine_stats_equal_reference(served):
+    jeng, _, teng, _, _, _, _ = served
+    for key in STATS:
+        assert teng.stats[key] == jeng.stats[key], key
+    assert teng.prefill_buckets == jeng.prefill_buckets
+    assert teng.mode == jeng.mode == Mode.B
+    assert [(s, m.value) for s, m in teng.mode_history] == \
+        [(s, m.value) for s, m in jeng.mode_history]
+    assert teng.b_sparsity == pytest.approx(jeng.b_sparsity)
+
+
+def test_engine_matches_own_greedy_oracle(served):
+    _, _, teng, touts, reqs, tparams, _ = served
+    for r in reqs:
+        with teng._scope():
+            ref = greedy_generate(teng.api, tparams, r.as_batch(teng.device),
+                                  steps=r.max_new_tokens,
+                                  cache_len=teng.cache_len,
+                                  prompt_bucket=teng.bucket_for(r.prompt_len))
+        assert touts[r.rid].tokens == ref[0].tolist(), r.rid
+
+
+def test_engine_gemms_all_went_through_kernel_wrappers(served):
+    _, _, teng, _, _, _, dispatch = served
+    calls = teng.stats["prefill_calls"] + teng.stats["decode_steps"]
+    # per call: 7 compacted GEMMs x 2 layers + the dense unembedding
+    assert dispatch == {"kernel": 15 * calls}
+
+
+def test_launch_serve_cli_on_cpu(capsys):
+    launch_serve.main(["--reduced", "--device", "cpu", "--use-kernels",
+                       "--requests", "5", "--decode-chunk", "4",
+                       "--arrival-every", "2", "--parity",
+                       "--max-syncs-per-token", "0.5"])
+    out = capsys.readouterr().out
+    assert "parity OK: all 5 requests" in out and "mode B" in out
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default is valid here")
+    cfg = get_config("llama3.2-1b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.serve(reduced=True)
+
+
+# ---------------------------------------------------------------------------
+# host-side machinery
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("field", [dict(page_size=8), dict(kv_dtype="int8"),
+                                   dict(fused=False), dict(mesh="1x1"),
+                                   dict(snapshot_dir="x")])
+def test_unported_config_fields_raise(field):
+    with pytest.raises(NotImplementedError):
+        EngineConfig().with_fields(**field)
+
+
+def test_scheduler_fcfs_and_static_policy():
+    s = Scheduler(2, "static")
+    for i in range(3):
+        s.add(Request(rid=i, tokens=np.ones(4, np.int32), max_new_tokens=1,
+                      arrival=0))
+    assert [(slot, r.rid) for slot, r in s.admissions(0)] == [(0, 0), (1, 1)]
+    assert s.admissions(1) == []          # static: pool must drain first
+    assert s.emit(0) and s.emit(1)
+    assert [r.rid for _, r in s.admissions(2)] == [2]
+    assert s.finished == [0, 1]
+    with pytest.raises(ValueError):
+        Scheduler(0)
+
+
+def test_bucket_for_and_chunk_ladder():
+    api = build_model(get_config("llama3.2-1b").reduced(), device="cpu")
+    params = api.init(api.generator(0))
+    eng = ServeEngine(api, params, EngineConfig().with_fields(
+        num_slots=1, cache_len=40, decode_chunk=4))
+    assert eng.bucket_for(1) == MIN_BUCKET
+    assert (eng.bucket_for(9), eng.bucket_for(17)) == (16, 32)
+    assert eng.bucket_for(33) is None
+    ladder = make_chunk_ladder(api, 4)
+    assert ladder(2) is ladder(2)
+    for bad in (0, 5):
+        with pytest.raises(ValueError):
+            ladder(bad)
+    with pytest.raises(ValueError):
+        eng.add(Request(rid=0, tokens=np.ones(30, np.int32),
+                        max_new_tokens=11))
+    padded = pad_prompt_batch({"tokens": torch.ones((1, 5),
+                                                    dtype=torch.int64)}, 8)
+    assert padded["tokens"].shape == (1, 8) and padded["lengths"].tolist() \
+        == [5]
+
+
+def test_dense_engine_uses_plain_dots_and_matches_oracle():
+    api = build_model(get_config("llama3.2-1b").reduced(), device="cpu")
+    params = api.init(api.generator(1))
+    eng = ServeEngine(api, params, EngineConfig().with_fields(
+        num_slots=2, cache_len=24, decode_chunk=4))
+    reqs = synthetic_trace(api.cfg, num_requests=3, seed=2,
+                           prompt_lens=(5, 9), gen_lens=(3, 5))
+    reset_kernel_dispatch()
+    outs = eng.run(reqs)
+    assert kernel_dispatch_counts().get("kernel", 0) == 0
+    assert eng.mode == Mode.DENSE
+    for r in reqs:
+        ref = greedy_generate(api, params, r.as_batch(eng.device),
+                              steps=r.max_new_tokens, cache_len=24,
+                              prompt_bucket=eng.bucket_for(r.prompt_len))
+        assert outs[r.rid].tokens == ref[0].tolist()

@@ -1,0 +1,157 @@
+"""The port's CUDA kernels and serving path on the card.
+
+Every test here needs a CUDA card and nvcc (the kernels have no CPU mode)
+and skips elsewhere; the file imports neither JAX nor the JAX package, so
+it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances (as in chip_smoke.py): fp32 |err| <= 1e-5 * max|ref| (sums in
+another order); bf16 |err| <= one bf16 ulp of the output plus that term
+(both round one fp32 sum).
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import (decompact_weights, dense_matmul,
+                                 griffin_matmul, launch_counts,
+                                 preprocess_weights)
+from repro_torch.models import build_model
+from repro_torch.runtime.config import EngineConfig
+from repro_torch.runtime.engine import ServeEngine, synthetic_trace
+from repro_torch.runtime.serve import greedy_generate
+from repro_torch.sparsity import block_prune, sparsify_params
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def assert_close(out, ref, dtype):
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    allowed = 1e-5 * float(r.abs().max())
+    if dtype == "bfloat16":
+        mag = torch.maximum(o.abs(), r.abs()).clamp(min=1e-30)
+        allowed = torch.exp2(torch.floor(torch.log2(mag)) - 7) + allowed
+    assert bool((err <= allowed).all()), float(err.max())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 2048, 4096), (4, 2048, 1000),
+                                   (33, 70, 17), (40, 256, 300)])
+def test_dense_gemm_kernel_matches_plain(cuda, dtype, shape):
+    m, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(m, k, generator=g, device=cuda).to(DTYPES[dtype])
+    embed = torch.randn(n, k, generator=g, device=cuda).to(a.dtype)
+    before = launch_counts()["dense_gemm"]
+    for b in (embed.T, embed.T.contiguous()):       # both stride layouts
+        out = dense_matmul(a, b)
+        torch.cuda.synchronize()
+        ref = (a.float() @ b.float()).to(a.dtype)
+        assert_close(out, ref, dtype)
+    assert launch_counts()["dense_gemm"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("balance", [False, True])
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(4, 2048, 512, 128, 128, 32),
+                                  (19, 200, 96, 16, 32, 8)])
+def test_griffin_spmm_kernel_matches_plain(cuda, dtype, dual, balance, case):
+    m, k, n, bk, bn, unit = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = block_prune(torch.randn(k, n, generator=g, device=cuda), 0.8, bk,
+                    unit)
+    gw = preprocess_weights(w.to(DTYPES[dtype]), block_k=bk, block_n=bn,
+                            unit=unit, balance=balance)
+    a = torch.randn(m, k, generator=g, device=cuda).to(DTYPES[dtype])
+    a[:, :2 * bk] = 0                     # all-zero A blocks for dual
+    before = launch_counts()["griffin_spmm"]
+    out = griffin_matmul(a, gw, dual=dual)
+    torch.cuda.synchronize()
+    assert launch_counts()["griffin_spmm"] == before + 1
+    ref = (a.float() @ decompact_weights(gw)[:k].float()).to(a.dtype)
+    assert_close(out, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_kernels_are_batch_invariant(cuda):
+    """A row's output bits do not depend on the other rows (engine vs
+    oracle token parity rests on it)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn(32, 2048, generator=g, device=cuda).bfloat16()
+    embed = torch.randn(5000, 2048, generator=g, device=cuda).bfloat16()
+    gw = preprocess_weights(block_prune(
+        torch.randn(2048, 2048, generator=g, device=cuda), 0.8).bfloat16())
+    for fn in (lambda x: dense_matmul(x, embed.T),
+               lambda x: griffin_matmul(x, gw)):
+        full = fn(a)
+        for rows in (slice(0, 1), slice(3, 7), slice(8, 16)):
+            assert torch.equal(fn(a[rows].contiguous()), full[rows])
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
+    a = torch.zeros(4, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        dense_matmul(a, torch.zeros(64, 8, device=cuda, dtype=torch.float64))
+
+
+@pytest.mark.gpu
+def test_prefill_and_decode_chunk_never_sync(cuda):
+    """The hot path makes no hidden host sync: CUDA's sync debug mode
+    raises on any synchronising call."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = sparsify_params(api.init(api.generator(0)), 0.6, block_k=16,
+                             block_n=16, unit=8)
+    eng = ServeEngine(api, params, EngineConfig().with_fields(
+        num_slots=4, cache_len=32, decode_chunk=4, use_kernels=True))
+    req = synthetic_trace(cfg, num_requests=1, seed=3,
+                          prompt_lens=(11,), gen_lens=(4,))[0]
+    batch = req.as_batch(cuda, eng.bucket_for(req.prompt_len))
+    prefill_fn, chunk_for = eng._fns()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with eng._scope():
+            prefill_fn(params, batch)
+            chunk_for(4)(params, eng.cache, eng._tokens, eng._remaining)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_engine_matches_oracle_bf16_on_card(cuda):
+    cfg = get_config("llama3.2-1b").reduced()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = sparsify_params(api.init(api.generator(0)), 0.6, block_k=16,
+                             block_n=16, unit=8)
+    eng = ServeEngine(api, params, EngineConfig().with_fields(
+        num_slots=4, cache_len=40, decode_chunk=8, use_kernels=True))
+    reqs = synthetic_trace(cfg, num_requests=8, seed=1,
+                           prompt_lens=(8, 16, 23), gen_lens=(4, 8, 16))
+    outs = eng.run(reqs)
+    assert eng.stats["host_syncs"] / eng.stats["emitted"] <= 0.25
+    for r in reqs:
+        with eng._scope():
+            ref = greedy_generate(api, params, r.as_batch(cuda),
+                                  steps=r.max_new_tokens, cache_len=40,
+                                  prompt_bucket=eng.bucket_for(r.prompt_len))
+        assert outs[r.rid].tokens == ref[0].tolist(), r.rid

@@ -1,0 +1,229 @@
+"""The port's kernel ops (repro_torch.kernels) against the JAX package's.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX ops
+run their Pallas kernels in interpret mode, as tests/test_kernels.py does.
+Inputs are made with numpy from a seed and handed to both.  Tolerances:
+fp32 rtol = atol = 1e-5 (summation orders differ), bf16 rtol = atol = 2e-2
+(about two bf16 ulps: both sides round an fp32 sum once).  Preprocessing is
+pure data movement and must be bitwise equal.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dense_matmul as jax_dense_matmul
+from repro.kernels import griffin_matmul as jax_griffin_matmul
+from repro.kernels import preprocess_weights as jax_preprocess
+from repro.kernels import stack_weights as jax_stack
+from repro.sparsity import block_prune as jax_block_prune
+from repro_torch import bridge
+from repro_torch.kernels import (decompact_weights, dense_matmul,
+                                 griffin_matmul, launch_counts,
+                                 preprocess_weights, stack_weights)
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
+        dict(rtol=1e-5, atol=1e-5)
+
+
+def _np(x):
+    """Any array (jax, numpy, torch) as a float32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _bits(x):
+    a = bridge.tensor_to_array(x) if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+    return a.view(np.uint8)
+
+
+def assert_gw_bitwise(jgw, tgw):
+    for f in ("b_comp", "kidx", "cnt", "inv_perm"):
+        ja, ta = getattr(jgw, f), getattr(tgw, f)
+        assert (ja is None) == (ta is None), f
+        if ja is None:
+            continue
+        assert tuple(ja.shape) == tuple(ta.shape), f
+        assert np.asarray(ja).dtype == bridge.tensor_to_array(ta).dtype, f
+        np.testing.assert_array_equal(_bits(ja), _bits(ta), err_msg=f)
+    for f in ("k", "n", "block_k", "block_n", "a_thr"):
+        assert getattr(jgw, f) == getattr(tgw, f), f
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 16, 8), (48, 96, 80), (33, 70, 17),
+                                   (128, 256, 128)])
+def test_dense_matmul_matches_jax(dtype, shape):
+    m, k, n = shape
+    rng = np.random.RandomState(0)
+    a = jnp.asarray(rng.randn(m, k), dtype=JAX_DTYPES[dtype])
+    b = jnp.asarray(rng.randn(k, n), dtype=JAX_DTYPES[dtype])
+    want = jax_dense_matmul(a, b, interpret=True)
+    got = dense_matmul(bridge.array_to_tensor(a), bridge.array_to_tensor(b))
+    assert got.dtype == TORCH_DTYPES[dtype] and got.shape == (m, n)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+def test_dense_matmul_reads_strided_b_in_place():
+    """The tied unembedding hands the wrapper ``embed.T``, a strided view."""
+    rng = np.random.RandomState(5)
+    a = torch.from_numpy(rng.randn(4, 64).astype(np.float32))
+    embed = torch.from_numpy(rng.randn(200, 64).astype(np.float32))
+    out = dense_matmul(a, embed.T)
+    np.testing.assert_allclose(out.numpy(), a.numpy() @ embed.numpy().T,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contig", "device"])
+def test_dense_matmul_rejects_what_the_kernel_does_not_take(bad):
+    a = torch.zeros(4, 8)
+    b = torch.zeros(8, 16)
+    if bad == "dtype":
+        a, b = a.double(), b.double()
+    elif bad == "shape":
+        b = torch.zeros(9, 16)
+    elif bad == "contig":
+        a = torch.zeros(8, 4).T
+    else:
+        a, b = a.to("meta"), b.to("meta")
+    with pytest.raises((ValueError, TypeError)):
+        dense_matmul(a, b)
+
+
+def _pruned(rng, k, n, bk, unit, sparsity=0.6):
+    w = rng.randn(k, n).astype(np.float32)
+    return np.array(jax_block_prune(jnp.asarray(w), sparsity, block_k=bk,
+                                    unit=unit))
+
+
+@pytest.mark.parametrize("balance", [False, True])
+@pytest.mark.parametrize("case", [(128, 96, 16, 32, 8), (256, 256, 16, 64, 16),
+                                  (70, 33, 16, 16, 8), (64, 200, 32, 64, 16)])
+def test_preprocess_weights_bitwise(balance, case):
+    k, n, bk, bn, unit = case
+    w = _pruned(np.random.RandomState(1), k, n, bk, unit)
+    jgw = jax_preprocess(w, block_k=bk, block_n=bn, unit=unit,
+                         balance=balance)
+    tgw = preprocess_weights(torch.from_numpy(w), block_k=bk, block_n=bn,
+                             unit=unit, balance=balance)
+    assert_gw_bitwise(jgw, tgw)
+
+
+def test_preprocess_bf16_bitwise_and_decompact_exact():
+    w = _pruned(np.random.RandomState(9), 96, 80, 16, 8)
+    wb = jnp.asarray(w, jnp.bfloat16)
+    jgw = jax_preprocess(np.asarray(wb), block_k=16, block_n=32, unit=8)
+    tw = bridge.array_to_tensor(wb)
+    tgw = preprocess_weights(tw, block_k=16, block_n=32, unit=8)
+    assert_gw_bitwise(jgw, tgw)
+    # decompaction reconstructs every surviving value exactly
+    np.testing.assert_array_equal(_np(decompact_weights(tgw)[:96]), _np(tw))
+
+
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("balance", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_griffin_matmul_matches_jax(dtype, balance, dual):
+    rng = np.random.RandomState(1)
+    m, k, n = 32, 128, 96
+    w = jax_block_prune(jnp.asarray(rng.randn(k, n), jnp.float32), 0.6,
+                        block_k=16, unit=8).astype(JAX_DTYPES[dtype])
+    jgw = jax_preprocess(np.asarray(w.astype(jnp.float32)), block_k=16,
+                         block_n=32, unit=8, balance=balance)
+    jgw.b_comp = jgw.b_comp.astype(JAX_DTYPES[dtype])
+    a = jnp.asarray(rng.randn(m, k), dtype=JAX_DTYPES[dtype])
+    want = jax_griffin_matmul(a, jgw, dual=dual, interpret=True)
+    tgw = bridge.to_torch(jgw)
+    got = griffin_matmul(bridge.array_to_tensor(a), tgw, dual=dual)
+    assert got.dtype == TORCH_DTYPES[dtype] and got.shape == (m, n)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+def test_dual_skips_zero_a_blocks_exactly():
+    rng = np.random.RandomState(2)
+    a = rng.randn(16, 64).astype(np.float32)
+    a[:, 16:48] = 0                       # two all-zero K blocks
+    w = _pruned(rng, 64, 32, 16, 8, 0.5)
+    gw = preprocess_weights(torch.from_numpy(w), block_k=16, block_n=16,
+                            unit=8, balance=False)
+    ta = torch.from_numpy(a)
+    out_b = griffin_matmul(ta, gw, dual=False)
+    out_ab = griffin_matmul(ta, gw, dual=True)
+    np.testing.assert_array_equal(out_b.numpy(), out_ab.numpy())
+    want = jax_griffin_matmul(jnp.asarray(a), jax_preprocess(
+        w, block_k=16, block_n=16, unit=8, balance=False), dual=True,
+        interpret=True)
+    np.testing.assert_allclose(out_ab.numpy(), _np(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_griffin_matmul_narrow_a_masks_padded_k():
+    """``kidx`` counts padded K blocks; A may be narrower than gw.k."""
+    rng = np.random.RandomState(4)
+    w = _pruned(rng, 70, 48, 16, 8, 0.5)
+    gw = preprocess_weights(torch.from_numpy(w), block_k=16, block_n=16,
+                            unit=8)
+    assert gw.k == 80
+    a = rng.randn(3, 70).astype(np.float32)
+    got = griffin_matmul(torch.from_numpy(a), gw)
+    np.testing.assert_allclose(got.numpy(), a @ w, rtol=1e-5, atol=1e-5)
+
+
+def _toy(seed, k=64, n=64, density=0.4, bk=16, bn=32):
+    rng = np.random.RandomState(seed)
+    w = rng.randn(k, n).astype(np.float32)
+    mask = rng.rand(k // bk, n // 8) < density
+    w *= np.repeat(np.repeat(mask, bk, 0), 8, 1)
+    return w
+
+
+def test_stack_weights_clamp_padding_bitwise_and_parity():
+    w0, w1 = _toy(0, density=0.2), _toy(1, density=0.9)
+    kw = dict(block_k=16, block_n=32, unit=8, balance=False)
+    jstacked = jax_stack([jax_preprocess(w0, **kw), jax_preprocess(w1, **kw)])
+    g0 = preprocess_weights(torch.from_numpy(w0), **kw)
+    g1 = preprocess_weights(torch.from_numpy(w1), **kw)
+    assert g0.kidx.shape[-1] < g1.kidx.shape[-1]   # forces padding of g0
+    stacked = stack_weights([g0, g1])
+    assert_gw_bitwise(jstacked, stacked)
+    pad = stacked.kidx[0, :, g0.kidx.shape[-1]:]
+    assert bool((pad == g0.kidx[:, -1:]).all())
+    assert not bool(stacked.b_comp[0, g0.b_comp.shape[0]:].any())
+    a = np.random.RandomState(7).randn(8, 64).astype(np.float32)
+    for i, w in enumerate((w0, w1)):
+        out = griffin_matmul(torch.from_numpy(a), stacked[i])
+        np.testing.assert_allclose(out.numpy(), a @ w, rtol=2e-4, atol=2e-4)
+
+
+def test_stack_weights_balanced_bitwise():
+    kw = dict(block_k=16, block_n=32, unit=8, balance=True)
+    ws = [_toy(s, n=96, density=d) for s, d in ((3, 0.3), (4, 0.7))]
+    jstacked = jax_stack([jax_preprocess(w, **kw) for w in ws])
+    stacked = stack_weights([preprocess_weights(torch.from_numpy(w), **kw)
+                             for w in ws])
+    assert_gw_bitwise(jstacked, stacked)
+
+
+def test_density_memo_and_compaction():
+    gw = preprocess_weights(torch.from_numpy(_toy(4)), block_k=16,
+                            block_n=32, unit=8, balance=False)
+    d = gw.density
+    assert gw.__dict__["_density_memo"] == d
+    assert d == pytest.approx(float(gw.cnt.sum()) / (4 * gw.cnt.numel()))
+    assert gw.compaction == gw.kidx.shape[-1] / 4
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    before = launch_counts()
+    a = torch.randn(4, 32)
+    dense_matmul(a, torch.randn(32, 16))
+    griffin_matmul(a, preprocess_weights(torch.randn(32, 32), block_k=16,
+                                         block_n=16, unit=8))
+    assert launch_counts() == before

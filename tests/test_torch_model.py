@@ -1,0 +1,156 @@
+"""The port's dense decoder (repro_torch.models) against the JAX package's
+on reduced llama3.2-1b in fp32, dense and block-pruned-compacted (blocks
+16/16, unit 8).  Both run the reference's own weights, bridged through
+numpy.  Logits must agree within rtol 1e-4 / atol 1e-5 (summation orders
+differ) and greedy tokens must be equal."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.models.common import sparse_execution as jax_scope
+from repro.runtime.serve import greedy_generate as jax_greedy
+from repro.sparsity import sparsify_params as jax_sparsify
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.models.common import (kernel_dispatch_counts,
+                                       reset_kernel_dispatch,
+                                       sparse_execution, tree_sum)
+from repro_torch.runtime.serve import greedy_generate
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+PRUNE = dict(block_k=16, block_n=16, unit=8)
+
+
+@pytest.fixture(scope="module", params=["dense", "compacted"])
+def pair(request):
+    """(jax api, jax params, port api, port params, compacted?)"""
+    cfg = jax_get_config("llama3.2-1b").reduced()
+    japi = jax_build_model(cfg)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    compacted = request.param == "compacted"
+    if compacted:
+        jparams = jax_sparsify(jparams, 0.6, **PRUNE)
+    tapi = build_model(get_config("llama3.2-1b").reduced(), device="cpu")
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    return japi, jparams, tapi, tparams, compacted
+
+
+def _scopes(compacted):
+    """Factories of the (JAX, port) execution scopes for one run."""
+    if not compacted:
+        return (lambda: jax_scope(use_kernels=False),
+                lambda: sparse_execution(use_kernels=False))
+    return (lambda: jax_scope(use_kernels=True, interpret=True),
+            lambda: sparse_execution(use_kernels=True))
+
+
+def test_reduced_config_matches_reference():
+    jcfg = jax_get_config("llama3.2-1b").reduced()
+    tcfg = get_config("llama3.2-1b").reduced()
+    for f in ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+              "vocab_size", "hd", "tie_embeddings", "act", "norm_eps",
+              "rope_theta", "dtype", "window", "qk_norm"):
+        assert getattr(jcfg, f) == getattr(tcfg, f), f
+    full = get_config("llama3.2-1b")
+    assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+            full.d_ff, full.vocab_size, full.dtype) == \
+        (16, 2048, 32, 8, 8192, 128256, "bfloat16")
+
+
+@pytest.mark.parametrize("bucket", [None, 16])
+def test_prefill_logits_and_cache_match(pair, bucket):
+    japi, jparams, tapi, tparams, compacted = pair
+    toks = np.random.RandomState(3).randint(1, 128, (2, 11)).astype(np.int32)
+    jbatch = {"tokens": jnp.asarray(toks)}
+    tbatch = {"tokens": torch.from_numpy(toks.astype(np.int64))}
+    if bucket:
+        jbatch = {"tokens": jnp.pad(jbatch["tokens"], ((0, 0), (0, 5))),
+                  "lengths": jnp.full((2,), 11, jnp.int32)}
+        tbatch = {"tokens": torch.nn.functional.pad(tbatch["tokens"], (0, 5)),
+                  "lengths": torch.full((2,), 11, dtype=torch.int32)}
+    js, ts = _scopes(compacted)
+    with js():
+        jcache, jlog = japi.prefill(jparams, jbatch, cache_len=24)
+    with ts():
+        tcache, tlog = tapi.prefill(tparams, tbatch, cache_len=24)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(),
+                                   np.asarray(jcache[key]), **TOL)
+    np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                  np.asarray(jcache["pos"]))
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_decode_step_logits_match(pair, per_row):
+    japi, jparams, tapi, tparams, compacted = pair
+    rng = np.random.RandomState(4)
+    toks = rng.randint(1, 128, (3, 7)).astype(np.int32)
+    js, ts = _scopes(compacted)
+    with js():
+        jcache, _ = japi.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                 cache_len=16)
+    tcache = {k: bridge.array_to_tensor(np.asarray(v))
+              for k, v in jcache.items()}
+    if per_row:
+        pos = np.asarray([6, 3, 5], np.int32)
+        jcache = dict(jcache, pos=jnp.asarray(pos))
+        tcache["pos"] = torch.from_numpy(pos)
+    nxt = rng.randint(1, 128, (3, 1)).astype(np.int32)
+    for _ in range(2):
+        with js():
+            jlog, jcache = japi.decode_step(jparams, jcache, jnp.asarray(nxt))
+        with ts():
+            tlog, tcache = tapi.decode_step(tparams, tcache,
+                                            torch.from_numpy(nxt).long())
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+        nxt = np.asarray(jnp.argmax(jlog, -1))[:, None].astype(np.int32)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(),
+                                   np.asarray(jcache[key]), **TOL)
+
+
+def test_greedy_tokens_equal(pair):
+    japi, jparams, tapi, tparams, compacted = pair
+    toks = np.random.RandomState(5).randint(1, 128, (1, 9)).astype(np.int32)
+    js, ts = _scopes(compacted)
+    with js():
+        want = jax_greedy(japi, jparams, {"tokens": jnp.asarray(toks)},
+                          steps=6, cache_len=24, prompt_bucket=16)
+    reset_kernel_dispatch()
+    with ts():
+        got = greedy_generate(tapi, tparams,
+                              {"tokens": torch.from_numpy(toks).long()},
+                              steps=6, cache_len=24, prompt_bucket=16)
+    assert got.tolist() == np.asarray(want).tolist()
+    counts = kernel_dispatch_counts()
+    if compacted:
+        # 7 GEMMs x 2 layers per call through griffin_spmm, plus the dense
+        # unembedding, also a kernel call: nothing bypasses the kernels
+        assert counts.get("plain", 0) == 0 and counts["kernel"] == 6 * 15
+    else:
+        assert counts.get("kernel", 0) == 0
+
+
+def test_sparse_a_mode_not_ported(pair):
+    _, _, tapi, tparams, _ = pair
+    toks = {"tokens": torch.ones((1, 4), dtype=torch.int64)}
+    with sparse_execution(use_kernels=True, a_sparsity=0.5):
+        with pytest.raises(NotImplementedError):
+            tapi.prefill(tparams, toks)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 64, 100])
+def test_tree_sum_is_batch_invariant(n):
+    x = torch.from_numpy(np.random.RandomState(n).randn(6, n).astype(
+        np.float32))
+    full = tree_sum(x)
+    rows = torch.stack([tree_sum(x[i:i + 1])[0] for i in range(6)])
+    assert torch.equal(full, rows)
+    np.testing.assert_allclose(full.numpy(), x.numpy().sum(-1), rtol=1e-5,
+                               atol=1e-5)
