@@ -1,36 +1,51 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Phases, in order; any failure exits non-zero before the result line
-(``--profile`` adds a profiled engine run after the serve phase):
+Phases, in order; any failure exits non-zero before the result line:
 
 1. build   - compile every kernel under src/repro_torch/csrc/ with nvcc for
              sm_90a (one nvcc per source, in parallel) and print the time
              and ptxas' register/spill report.
 2. kernels - call each kernel's wrapper on the card at the shapes the
-             serving path gives it, fp32 and bf16 (griffin_spmm also dual
-             off/on and balance on/off), and hold it against its plain
-             PyTorch version.  Tolerances: fp32 |err| <= 1e-5 * max|ref|
-             (summation orders differ); bf16 |err| <= one bf16 ulp of the
-             output plus the same fp32 term.  Times kernel, plain version
-             and one library call (torch.matmul, a yardstick the port never
-             calls), each with a 64 MB L2 flush before every launch, and
-             the bound: the larger of bytes / 3.35 TB/s and operations /
-             the card's peak for the type (989 TFLOP/s bf16, 67 TFLOP/s
-             fp32), counting only the live blocks griffin_spmm must read.
-3. serve   - full-width llama3.2-1b (bf16, random weights from a seed,
-             block-pruned to 0.8 at 128x128 / unit 32 and compacted) through
-             repro_torch.launch.serve: 4 slots, 8 requests with prompt
-             lengths 8/16/32 and generation lengths 4/8/16, decode_chunk 8.
-             Launch counters are zeroed just before and read just after the
-             engine run.  Checks: every request token-identical to the
-             batch-1 greedy oracle; no plain GEMM; dense_gemm launched once
-             and griffin_spmm 112 times (7 GEMMs x 16 layers) per prefill
-             and decode step; at most 0.25 host syncs per token; a prefill
-             and a fused chunk run under CUDA's sync debug mode; prefill
-             logits finite and within 2% (relative L2) of the same model
-             served through plain torch matmuls on the decompacted weights.
+             serving paths give it, fp32 and bf16, and hold it against its
+             plain PyTorch version: dense_gemm at the unembedding;
+             griffin_spmm at every compacted layer shape, dual off/on and
+             balance on/off; sparse_a at the four dense layer shapes (B
+             row-major) and the unembedding (B = embed.T, strided), with
+             all-zero K blocks in A, several M tiles of different live
+             counts (one with none) at block_m 8, and hand-cut metadata
+             that drops a live block.  Tolerances: fp32 |err| <= 1e-5 *
+             max|ref| (summation orders differ); bf16 |err| <= one bf16 ulp
+             of the output plus the same fp32 term.  Times kernel, plain
+             version and one library call (torch.matmul, a yardstick the
+             port never calls), each with a 64 MB L2 flush before every
+             launch, and the bound: the larger of bytes / 3.35 TB/s and
+             operations / the card's peak for the type (989 TFLOP/s bf16,
+             67 TFLOP/s fp32), counting only the blocks a sparse kernel
+             must read for these inputs.
+3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
+             through repro_torch.launch.serve: 4 slots, 8 requests with
+             prompt lengths 8/16/32 and generation lengths 4/8/16,
+             decode_chunk 8, in three paths:
+               sparse_b - block-pruned to 0.8 at 128x128 / unit 32 and
+                          compacted: griffin_spmm 112x and dense_gemm 1x
+                          per model call (prefill or decode step);
+               mode_a   - dense weights, declared activation sparsity 0.5:
+                          sparse_a 113x per model call;
+               mode_ab  - pruned and compacted as sparse_b, declared
+                          activation sparsity 0.5: griffin_spmm 112x, all
+                          dual, and sparse_a 1x per model call.
+             Launch counters are zeroed just before and read just after
+             each engine run.  Each path checks: every request
+             token-identical to the batch-1 greedy oracle; no plain GEMM;
+             its exact launch counts; at most 0.25 host syncs per token; a
+             prefill and a fused chunk run under CUDA's sync debug mode;
+             prefill logits finite and within 2% (relative L2) of the same
+             model served through plain torch matmuls (the dense weights,
+             or the compacted ones decompacted); both routes' gaps to the
+             model widened to fp32 are reported beside it.  ``--profile``
+             adds a profiled engine run after each path.
 
 The line before the last is the kernel summary JSON, the one before it the
 card's name and power limit; the last line is the result JSON.  The full
@@ -48,7 +63,22 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SPMM_SHAPES = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+UNEMBED = (2048, 128256)
 M_ROWS = (4, 8, 16, 32)          # decode slots, prefill buckets 8..32
+A_SPARSITY = 0.5                 # the reference's category knob
+# per serve path: kernel -> launches per model call (a prefill or a decode
+# step), and dual griffin_spmm GEMMs per model call
+PATHS = {
+    "sparse_b": dict(sparsity=0.8, a_sparsity=None, mode="B",
+                     launches={"dense_gemm": 1, "griffin_spmm": 112,
+                               "sparse_a": 0}, dual=0),
+    "mode_a": dict(sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
+                   launches={"dense_gemm": 0, "griffin_spmm": 0,
+                             "sparse_a": 113}, dual=0),
+    "mode_ab": dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
+                    launches={"dense_gemm": 0, "griffin_spmm": 112,
+                              "sparse_a": 1}, dual=112),
+}
 
 
 def fail(msg: str) -> None:
@@ -212,8 +242,121 @@ def phase_kernels(torch):
                                 summary["griffin_spmm"] = row
                             print(f"[kernels] {json.dumps(row)}")
                         rows.append(row)
+    rows += kernel_sparse_a(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
     return rows, summary
+
+
+def zero_k_blocks(a, bm: int, every: int):
+    """Zero the (bm x 128) blocks (i, j) of ``a`` with (i + j) % every == 0
+    and the whole first M tile, so the M tiles have different live K
+    blocks and one has none."""
+    for i in range(-(-a.shape[0] // bm)):
+        for j in range(a.shape[1] // 128):
+            if (i + j) % every == 0:
+                a[i * bm:(i + 1) * bm, j * 128:(j + 1) * 128] = 0
+    a[:bm] = 0
+    return a
+
+
+def kernel_sparse_a(torch, gen, summary):
+    """K3 at every serving shape: the four dense layer shapes with B
+    row-major and the unembedding with B = embed.T."""
+    from repro_torch.kernels import (ActivationMeta, compact_activations,
+                                     sparse_a_matmul)
+    from repro_torch.kernels.sparse_a.ref import sparse_a_ref
+
+    dev = torch.device("cuda")
+    rows = []
+
+    def check(a, w, meta, **info):
+        out = sparse_a_matmul(a, w, meta=meta)
+        ref = sparse_a_ref(a, w, meta.kidx, meta.cnt, block_m=meta.block_m,
+                           block_k=meta.block_k)
+        torch.cuda.synchronize()
+        dtype = str(a.dtype).split(".")[1]
+        err, ok = within_tol(torch, out, ref, dtype)
+        row = {"kernel": "sparse_a", "dtype": dtype, "m": a.shape[0],
+               "k": a.shape[1], "n": w.shape[1], "block_m": meta.block_m,
+               "cnt": meta.cnt.tolist(), "max_abs_err": err, "ok": ok,
+               **info}
+        if not ok:
+            fail(f"sparse_a disagrees with its plain version: {row}")
+        rows.append(row)
+        return row
+
+    def timed(a, w, meta, row):
+        """Time the kernel (metadata given), the metadata alone, the plain
+        version and torch.matmul; bound by the bytes and operations of the
+        visited blocks."""
+        m, k = a.shape
+        n = w.shape[1]
+        bm, bk = meta.block_m, meta.block_k
+        cnt = meta.cnt.tolist()
+        listed = torch.zeros(meta.m // bm, meta.k // bk, dtype=torch.bool,
+                             device=dev)
+        for i, c in enumerate(cnt):
+            listed[i, meta.kidx[i, :c].long()] = True
+        live_rows = min(int(listed.any(0).sum()) * bk, k)
+        tile_rows = [min(bm, m - i * bm) for i in range(len(cnt))]
+        esz = a.element_size()
+        nbytes = (a.numel() + live_rows * n + m * n) * esz + \
+            4 * (meta.kidx.numel() + meta.cnt.numel())
+        flops = 2.0 * n * sum(r * min(c * bk, k)
+                              for r, c in zip(tile_rows, cnt))
+        b_ms, b_by = bound(nbytes, flops, row["dtype"])
+        row.update(
+            ms=timed_ms(torch, lambda: sparse_a_matmul(a, w, meta=meta)),
+            meta_ms=timed_ms(torch, lambda: compact_activations(a)),
+            plain_ms=timed_ms(torch, lambda: sparse_a_ref(
+                a, w, meta.kidx, meta.cnt, block_m=bm, block_k=bk)),
+            library_ms=timed_ms(torch, lambda: torch.matmul(a, w)),
+            bound_ms=b_ms, bound_by=b_by,
+            live_blocks=f"{sum(cnt)}/{len(cnt) * (meta.k // bk)}")
+        print(f"[kernels] {json.dumps(row)}")
+
+    for (k, n) in SPMM_SHAPES + (UNEMBED,):
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            w = torch.randn(n, k, generator=gen, device=dev).to(dt).T
+            layout = "embed.T"
+            if (k, n) != UNEMBED:
+                w, layout = w.contiguous(), "row-major"
+            for m in M_ROWS:
+                a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+                dense_a = a.clone()
+                a[:, 128:384] = 0               # two all-zero K blocks
+                meta = compact_activations(a)
+                row = check(a, w, meta, layout=layout)
+                if m == 4 and dtype == "bfloat16":
+                    # the serving path's activations: every block live
+                    meta = compact_activations(dense_a)
+                    row = check(dense_a, w, meta, layout=layout)
+                    timed(dense_a, w, meta, row)
+                    if (k, n) == UNEMBED:
+                        summary["sparse_a"] = row
+                    half = dense_a.clone()
+                    half[:, k // 2:] = 0        # half of the blocks dead
+                    meta = compact_activations(half)
+                    timed(half, w, meta, check(half, w, meta, layout=layout))
+            # several M tiles of different live counts, one with none, then
+            # hand-cut metadata that drops a live block
+            a = zero_k_blocks(torch.randn(32, k, generator=gen,
+                                          device=dev).to(dt), 8, 3)
+            meta = compact_activations(a, block_m=8)
+            if len(set(meta.cnt.tolist())) < 3 or int(meta.cnt[0]) != 0:
+                fail(f"sparse_a tiles not varied: cnt {meta.cnt.tolist()}")
+            check(a, w, meta, layout=layout)
+            cut_cnt = meta.cnt.clone()
+            cut_cnt[-1] -= 1
+            cut = ActivationMeta(meta.kidx, cut_cnt, meta.m, meta.k,
+                                 meta.block_m, meta.block_k)
+            row = check(a, w, cut, layout=layout, hand_cut=True)
+            full = sparse_a_matmul(a, w, meta=meta)
+            if torch.equal(full, sparse_a_matmul(a, w, meta=cut)):
+                fail("hand-cut metadata did not change sparse_a's output")
+            del w
+    return rows
 
 
 def dense_twin(torch, params):
@@ -229,39 +372,52 @@ def dense_twin(torch, params):
     return dict(params, layers=layers)
 
 
-def phase_serve(torch):
+def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
+                launches: dict, dual: int):
+    """Serve the trace on one path and check it: ``launches`` maps each
+    kernel to its launches per model call, ``dual`` the dual griffin_spmm
+    GEMMs per model call, ``mode`` the engine's Mode."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launch
     from repro_torch.models.common import sparse_execution
+    from repro_torch.runtime.config import EngineConfig
 
+    tag = f"[serve {name}]"
+    config = EngineConfig().with_fields(num_slots=4, decode_chunk=8,
+                                        use_kernels=True,
+                                        a_sparsity=a_sparsity)
     reset_launch_counts()
-    run = launch.serve("llama3.2-1b", slots=4, requests=8,
-                       prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16),
-                       sparsity=0.8, use_kernels=True, decode_chunk=8,
-                       device="cuda")
-    launches = launch_counts()
+    run = launch.serve("llama3.2-1b", requests=8, prompt_lens=(8, 16, 32),
+                       gen_lens=(4, 8, 16), sparsity=sparsity,
+                       device="cuda", config=config)
+    got = launch_counts()
     eng = run.engine
     st = eng.stats
     calls = st["prefill_calls"] + st["decode_steps"]
-    print(f"[serve] llama3.2-1b full width bf16, weight sparsity "
-          f"{eng.b_sparsity:.3f}, mode {eng.mode.value}: "
-          f"{len(run.requests)} requests / {st['emitted']} tokens in "
-          f"{run.seconds:.3f}s = {run.tokens_per_second:.1f} tok/s; "
-          f"{st['decode_steps']} decode steps in {st['chunk_calls']} chunks, "
-          f"{st['prefill_calls']} prefills, {run.syncs_per_token:.4f} host "
-          f"syncs/token; launches {launches}; dispatch {run.dispatch}")
+    print(f"{tag} llama3.2-1b full width bf16, weight sparsity "
+          f"{eng.b_sparsity:.3f}, declared activation sparsity "
+          f"{a_sparsity}, mode {eng.mode.value}: {len(run.requests)} "
+          f"requests / {st['emitted']} tokens in {run.seconds:.3f}s = "
+          f"{run.tokens_per_second:.1f} tok/s; {st['decode_steps']} decode "
+          f"steps in {st['chunk_calls']} chunks, {st['prefill_calls']} "
+          f"prefills, {run.syncs_per_token:.4f} host syncs/token; launches "
+          f"{got}; dispatch {run.dispatch}")
+    if eng.mode.value != mode or len(eng.mode_history) != 1:
+        fail(f"{name}: mode {eng.mode_history}, expected {mode} throughout")
     if run.dispatch.get("plain", 0) != 0:
-        fail(f"plain GEMMs on the main path: {run.dispatch}")
-    if launches["griffin_spmm"] != 112 * calls:
-        fail(f"griffin_spmm launched {launches['griffin_spmm']} times, "
-             f"expected 112 x {calls}")
-    if launches["dense_gemm"] != calls:
-        fail(f"dense_gemm launched {launches['dense_gemm']} times, expected "
-             f"{calls}")
+        fail(f"{name}: plain GEMMs on the main path: {run.dispatch}")
+    want = {k: v * calls for k, v in launches.items()}
+    if got != want:
+        fail(f"{name}: launches {got}, expected {want} ({calls} model "
+             "calls)")
+    if run.dispatch.get("dual", 0) != dual * calls:
+        fail(f"{name}: {run.dispatch.get('dual', 0)} dual GEMMs, expected "
+             f"{dual} x {calls}")
     if run.syncs_per_token > 0.25:
-        fail(f"{run.syncs_per_token:.3f} host syncs per token > 0.25")
+        fail(f"{name}: {run.syncs_per_token:.3f} host syncs per token > "
+             "0.25")
     n = launch.check_parity(run)
-    print(f"[serve] parity OK: all {n} requests token-identical to the "
+    print(f"{tag} parity OK: all {n} requests token-identical to the "
           "batch-1 greedy oracle")
 
     # no hidden host sync on the hot path: a bucketed prefill and a fused
@@ -280,26 +436,46 @@ def phase_serve(torch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print("[serve] a prefill and a fused chunk ran with no host sync")
+    print(f"{tag} a prefill and a fused chunk ran with no host sync")
 
     # what comes out is right: the kernel route's prefill logits against
-    # the same pruned model through plain torch matmuls
-    with sparse_execution(use_kernels=True):
+    # the same model through plain torch matmuls
+    with eng._scope():
         _, logits = eng.api.prefill(run.params, batch, cache_len=64)
     with sparse_execution(use_kernels=False):
         _, ref = eng.api.prefill(dense_twin(torch, run.params), batch,
                                  cache_len=64)
-    rel = float((logits.float() - ref.float()).norm() / ref.float().norm())
+    rel = rel_l2(logits, ref)
     if logits.shape != (1, 128256) or not bool(torch.isfinite(logits).all()):
-        fail(f"prefill logits shape {tuple(logits.shape)} or not finite")
+        fail(f"{name}: prefill logits shape {tuple(logits.shape)} or not "
+             "finite")
     if rel > 2e-2:
-        fail(f"kernel-route logits differ from the plain route by {rel:.4f}")
-    print(f"[serve] prefill logits finite, relative L2 gap to the plain "
-          f"route {rel:.5f}")
-    return run, launches
+        fail(f"{name}: kernel-route logits differ from the plain route by "
+             f"{rel:.4f}")
+    # how much of that gap each bf16 route owns: both against the same
+    # model with every leaf widened to fp32
+    with sparse_execution(use_kernels=False):
+        _, truth = eng.api.prefill(widened(dense_twin(torch, run.params)),
+                                   batch, cache_len=64)
+    gaps = {"plain": rel, "fp32_kernel": rel_l2(logits, truth),
+            "fp32_plain": rel_l2(ref, truth)}
+    print(f"{tag} prefill logits finite, relative L2 gap to the plain route "
+          f"{rel:.5f}; to fp32: kernel route {gaps['fp32_kernel']:.5f}, "
+          f"plain route {gaps['fp32_plain']:.5f}")
+    return run, got, gaps
 
 
-def phase_profile(torch, run):
+def rel_l2(x, ref) -> float:
+    return float((x.float() - ref.float()).norm() / ref.float().norm())
+
+
+def widened(params):
+    """The params with every leaf in fp32."""
+    return {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+                else v.float()) for k, v in params.items()}
+
+
+def phase_profile(torch, name: str, run):
     """``--profile``: where the serving time goes.  Serves a fresh 8-request
     trace on the same weights under torch.profiler (engine.run only) and
     prints the device's busy share of the wall time, device time by kernel,
@@ -327,12 +503,13 @@ def phase_profile(torch, run):
     busy_ms = sum(t for t, _ in by_name.values())
     st = eng.stats
     calls = st["prefill_calls"] + st["decode_steps"]
-    print(f"[profile] engine run {wall_ms:.1f} ms wall (profiled), "
+    print(f"[profile {name}] engine run {wall_ms:.1f} ms wall (profiled), "
           f"{st['emitted']} tokens, {calls} model calls; device busy "
           f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of wall; "
           f"{len(kernels) / calls:.0f} device ops per model call")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"[profile] {ms:9.3f} ms {n:7d}x  {name[:100]}")
+    for kname, (ms, n) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][0])[:10]:
+        print(f"[profile {name}] {ms:9.3f} ms {n:7d}x  {kname[:100]}")
 
 
 def main() -> None:
@@ -353,34 +530,43 @@ def main() -> None:
           f", cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     build_s = phase_build(build)
     rows, summary = phase_kernels(torch)
-    run, launches = phase_serve(torch)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(torch, run)
+    serves = {}
+    for name, path in PATHS.items():
+        run, launches, gaps = phase_serve(torch, name, **path)
+        if "--profile" in sys.argv[1:]:
+            phase_profile(torch, name, run)
+        st = run.engine.stats
+        serves[name] = {"stats": st, "seconds": run.seconds,
+                        "tokens_per_second": run.tokens_per_second,
+                        "syncs_per_token": run.syncs_per_token,
+                        "launches": launches, "dispatch": run.dispatch,
+                        "logits_rel_l2": gaps}
+        del run
+        torch.cuda.empty_cache()
 
     kernels = []
     sources = {"dense_gemm": ("src/repro_torch/csrc/dense_gemm.cu",
                               "src/repro/kernels/dense_gemm/kernel.py:35"),
                "griffin_spmm": ("src/repro_torch/csrc/griffin_spmm.cu",
-                                "src/repro/kernels/griffin_spmm/kernel.py:63")}
+                                "src/repro/kernels/griffin_spmm/kernel.py:63"),
+               "sparse_a": ("src/repro_torch/csrc/sparse_a.cu",
+                            "src/repro/kernels/sparse_a/kernel.py:53")}
     for name, (src, replaces) in sources.items():
         row = summary[name]
         errs = [r["max_abs_err"] for r in rows if r["kernel"] == name]
+        by_path = {p: sv["launches"][name] for p, sv in serves.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(errs), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "timed_shape": [row["m"], row["k"], row["n"], row["dtype"]]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    st = run.engine.stats
     report = {"card": card, "build_s": build_s, "checks": rows,
-              "serve": {"stats": st, "seconds": run.seconds,
-                        "tokens_per_second": run.tokens_per_second,
-                        "syncs_per_token": run.syncs_per_token,
-                        "launches": launches, "dispatch": run.dispatch},
-              "kernels": kernels,
+              "serve": serves, "kernels": kernels,
               "wall_s": time.perf_counter() - t0}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"[done] wall {report['wall_s']:.1f}s")

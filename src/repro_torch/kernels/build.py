@@ -28,7 +28,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-KERNELS = ("dense_gemm", "griffin_spmm")
+KERNELS = ("dense_gemm", "griffin_spmm", "sparse_a")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -15,7 +15,11 @@ from typing import Optional, Sequence
 import torch
 
 from . import kernel
+from ...core.hybrid import select_mode
+from ...core.spec import Mode
 from ..dense_gemm.kernel import DTYPE_CODES
+from ..dense_gemm.ops import dense_matmul
+from ..sparse_a.ops import sparse_a_matmul
 from .ref import griffin_spmm_ref
 
 DEFAULT_BLOCK_K = 128
@@ -237,3 +241,20 @@ def griffin_matmul(a: torch.Tensor, gw: GriffinWeights, *,
     if gw.inv_perm is not None:
         return out.index_select(1, gw.inv_perm[:gw.n])
     return out[:, :gw.n]
+
+
+def auto_matmul(a: torch.Tensor, w: torch.Tensor,
+                gw: Optional[GriffinWeights] = None, *,
+                a_sparsity: float = 0.0, b_sparsity: float = 0.0
+                ) -> torch.Tensor:
+    """Hybrid morphing at the op level: pick the Mode from the declared
+    sparsities (``select_mode``) and run its kernel — DENSE -> dense_gemm,
+    A -> sparse_a (runtime-compacted A, dense ``w``), B -> griffin_spmm,
+    AB -> griffin_spmm dual.  A sparse B with no compacted ``gw`` has
+    nothing to walk and takes the dense or Sparse.A route."""
+    mode = select_mode(a_sparsity, b_sparsity)
+    if mode in (Mode.B, Mode.AB) and gw is not None:
+        return griffin_matmul(a, gw, dual=mode == Mode.AB)
+    if mode in (Mode.A, Mode.AB):
+        return sparse_a_matmul(a, w)
+    return dense_matmul(a, w)

@@ -9,6 +9,10 @@ single-engine path.
 
 runs full-width llama3.2-1b on the CUDA card; ``--reduced --device cpu``
 runs the reduced config on the host (the kernels' plain versions).
+``--config engine.json`` reads an ``EngineConfig`` (explicit flags beat
+the file); its ``kernels.a_sparsity`` declares the activation sparsity of
+the workload category, which with ``--use-kernels`` selects Sparse.A
+(dense weights, ``--sparsity 0``) or Sparse.AB (compacted weights).
 """
 from __future__ import annotations
 
@@ -55,16 +59,23 @@ class ServeRun:
 
 
 def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
-          slots: int = 4, requests: int = 8,
-          prompt_lens: Sequence[int] = (8, 16, 32),
+          requests: int = 8, prompt_lens: Sequence[int] = (8, 16, 32),
           gen_lens: Sequence[int] = (4, 8, 16), arrival_every: int = 0,
-          sparsity: float = 0.8, use_kernels: bool = False,
-          decode_chunk: int = 8, measure_every: int = 8, seed: int = 0,
-          device: Optional[str] = "cuda") -> ServeRun:
+          sparsity: float = 0.8, seed: int = 0,
+          device: Optional[str] = "cuda",
+          config: Optional[EngineConfig] = None) -> ServeRun:
     """Build the model with seeded random weights on ``device``, prune
-    (compact with ``use_kernels``), and serve a synthetic trace.  With
-    ``sparsity > 0`` the full-width pruning blocks are 128/128/32 and the
-    reduced config's 16/16/8, as in the reference."""
+    (compact with ``config.kernels.use_kernels``), and serve a synthetic
+    trace.  With ``sparsity > 0`` the full-width pruning blocks are
+    128/128/32 and the reduced config's 16/16/8, as in the reference.
+    ``config`` (default ``EngineConfig()``) sets the slots, the chunk, the
+    kernels and the declared activation sparsity
+    (``kernels.a_sparsity``); its ``cache_len`` defaults to the trace's
+    bound."""
+    econf = config or EngineConfig()
+    if econf.arena.cache_len is None:
+        econf = econf.with_fields(
+            cache_len=EngineConfig.derive_cache_len(prompt_lens, gen_lens))
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -72,12 +83,8 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
     params = api.init(api.generator(seed))
     if sparsity > 0:
         prune = (dict(block_k=16, block_n=16, unit=8) if reduced else {})
-        params = sparsify_params(params, sparsity, compact=use_kernels,
-                                 **prune)
-    econf = EngineConfig().with_fields(
-        num_slots=slots, decode_chunk=decode_chunk,
-        measure_every=measure_every, use_kernels=use_kernels,
-        cache_len=EngineConfig.derive_cache_len(prompt_lens, gen_lens))
+        params = sparsify_params(params, sparsity,
+                                 compact=econf.kernels.use_kernels, **prune)
     reqs = synthetic_trace(cfg, num_requests=requests, seed=1,
                            prompt_lens=prompt_lens, gen_lens=gen_lens,
                            arrival_every=arrival_every)
@@ -120,6 +127,9 @@ def check_parity(run: ServeRun) -> int:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default=None, metavar="PATH",
+                    help="EngineConfig JSON (runtime.config.EngineConfig"
+                         ".to_json); flags set explicitly override it")
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
@@ -145,16 +155,17 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    run = serve(args.arch, reduced=args.reduced, slots=args.slots,
-                requests=args.requests, prompt_lens=_lens(args.prompt_lens),
+    econf = EngineConfig.from_args(
+        args, defaults={d: ap.get_default(d) for d in vars(args)})
+    run = serve(args.arch, reduced=args.reduced, requests=args.requests,
+                prompt_lens=_lens(args.prompt_lens),
                 gen_lens=_lens(args.gen_lens),
                 arrival_every=args.arrival_every, sparsity=args.sparsity,
-                use_kernels=args.use_kernels, decode_chunk=args.decode_chunk,
-                measure_every=args.measure_every, seed=args.seed,
-                device=args.device)
+                seed=args.seed, device=args.device, config=econf)
     eng = run.engine
-    print(f"engine: {args.slots} slots x cache_len {eng.cache_len} (fixed) "
-          f"on {eng.device}, weight sparsity {eng.b_sparsity:.2f} -> mode "
+    print(f"engine: {eng.num_slots} slots x cache_len {eng.cache_len} "
+          f"(fixed) on {eng.device}, weight sparsity {eng.b_sparsity:.2f}, "
+          f"declared activation sparsity {eng.a_declared} -> mode "
           f"{eng.mode.value}")
     st = eng.stats
     print(f"served {len(run.requests)} requests / {st['emitted']} tokens in "

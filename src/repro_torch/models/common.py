@@ -24,6 +24,7 @@ from ..core.hybrid import SPARSE_THRESHOLD, select_mode
 from ..core.spec import Mode
 from ..kernels.dense_gemm.ops import dense_matmul
 from ..kernels.griffin_spmm.ops import GriffinWeights, griffin_matmul
+from ..kernels.sparse_a.ops import sparse_a_matmul
 
 
 # ---------------------------------------------------------------------------
@@ -33,12 +34,14 @@ from ..kernels.griffin_spmm.ops import GriffinWeights, griffin_matmul
 @dataclasses.dataclass(frozen=True)
 class SparseExecution:
     """Knobs for ``griffin_linear``.  ``use_kernels`` routes dense GEMMs
-    through the dense kernel too (off: plain ``x @ w``); ``a_sparsity`` is
-    the declared activation sparsity of the workload category.  PyTorch runs
+    through the kernels too (off: plain ``x @ w``); ``a_sparsity`` is the
+    declared activation sparsity of the workload category; ``block_m`` is
+    the M-tile height of Sparse.A's activation metadata.  PyTorch runs
     eagerly, so the scope is read on every call."""
 
     use_kernels: bool = False
     a_sparsity: float = 0.0
+    block_m: int = 128
     a_threshold: float = SPARSE_THRESHOLD
 
 
@@ -47,11 +50,13 @@ _EXEC_STACK = [SparseExecution()]
 
 @contextlib.contextmanager
 def sparse_execution(use_kernels: bool = True, a_sparsity: float = 0.0,
+                     block_m: int = 128,
                      a_threshold: float = SPARSE_THRESHOLD):
     """Scope under which ``griffin_linear`` dispatches to the kernels
     (mode per GEMM via ``core.hybrid.select_mode``)."""
     _EXEC_STACK.append(SparseExecution(use_kernels=use_kernels,
                                        a_sparsity=a_sparsity,
+                                       block_m=block_m,
                                        a_threshold=a_threshold))
     try:
         yield _EXEC_STACK[-1]
@@ -87,9 +92,10 @@ def griffin_linear(x: torch.Tensor, w) -> torch.Tensor:
 
       GriffinWeights    -> griffin_spmm kernel (Sparse.B); dual when the
                            scope declares sparse activations (Sparse.AB)
-      dense w, dense a  -> plain ``x @ w``, or the dense_gemm kernel under
-                           a ``use_kernels`` scope
-      dense w, sparse a -> Sparse.A, whose kernel is not ported yet
+      dense w           -> plain ``x @ w``, unless the scope sets
+                           ``use_kernels``; then the sparse_a kernel
+                           (runtime-compacted A) when it declares sparse
+                           activations (Sparse.A), else dense_gemm
 
     Leading batch/sequence axes are flattened into the GEMM M axis.
     """
@@ -104,14 +110,14 @@ def griffin_linear(x: torch.Tensor, w) -> torch.Tensor:
         _dispatched("kernel")
         out = griffin_matmul(x2, w, dual=dual)
         return out.reshape(*lead, w.n).to(x.dtype)
-    if select_mode(ctx.a_sparsity, 0.0, threshold=ctx.a_threshold) == Mode.A:
-        raise NotImplementedError("Sparse.A (the sparse_a kernel) is not "
-                                  "ported yet")
     if not ctx.use_kernels:
         _dispatched("plain")
         return x @ w
     _dispatched("kernel")
-    out = dense_matmul(x2, w)
+    if select_mode(ctx.a_sparsity, 0.0, threshold=ctx.a_threshold) == Mode.A:
+        out = sparse_a_matmul(x2, w, block_m=ctx.block_m)
+    else:
+        out = dense_matmul(x2, w)
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 

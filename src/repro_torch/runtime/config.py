@@ -4,12 +4,17 @@ A frozen ``EngineConfig`` of frozen sections with the reference's field
 names.  The port serves the fixed slot arena through the fused decode path
 on one device: the paging, fault, router and mesh fields keep the
 reference's shape and raise ``NotImplementedError`` when set, as does
-``fused=False``.
+``fused=False``.  The reference's kernel fields ``interpret``,
+``spmd_kernels`` and ``plan`` have no counterpart: a JSON file may carry
+them at their defaults, and any other value raises; ``launch/serve.py``
+defines no flag for an unported field.  ``to_json``/``from_json``
+round-trip the config and power ``launch/serve.py --config engine.json``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+import json
+from typing import Any, Dict, Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +43,7 @@ class SchedConfig:
 class KernelConfig:
     use_kernels: bool = False
     a_sparsity: Optional[float] = None
+    block_m: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +61,18 @@ class RouterConfig:
     shed_policy: str = "shed"
 
 
+_SECTIONS = {"arena": ArenaConfig, "sched": SchedConfig,
+             "kernels": KernelConfig, "fault": FaultConfig,
+             "router": RouterConfig}
+
+# reference fields the port has no counterpart for, with their defaults
+_UNPORTED_DEFAULTS = {"kernels": {"interpret": False, "spmd_kernels": True,
+                                  "plan": None}}
+
+# launch/serve.py flag dest -> flat field name
+_FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
+          "decode_chunk": "decode_chunk", "use_kernels": "use_kernels"}
+
 # flat field name -> (section, field), as in the reference
 _FIELDS = {
     "num_slots": ("arena", "num_slots"),
@@ -70,6 +88,7 @@ _FIELDS = {
     "fused": ("sched", "fused"),
     "use_kernels": ("kernels", "use_kernels"),
     "a_sparsity": ("kernels", "a_sparsity"),
+    "block_m": ("kernels", "block_m"),
     "snapshot_dir": ("fault", "snapshot_dir"),
     "recovery_model_parallel": ("fault", "recovery_model_parallel"),
 }
@@ -121,3 +140,58 @@ class EngineConfig:
         """The trace-driven arena bound: longest prompt + longest generation
         + 1 feedback token."""
         return max(prompt_lens) + max(gen_lens) + 1
+
+    @classmethod
+    def from_args(cls, args: Any, defaults: Optional[Dict[str, Any]] = None
+                  ) -> "EngineConfig":
+        """EngineConfig from launch/serve.py's argparse namespace, with the
+        reference's rule: ``--config <json>`` (``args.config``) sets the
+        baseline and every flag whose value differs from its parser default
+        (``defaults``, dest -> default) is laid on top, so a flag set *to*
+        its default never overrides the file.  ``defaults=None`` counts
+        every present flag as explicit."""
+        path = getattr(args, "config", None)
+        if path:
+            with open(path) as f:
+                base = cls.from_json(f.read())
+        else:
+            base = cls()
+
+        def explicit(dest: str) -> bool:
+            if not hasattr(args, dest):
+                return False
+            if defaults is None or dest not in defaults:
+                return True
+            return getattr(args, dest) != defaults[dest]
+
+        kv = {field: getattr(args, dest) for dest, field in _FLAGS.items()
+              if explicit(dest)}
+        return base.with_fields(**kv) if kv else base
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "EngineConfig":
+        raw = json.loads(text)
+        if not isinstance(raw, dict):
+            raise ValueError("engine config json must be an object")
+        kw: Dict[str, Any] = {}
+        for name, val in raw.items():
+            if name == "mesh":
+                kw["mesh"] = val
+                continue
+            if name not in _SECTIONS:
+                raise ValueError(f"unknown engine config section {name!r}")
+            sec_cls = _SECTIONS[name]
+            val = dict(val)
+            for field, default in _UNPORTED_DEFAULTS.get(name, {}).items():
+                if field in val and val.pop(field) != default:
+                    raise NotImplementedError(
+                        f"{name}.{field} is not ported yet")
+            unknown = set(val) - {f.name for f in dataclasses.fields(sec_cls)}
+            if unknown:
+                raise ValueError(f"unknown {name} config fields: "
+                                 f"{sorted(unknown)}")
+            kw[name] = sec_cls(**val)
+        return cls(**kw)

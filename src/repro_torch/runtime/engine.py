@@ -264,6 +264,7 @@ class ServeEngine:
         self.bucket_prompts = config.sched.bucket_prompts
         self.use_kernels = config.kernels.use_kernels
         self.a_declared = config.kernels.a_sparsity
+        self.block_m = config.kernels.block_m
         self.measure_every = max(1, config.sched.measure_every)
         self.sched = Scheduler(self.num_slots, config.sched.policy,
                                config.sched.max_admissions_per_step)
@@ -306,7 +307,8 @@ class ServeEngine:
                        and self.a_declared > SPARSE_THRESHOLD
                        else DEFAULT_DECLARED_A)
         return sparse_execution(use_kernels=self.use_kernels,
-                                a_sparsity=a_scope)
+                                a_sparsity=a_scope, block_m=self.block_m,
+                                a_threshold=SPARSE_THRESHOLD)
 
     def _fns(self) -> Tuple[Callable, Callable]:
         """(prefill_fn, chunk_for) of the current Mode.  Eager PyTorch reads

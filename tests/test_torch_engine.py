@@ -3,6 +3,8 @@ ServeEngine on one synthetic trace: reduced llama3.2-1b in fp32, weights
 block-pruned and compacted (16/16, unit 8), every GEMM through the kernel
 wrappers.  Tokens and the deterministic ``stats`` counters must be equal,
 and every request must match the port's own batch-1 greedy oracle."""
+import argparse
+
 import jax
 import numpy as np
 import pytest
@@ -59,6 +61,62 @@ def served(request):
     touts = teng.run(reqs)
     dispatch = kernel_dispatch_counts()
     return jeng, jouts, teng, touts, reqs, tparams, dispatch
+
+
+@pytest.fixture(scope="module", params=["dense", "compacted"],
+                ids=["mode-a", "mode-ab"])
+def served_sparse_a(request):
+    """Both engines with a declared activation sparsity of 0.5: on dense
+    weights (Mode.A: every GEMM through sparse_a) and on compacted weights
+    (Mode.AB: dual griffin_spmm, the unembedding through sparse_a)."""
+    cfg = jax_get_config("llama3.2-1b").reduced()
+    japi = jax_build_model(cfg)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    if request.param == "compacted":
+        jparams = jax_sparsify(jparams, 0.6, block_k=16, block_n=16, unit=8)
+    kw = dict(num_slots=3, cache_len=32, decode_chunk=4, use_kernels=True,
+              a_sparsity=0.5)
+    jeng = JaxServeEngine(japi, jparams, config=JaxEngineConfig().with_fields(
+        interpret=True, **kw))
+    jouts = jeng.run(jax_synthetic_trace(cfg, **TRACE))
+    tcfg = get_config("llama3.2-1b").reduced()
+    tapi = build_model(tcfg, device="cpu")
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    teng = ServeEngine(tapi, tparams, EngineConfig().with_fields(**kw))
+    reqs = synthetic_trace(tcfg, **TRACE)
+    reset_kernel_dispatch()
+    touts = teng.run(reqs)
+    return jeng, jouts, teng, touts, reqs, tparams, kernel_dispatch_counts()
+
+
+def test_activation_sparse_engine_equals_reference(served_sparse_a):
+    jeng, jouts, teng, touts, reqs, _, _ = served_sparse_a
+    for r in reqs:
+        assert touts[r.rid].tokens == jouts[r.rid].tokens, r.rid
+        assert touts[r.rid].token_steps == jouts[r.rid].token_steps, r.rid
+    for key in STATS:
+        assert teng.stats[key] == jeng.stats[key], key
+    assert teng.mode.value == jeng.mode.value
+    assert [(s, m.value) for s, m in teng.mode_history] == \
+        [(s, m.value) for s, m in jeng.mode_history]
+
+
+def test_activation_sparse_engine_matches_own_oracle(served_sparse_a):
+    _, _, teng, touts, reqs, tparams, dispatch = served_sparse_a
+    calls = teng.stats["prefill_calls"] + teng.stats["decode_steps"]
+    want = {"kernel": 15 * calls}
+    if teng.mode == Mode.AB:
+        want["dual"] = 14 * calls
+    else:
+        assert teng.mode == Mode.A
+    assert dispatch == want
+    for r in reqs:
+        with teng._scope():
+            ref = greedy_generate(teng.api, tparams, r.as_batch(teng.device),
+                                  steps=r.max_new_tokens,
+                                  cache_len=teng.cache_len,
+                                  prompt_bucket=teng.bucket_for(r.prompt_len))
+        assert touts[r.rid].tokens == ref[0].tolist(), r.rid
 
 
 def test_trace_equals_reference():
@@ -138,6 +196,62 @@ def test_entry_points_default_to_cuda():
 def test_unported_config_fields_raise(field):
     with pytest.raises(NotImplementedError):
         EngineConfig().with_fields(**field)
+
+
+def test_engine_config_json_round_trip_and_reference_file():
+    conf = EngineConfig().with_fields(num_slots=3, decode_chunk=2,
+                                      use_kernels=True, a_sparsity=0.5,
+                                      block_m=64, cache_len=40)
+    assert EngineConfig.from_json(conf.to_json()) == conf
+    # a file written by the reference loads when it sets only what the
+    # port serves; its unported kernel fields sit at their defaults
+    ref = JaxEngineConfig().with_fields(num_slots=3, decode_chunk=2,
+                                        use_kernels=True, a_sparsity=0.5,
+                                        block_m=64, cache_len=40)
+    assert EngineConfig.from_json(ref.to_json()) == conf
+
+
+@pytest.mark.parametrize("raw", [
+    '{"kernels": {"interpret": true}}', '{"kernels": {"plan": "p.json"}}',
+    '{"arena": {"page_size": 8}}', '{"router": {"replicas": 2}}'])
+def test_engine_config_json_unported_fields_raise(raw):
+    with pytest.raises(NotImplementedError):
+        EngineConfig.from_json(raw)
+
+
+@pytest.mark.parametrize("raw", ['[]', '{"kernels": {"bogus": 1}}',
+                                 '{"nope": {}}'])
+def test_engine_config_json_rejects_unknown(raw):
+    with pytest.raises(ValueError):
+        EngineConfig.from_json(raw)
+
+
+def test_engine_config_from_args_flag_beats_file(tmp_path):
+    path = tmp_path / "engine.json"
+    path.write_text(EngineConfig().with_fields(
+        decode_chunk=2, num_slots=5, a_sparsity=0.5).to_json())
+    defaults = dict(config=None, slots=4, decode_chunk=8, use_kernels=False)
+    args = argparse.Namespace(config=str(path), slots=4, decode_chunk=4,
+                              use_kernels=False)
+    conf = EngineConfig.from_args(args, defaults)
+    # --decode-chunk 4 was given; --slots left at its default keeps 5
+    assert (conf.sched.decode_chunk, conf.arena.num_slots,
+            conf.kernels.a_sparsity) == (4, 5, 0.5)
+    # the CLI defines no flag for an unported field
+    with pytest.raises(SystemExit):
+        launch_serve.main(["--reduced", "--device", "cpu", "--replicas", "2"])
+
+
+def test_launch_serve_cli_config_selects_sparse_a_on_cpu(tmp_path, capsys):
+    path = tmp_path / "engine.json"
+    path.write_text(EngineConfig().with_fields(
+        use_kernels=True, a_sparsity=0.5, decode_chunk=2).to_json())
+    launch_serve.main(["--reduced", "--device", "cpu", "--sparsity", "0",
+                       "--config", str(path), "--requests", "4",
+                       "--decode-chunk", "4", "--parity"])
+    out = capsys.readouterr().out
+    assert "declared activation sparsity 0.5 -> mode A" in out
+    assert "parity OK: all 4 requests" in out
 
 
 def test_scheduler_fcfs_and_static_policy():

@@ -16,9 +16,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import (decompact_weights, dense_matmul,
+from repro_torch.kernels import (ActivationMeta, compact_activations,
+                                 decompact_weights, dense_matmul,
                                  griffin_matmul, launch_counts,
-                                 preprocess_weights)
+                                 preprocess_weights, sparse_a_matmul)
+from repro_torch.kernels.sparse_a.ref import sparse_a_ref
 from repro_torch.models import build_model
 from repro_torch.runtime.config import EngineConfig
 from repro_torch.runtime.engine import ServeEngine, synthetic_trace
@@ -87,13 +89,77 @@ def test_griffin_spmm_kernel_matches_plain(cuda, dtype, dual, balance, case):
     assert_close(out, ref, dtype)
 
 
+def _zero_blocks(a, bm, bk, every):
+    """Zero the (bm x bk) blocks (i, j) of ``a`` with (i + j) % every == 0,
+    so M tiles see different live K blocks."""
+    for i in range(-(-a.shape[0] // bm)):
+        for j in range(-(-a.shape[1] // bk)):
+            if (i + j) % every == 0:
+                a[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = 0
+    return a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["embed.T", "row-major"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(4, 2048, 1000, 128, 128),
+                                  (32, 2048, 512, 8, 128),
+                                  (33, 70, 17, 16, 16),
+                                  (19, 256, 300, 8, 32)])
+def test_sparse_a_kernel_matches_plain(cuda, dtype, layout, case):
+    m, k, n, bm, bk = case
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn(m, k, generator=g, device=cuda).to(DTYPES[dtype])
+    a = _zero_blocks(a, bm, bk, 3)
+    if m > bm:
+        a[:bm] = 0                                   # a tile with cnt = 0
+    w = torch.randn(n, k, generator=g, device=cuda).to(a.dtype)
+    w = w.T if layout == "embed.T" else w.T.contiguous()
+    meta = compact_activations(a, block_m=bm, block_k=bk)
+    before = launch_counts()["sparse_a"]
+    out = sparse_a_matmul(a, w, block_m=bm, block_k=bk)
+    torch.cuda.synchronize()
+    assert launch_counts()["sparse_a"] == before + 1
+    ref = sparse_a_ref(a, w, meta.kidx, meta.cnt, block_m=meta.block_m,
+                       block_k=meta.block_k)
+    assert_close(out, ref, dtype)
+    assert_close(out, (a.float() @ w.float()).to(a.dtype), dtype)
+    # hand-cut metadata that drops a live block: the kernel must honour it
+    cut_cnt = meta.cnt.clone()
+    live_tile = int(torch.nonzero(cut_cnt).flatten()[-1])
+    cut_cnt[live_tile] -= 1
+    cut = ActivationMeta(meta.kidx, cut_cnt, meta.m, meta.k, meta.block_m,
+                         meta.block_k)
+    out = sparse_a_matmul(a, w, meta=cut)
+    ref = sparse_a_ref(a, w, cut.kidx, cut.cnt, block_m=cut.block_m,
+                       block_k=cut.block_k)
+    torch.cuda.synchronize()
+    assert_close(out, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(7, 300, 8, 16), (32, 2048, 8, 128),
+                                   (4, 8192, 128, 128)])
+def test_compact_activations_on_card_equals_cpu(cuda, shape):
+    m, k, bm, bk = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = _zero_blocks(torch.randn(m, k, generator=g, device=cuda), bm, bk, 2)
+    meta = compact_activations(a, block_m=bm, block_k=bk)
+    want = compact_activations(a.cpu(), block_m=bm, block_k=bk)
+    assert torch.equal(meta.kidx.cpu(), want.kidx)
+    assert torch.equal(meta.cnt.cpu(), want.cnt)
+
+
 @pytest.mark.gpu
 def test_kernels_are_batch_invariant(cuda):
     """A row's output bits do not depend on the other rows (engine vs
-    oracle token parity rests on it)."""
+    oracle token parity rests on it).  For sparse_a the other rows have
+    live blocks row 0 lacks, so the 4-row tile visits blocks the 1-row
+    call skips."""
     g = torch.Generator(device=cuda).manual_seed(2)
     a = torch.randn(32, 2048, generator=g, device=cuda).bfloat16()
     embed = torch.randn(5000, 2048, generator=g, device=cuda).bfloat16()
+    w = torch.randn(2048, 2048, generator=g, device=cuda).bfloat16()
     gw = preprocess_weights(block_prune(
         torch.randn(2048, 2048, generator=g, device=cuda), 0.8).bfloat16())
     for fn in (lambda x: dense_matmul(x, embed.T),
@@ -101,13 +167,43 @@ def test_kernels_are_batch_invariant(cuda):
         full = fn(a)
         for rows in (slice(0, 1), slice(3, 7), slice(8, 16)):
             assert torch.equal(fn(a[rows].contiguous()), full[rows])
+    a4 = a[:4].clone()
+    a4[0, 128:1024] = 0                   # K blocks 1..7 dead in row 0 only
+    a4[1:, 1536:] = 0                     # and blocks 12..15 dead elsewhere
+    for b in (embed.T, w):
+        full = sparse_a_matmul(a4, b, block_m=8)
+        one = sparse_a_matmul(a4[:1].contiguous(), b, block_m=8)
+        assert torch.equal(one, full[:1])
+    assert int(compact_activations(a4[:1], block_m=8).cnt[0]) < \
+        int(compact_activations(a4, block_m=8).cnt[0])
 
 
 @pytest.mark.gpu
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     a = torch.zeros(4, 64, device=cuda, dtype=torch.float64)
+    b = torch.zeros(64, 8, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
-        dense_matmul(a, torch.zeros(64, 8, device=cuda, dtype=torch.float64))
+        dense_matmul(a, b)
+    with pytest.raises(TypeError):
+        sparse_a_matmul(a, b)
+    with pytest.raises(ValueError):        # operands on two devices
+        sparse_a_matmul(a.float(), b.float().cpu())
+
+
+@pytest.mark.gpu
+def test_sparse_a_unembedding_reads_embed_t_in_place(cuda):
+    """No allocation the size of ``embed.T``: the kernel reads the view."""
+    embed = torch.randn(128256, 2048, device=cuda).bfloat16()
+    a = torch.randn(4, 2048, device=cuda).bfloat16()
+    sparse_a_matmul(a, embed.T)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = sparse_a_matmul(a, embed.T)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < \
+        embed.numel() * embed.element_size() // 100
+    assert out.shape == (4, 128256)
 
 
 @pytest.mark.gpu
@@ -134,6 +230,60 @@ def test_prefill_and_decode_chunk_never_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_mode_a_prefill_and_chunk_never_sync(cuda):
+    """Sparse.A builds its metadata on the card every GEMM: no argsort or
+    count may read a value back to the host."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = api.init(api.generator(0))
+    eng = ServeEngine(api, params, EngineConfig().with_fields(
+        num_slots=4, cache_len=32, decode_chunk=4, use_kernels=True,
+        a_sparsity=0.5))
+    req = synthetic_trace(cfg, num_requests=1, seed=3,
+                          prompt_lens=(11,), gen_lens=(4,))[0]
+    batch = req.as_batch(cuda, eng.bucket_for(req.prompt_len))
+    prefill_fn, chunk_for = eng._fns()
+    before = launch_counts()["sparse_a"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with eng._scope():
+            prefill_fn(params, batch)
+            chunk_for(4)(params, eng.cache, eng._tokens, eng._remaining)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # 7 GEMMs x 2 layers + the unembedding, per prefill and decode step
+    assert launch_counts()["sparse_a"] - before == 15 * 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sparsity", [0.0, 0.6], ids=["mode-a", "mode-ab"])
+def test_activation_sparse_engine_matches_oracle_on_card(cuda, sparsity):
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = api.init(api.generator(0))
+    if sparsity:
+        params = sparsify_params(params, sparsity, block_k=16, block_n=16,
+                                 unit=8)
+    eng = ServeEngine(api, params, EngineConfig().with_fields(
+        num_slots=4, cache_len=40, decode_chunk=8, use_kernels=True,
+        a_sparsity=0.5))
+    reqs = synthetic_trace(cfg, num_requests=6, seed=1,
+                           prompt_lens=(8, 16, 23), gen_lens=(4, 8, 16))
+    outs = eng.run(reqs)
+    assert eng.mode.value == ("AB" if sparsity else "A")
+    for r in reqs:
+        with eng._scope():
+            ref = greedy_generate(api, params, r.as_batch(cuda),
+                                  steps=r.max_new_tokens, cache_len=40,
+                                  prompt_bucket=eng.bucket_for(r.prompt_len))
+        assert outs[r.rid].tokens == ref[0].tolist(), r.rid
 
 
 @pytest.mark.gpu

@@ -137,12 +137,50 @@ def test_greedy_tokens_equal(pair):
         assert counts.get("kernel", 0) == 0
 
 
-def test_sparse_a_mode_not_ported(pair):
-    _, _, tapi, tparams, _ = pair
-    toks = {"tokens": torch.ones((1, 4), dtype=torch.int64)}
-    with sparse_execution(use_kernels=True, a_sparsity=0.5):
-        with pytest.raises(NotImplementedError):
-            tapi.prefill(tparams, toks)
+def _prefill_both(pair, toks, jax_kw, port_kw):
+    japi, jparams, tapi, tparams, _ = pair
+    with jax_scope(**jax_kw):
+        _, jlog = japi.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                               cache_len=24)
+    reset_kernel_dispatch()
+    with sparse_execution(**port_kw):
+        _, tlog = tapi.prefill(tparams, {"tokens": torch.from_numpy(
+            toks.astype(np.int64))}, cache_len=24)
+    return jlog, tlog, kernel_dispatch_counts()
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_sparse_a_mode_not_ported(pair, rows):
+    """A declared activation sparsity under a kernel scope: dense leaves
+    take Sparse.A (the sparse_a kernel), compacted leaves dual griffin_spmm
+    and the unembedding Sparse.A.  Prefill logits equal the reference's
+    under the same scope.  (This scope raised while Sparse.A had no port;
+    the test keeps its name.)"""
+    compacted = pair[4]
+    toks = np.random.RandomState(rows).randint(1, 128, (rows, 9)).astype(
+        np.int32)
+    jlog, tlog, counts = _prefill_both(
+        pair, toks, dict(use_kernels=True, interpret=True, a_sparsity=0.5),
+        dict(use_kernels=True, a_sparsity=0.5))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    # 7 GEMMs x 2 layers + the unembedding, all kernels; 14 of them dual
+    # when the weights are compacted
+    want = {"kernel": 15}
+    if compacted:
+        want["dual"] = 14
+    assert counts == want
+
+
+def test_declared_a_sparsity_without_kernels_is_the_plain_dot(pair):
+    """Without ``use_kernels`` a declared activation sparsity changes
+    nothing for dense leaves: plain ``x @ w``, as in the reference."""
+    compacted = pair[4]
+    toks = np.random.RandomState(7).randint(1, 128, (2, 6)).astype(np.int32)
+    jlog, tlog, counts = _prefill_both(
+        pair, toks, dict(use_kernels=False, interpret=True, a_sparsity=0.5),
+        dict(use_kernels=False, a_sparsity=0.5))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    assert counts["plain"] == (1 if compacted else 15)
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 64, 100])
