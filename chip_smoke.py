@@ -11,11 +11,13 @@ Phases, in order; any failure exits non-zero before the result line:
              serving paths give it, fp32 and bf16, and hold it against its
              plain PyTorch version: dense_gemm at the unembedding;
              griffin_spmm at every compacted layer shape, dual off/on and
-             balance on/off; sparse_a at the four dense layer shapes (B
-             row-major) and the unembedding (B = embed.T, strided), with
-             all-zero K blocks in A, several M tiles of different live
-             counts (one with none) at block_m 8, and hand-cut metadata
-             that drops a live block.  Tolerances: fp32 |err| <= 1e-5 *
+             balance on/off, printing its cluster split per shape and
+             holding rows 0 and 0:4 of a 32-row A bit-equal alone and in
+             the full call (dual off/on); sparse_a at the four dense layer
+             shapes (B row-major) and the unembedding (B = embed.T,
+             strided), with all-zero K blocks in A, several M tiles of
+             different live counts (one with none) at block_m 8, and
+             hand-cut metadata that drops a live block.  Tolerances: fp32 |err| <= 1e-5 *
              max|ref| (summation orders differ); bf16 |err| <= one bf16 ulp
              of the output plus the same fp32 term.  Times kernel, plain
              version and one library call (torch.matmul, a yardstick the
@@ -23,7 +25,8 @@ Phases, in order; any failure exits non-zero before the result line:
              launch, and the bound: the larger of bytes / 3.35 TB/s and
              operations / the card's peak for the type (989 TFLOP/s bf16,
              67 TFLOP/s fp32), counting only the blocks a sparse kernel
-             must read for these inputs.
+             must read for these inputs.  griffin_spmm is timed at M 4
+             and 32, bf16 dual off and on, fp32 dual off.
 3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
              through repro_torch.launch.serve: 4 slots, 8 requests with
              prompt lengths 8/16/32 and generation lengths 4/8/16,
@@ -155,9 +158,10 @@ def phase_build(build):
 
 
 def phase_kernels(torch):
-    from repro_torch.kernels import (decompact_weights, dense_matmul,
-                                     griffin_matmul, preprocess_weights)
+    from repro_torch.kernels import (dense_matmul, griffin_matmul,
+                                     preprocess_weights)
     from repro_torch.kernels.dense_gemm.ref import dense_matmul_ref
+    from repro_torch.kernels.griffin_spmm.kernel import split_plan
     from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
     from repro_torch.sparsity import block_prune
 
@@ -204,6 +208,19 @@ def phase_kernels(torch):
             for balance in (True, False):
                 gw = preprocess_weights(w32.to(dt), balance=balance)
                 live = int(gw.cnt.sum())
+                plan = None
+                if dtype == "bfloat16":
+                    plan = split_plan(gw.kidx.shape[0], gw.block_k,
+                                      gw.block_n, gw.kidx.shape[1])
+                if plan and balance:
+                    blocks = gw.kidx.shape[0] * gw.block_n // plan.cols * \
+                        plan.splits
+                    print(f"[kernels] griffin_spmm plan {k}x{n} "
+                          f"({gw.kidx.shape[0]} tiles, max_cnt "
+                          f"{gw.kidx.shape[1]}): cluster split S="
+                          f"{plan.splits}, {plan.cols}-column slices, "
+                          f"{plan.chunk_rows}-row chunks, {blocks} blocks")
+                    spmm_batch_invariance(torch, gen, gw)
                 for m in M_ROWS:
                     a = torch.randn(m, k, generator=gen, device=dev).to(dt)
                     a[:, :256] = 0      # two all-zero K blocks for dual
@@ -216,35 +233,71 @@ def phase_kernels(torch):
                                "m": m, "k": k, "n": n, "balance": balance,
                                "dual": dual, "live_blocks": live,
                                "max_cnt": gw.kidx.shape[1],
+                               "plan": plan and list(plan),
                                "max_abs_err": err, "ok": ok}
                         if not ok:
                             fail("griffin_spmm disagrees with its plain "
                                  f"version: {row}")
-                        if balance and not dual and m in (4, 32):
-                            esz = a.element_size()
-                            nbytes = (a.numel() + live * gw.block_k
-                                      * gw.block_n + m * n) * esz + 4 * (
-                                gw.kidx.numel() + gw.cnt.numel()
-                                + gw.inv_perm.numel())
-                            flops = 2.0 * m * live * gw.block_k * gw.block_n
-                            b_ms, b_by = bound(nbytes, flops, dtype)
-                            w_dense = decompact_weights(gw)
-                            row.update(
-                                ms=timed_ms(torch,
-                                            lambda: griffin_matmul(a, gw)),
-                                plain_ms=timed_ms(
-                                    torch, lambda: griffin_spmm_ref(a, gw)),
-                                library_ms=timed_ms(
-                                    torch, lambda: torch.matmul(a, w_dense)),
-                                bound_ms=b_ms, bound_by=b_by)
-                            if dtype == "bfloat16" and m == 4 and \
-                                    (k, n) == (2048, 8192):
+                        if balance and m in (4, 32) and \
+                                (dtype == "bfloat16" or not dual):
+                            timed_spmm(torch, a, gw, dual, row)
+                            if dtype == "bfloat16" and m == 4 and not dual \
+                                    and (k, n) == (2048, 8192):
                                 summary["griffin_spmm"] = row
                             print(f"[kernels] {json.dumps(row)}")
                         rows.append(row)
     rows += kernel_sparse_a(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
     return rows, summary
+
+
+def timed_spmm(torch, a, gw, dual: bool, row) -> None:
+    """Time griffin_matmul, its plain version and torch.matmul on the
+    decompacted weight; bound by the bytes of the live blocks this A
+    needs (with dual, those whose A block is not all zero)."""
+    from repro_torch.kernels import decompact_weights, griffin_matmul
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+
+    m, k = a.shape
+    bk = gw.block_k
+    needed = [True] * (gw.k // bk)
+    if dual:
+        needed = [bool(a[:, i * bk:(i + 1) * bk].any())
+                  for i in range(gw.k // bk)]
+    kidx, cnt = gw.kidx.tolist(), gw.cnt.tolist()
+    blocks = sum(needed[kb] for ids, c in zip(kidx, cnt) for kb in ids[:c])
+    esz = a.element_size()
+    nbytes = (a.numel() + blocks * bk * gw.block_n + m * gw.n) * esz + 4 * (
+        gw.kidx.numel() + gw.cnt.numel()
+        + (0 if gw.perm is None else gw.perm.numel()))
+    b_ms, b_by = bound(nbytes, 2.0 * m * blocks * bk * gw.block_n,
+                       row["dtype"])
+    w_dense = decompact_weights(gw)
+    row.update(
+        ms=timed_ms(torch, lambda: griffin_matmul(a, gw, dual=dual)),
+        plain_ms=timed_ms(torch, lambda: griffin_spmm_ref(a, gw)),
+        library_ms=timed_ms(torch, lambda: torch.matmul(a, w_dense)),
+        bound_ms=b_ms, bound_by=b_by, needed_blocks=blocks)
+
+
+def spmm_batch_invariance(torch, gen, gw) -> None:
+    """Rows 0, 0:4 and 0:32 of one A give bit-equal rows through
+    griffin_matmul, dual and not, at this full-width shape."""
+    from repro_torch.kernels import griffin_matmul
+
+    a = torch.randn(32, gw.k, generator=gen, device="cuda").to(
+        gw.b_comp.dtype)
+    a[:16, :256] = 0                    # a dead K block in the first rows
+    for dual in (False, True):
+        full = griffin_matmul(a, gw, dual=dual)
+        for rows in (1, 4):
+            part = griffin_matmul(a[:rows].contiguous(), gw, dual=dual)
+            if not torch.equal(part, full[:rows]):
+                fail(f"griffin_spmm is not batch invariant at K x N "
+                     f"{gw.k} x {gw.n}, dual {dual}: rows 0:{rows} differ "
+                     "from the same rows of a 32-row call")
+    print(f"[kernels] griffin_spmm {gw.k}x{gw.n}: rows 0, 0:4 of a 32-row "
+          "A bit-equal alone and in the full call, dual and not")
 
 
 def zero_k_blocks(a, bm: int, every: int):
@@ -506,7 +559,8 @@ def phase_profile(torch, name: str, run):
     print(f"[profile {name}] engine run {wall_ms:.1f} ms wall (profiled), "
           f"{st['emitted']} tokens, {calls} model calls; device busy "
           f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of wall; "
-          f"{len(kernels) / calls:.0f} device ops per model call")
+          f"{len(kernels)} device ops = {len(kernels) / calls:.2f} per model "
+          "call")
     for kname, (ms, n) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:10]:
         print(f"[profile {name}] {ms:9.3f} ms {n:7d}x  {kname[:100]}")

@@ -1,12 +1,21 @@
 // Shared pieces of the port's hand-written GEMM kernels (dense_gemm.cu,
-// griffin_spmm.cu): type conversion and 8-wide loads widened to fp32.
+// griffin_spmm.cu, sparse_a.cu): type conversion and 8-wide loads widened
+// to fp32.
 //
-// Batch invariance: in both kernels the order in which an output element's
+// Batch invariance: in every kernel the order in which an output element's
 // K products are summed is a fixed function of K, the weights' layout and
 // the kernel's constants — never of M, of how M is tiled or of the other
 // rows.  So a row computes the same bits whether it is decoded alone or
 // beside other rows, which the serving engine's token parity with its
-// batch-1 oracle rests on.
+// batch-1 oracle rests on.  griffin_spmm's bf16 route sums, for each
+// output: within each 16-deep K slice, the tensor core's own fixed order
+// for that row; slices into one fp32 accumulator per warp, warp w taking
+// slices w, w + 4, ... of each 64-row chunk in ascending chunk order; the 4
+// warps' accumulators as ((w0 + w1) + w2) + w3; then the cluster ranks'
+// partials in rank order 0..S-1.  Which chunks a rank owns follows from
+// cnt and the split plan, a function of the weight's shape alone.  A chunk
+// skipped because its A is all zero adds only exact zeros, so skipping
+// never changes a value.
 #pragma once
 
 #include <cuda_bf16.h>

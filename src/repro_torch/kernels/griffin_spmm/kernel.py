@@ -4,6 +4,8 @@
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -11,10 +13,54 @@ from .. import build
 from ..dense_gemm.kernel import DTYPE_CODES
 
 NAME = "griffin_spmm"
-_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
+    [ctypes.c_int] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + \
+    [ctypes.c_void_p]
+MAX_SPLITS = 8      # the portable cluster size
+MIN_BLOCKS = 256    # about two blocks per SM of an H100 SXM (132 SMs)
+
+
+class SplitPlan(NamedTuple):
+    """The bf16 route's work split: each ``cols``-wide slice of an N tile
+    is a cluster of ``splits`` blocks, rank r walking the r-th contiguous
+    share of the tile's compacted chunks of ``chunk_rows`` rows."""
+    splits: int
+    cols: int
+    chunk_rows: int
+
+
+def _least_split(blocks: int, chunks: int) -> int:
+    """The least power-of-two split up to MAX_SPLITS that gives MIN_BLOCKS
+    blocks, no finer than one chunk of the deepest tile per rank."""
+    splits = 1
+    while splits < MAX_SPLITS and blocks * splits < MIN_BLOCKS and \
+            2 * splits <= chunks:
+        splits *= 2
+    return splits
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(n_tiles: int, block_k: int, block_n: int,
+               max_cnt: int) -> Optional[SplitPlan]:
+    """The split for a weight of this shape, or None where the tensor-core
+    route does not apply (bk or bn not a multiple of 16).  A function of
+    the weight's shape alone, never of M or of the data: every output's
+    summation order follows from it, so a row's bits never depend on the
+    rows beside it.  Chunks of 64 rows (or the largest of 32 and 16 that
+    divides bk); slices of 64 columns, or 32, where a split fills the card
+    with MIN_BLOCKS blocks; else 16."""
+    if block_k % 16 or block_n % 16:
+        return None
+    chunk = next(c for c in (64, 32, 16) if block_k % c == 0)
+    chunks = max_cnt * (block_k // chunk)
+    for cols in (64, 32):
+        if block_n % cols == 0:
+            blocks = n_tiles * (block_n // cols)
+            splits = _least_split(blocks, chunks)
+            if blocks * splits >= MIN_BLOCKS:
+                return SplitPlan(splits, cols, chunk)
+    return SplitPlan(_least_split(n_tiles * (block_n // 16), chunks), 16,
+                     chunk)
 
 
 def _fn():
@@ -26,21 +72,27 @@ def _fn():
 
 
 def griffin_spmm(a: torch.Tensor, b_comp: torch.Tensor, kidx: torch.Tensor,
-                 cnt: torch.Tensor, *, block_k: int, block_n: int,
-                 dual: bool) -> torch.Tensor:
-    """(M, N_padded) = A @ W_pruned from the compacted operands, on the
-    current stream, in ``a.dtype``.  ``a`` (M, K) may be narrower than the
-    padded K the metadata counts; the kernel masks the missing columns.
-    The caller (``ops.griffin_matmul``) has validated every operand."""
+                 cnt: torch.Tensor, perm: Optional[torch.Tensor], *, n: int,
+                 block_k: int, block_n: int, dual: bool) -> torch.Tensor:
+    """(M, n) = A @ W_pruned from the compacted operands, on the current
+    stream, in ``a.dtype``: the kernel stores each column where ``perm``
+    (the balance shuffle, or None) sends it and drops the padding.  ``a``
+    (M, K) may be narrower than the padded K the metadata counts; the
+    kernel masks the missing columns.  The caller (``ops.griffin_matmul``)
+    has validated every operand."""
     m, k = a.shape
     n_tiles, max_cnt = kidx.shape
     npad = b_comp.shape[1]
-    out = torch.empty((m, npad), dtype=a.dtype, device=a.device)
+    plan = split_plan(n_tiles, block_k, block_n, max_cnt) \
+        if a.dtype == torch.bfloat16 else None
+    splits, cols, chunk = plan or (0, 0, 0)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _fn()(DTYPE_CODES[a.dtype], int(dual), a.data_ptr(),
                 b_comp.data_ptr(), kidx.data_ptr(), cnt.data_ptr(),
-                out.data_ptr(), m, k, npad, n_tiles, block_k, block_n,
-                max_cnt, a.stride(0), stream)
+                None if perm is None else perm.data_ptr(), out.data_ptr(),
+                m, k, n, npad, n_tiles, block_k, block_n, max_cnt,
+                a.stride(0), splits, cols, chunk, stream)
     build.check_launch(NAME, err)
     build.count_launch(NAME)
     return out

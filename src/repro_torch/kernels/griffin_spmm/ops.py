@@ -39,7 +39,11 @@ class GriffinWeights:
       entries (kc >= cnt) clamp-repeating the last live id;
     * ``cnt`` (..., n_tiles) int32: live blocks per N tile;
     * ``inv_perm`` (..., N_padded) int32 or None: undoes the balance
-      shuffle's column permutation.
+      shuffle's column permutation;
+    * ``perm`` (..., N_padded) int32 or None: the shuffle itself, column p
+      of ``b_comp`` holding original column ``perm[p]`` — where the card's
+      kernel stores each column.  Derived once from ``inv_perm`` when not
+      given (the reference has no such field), never per call.
     """
 
     b_comp: torch.Tensor
@@ -53,6 +57,11 @@ class GriffinWeights:
     # per-GEMM Mode-selection threshold override (a tuned plan's); None
     # keeps the scope's threshold
     a_thr: Optional[float] = None
+    perm: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.perm is None and self.inv_perm is not None:
+            self.perm = torch.argsort(self.inv_perm, dim=-1).to(torch.int32)
 
     @property
     def density(self) -> float:
@@ -75,7 +84,8 @@ class GriffinWeights:
         """Slice a stacked instance along its leading axis (views)."""
         return dataclasses.replace(
             self, b_comp=self.b_comp[i], kidx=self.kidx[i], cnt=self.cnt[i],
-            inv_perm=None if self.inv_perm is None else self.inv_perm[i])
+            inv_perm=None if self.inv_perm is None else self.inv_perm[i],
+            perm=None if self.perm is None else self.perm[i])
 
 
 def balance_columns(w_padded: torch.Tensor, block_k: int, block_n: int,
@@ -114,10 +124,11 @@ def preprocess_weights(w: torch.Tensor, *, block_k: int = DEFAULT_BLOCK_K,
     nb_k, nb_n = pk // block_k, pn // block_n
     unit = unit or max(8, block_n // 4)
 
-    inv_perm = None
+    perm = inv_perm = None
     if balance and pn > block_n and pn % unit == 0:
         full_perm = balance_columns(wp, block_k, block_n, unit)
         wp = wp[:, full_perm]
+        perm = full_perm.to(torch.int32)
         inv_perm = torch.argsort(full_perm).to(torch.int32)
 
     blocks = wp.reshape(nb_k, block_k, nb_n, block_n)
@@ -139,7 +150,7 @@ def preprocess_weights(w: torch.Tensor, *, block_k: int = DEFAULT_BLOCK_K,
     return GriffinWeights(
         b_comp=b_comp.contiguous(), kidx=kidx_t.T.contiguous().to(torch.int32),
         cnt=cnt, inv_perm=inv_perm, k=pk, n=n, block_k=block_k,
-        block_n=block_n)
+        block_n=block_n, perm=perm)
 
 
 def stack_weights(gws: Sequence[GriffinWeights]) -> GriffinWeights:
@@ -174,7 +185,9 @@ def stack_weights(gws: Sequence[GriffinWeights]) -> GriffinWeights:
         inv_perm=(None if g0.inv_perm is None
                   else torch.stack([g.inv_perm for g in gws])),
         k=g0.k, n=g0.n, block_k=g0.block_k, block_n=g0.block_n,
-        a_thr=g0.a_thr)
+        a_thr=g0.a_thr,
+        perm=(None if g0.perm is None
+              else torch.stack([g.perm for g in gws])))
 
 
 def decompact_weights(gw: GriffinWeights) -> torch.Tensor:
@@ -213,7 +226,11 @@ def _check(a: torch.Tensor, gw: GriffinWeights) -> None:
             gw.cnt.shape != (nt,) or gw.b_comp.shape != (mc * gw.block_k,
                                                         nt * gw.block_n):
         raise ValueError("griffin_matmul metadata does not match b_comp")
-    for t in (gw.b_comp, gw.kidx, gw.cnt):
+    if gw.perm is not None and (gw.perm.dtype != torch.int32 or
+                                gw.perm.shape != (nt * gw.block_n,)):
+        raise ValueError("griffin_matmul perm does not match b_comp")
+    for t in (gw.b_comp, gw.kidx, gw.cnt) + \
+            (() if gw.perm is None else (gw.perm,)):
         if t.device != a.device:
             raise ValueError(f"griffin_matmul operands on {t.device} and "
                              f"{a.device}")
@@ -227,20 +244,17 @@ def griffin_matmul(a: torch.Tensor, gw: GriffinWeights, *,
                    dual: bool = False) -> torch.Tensor:
     """C = A @ W_pruned (M, gw.n) from the compacted representation, in
     ``a.dtype``.  ``dual`` also skips all-zero A blocks (Mode.AB); it never
-    changes the result.  A CUDA ``a`` launches the kernel, then gathers the
-    balance shuffle's columns back and unpads; a CPU ``a`` runs the plain
-    version."""
+    changes the result.  A CUDA ``a`` launches the kernel, which stores
+    the balance shuffle's columns back in place and drops the padding (no
+    gather follows); a CPU ``a`` runs the plain version."""
     _check(a, gw)
     if a.device.type == "cpu":
         return griffin_spmm_ref(a, gw)
     if a.device.type != "cuda":
         raise ValueError(f"griffin_matmul runs on cuda or cpu, not {a.device}")
-    out = kernel.griffin_spmm(a, gw.b_comp, gw.kidx, gw.cnt,
-                              block_k=gw.block_k, block_n=gw.block_n,
-                              dual=dual)
-    if gw.inv_perm is not None:
-        return out.index_select(1, gw.inv_perm[:gw.n])
-    return out[:, :gw.n]
+    return kernel.griffin_spmm(a, gw.b_comp, gw.kidx, gw.cnt, gw.perm,
+                               n=gw.n, block_k=gw.block_k,
+                               block_n=gw.block_n, dual=dual)
 
 
 def auto_matmul(a: torch.Tensor, w: torch.Tensor,

@@ -70,23 +70,73 @@ def test_dense_gemm_kernel_matches_plain(cuda, dtype, shape):
 @pytest.mark.parametrize("balance", [False, True])
 @pytest.mark.parametrize("dual", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", [(4, 2048, 512, 128, 128, 32),
-                                  (19, 200, 96, 16, 32, 8)])
+@pytest.mark.parametrize("case", [(1, 2048, 512, 128, 128, 32),
+                                  (4, 2048, 512, 128, 128, 32),
+                                  (5, 8192, 1024, 128, 128, 32),
+                                  (16, 2048, 2048, 128, 128, 32),
+                                  (17, 8192, 512, 128, 128, 32),
+                                  (32, 2048, 8192, 128, 128, 32),
+                                  (33, 2000, 512, 128, 128, 32),
+                                  (19, 200, 96, 16, 32, 8),
+                                  (7, 70, 48, 16, 16, 8)])
 def test_griffin_spmm_kernel_matches_plain(cuda, dtype, dual, balance, case):
+    """Every M around the kernel's 16-row MMA tiles and 32-row passes, the
+    cluster split of a narrow N (512) and a deep K (8192), A narrower than
+    the padded K (2000 of 2048; 200 of 208; 70, which takes the CUDA-core
+    route), a tile with no live block, and all-zero K blocks for dual."""
     m, k, n, bk, bn, unit = case
     g = torch.Generator(device=cuda).manual_seed(1)
     w = block_prune(torch.randn(k, n, generator=g, device=cuda), 0.8, bk,
                     unit)
+    w[:, :bn] = 0                         # one tile with cnt 0
     gw = preprocess_weights(w.to(DTYPES[dtype]), block_k=bk, block_n=bn,
                             unit=unit, balance=balance)
+    assert int((gw.cnt == 0).sum()) >= 1
     a = torch.randn(m, k, generator=g, device=cuda).to(DTYPES[dtype])
     a[:, :2 * bk] = 0                     # all-zero A blocks for dual
     before = launch_counts()["griffin_spmm"]
     out = griffin_matmul(a, gw, dual=dual)
     torch.cuda.synchronize()
     assert launch_counts()["griffin_spmm"] == before + 1
+    assert out.shape == (m, n) and out.is_contiguous()
     ref = (a.float() @ decompact_weights(gw)[:k].float()).to(a.dtype)
     assert_close(out, ref, dtype)
+    if dual:     # the skipped products are exact zeros: same values
+        assert torch.equal(out, griffin_matmul(a, gw, dual=False))
+
+
+@pytest.mark.gpu
+def test_griffin_spmm_card_path_gathers_nothing(cuda, monkeypatch):
+    """The kernel stores the balance shuffle's columns in place: one launch
+    per call, no index_select, and griffin_matmul returns the kernel's own
+    (M, n) output, with nothing run on it after the launch."""
+    from repro_torch.kernels.griffin_spmm import kernel
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    gw = preprocess_weights(block_prune(
+        torch.randn(2048, 1000, generator=g, device=cuda), 0.8).bfloat16())
+    assert gw.perm is not None and gw.b_comp.shape[1] == 1024
+    a = torch.randn(4, 2048, generator=g, device=cuda).bfloat16()
+    launched = []
+
+    def recording(*args, **kwargs):
+        launched.append(kernel_griffin_spmm(*args, **kwargs))
+        return launched[-1]
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("index_select on the card path")
+
+    kernel_griffin_spmm = kernel.griffin_spmm
+    monkeypatch.setattr(kernel, "griffin_spmm", recording)
+    monkeypatch.setattr(torch.Tensor, "index_select", no_gather)
+    before = launch_counts()["griffin_spmm"]
+    out = griffin_matmul(a, gw)
+    torch.cuda.synchronize()
+    assert launch_counts()["griffin_spmm"] == before + 1
+    assert len(launched) == 1 and out is launched[0]
+    assert out.shape == (4, 1000) and out.is_contiguous()
+    ref = (a.float() @ decompact_weights(gw).float()).bfloat16()
+    assert_close(out, ref, "bfloat16")
 
 
 def _zero_blocks(a, bm, bk, every):
@@ -153,20 +203,30 @@ def test_compact_activations_on_card_equals_cpu(cuda, shape):
 @pytest.mark.gpu
 def test_kernels_are_batch_invariant(cuda):
     """A row's output bits do not depend on the other rows (engine vs
-    oracle token parity rests on it).  For sparse_a the other rows have
-    live blocks row 0 lacks, so the 4-row tile visits blocks the 1-row
-    call skips."""
+    oracle token parity rests on it).  griffin_spmm at the serving shapes
+    with a narrow N (its cluster split) and a deep K, M up to 32, dual and
+    not.  For sparse_a the other rows have live blocks row 0 lacks, so the
+    4-row tile visits blocks the 1-row call skips."""
     g = torch.Generator(device=cuda).manual_seed(2)
     a = torch.randn(32, 2048, generator=g, device=cuda).bfloat16()
     embed = torch.randn(5000, 2048, generator=g, device=cuda).bfloat16()
     w = torch.randn(2048, 2048, generator=g, device=cuda).bfloat16()
-    gw = preprocess_weights(block_prune(
-        torch.randn(2048, 2048, generator=g, device=cuda), 0.8).bfloat16())
-    for fn in (lambda x: dense_matmul(x, embed.T),
-               lambda x: griffin_matmul(x, gw)):
-        full = fn(a)
-        for rows in (slice(0, 1), slice(3, 7), slice(8, 16)):
-            assert torch.equal(fn(a[rows].contiguous()), full[rows])
+    slices = (slice(0, 1), slice(0, 4), slice(3, 7), slice(8, 16),
+              slice(16, 32))
+    full = dense_matmul(a, embed.T)
+    for rows in slices:
+        assert torch.equal(dense_matmul(a[rows].contiguous(), embed.T),
+                           full[rows])
+    for k, n in ((2048, 2048), (2048, 512), (8192, 2048)):
+        gw = preprocess_weights(block_prune(
+            torch.randn(k, n, generator=g, device=cuda), 0.8).bfloat16())
+        x = torch.randn(32, k, generator=g, device=cuda).bfloat16()
+        x[:16, :256] = 0                  # a dead chunk in the first rows
+        for dual in (False, True):
+            full = griffin_matmul(x, gw, dual=dual)
+            for rows in slices:
+                one = griffin_matmul(x[rows].contiguous(), gw, dual=dual)
+                assert torch.equal(one, full[rows]), (k, n, dual, rows)
     a4 = a[:4].clone()
     a4[0, 128:1024] = 0                   # K blocks 1..7 dead in row 0 only
     a4[1:, 1536:] = 0                     # and blocks 12..15 dead elsewhere

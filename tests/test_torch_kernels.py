@@ -7,6 +7,9 @@ fp32 rtol = atol = 1e-5 (summation orders differ), bf16 rtol = atol = 2e-2
 (about two bf16 ulps: both sides round an fp32 sum once).  Preprocessing is
 pure data movement and must be bitwise equal.
 """
+import dataclasses
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro_torch import bridge
 from repro_torch.kernels import (decompact_weights, dense_matmul,
                                  griffin_matmul, launch_counts,
                                  preprocess_weights, stack_weights)
+from repro_torch.kernels.griffin_spmm.kernel import SplitPlan, split_plan
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -227,3 +231,76 @@ def test_cpu_wrappers_launch_no_kernel():
     griffin_matmul(a, preprocess_weights(torch.randn(32, 32), block_k=16,
                                          block_n=16, unit=8))
     assert launch_counts() == before
+
+
+def _argsort_i32(inv_perm):
+    return np.argsort(np.asarray(inv_perm), axis=-1, kind="stable") \
+        .astype(np.int32)
+
+
+@pytest.mark.parametrize("route", ["preprocess", "stack", "getitem",
+                                   "bridge", "round_trip"])
+def test_forward_perm_is_argsort_of_reference_inv_perm(route):
+    """The card's kernel stores b_comp column p at output column perm[p]:
+    perm must be the inverse of the reference's inv_perm, bit for bit, on
+    every way a GriffinWeights is made."""
+    kw = dict(block_k=16, block_n=32, unit=8, balance=True)
+    ws = [_toy(s, n=96, density=d) for s, d in ((3, 0.3), (4, 0.7))]
+    jgws = [jax_preprocess(w, **kw) for w in ws]
+    if route == "preprocess":
+        pairs = [(preprocess_weights(torch.from_numpy(w), **kw), j.inv_perm)
+                 for w, j in zip(ws, jgws)]
+    elif route in ("stack", "getitem"):
+        stacked = stack_weights([preprocess_weights(torch.from_numpy(w), **kw)
+                                 for w in ws])
+        jstacked = jax_stack(jgws)
+        pairs = [(stacked, jstacked.inv_perm)] if route == "stack" else \
+            [(stacked[i], np.asarray(jstacked.inv_perm)[i])
+             for i in range(len(ws))]
+    elif route == "bridge":
+        pairs = [(bridge.to_torch(j), j.inv_perm) for j in jgws]
+    else:
+        pairs = [(bridge.to_torch(bridge.to_numpy(
+            preprocess_weights(torch.from_numpy(w), **kw))), j.inv_perm)
+            for w, j in zip(ws, jgws)]
+    for tgw, inv_perm in pairs:
+        assert tgw.perm is not None and tgw.perm.dtype == torch.int32
+        assert tgw.perm.shape == tgw.inv_perm.shape
+        np.testing.assert_array_equal(tgw.perm.numpy(),
+                                      _argsort_i32(inv_perm))
+
+
+def test_unbalanced_weights_have_no_perm():
+    gw = preprocess_weights(torch.from_numpy(_toy(5)), block_k=16,
+                            block_n=32, unit=8, balance=False)
+    assert gw.inv_perm is None and gw.perm is None
+    assert stack_weights([gw, gw]).perm is None
+
+
+def test_griffin_matmul_rejects_a_mismatched_perm():
+    gw = preprocess_weights(torch.from_numpy(_toy(6, n=96)), block_k=16,
+                            block_n=32, unit=8)
+    bad = dataclasses.replace(gw, perm=gw.perm[:-1])
+    with pytest.raises(ValueError):
+        griffin_matmul(torch.randn(2, 64), bad)
+
+
+def test_split_plan_depends_only_on_the_weight_shape():
+    """The bf16 route's split (cluster size, slice width, chunk rows) is a
+    function of the weight's shape: M is not among its inputs, so no row's
+    summation order can depend on how many rows are in the call."""
+    params = inspect.signature(split_plan).parameters
+    assert list(params) == ["n_tiles", "block_k", "block_n", "max_cnt"]
+    # llama3.2-1b at 0.8 block sparsity: wq/wo, wk/wv, w_gate/w_up, w_down
+    assert split_plan(16, 128, 128, 11) == SplitPlan(8, 64, 64)
+    assert split_plan(4, 128, 128, 10) == SplitPlan(8, 16, 64)
+    assert split_plan(64, 128, 128, 13) == SplitPlan(2, 64, 64)
+    assert split_plan(16, 128, 128, 42) == SplitPlan(8, 64, 64)
+    assert split_plan(3, 16, 30, 5) is None       # no tensor-core route
+    for n_tiles in (1, 2, 4, 16, 64, 256):
+        for bk, bn in ((16, 16), (32, 48), (128, 128), (64, 256)):
+            for max_cnt in (1, 3, 40):
+                s, cols, chunk = split_plan(n_tiles, bk, bn, max_cnt)
+                assert s in (1, 2, 4, 8) and bn % cols == 0
+                assert bk % chunk == 0 and chunk % 16 == 0
+                assert s == 1 or max_cnt * (bk // chunk) >= s
