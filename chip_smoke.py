@@ -15,18 +15,25 @@ Phases, in order; any failure exits non-zero before the result line:
              holding rows 0 and 0:4 of a 32-row A bit-equal alone and in
              the full call (dual off/on); sparse_a at the four dense layer
              shapes (B row-major) and the unembedding (B = embed.T,
-             strided), with all-zero K blocks in A, several M tiles of
-             different live counts (one with none) at block_m 8, and
-             hand-cut metadata that drops a live block.  Tolerances: fp32 |err| <= 1e-5 *
-             max|ref| (summation orders differ); bf16 |err| <= one bf16 ulp
-             of the output plus the same fp32 term.  Times kernel, plain
-             version and one library call (torch.matmul, a yardstick the
-             port never calls), each with a 64 MB L2 flush before every
-             launch, and the bound: the larger of bytes / 3.35 TB/s and
-             operations / the card's peak for the type (989 TFLOP/s bf16,
-             67 TFLOP/s fp32), counting only the blocks a sparse kernel
-             must read for these inputs.  griffin_spmm is timed at M 4
-             and 32, bf16 dual off and on, fp32 dual off.
+             strided), printing its route and cluster split per shape,
+             holding row slices 0:1, 0:4, 3:7, 8:16, 16:32 of a 32-row A
+             bit-equal alone and in the full call, with all-zero K blocks
+             in A, several M tiles of different live counts (one with
+             none) at block_m 8, and hand-cut metadata that drops a live
+             block; its metadata kernel (sparse_a_meta) bit-equal to the
+             plain metadata on every A above and on a ragged 7 x 300 A in
+             8 x 16 blocks.  Tolerances: fp32 |err| <= 1e-5 * max|ref|
+             (summation orders differ); bf16 |err| <= one bf16 ulp of the
+             output plus the same fp32 term.  Times kernel, plain version
+             and one library call (torch.matmul, a yardstick the port
+             never calls), each with a 64 MB L2 flush before every launch,
+             and the bound: the larger of bytes / 3.35 TB/s and operations
+             / the card's peak for the type (989 TFLOP/s bf16, 67 TFLOP/s
+             fp32), counting only the blocks a sparse kernel must read for
+             these inputs.  griffin_spmm is timed at M 4 and 32, bf16 dual
+             off and on, fp32 dual off; sparse_a at M 4 and 32, bf16,
+             every block live and half of them dead, with its metadata
+             kernel beside the plain metadata.
 3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
              through repro_torch.launch.serve: 4 slots, 8 requests with
              prompt lengths 8/16/32 and generation lengths 4/8/16,
@@ -35,10 +42,12 @@ Phases, in order; any failure exits non-zero before the result line:
                           compacted: griffin_spmm 112x and dense_gemm 1x
                           per model call (prefill or decode step);
                mode_a   - dense weights, declared activation sparsity 0.5:
-                          sparse_a 113x per model call;
+                          sparse_a and sparse_a_meta 113x each per model
+                          call;
                mode_ab  - pruned and compacted as sparse_b, declared
                           activation sparsity 0.5: griffin_spmm 112x, all
-                          dual, and sparse_a 1x per model call.
+                          dual, and sparse_a and sparse_a_meta 1x each per
+                          model call.
              Launch counters are zeroed just before and read just after
              each engine run.  Each path checks: every request
              token-identical to the batch-1 greedy oracle; no plain GEMM;
@@ -74,13 +83,13 @@ A_SPARSITY = 0.5                 # the reference's category knob
 PATHS = {
     "sparse_b": dict(sparsity=0.8, a_sparsity=None, mode="B",
                      launches={"dense_gemm": 1, "griffin_spmm": 112,
-                               "sparse_a": 0}, dual=0),
+                               "sparse_a": 0, "sparse_a_meta": 0}, dual=0),
     "mode_a": dict(sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
                    launches={"dense_gemm": 0, "griffin_spmm": 0,
-                             "sparse_a": 113}, dual=0),
+                             "sparse_a": 113, "sparse_a_meta": 113}, dual=0),
     "mode_ab": dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
                     launches={"dense_gemm": 0, "griffin_spmm": 112,
-                              "sparse_a": 1}, dual=112),
+                              "sparse_a": 1, "sparse_a_meta": 1}, dual=112),
 }
 
 
@@ -313,14 +322,34 @@ def zero_k_blocks(a, bm: int, every: int):
 
 
 def kernel_sparse_a(torch, gen, summary):
-    """K3 at every serving shape: the four dense layer shapes with B
-    row-major and the unembedding with B = embed.T."""
+    """K3 at every serving shape (the four dense layer shapes with B
+    row-major, the unembedding with B = embed.T), and its metadata kernel
+    held bitwise against the plain metadata on every A it is given."""
     from repro_torch.kernels import (ActivationMeta, compact_activations,
                                      sparse_a_matmul)
-    from repro_torch.kernels.sparse_a.ref import sparse_a_ref
+    from repro_torch.kernels.sparse_a.kernel import ROUTE_NAMES, route
+    from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
+                                                  sparse_a_ref)
 
     dev = torch.device("cuda")
     rows = []
+
+    def meta_of(a, block_m=128, block_k=128, **info):
+        """compact_activations on the card, bit-equal to the plain
+        metadata on the same A."""
+        meta = compact_activations(a, block_m=block_m, block_k=block_k)
+        kidx, cnt = compact_activations_ref(a, block_m=meta.block_m,
+                                            block_k=meta.block_k)
+        ok = torch.equal(meta.kidx, kidx) and torch.equal(meta.cnt, cnt)
+        row = {"kernel": "sparse_a_meta", "dtype": str(a.dtype)[6:],
+               "m": a.shape[0], "k": a.shape[1], "block_m": meta.block_m,
+               "block_k": meta.block_k, "max_abs_err": 0.0, "ok": ok,
+               **info}
+        if not ok:
+            fail(f"sparse_a_meta differs from the plain metadata: {row}, "
+                 f"cnt {meta.cnt.tolist()} vs {cnt.tolist()}")
+        rows.append(row)
+        return meta
 
     def check(a, w, meta, **info):
         out = sparse_a_matmul(a, w, meta=meta)
@@ -331,6 +360,7 @@ def kernel_sparse_a(torch, gen, summary):
         err, ok = within_tol(torch, out, ref, dtype)
         row = {"kernel": "sparse_a", "dtype": dtype, "m": a.shape[0],
                "k": a.shape[1], "n": w.shape[1], "block_m": meta.block_m,
+               "route": ROUTE_NAMES[route(a, w, meta.block_k)[0]],
                "cnt": meta.cnt.tolist(), "max_abs_err": err, "ok": ok,
                **info}
         if not ok:
@@ -339,9 +369,9 @@ def kernel_sparse_a(torch, gen, summary):
         return row
 
     def timed(a, w, meta, row):
-        """Time the kernel (metadata given), the metadata alone, the plain
-        version and torch.matmul; bound by the bytes and operations of the
-        visited blocks."""
+        """Time the kernel (metadata given), the metadata kernel and its
+        plain version, the plain GEMM and torch.matmul; bound by the bytes
+        and operations of the visited blocks."""
         m, k = a.shape
         n = w.shape[1]
         bm, bk = meta.block_m, meta.block_k
@@ -353,14 +383,19 @@ def kernel_sparse_a(torch, gen, summary):
         live_rows = min(int(listed.any(0).sum()) * bk, k)
         tile_rows = [min(bm, m - i * bm) for i in range(len(cnt))]
         esz = a.element_size()
-        nbytes = (a.numel() + live_rows * n + m * n) * esz + \
-            4 * (meta.kidx.numel() + meta.cnt.numel())
+        meta_bytes = 4 * (meta.kidx.numel() + meta.cnt.numel())
+        nbytes = (a.numel() + live_rows * n + m * n) * esz + meta_bytes
         flops = 2.0 * n * sum(r * min(c * bk, k)
                               for r, c in zip(tile_rows, cnt))
         b_ms, b_by = bound(nbytes, flops, row["dtype"])
+        mb_ms, mb_by = bound(a.numel() * esz + meta_bytes, a.numel(),
+                             row["dtype"])
         row.update(
             ms=timed_ms(torch, lambda: sparse_a_matmul(a, w, meta=meta)),
             meta_ms=timed_ms(torch, lambda: compact_activations(a)),
+            meta_plain_ms=timed_ms(torch, lambda: compact_activations_ref(
+                a, block_m=bm, block_k=bk)),
+            meta_bound_ms=mb_ms, meta_bound_by=mb_by,
             plain_ms=timed_ms(torch, lambda: sparse_a_ref(
                 a, w, meta.kidx, meta.cnt, block_m=bm, block_k=bk)),
             library_ms=timed_ms(torch, lambda: torch.matmul(a, w)),
@@ -375,28 +410,36 @@ def kernel_sparse_a(torch, gen, summary):
             layout = "embed.T"
             if (k, n) != UNEMBED:
                 w, layout = w.contiguous(), "row-major"
+            if dtype == "bfloat16":
+                path, plan = route(torch.empty(4, k, dtype=dt, device=dev),
+                                   w, 128)
+                blocks = -(-n // plan.cols) * plan.splits
+                print(f"[kernels] sparse_a plan {k}x{n} ({layout}): "
+                      f"{ROUTE_NAMES[path]}, cluster split S={plan.splits}, "
+                      f"{plan.cols}-column slices, {plan.chunk}-row chunks, "
+                      f"{blocks} blocks per 32-row pass")
+                sparse_a_batch_invariance(torch, gen, w)
             for m in M_ROWS:
                 a = torch.randn(m, k, generator=gen, device=dev).to(dt)
                 dense_a = a.clone()
                 a[:, 128:384] = 0               # two all-zero K blocks
-                meta = compact_activations(a)
-                row = check(a, w, meta, layout=layout)
-                if m == 4 and dtype == "bfloat16":
+                row = check(a, w, meta_of(a), layout=layout)
+                if m in (4, 32) and dtype == "bfloat16":
                     # the serving path's activations: every block live
-                    meta = compact_activations(dense_a)
+                    meta = meta_of(dense_a)
                     row = check(dense_a, w, meta, layout=layout)
                     timed(dense_a, w, meta, row)
-                    if (k, n) == UNEMBED:
+                    if (k, n) == UNEMBED and m == 4:
                         summary["sparse_a"] = row
                     half = dense_a.clone()
                     half[:, k // 2:] = 0        # half of the blocks dead
-                    meta = compact_activations(half)
+                    meta = meta_of(half)
                     timed(half, w, meta, check(half, w, meta, layout=layout))
             # several M tiles of different live counts, one with none, then
             # hand-cut metadata that drops a live block
             a = zero_k_blocks(torch.randn(32, k, generator=gen,
                                           device=dev).to(dt), 8, 3)
-            meta = compact_activations(a, block_m=8)
+            meta = meta_of(a, block_m=8)
             if len(set(meta.cnt.tolist())) < 3 or int(meta.cnt[0]) != 0:
                 fail(f"sparse_a tiles not varied: cnt {meta.cnt.tolist()}")
             check(a, w, meta, layout=layout)
@@ -409,7 +452,47 @@ def kernel_sparse_a(torch, gen, summary):
             if torch.equal(full, sparse_a_matmul(a, w, meta=cut)):
                 fail("hand-cut metadata did not change sparse_a's output")
             del w
+    # the ragged metadata case: M and K not whole blocks, dead blocks
+    # inside and at the ragged K edge
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.randn(7, 300, generator=gen, device=dev).to(dt)
+        a[:, 16:48] = 0
+        a[:, 288:] = 0
+        a[:4, 96:112] = 0
+        meta_of(a, block_m=8, block_k=16, ragged=True)
+    row = summary["sparse_a"]
+    summary["sparse_a_meta"] = {
+        "dtype": row["dtype"], "m": row["m"], "k": row["k"], "n": None,
+        "ms": row["meta_ms"], "plain_ms": row["meta_plain_ms"],
+        "bound_ms": row["meta_bound_ms"], "bound_by": row["meta_bound_by"],
+        "library_ms": None}
     return rows
+
+
+def sparse_a_batch_invariance(torch, gen, w) -> None:
+    """Row slices 0:1, 0:4, 3:7, 8:16 and 16:32 of one 32-row A give
+    bit-equal rows alone and in the full call, at block_m 8 and 128.  The
+    rows have different live blocks, so a tile visits blocks a row alone
+    skips; row 3 is live only in the last eighth of K, so with a split of
+    8 every rank but the last has nothing live for it alone."""
+    from repro_torch.kernels import sparse_a_matmul
+
+    k = w.shape[0]
+    a = torch.randn(32, k, generator=gen, device=w.device).to(w.dtype)
+    for r in range(32):
+        a[r, (r % 4) * (k // 4):(r % 4 + 1) * (k // 4)] = 0
+    a[3, :k - k // 8] = 0
+    for block_m in (8, 128):
+        full = sparse_a_matmul(a, w, block_m=block_m)
+        for rows in ((0, 1), (0, 4), (3, 7), (8, 16), (16, 32)):
+            part = sparse_a_matmul(a[rows[0]:rows[1]].contiguous(), w,
+                                   block_m=block_m)
+            if not torch.equal(part, full[rows[0]:rows[1]]):
+                fail(f"sparse_a is not batch invariant at K x N {k} x "
+                     f"{w.shape[1]}, block_m {block_m}: rows {rows} differ "
+                     "from the same rows of a 32-row call")
+    print(f"[kernels] sparse_a {k}x{w.shape[1]}: row slices 0:1, 0:4, 3:7, "
+          "8:16, 16:32 of a 32-row A bit-equal alone and in the full call")
 
 
 def dense_twin(torch, params):
@@ -604,7 +687,9 @@ def main() -> None:
                "griffin_spmm": ("src/repro_torch/csrc/griffin_spmm.cu",
                                 "src/repro/kernels/griffin_spmm/kernel.py:63"),
                "sparse_a": ("src/repro_torch/csrc/sparse_a.cu",
-                            "src/repro/kernels/sparse_a/kernel.py:53")}
+                            "src/repro/kernels/sparse_a/kernel.py:53"),
+               "sparse_a_meta": ("src/repro_torch/csrc/sparse_a.cu",
+                                 "src/repro/kernels/sparse_a/ops.py:80")}
     for name, (src, replaces) in sources.items():
         row = summary[name]
         errs = [r["max_abs_err"] for r in rows if r["kernel"] == name]

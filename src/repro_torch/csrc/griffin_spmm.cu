@@ -103,79 +103,10 @@ __device__ __forceinline__ int out_col(const SpmmArgs& p, int col) {
 // bf16 tensor-core route
 // ---------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kMaxSplits = 8;            // the portable cluster size
-constexpr int kPass = 32;          // M rows per pass (grid.y)
-
 // B ring depth: 5 stages for passes of up to 16 rows; 3 for 32-row passes,
 // whose staged A is 2x larger, so three blocks still fit on an SM
 __host__ __device__ constexpr int ring_stages(int mt) {
   return mt == 1 ? 5 : 3;
-}
-
-// Offset (elements) of 16-byte piece v of row r in a shared-memory row of
-// n 16-byte pieces (n = 2, 4 or 8; log2 n = n_log): pieces are XOR-swizzled
-// by row, so the 8 rows an ldmatrix phase reads hit 8 distinct bank groups
-__device__ __forceinline__ int swizzle(int r, int v, int n, int n_log) {
-  return (v ^ ((r >> (3 - n_log)) & (n - 1))) * 8;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 4-byte async copy (metadata)
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-// 16-byte async copy; bytes < 16 zero-fills the rest (0: all zeros)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
-                                                  uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Shared memory of one block, in bytes and in this order: the B ring
@@ -210,8 +141,6 @@ __host__ __device__ inline int chunk_cap(int max_cnt, int bk, int kc,
                                          int splits) {
   return (max_cnt * (bk / kc) + splits - 1) / splits;
 }
-
-constexpr int kMaxSmem = 232448;   // a block's shared memory on sm_90
 
 template <int CW, int MT>
 __global__ void __launch_bounds__(kTcThreads)

@@ -29,12 +29,15 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 KERNELS = ("dense_gemm", "griffin_spmm", "sparse_a")
+# launch counters: one per kernel function a wrapper launches (sparse_a.cu
+# holds two: the GEMM and its activation metadata)
+COUNTERS = KERNELS + ("sparse_a_meta",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 
 def count_launch(name: str) -> None:

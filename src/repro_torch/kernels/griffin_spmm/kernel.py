@@ -29,7 +29,7 @@ class SplitPlan(NamedTuple):
     chunk_rows: int
 
 
-def _least_split(blocks: int, chunks: int) -> int:
+def least_split(blocks: int, chunks: int) -> int:
     """The least power-of-two split up to MAX_SPLITS that gives MIN_BLOCKS
     blocks, no finer than one chunk of the deepest tile per rank."""
     splits = 1
@@ -56,10 +56,10 @@ def split_plan(n_tiles: int, block_k: int, block_n: int,
     for cols in (64, 32):
         if block_n % cols == 0:
             blocks = n_tiles * (block_n // cols)
-            splits = _least_split(blocks, chunks)
+            splits = least_split(blocks, chunks)
             if blocks * splits >= MIN_BLOCKS:
                 return SplitPlan(splits, cols, chunk)
-    return SplitPlan(_least_split(n_tiles * (block_n // 16), chunks), 16,
+    return SplitPlan(least_split(n_tiles * (block_n // 16), chunks), 16,
                      chunk)
 
 

@@ -4,9 +4,10 @@ compaction of the activations and the GEMM wrapper.
 The counterpart of ``repro/kernels/sparse_a/ops.py``.  Nothing about the
 activations is known before they exist, so ``compact_activations`` lists,
 per call, the K blocks each M tile must visit.  It takes the form of the
-reference's traced (under ``jit``) branch: full K depth, built with torch
-ops on the activations' own device, with no value read back to the host —
-the decode path calls it once per GEMM and must never synchronise.
+reference's traced (under ``jit``) branch: full K depth, built on the
+activations' own device (one kernel launch on the card), with no value
+read back to the host — the decode path calls it once per GEMM and must
+never synchronise.
 """
 from __future__ import annotations
 
@@ -14,11 +15,10 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from . import kernel
 from ..dense_gemm.kernel import DTYPE_CODES
-from .ref import sparse_a_ref
+from .ref import compact_activations_ref, sparse_a_ref
 
 DEFAULT_BLOCK_M = 128
 DEFAULT_BLOCK_K = 128
@@ -69,19 +69,22 @@ def _blocks(m: int, k: int, block_m: int, block_k: int):
 
 def compact_activations(a: torch.Tensor, *, block_m: int = DEFAULT_BLOCK_M,
                         block_k: int = DEFAULT_BLOCK_K) -> ActivationMeta:
-    """List the K blocks each M tile must visit: a few torch ops on
-    ``a``'s device, no host sync.  ``kidx`` is the stable argsort of the
-    dead-block mask, so each tile's live blocks come first in ascending
-    order and the dead entries after them are valid ids — the reference's
-    traced metadata, bit for bit."""
+    """List the K blocks each M tile must visit, with no host sync: on the
+    card one launch of the metadata kernel, on the CPU its plain version.
+    ``kidx`` is the stable argsort of the dead-block mask, so each tile's
+    live blocks come first in ascending order and the dead entries after
+    them are valid ids — the reference's traced metadata, bit for bit."""
     m, k = a.shape
     bm, bk, pm, pk = _blocks(m, k, block_m, block_k)
-    nz = a != 0
-    if (pm, pk) != (m, k):
-        nz = F.pad(nz, (0, pk - k, 0, pm - m))
-    nz = nz.reshape(pm // bm, bm, pk // bk, bk).any(dim=(1, 3))
-    cnt = nz.sum(dim=1, dtype=torch.int32)
-    kidx = torch.argsort(~nz, dim=1, stable=True).to(torch.int32)
+    if a.device.type == "cpu":
+        kidx, cnt = compact_activations_ref(a, block_m=bm, block_k=bk)
+    else:
+        if a.dtype not in DTYPE_CODES or min(m, k) < 1 or a.stride(1) != 1:
+            raise ValueError(f"compact_activations on {a.device}: A "
+                             f"{tuple(a.shape)} {a.dtype} must be float32 or "
+                             "bfloat16, non-empty, with unit column stride")
+        kidx, cnt = kernel.sparse_a_meta(a, block_m=bm, block_k=bk,
+                                         m_tiles=pm // bm, k_tiles=pk // bk)
     return ActivationMeta(kidx=kidx, cnt=cnt, m=pm, k=pk, block_m=bm,
                           block_k=bk)
 

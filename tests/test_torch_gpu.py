@@ -20,7 +20,9 @@ from repro_torch.kernels import (ActivationMeta, compact_activations,
                                  decompact_weights, dense_matmul,
                                  griffin_matmul, launch_counts,
                                  preprocess_weights, sparse_a_matmul)
-from repro_torch.kernels.sparse_a.ref import sparse_a_ref
+from repro_torch.kernels.sparse_a import kernel as k3
+from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
+                                              sparse_a_ref)
 from repro_torch.models import build_model
 from repro_torch.runtime.config import EngineConfig
 from repro_torch.runtime.engine import ServeEngine, synthetic_trace
@@ -180,24 +182,40 @@ def test_sparse_a_kernel_matches_plain(cuda, dtype, layout, case):
     cut_cnt[live_tile] -= 1
     cut = ActivationMeta(meta.kidx, cut_cnt, meta.m, meta.k, meta.block_m,
                          meta.block_k)
+    full = out
     out = sparse_a_matmul(a, w, meta=cut)
     ref = sparse_a_ref(a, w, cut.kidx, cut.cnt, block_m=cut.block_m,
                        block_k=cut.block_k)
     torch.cuda.synchronize()
     assert_close(out, ref, dtype)
+    assert not torch.equal(out, full)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(7, 300, 8, 16), (32, 2048, 8, 128),
                                    (4, 8192, 128, 128)])
 def test_compact_activations_on_card_equals_cpu(cuda, shape):
+    """The metadata kernel: one launch, bit-equal to the plain metadata on
+    the card and on the CPU, fp32 and bf16, -0 counted as zero."""
     m, k, bm, bk = shape
     g = torch.Generator(device=cuda).manual_seed(5)
-    a = _zero_blocks(torch.randn(m, k, generator=g, device=cuda), bm, bk, 2)
-    meta = compact_activations(a, block_m=bm, block_k=bk)
-    want = compact_activations(a.cpu(), block_m=bm, block_k=bk)
-    assert torch.equal(meta.kidx.cpu(), want.kidx)
-    assert torch.equal(meta.cnt.cpu(), want.cnt)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = _zero_blocks(torch.randn(m, k, generator=g, device=cuda), bm,
+                         bk, 2).to(dtype)
+        a[:, :bk] = -0.0                  # a block of negative zeros: dead
+        before = launch_counts()
+        meta = compact_activations(a, block_m=bm, block_k=bk)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert after["sparse_a_meta"] == before["sparse_a_meta"] + 1
+        assert after["sparse_a"] == before["sparse_a"]
+        want = compact_activations(a.cpu(), block_m=bm, block_k=bk)
+        assert torch.equal(meta.kidx.cpu(), want.kidx)
+        assert torch.equal(meta.cnt.cpu(), want.cnt)
+        kidx, cnt = compact_activations_ref(a, block_m=meta.block_m,
+                                            block_k=meta.block_k)
+        assert torch.equal(meta.kidx, kidx) and torch.equal(meta.cnt, cnt)
+        assert int(meta.cnt.max()) < meta.k // meta.block_k
 
 
 @pytest.mark.gpu
@@ -236,6 +254,45 @@ def test_kernels_are_batch_invariant(cuda):
         assert torch.equal(one, full[:1])
     assert int(compact_activations(a4[:1], block_m=8).cnt[0]) < \
         int(compact_activations(a4, block_m=8).cnt[0])
+    # sparse_a's tensor-core rows and k-major routes at the full-width
+    # shapes: the rows have different live blocks, and row 3 is live only
+    # in the last eighth of K, so with a split of 8 every rank but the last
+    # has nothing live for it alone
+    embed = torch.randn(128256, 2048, generator=g, device=cuda).bfloat16()
+    for k, n in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                 (2048, 128256)):
+        b = embed.T if n == 128256 else torch.randn(
+            k, n, generator=g, device=cuda).bfloat16()
+        x = torch.randn(32, k, generator=g, device=cuda).bfloat16()
+        for r in range(32):
+            x[r, (r % 4) * (k // 4):(r % 4 + 1) * (k // 4)] = 0
+        x[3, :k - k // 8] = 0
+        path, plan = k3.route(x, b, 128)
+        assert path == (k3.KMAJOR if n == 128256 else k3.ROWS)
+        for block_m in (8, 128):
+            full = sparse_a_matmul(x, b, block_m=block_m)
+            for rows in slices:
+                one = sparse_a_matmul(x[rows].contiguous(), b,
+                                      block_m=block_m)
+                assert torch.equal(one, full[rows]), (k, n, block_m, rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["embed.T", "row-major"])
+def test_sparse_a_fp32_takes_the_cuda_core_route(cuda, layout):
+    """fp32 keeps the CUDA-core kernels (fmaf, no TF32): within 1e-5 of
+    the fp32 product, which a tensor-core route in TF32 or bf16 would not
+    meet; bf16 at the same shape takes a tensor-core route."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a = torch.randn(4, 2048, generator=g, device=cuda)
+    w = torch.randn(512, 2048, generator=g, device=cuda).T
+    if layout == "row-major":
+        w = w.contiguous()
+    assert k3.route(a, w, 128) == (k3.CORE, None)
+    assert k3.route(a.bfloat16(), w.bfloat16(), 128)[0] != k3.CORE
+    out = sparse_a_matmul(a, w)
+    torch.cuda.synchronize()
+    assert_close(out, a @ w, "float32")
 
 
 @pytest.mark.gpu

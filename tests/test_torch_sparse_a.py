@@ -24,7 +24,9 @@ from repro_torch import bridge
 from repro_torch.kernels import (ActivationMeta, auto_matmul,
                                  compact_activations, launch_counts,
                                  sparse_a_matmul)
-from repro_torch.kernels.sparse_a.ref import sparse_a_ref
+from repro_torch.kernels.sparse_a import kernel as k3
+from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
+                                              sparse_a_ref)
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -96,6 +98,35 @@ def test_compact_activations_bitwise_vs_traced_reference(case):
         ja = np.asarray(ja)
         assert ta.dtype == torch.int32 and ja.dtype == np.int32
         np.testing.assert_array_equal(ta.numpy(), ja)
+
+
+@pytest.mark.parametrize("case", META_CASES)
+def test_plain_metadata_bitwise_vs_traced_reference(case):
+    """The plain version of the metadata kernel (what a CPU ``a`` runs and
+    what the card's kernel is held against) is the reference's traced
+    metadata, bit for bit."""
+    m, k, bm, bk, sp = case
+    a = _sparse_a(np.random.RandomState(m + 2 * k), m, k, bm, bk, sp)
+    blocks = {}
+
+    def traced(x):
+        meta = jax_compact(x, block_m=bm, block_k=bk)
+        blocks.update(block_m=meta.block_m, block_k=meta.block_k)
+        return meta.kidx, meta.cnt
+
+    want_kidx, want_cnt = jax.jit(traced)(jnp.asarray(a))
+    kidx, cnt = compact_activations_ref(torch.from_numpy(a), **blocks)
+    assert kidx.dtype == torch.int32 and cnt.dtype == torch.int32
+    np.testing.assert_array_equal(kidx.numpy(), np.asarray(want_kidx))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
+
+
+def test_compact_activations_on_cpu_launches_nothing():
+    before = launch_counts()
+    meta = compact_activations(torch.randn(33, 300), block_m=16,
+                               block_k=32)
+    assert launch_counts() == before
+    assert meta.kidx.shape == (3, 10) and meta.cnt.tolist() == [10] * 3
 
 
 @pytest.mark.parametrize("case", META_CASES)
@@ -226,6 +257,72 @@ def test_cpu_wrapper_launches_no_kernel():
     before = launch_counts()
     sparse_a_matmul(torch.randn(4, 32), torch.randn(32, 16))
     assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the card's routes and split plan (pure functions of shapes and strides)
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [(2048, 2048, 128, False), (2048, 512, 128, False),
+               (2048, 8192, 128, False), (8192, 2048, 128, False),
+               (2048, 128256, 128, True), (2048, 1000, 128, True),
+               (256, 300, 32, True), (70, 17, 16, False),
+               (8192, 96, 64, False)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_split_plan_is_a_function_of_the_shape_and_covers_each_block_once(
+        shape):
+    """K3's split depends on (K, N, bk, layout) alone, and its ranks' K
+    ranges cover every K block exactly once, each rank at least one."""
+    k, n, bk, kmajor = shape
+    plan = k3.split_plan(k, n, bk, kmajor)
+    k3.split_plan.cache_clear()
+    assert k3.split_plan(k, n, bk, kmajor) == plan
+    assert 1 <= plan.splits <= 8 and bk % plan.chunk == 0
+    assert plan.cols in ((16, 32, 64, 128) if kmajor else (16, 32, 64))
+    ranges = plan.ranges(k, bk)
+    assert [kb for r in ranges for kb in r] == list(range(-(-k // bk)))
+    assert all(len(r) >= 1 for r in ranges)
+    # the route never looks at M
+    w = torch.zeros(n, k, dtype=torch.bfloat16)
+    w = w.T if kmajor else w.T.contiguous()
+    routes = {k3.route(torch.zeros(m, k, dtype=torch.bfloat16), w, bk)
+              for m in (1, 4, 17, 32, 33)}
+    assert len(routes) == 1
+
+
+def test_split_plan_at_the_serving_shapes():
+    """About two blocks per SM: 256 blocks per 32-row pass at every
+    llama3.2-1b shape, with 128-column slices and no split at the
+    unembedding."""
+    assert k3.split_plan(2048, 2048, 128) == (8, 64, 64)
+    assert k3.split_plan(2048, 512, 128) == (8, 16, 64)
+    assert k3.split_plan(2048, 8192, 128) == (2, 64, 64)
+    assert k3.split_plan(8192, 2048, 128) == (8, 64, 64)
+    assert k3.split_plan(2048, 128256, 128, True) == (1, 128, 64)
+    assert k3.split_plan(2048, 2048, 8) is None
+
+
+@pytest.mark.parametrize("case", ["rows", "kmajor", "fp32", "block_k",
+                                  "odd_k", "strided"])
+def test_route_by_dtype_layout_and_alignment(case):
+    k, n, bk, dtype = 2048, 512, 128, torch.bfloat16
+    if case == "fp32":
+        dtype = torch.float32
+    elif case == "block_k":
+        bk = 8
+    elif case == "odd_k":
+        k = 2044
+    a = torch.zeros(4, k, dtype=dtype)
+    w = torch.zeros(k, n, dtype=dtype)
+    if case == "kmajor":
+        w = torch.zeros(n, k, dtype=dtype).T
+    elif case == "strided":
+        w = torch.zeros(k, 2 * n, dtype=dtype)[:, ::2]
+    path, plan = k3.route(a, w, bk)
+    want = {"rows": k3.ROWS, "kmajor": k3.KMAJOR}.get(case, k3.CORE)
+    assert path == want and (plan is None) == (want == k3.CORE)
 
 
 # ---------------------------------------------------------------------------
