@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero before the result line:
              serving paths give it, fp32 and bf16, and hold it against its
              plain PyTorch version: dense_gemm at the unembedding;
              griffin_spmm at every compacted layer shape, dual off/on and
-             balance on/off, printing its cluster split per shape and
+             balance on/off, at M 4/8/16/32 and in bf16 also at
+             long_prefill's M 2048 and 4096, printing its cluster split per shape and
              holding rows 0 and 0:4 of a 32-row A bit-equal alone and in
              the full call (dual off/on); sparse_a at the four dense layer
              shapes (B row-major) and the unembedding (B = embed.T,
@@ -31,13 +32,13 @@ Phases, in order; any failure exits non-zero before the result line:
              / the card's peak for the type (989 TFLOP/s bf16, 67 TFLOP/s
              fp32), counting only the blocks a sparse kernel must read for
              these inputs.  griffin_spmm is timed at M 4 and 32, bf16 dual
-             off and on, fp32 dual off; sparse_a at M 4 and 32, bf16,
+             off and on, fp32 dual off, and at M 4096, bf16 dual off; sparse_a at M 4 and 32, bf16,
              every block live and half of them dead, with its metadata
              kernel beside the plain metadata.
 3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
-             through repro_torch.launch.serve: 4 slots, 8 requests with
-             prompt lengths 8/16/32 and generation lengths 4/8/16,
-             decode_chunk 8, in three paths:
+             through repro_torch.launch.serve: 8 requests with prompt
+             lengths 8/16/32 and generation lengths 4/8/16, decode_chunk
+             8, in four paths (4 slots of the fixed arena unless said):
                sparse_b - block-pruned to 0.8 at 128x128 / unit 32 and
                           compacted: griffin_spmm 112x and dense_gemm 1x
                           per model call (prefill or decode step);
@@ -47,7 +48,14 @@ Phases, in order; any failure exits non-zero before the result line:
                mode_ab  - pruned and compacted as sparse_b, declared
                           activation sparsity 0.5: griffin_spmm 112x, all
                           dual, and sparse_a and sparse_a_meta 1x each per
-                          model call.
+                          model call;
+               sparse_b_paged - sparse_b's weights and kernels served
+                          from the paged KV arena: 8 slots, up to 8
+                          admissions a tick, 16-token pages, cache_len 49
+                          rounded up to 64 (4 pages), 13 pages = 12 usable
+                          + DUMP, i.e. 192 KV rows, no more than the 4 x 49
+                          of sparse_b's fixed arena; its peak of active
+                          slots must exceed the 4 those rows hold fixed.
              Launch counters are zeroed just before and read just after
              each engine run.  Each path checks: every request
              token-identical to the batch-1 greedy oracle; no plain GEMM;
@@ -57,7 +65,19 @@ Phases, in order; any failure exits non-zero before the result line:
              model served through plain torch matmuls (the dense weights,
              or the compacted ones decompacted); both routes' gaps to the
              model widened to fp32 are reported beside it.  ``--profile``
-             adds a profiled engine run after each path.
+             adds a profiled engine run and one profiled decode step (a
+             1-step chunk, the arena's cost apart from admission policy)
+             after each path, and a profiled 4096-token prefill after
+             long_prefill.
+4. long_prefill - after sparse_b, its weights prefill one 2048-token and
+             one 4096-token prompt (cache_len = prompt length): seconds
+             and the rise of torch.cuda.max_memory_allocated() over the
+             level before each call, which must stay within 3 GiB
+             (attention walks 512-key chunks in 64-row query tiles, so
+             its transient does not grow with the prompt); griffin_spmm
+             112x and dense_gemm 1x per call; last-token logits finite
+             and within 2% (relative L2) of the plain-matmul route, and
+             every (layer, position) row of the K/V cache within 5%.
 
 The line before the last is the kernel summary JSON, the one before it the
 card's name and power limit; the last line is the result JSON.  The full
@@ -78,19 +98,35 @@ SPMM_SHAPES = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 UNEMBED = (2048, 128256)
 M_ROWS = (4, 8, 16, 32)          # decode slots, prefill buckets 8..32
 A_SPARSITY = 0.5                 # the reference's category knob
+FIXED = dict(num_slots=4)
+SB_LAUNCHES = {"dense_gemm": 1, "griffin_spmm": 112, "sparse_a": 0,
+               "sparse_a_meta": 0}
 # per serve path: kernel -> launches per model call (a prefill or a decode
-# step), and dual griffin_spmm GEMMs per model call
+# step), dual griffin_spmm GEMMs per model call, and the arena's fields
 PATHS = {
     "sparse_b": dict(sparsity=0.8, a_sparsity=None, mode="B",
-                     launches={"dense_gemm": 1, "griffin_spmm": 112,
-                               "sparse_a": 0, "sparse_a_meta": 0}, dual=0),
+                     launches=SB_LAUNCHES, dual=0, arena=FIXED),
     "mode_a": dict(sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
                    launches={"dense_gemm": 0, "griffin_spmm": 0,
-                             "sparse_a": 113, "sparse_a_meta": 113}, dual=0),
+                             "sparse_a": 113, "sparse_a_meta": 113}, dual=0,
+                   arena=FIXED),
     "mode_ab": dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
                     launches={"dense_gemm": 0, "griffin_spmm": 112,
-                              "sparse_a": 1, "sparse_a_meta": 1}, dual=112),
+                              "sparse_a": 1, "sparse_a_meta": 1}, dual=112,
+                    arena=FIXED),
+    "sparse_b_paged": dict(sparsity=0.8, a_sparsity=None, mode="B",
+                           launches=SB_LAUNCHES, dual=0,
+                           arena=dict(num_slots=8, page_size=16,
+                                      num_pages=13,
+                                      max_admissions_per_step=8)),
 }
+TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
+LONG_PROMPTS = (2048, 4096)
+MAX_PREFILL_RISE = 3 << 30
+# per (layer, position) K/V row of a long prefill, kernel route against
+# the plain route: bf16 rounding drift through 16 layers stays well under
+# this, a wrong 32-row pass of griffin_spmm does not
+MAX_ROW_GAP = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -230,7 +266,9 @@ def phase_kernels(torch):
                           f"{plan.splits}, {plan.cols}-column slices, "
                           f"{plan.chunk_rows}-row chunks, {blocks} blocks")
                     spmm_batch_invariance(torch, gen, gw)
-                for m in M_ROWS:
+                # bf16 also at long_prefill's M, one pass per 32 rows
+                long = LONG_PROMPTS if dtype == "bfloat16" else ()
+                for m in M_ROWS + long:
                     a = torch.randn(m, k, generator=gen, device=dev).to(dt)
                     a[:, :256] = 0      # two all-zero K blocks for dual
                     for dual in (False, True):
@@ -247,8 +285,9 @@ def phase_kernels(torch):
                         if not ok:
                             fail("griffin_spmm disagrees with its plain "
                                  f"version: {row}")
-                        if balance and m in (4, 32) and \
-                                (dtype == "bfloat16" or not dual):
+                        if balance and (m in (4, 32) and (
+                                dtype == "bfloat16" or not dual)
+                                or m == LONG_PROMPTS[-1] and not dual):
                             timed_spmm(torch, a, gw, dual, row)
                             if dtype == "bfloat16" and m == 4 and not dual \
                                     and (k, n) == (2048, 8192):
@@ -509,23 +548,22 @@ def dense_twin(torch, params):
 
 
 def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
-                launches: dict, dual: int):
+                launches: dict, dual: int, arena: dict):
     """Serve the trace on one path and check it: ``launches`` maps each
     kernel to its launches per model call, ``dual`` the dual griffin_spmm
-    GEMMs per model call, ``mode`` the engine's Mode."""
+    GEMMs per model call, ``mode`` the engine's Mode, ``arena`` the
+    engine's arena (and admission) fields."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launch
     from repro_torch.models.common import sparse_execution
     from repro_torch.runtime.config import EngineConfig
 
     tag = f"[serve {name}]"
-    config = EngineConfig().with_fields(num_slots=4, decode_chunk=8,
-                                        use_kernels=True,
-                                        a_sparsity=a_sparsity)
+    config = EngineConfig().with_fields(decode_chunk=8, use_kernels=True,
+                                        a_sparsity=a_sparsity, **arena)
     reset_launch_counts()
-    run = launch.serve("llama3.2-1b", requests=8, prompt_lens=(8, 16, 32),
-                       gen_lens=(4, 8, 16), sparsity=sparsity,
-                       device="cuda", config=config)
+    run = launch.serve("llama3.2-1b", sparsity=sparsity, device="cuda",
+                       config=config, **TRACE)
     got = launch_counts()
     eng = run.engine
     st = eng.stats
@@ -536,8 +574,11 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
           f"requests / {st['emitted']} tokens in {run.seconds:.3f}s = "
           f"{run.tokens_per_second:.1f} tok/s; {st['decode_steps']} decode "
           f"steps in {st['chunk_calls']} chunks, {st['prefill_calls']} "
-          f"prefills, {run.syncs_per_token:.4f} host syncs/token; launches "
+          f"prefills, {run.syncs_per_token:.4f} host syncs/token, peak "
+          f"{eng.peak_active} of {eng.num_slots} slots active; launches "
           f"{got}; dispatch {run.dispatch}")
+    if eng._paged is not None:
+        check_paged_arena(eng)
     if eng.mode.value != mode or len(eng.mode_history) != 1:
         fail(f"{name}: mode {eng.mode_history}, expected {mode} throughout")
     if run.dispatch.get("plain", 0) != 0:
@@ -601,8 +642,96 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     return run, got, gaps
 
 
+def check_paged_arena(eng) -> None:
+    """The paged path holds more requests at once in no more KV rows than
+    the fixed arena of sparse_b."""
+    from repro_torch.runtime.config import EngineConfig
+
+    spec = eng._paged
+    fixed_len = EngineConfig.derive_cache_len(TRACE["prompt_lens"],
+                                              TRACE["gen_lens"])
+    fixed_rows = FIXED["num_slots"] * fixed_len
+    rows = spec.usable_pages * spec.page_size
+    print(f"[serve paged] {spec.num_pages} pages of {spec.page_size} "
+          f"({spec.usable_pages} usable + DUMP) = {rows} KV rows against "
+          f"{FIXED['num_slots']} x {fixed_len} = {fixed_rows} fixed; "
+          f"cache_len {eng.cache_len} = {spec.max_pages} pages; peak "
+          f"{eng.peak_active} slots active")
+    if (eng.cache_len, spec.max_pages) != (64, 4) or rows > fixed_rows:
+        fail(f"paged arena: cache_len {eng.cache_len}, {spec.max_pages} "
+             f"pages per slot, {rows} KV rows against {fixed_rows} fixed")
+    if eng.peak_active <= FIXED["num_slots"]:
+        fail(f"paged arena peaked at {eng.peak_active} active slots, not "
+             f"above the fixed arena's {FIXED['num_slots']}")
+
+
+def phase_long_prefill(torch, run):
+    """Prefill 2048 and 4096 tokens at full width on ``run``'s weights:
+    seconds, memory rise over the level before the call, launches, and
+    the last-token logits against the plain-matmul route."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.common import sparse_execution
+
+    eng = run.engine
+    api = eng.api
+    twin = dense_twin(torch, run.params)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for S in LONG_PROMPTS:
+        batch = {"tokens": torch.randint(1, api.cfg.vocab_size, (1, S),
+                                         generator=gen, device="cuda")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with eng._scope():
+            cache, logits = api.prefill(run.params, batch, cache_len=S)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rise = torch.cuda.max_memory_allocated() - base
+        got = launch_counts()
+        with sparse_execution(use_kernels=False):
+            ref_cache, ref = api.prefill(twin, batch, cache_len=S)
+        rel = rel_l2(logits, ref)
+        row_gap = max(rows_rel_l2(cache[t], ref_cache[t]) for t in "kv")
+        del cache, ref_cache
+        print(f"[long_prefill] {S} tokens: {seconds:.3f}s, memory rise "
+              f"{rise / 2**30:.3f} GiB over {base / 2**30:.3f} GiB, "
+              f"launches {got}, logits relative L2 gap to the plain route "
+              f"{rel:.5f}, largest per-row gap of the K/V cache "
+              f"{row_gap:.5f}")
+        if rise > MAX_PREFILL_RISE:
+            fail(f"long_prefill {S}: memory rise {rise} B > "
+                 f"{MAX_PREFILL_RISE} B")
+        if got != SB_LAUNCHES:
+            fail(f"long_prefill {S}: launches {got}, expected {SB_LAUNCHES}")
+        if logits.shape != (1, api.cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"long_prefill {S}: logits shape {tuple(logits.shape)} or "
+                 "not finite")
+        if rel > 2e-2:
+            fail(f"long_prefill {S}: kernel-route logits differ from the "
+                 f"plain route by {rel:.4f}")
+        if row_gap > MAX_ROW_GAP:
+            fail(f"long_prefill {S}: a K/V cache row of the kernel route "
+                 f"differs from the plain route's by {row_gap:.4f}")
+        out[S] = {"seconds": seconds, "memory_rise_bytes": rise,
+                  "memory_before_bytes": base, "launches": got,
+                  "logits_rel_l2": rel, "cache_row_rel_l2": row_gap}
+    return out
+
+
 def rel_l2(x, ref) -> float:
     return float((x.float() - ref.float()).norm() / ref.float().norm())
+
+
+def rows_rel_l2(x, ref) -> float:
+    """The largest relative L2 gap of one (layer, batch row, position) of
+    a (L, B, S, KVH, hd) cache to the same row of ``ref``."""
+    d = (x.float() - ref.float()).flatten(3).norm(dim=-1)
+    return float((d / ref.float().flatten(3).norm(dim=-1).clamp(
+        min=1e-30)).max())
 
 
 def widened(params):
@@ -611,23 +740,16 @@ def widened(params):
                 else v.float()) for k, v in params.items()}
 
 
-def phase_profile(torch, name: str, run):
-    """``--profile``: where the serving time goes.  Serves a fresh 8-request
-    trace on the same weights under torch.profiler (engine.run only) and
-    prints the device's busy share of the wall time, device time by kernel,
-    and kernel launches per model call."""
+def profiled(torch, fn):
+    """Run ``fn`` under torch.profiler: (wall ms, {kernel: (device ms,
+    launches)}, device ops)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.runtime.engine import ServeEngine, synthetic_trace
 
-    eng0 = run.engine
-    eng = ServeEngine(eng0.api, run.params, eng0.config)
-    reqs = synthetic_trace(eng0.api.cfg, num_requests=8, seed=2,
-                           prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.run(reqs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -636,17 +758,62 @@ def phase_profile(torch, name: str, run):
     for e in kernels:
         tot, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.device_time_total / 1e3, n + 1)
+    return wall_ms, by_name, len(kernels)
+
+
+def print_profile(tag: str, wall_ms: float, by_name, what: str) -> None:
     busy_ms = sum(t for t, _ in by_name.values())
-    st = eng.stats
-    calls = st["prefill_calls"] + st["decode_steps"]
-    print(f"[profile {name}] engine run {wall_ms:.1f} ms wall (profiled), "
-          f"{st['emitted']} tokens, {calls} model calls; device busy "
-          f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of wall; "
-          f"{len(kernels)} device ops = {len(kernels) / calls:.2f} per model "
-          "call")
+    print(f"{tag} {what}; {wall_ms:.1f} ms wall (profiled), device busy "
+          f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of wall")
     for kname, (ms, n) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:10]:
-        print(f"[profile {name}] {ms:9.3f} ms {n:7d}x  {kname[:100]}")
+        print(f"{tag} {ms:9.3f} ms {n:7d}x  {kname[:100]}")
+
+
+def phase_profile(torch, name: str, run):
+    """``--profile``: where the serving time goes.  Serves a fresh 8-request
+    trace on the same weights under torch.profiler (engine.run only) and
+    prints the device's busy share of the wall time, device time by kernel,
+    and kernel launches per model call."""
+    from repro_torch.runtime.engine import ServeEngine, synthetic_trace
+
+    eng0 = run.engine
+    eng = ServeEngine(eng0.api, run.params, eng0.config)
+    reqs = synthetic_trace(eng0.api.cfg, num_requests=8, seed=2,
+                           prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
+    wall_ms, by_name, ops = profiled(torch, lambda: eng.run(reqs))
+    st = eng.stats
+    calls = st["prefill_calls"] + st["decode_steps"]
+    print_profile(f"[profile {name}]", wall_ms, by_name,
+                  f"engine run, {st['emitted']} tokens, {calls} model calls, "
+                  f"{ops} device ops = {ops / calls:.2f} per model call")
+    # one decode step alone (a 1-step chunk on the drained arena): the
+    # arena's own cost, apart from the trace's prefill share and policy
+    _, chunk_for = eng._fns()
+
+    def step():
+        with eng._scope():
+            chunk_for(1)(run.params, eng.cache, eng._tokens, eng._remaining)
+
+    step()
+    _, _, step_ops = profiled(torch, step)
+    print(f"[profile {name}] one decode step (a 1-step chunk, "
+          f"{eng.num_slots} slots): {step_ops} device ops")
+
+
+def profile_long_prefill(torch, run, S: int) -> None:
+    """``--profile``: where the time of one S-token prefill goes."""
+    eng = run.engine
+    batch = {"tokens": torch.randint(1, eng.api.cfg.vocab_size, (1, S),
+                                     device="cuda")}
+
+    def go():
+        with eng._scope():
+            eng.api.prefill(run.params, batch, cache_len=S)
+
+    wall_ms, by_name, ops = profiled(torch, go)
+    print_profile("[profile long_prefill]", wall_ms, by_name,
+                  f"one {S}-token prefill, {ops} device ops")
 
 
 def main() -> None:
@@ -667,7 +834,7 @@ def main() -> None:
           f", cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     build_s = phase_build(build)
     rows, summary = phase_kernels(torch)
-    serves = {}
+    serves, long_prefill = {}, None
     for name, path in PATHS.items():
         run, launches, gaps = phase_serve(torch, name, **path)
         if "--profile" in sys.argv[1:]:
@@ -676,8 +843,16 @@ def main() -> None:
         serves[name] = {"stats": st, "seconds": run.seconds,
                         "tokens_per_second": run.tokens_per_second,
                         "syncs_per_token": run.syncs_per_token,
+                        "peak_active": run.engine.peak_active,
                         "launches": launches, "dispatch": run.dispatch,
                         "logits_rel_l2": gaps}
+        if name == "sparse_b":
+            long_prefill = phase_long_prefill(torch, run)
+            if "--profile" in sys.argv[1:]:
+                profile_long_prefill(torch, run, LONG_PROMPTS[-1])
+            serves["long_prefill"] = {"launches": {
+                k: sum(p["launches"][k] for p in long_prefill.values())
+                for k in SB_LAUNCHES}}
         del run
         torch.cuda.empty_cache()
 
@@ -705,7 +880,8 @@ def main() -> None:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     report = {"card": card, "build_s": build_s, "checks": rows,
-              "serve": serves, "kernels": kernels,
+              "serve": serves, "long_prefill": long_prefill,
+              "kernels": kernels,
               "wall_s": time.perf_counter() - t0}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"[done] wall {report['wall_s']:.1f}s")

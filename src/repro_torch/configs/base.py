@@ -25,6 +25,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
+    kv_chunk: int = 512         # prefill attention's KV chunk (online softmax)
 
     @property
     def hd(self) -> int:
@@ -37,7 +38,7 @@ class ModelConfig:
             num_heads=4, num_kv_heads=min(4, max(1, self.num_kv_heads)),
             head_dim=16, d_ff=128 if self.d_ff else 0, vocab_size=128,
             window=min(self.window, 32) if self.window else None,
-            dtype="float32")
+            dtype="float32", kv_chunk=16)
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}

@@ -9,6 +9,9 @@ single-engine path.
 
 runs full-width llama3.2-1b on the CUDA card; ``--reduced --device cpu``
 runs the reduced config on the host (the kernels' plain versions).
+``--page-size 16`` serves from the paged KV arena (``--num-pages`` sizes
+its pool) and ``--length-dist heavy`` draws heavy-tailed generation
+lengths.
 ``--config engine.json`` reads an ``EngineConfig`` (explicit flags beat
 the file); its ``kernels.a_sparsity`` declares the activation sparsity of
 the workload category, which with ``--use-kernels`` selects Sparse.A
@@ -61,7 +64,7 @@ class ServeRun:
 def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
           requests: int = 8, prompt_lens: Sequence[int] = (8, 16, 32),
           gen_lens: Sequence[int] = (4, 8, 16), arrival_every: int = 0,
-          sparsity: float = 0.8, seed: int = 0,
+          length_dist: str = "choice", sparsity: float = 0.8, seed: int = 0,
           device: Optional[str] = "cuda",
           config: Optional[EngineConfig] = None) -> ServeRun:
     """Build the model with seeded random weights on ``device``, prune
@@ -70,12 +73,14 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
     128/128/32 and the reduced config's 16/16/8, as in the reference.
     ``config`` (default ``EngineConfig()``) sets the slots, the chunk, the
     kernels and the declared activation sparsity
-    (``kernels.a_sparsity``); its ``cache_len`` defaults to the trace's
-    bound."""
+    (``kernels.a_sparsity``) and the arena, fixed or paged; its
+    ``cache_len`` defaults to the trace's bound.  ``length_dist="heavy"``
+    draws Pareto generation lengths capped at
+    ``EngineConfig.heavy_gen_cap(gen_lens)``."""
     econf = config or EngineConfig()
     if econf.arena.cache_len is None:
-        econf = econf.with_fields(
-            cache_len=EngineConfig.derive_cache_len(prompt_lens, gen_lens))
+        econf = econf.with_fields(cache_len=EngineConfig.derive_cache_len(
+            prompt_lens, gen_lens, length_dist))
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -85,9 +90,12 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
         prune = (dict(block_k=16, block_n=16, unit=8) if reduced else {})
         params = sparsify_params(params, sparsity,
                                  compact=econf.kernels.use_kernels, **prune)
+    max_gen = (EngineConfig.heavy_gen_cap(gen_lens)
+               if length_dist == "heavy" else None)
     reqs = synthetic_trace(cfg, num_requests=requests, seed=1,
                            prompt_lens=prompt_lens, gen_lens=gen_lens,
-                           arrival_every=arrival_every)
+                           arrival_every=arrival_every,
+                           length_dist=length_dist, max_gen=max_gen)
     engine = ServeEngine(api, params, econf)
     before = kernel_dispatch_counts()
     if api.device.type == "cuda":
@@ -133,10 +141,22 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="serve from the paged KV arena: power-of-two "
+                         "tokens per page; default keeps the fixed "
+                         "num_slots x cache_len arena")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="physical page-pool size (default: the fixed "
+                         "arena's capacity + the DUMP page)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default="8,16,32")
     ap.add_argument("--gen-lens", default="4,8,16")
     ap.add_argument("--arrival-every", type=int, default=0)
+    ap.add_argument("--length-dist", choices=("choice", "heavy"),
+                    default="choice",
+                    help="'heavy' draws Pareto generation lengths (tail "
+                         "stragglers) instead of a uniform choice over "
+                         "--gen-lens")
     ap.add_argument("--sparsity", type=float, default=0.8)
     ap.add_argument("--use-kernels", action="store_true",
                     help="compact pruned weights into GriffinWeights and "
@@ -160,11 +180,16 @@ def main(argv=None) -> None:
     run = serve(args.arch, reduced=args.reduced, requests=args.requests,
                 prompt_lens=_lens(args.prompt_lens),
                 gen_lens=_lens(args.gen_lens),
-                arrival_every=args.arrival_every, sparsity=args.sparsity,
+                arrival_every=args.arrival_every,
+                length_dist=args.length_dist, sparsity=args.sparsity,
                 seed=args.seed, device=args.device, config=econf)
     eng = run.engine
+    spec = eng._paged
+    arena = ("fixed" if spec is None else
+             f"paged, {spec.num_pages} pages of {spec.page_size}")
     print(f"engine: {eng.num_slots} slots x cache_len {eng.cache_len} "
-          f"(fixed) on {eng.device}, weight sparsity {eng.b_sparsity:.2f}, "
+          f"({arena}) on {eng.device}, peak {eng.peak_active} slots active, "
+          f"weight sparsity {eng.b_sparsity:.2f}, "
           f"declared activation sparsity {eng.a_declared} -> mode "
           f"{eng.mode.value}")
     st = eng.stats

@@ -1,6 +1,6 @@
 """Shared model components: the sparse execution scope, ``griffin_linear``
-(the per-GEMM entry point of the substrate), norms, rope, the KV-slot write
-and the bucketed-prefill helpers — the counterpart of
+(the per-GEMM entry point of the substrate), norms, rope, the KV-slot and
+paged KV writes, the paged view and the bucketed-prefill helpers — the counterpart of
 ``repro/models/common.py`` for the dense decoder.
 
 Batch invariance: the serving engine decodes several rows at once while its
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -149,6 +149,47 @@ def write_kv_slot(cache: torch.Tensor, update: torch.Tensor,
     B = cache.shape[0]
     rows = torch.arange(B, device=cache.device)
     cache[rows, slot.long().expand(B)] = update[:, 0].to(cache.dtype)
+
+
+def paged_slot(pages: torch.Tensor, pos: torch.Tensor, page_size: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where each row of a paged pool writes position ``pos``: the
+    (physical page, offset) pair, both (B,) int64.  ``pages``: (B,
+    max_pages) page table; ``pos``: scalar or (B,).  Positions wrap at
+    ``max_pages * page_size``, so dead rows, whose positions keep
+    advancing, stay in range; their table rows point at the DUMP page,
+    which is never read.  Computed once per decode step and shared by
+    every layer's K and V writes."""
+    B, maxp = pages.shape
+    slot = pos.long().expand(B) % (maxp * page_size)
+    pid = pages.gather(1, (slot // page_size)[:, None])[:, 0].long()
+    return pid, slot % page_size
+
+
+def paged_write(pool: torch.Tensor, scale: Optional[torch.Tensor],
+                slot: Tuple[torch.Tensor, torch.Tensor],
+                update: torch.Tensor) -> None:
+    """Write a one-token K/V update into a paged pool, in place (the
+    reference's ``paged_write`` returns an updated copy).  ``pool``:
+    (num_pages, page_size, ...); ``slot``: :func:`paged_slot`'s (page,
+    offset) pair; ``update``: (B, 1, ...).  ``scale`` is the int8 pools'
+    per-token scale, not ported yet."""
+    if scale is not None:
+        raise NotImplementedError("int8 KV pages are not ported yet")
+    pool[slot] = update[:, 0].to(pool.dtype)
+
+
+def paged_view(pool: torch.Tensor, scale: Optional[torch.Tensor],
+               pages: torch.Tensor) -> torch.Tensor:
+    """Gather each row's pages into a (B, max_pages * page_size, ...) view:
+    exactly the fixed arena's (B, cache_len, ...) shape, so
+    ``decode_attention`` sees the same shapes and masks, and paged decode
+    equals the fixed arena bit for bit (masked entries add exact zeros).
+    ``pages`` is an int64 (B, max_pages) table."""
+    if scale is not None:
+        raise NotImplementedError("int8 KV pages are not ported yet")
+    v = pool[pages]                      # (B, max_pages, page_size, ...)
+    return v.reshape(v.shape[0], -1, *v.shape[3:])
 
 
 def length_mask(lengths: torch.Tensor, seq_len: int) -> torch.Tensor:

@@ -26,7 +26,7 @@ class ModelApi:
     init: Callable[[torch.Generator], Params]
     prefill: Callable[..., Any]               # (params, batch) -> (cache, logits)
     decode_step: Callable[..., Any]           # (params, cache, token) -> (logits, cache)
-    init_cache: Callable[[int, int], Params]  # (batch, length) -> cache
+    init_cache: Callable[..., Params]         # (batch, length, device=) -> cache
 
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on the model's device, for ``init``."""

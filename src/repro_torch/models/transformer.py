@@ -8,7 +8,9 @@ embeddings are tied.  Every weight GEMM goes through
 ``common.griffin_linear``, so compacted ``GriffinWeights`` leaves (stacked,
 sliced per layer) run the Sparse.B kernel.  The layer stack is a Python loop.
 
-KV caches: ``{"k", "v": (L, B, S, KVH, hd), "pos": scalar or (B,)}``.
+KV caches: ``{"k", "v": (L, B, S, KVH, hd), "pos": scalar or (B,)}``, or
+a paged arena (``runtime/paging.py``): ``"k"``/``"v"`` pools (L,
+num_pages, page_size, KVH, hd) read through the ``"pages"`` table.
 ``decode_step`` writes the new K/V rows into the cache tensors in place
 (the reference's donated update) and returns the cache with the advanced
 position.
@@ -16,14 +18,15 @@ position.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from .attention import attention, decode_attention
-from .common import (act_fn, griffin_linear, rms_norm, rope, take_last,
-                     write_kv_slot)
+from .common import (act_fn, griffin_linear, paged_slot, paged_view,
+                     paged_write, rms_norm, rope, take_last, write_kv_slot)
 
 Params = Dict[str, Any]
 
@@ -111,7 +114,8 @@ def block_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
     pads sit after every real token, so causal attention keeps them out."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h, positions)
-    o = attention(q, k, v, causal=True, window=cfg.window)
+    o = attention(q, k, v, causal=True, window=cfg.window,
+                  kv_chunk=cfg.kv_chunk)
     B, S = q.shape[:2]
     x = x + griffin_linear(o.reshape(B, S, -1), p["wo"]).to(x.dtype)
     x = (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))).to(x.dtype)
@@ -119,26 +123,34 @@ def block_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 pos: torch.Tensor) -> torch.Tensor:
-    """One-token block against a (B, S_cache, KVH, hd) cache, written in
-    place.  ``pos``: scalar, or (B,) per-row positions (slot pools)."""
-    cache_len = k_cache.shape[1]
+                 pos: torch.Tensor, kv, attend_pos: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
+    """One-token block.  ``pos``: scalar, or (B,) per-row positions (slot
+    pools).  ``kv(k, v)`` writes the token's K and V into this layer's
+    cache in place and returns the (B, S_cache, KVH, hd) K and V to attend
+    at ``attend_pos`` under ``window`` (:func:`decode_step` builds it for
+    the fixed or the paged arena)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h,
                    positions=pos[:, None] if pos.dim() else pos[None])
-    rolling = cfg.window is not None and cache_len <= cfg.window
-    if rolling:
-        slot, eff_pos, win = pos % cache_len, pos.clamp(max=cache_len - 1), \
-            None
-    else:
-        slot, eff_pos, win = pos.clamp(max=cache_len - 1), pos, cfg.window
-    write_kv_slot(k_cache, k, slot)
-    write_kv_slot(v_cache, v, slot)
-    o = decode_attention(q, k_cache, v_cache, eff_pos, window=win)
+    o = decode_attention(q, *kv(k, v), attend_pos, window=window)
     B = x.shape[0]
     x = x + griffin_linear(o.reshape(B, 1, -1), p["wo"]).to(x.dtype)
     return (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))).to(x.dtype)
+
+
+def _fixed_kv(slot: torch.Tensor, k_cache: torch.Tensor,
+              v_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    write_kv_slot(k_cache, k, slot)
+    write_kv_slot(v_cache, v, slot)
+    return k_cache, v_cache
+
+
+def _paged_kv(pages: torch.Tensor, slot, k_pool: torch.Tensor,
+              v_pool: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    paged_write(k_pool, None, slot, k)
+    paged_write(v_pool, None, slot, v)
+    return paged_view(k_pool, None, pages), paged_view(v_pool, None, pages)
 
 
 def init_cache(cfg: ModelConfig, batch: int, length: int,
@@ -193,12 +205,32 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 token: torch.Tensor) -> Tuple[torch.Tensor, Params]:
     """One decode step for the whole batch.  token: (B, 1).  The cache's
-    K/V tensors are updated in place; the returned cache shares them."""
+    K/V tensors are updated in place; the returned cache shares them.  A
+    ``"pages"`` key marks a paged cache."""
     x = params["embed"][token]
     pos = cache["pos"] + 1
+    out = dict(cache, pos=pos)
+    if "pages" in cache:
+        # paging is on only where the arch has no rolling window at this
+        # cache length, so for every live row the fixed arena's window
+        # algebra reduces to: write at pos, attend the gathered view with
+        # no window -- bit-identical to the fixed arena
+        pages = cache["pages"].long()
+        page_size = cache["k"].shape[2]
+        kv = partial(_paged_kv, pages, paged_slot(pages, pos, page_size))
+        attend_pos, window = pos, None
+    else:
+        cache_len = cache["k"].shape[2]
+        if cfg.window is not None and cache_len <= cfg.window:  # rolling
+            kv = partial(_fixed_kv, pos % cache_len)
+            attend_pos, window = pos.clamp(max=cache_len - 1), None
+        else:
+            kv = partial(_fixed_kv, pos.clamp(max=cache_len - 1))
+            attend_pos, window = pos, cfg.window
     for i in range(cfg.num_layers):
-        x = block_decode(cfg, _layer(params, i), x, cache["k"][i],
-                         cache["v"][i], pos)
+        x = block_decode(cfg, _layer(params, i), x, pos,
+                         partial(kv, cache["k"][i], cache["v"][i]),
+                         attend_pos, window)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = griffin_linear(x[:, 0], unembed(cfg, params))
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos}
+    return logits, out

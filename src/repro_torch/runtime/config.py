@@ -1,10 +1,10 @@
 """Engine configuration — the port's own copy of ``repro/runtime/config.py``.
 
 A frozen ``EngineConfig`` of frozen sections with the reference's field
-names.  The port serves the fixed slot arena through the fused decode path
-on one device: the paging, fault, router and mesh fields keep the
-reference's shape and raise ``NotImplementedError`` when set, as does
-``fused=False``.  The reference's kernel fields ``interpret``,
+names.  The port serves the fixed or paged slot arena through the fused
+decode path on one device: ``kv_dtype="int8"`` and the fault, router and
+mesh fields keep the reference's shape and raise ``NotImplementedError``
+when set, as does ``fused=False``.  The reference's kernel fields ``interpret``,
 ``spmd_kernels`` and ``plan`` have no counterpart: a JSON file may carry
 them at their defaults, and any other value raises; ``launch/serve.py``
 defines no flag for an unported field.  ``to_json``/``from_json``
@@ -19,7 +19,12 @@ from typing import Any, Dict, Optional, Sequence
 
 @dataclasses.dataclass(frozen=True)
 class ArenaConfig:
-    """KV arena shape; ``cache_len=None`` means "derive from the trace"
+    """KV arena shape.  ``page_size=None`` keeps the fixed ``num_slots x
+    cache_len`` arena; a power of two activates the paged pool
+    (``runtime/paging.py``) of ``num_pages`` physical pages (default: the
+    fixed arena's capacity + the DUMP page).  ``kv_dtype="fp32"`` keeps
+    pages in the cache's own dtype; int8 pages are not ported yet.
+    ``cache_len=None`` means "derive from the trace"
     (:meth:`EngineConfig.derive_cache_len`)."""
 
     num_slots: int = 4
@@ -71,7 +76,8 @@ _UNPORTED_DEFAULTS = {"kernels": {"interpret": False, "spmd_kernels": True,
 
 # launch/serve.py flag dest -> flat field name
 _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
-          "decode_chunk": "decode_chunk", "use_kernels": "use_kernels"}
+          "decode_chunk": "decode_chunk", "use_kernels": "use_kernels",
+          "page_size": "page_size", "num_pages": "num_pages"}
 
 # flat field name -> (section, field), as in the reference
 _FIELDS = {
@@ -105,10 +111,8 @@ class EngineConfig:
 
     def __post_init__(self):
         unported = []
-        if self.arena.page_size is not None or \
-                self.arena.num_pages is not None or \
-                self.arena.kv_dtype != "fp32":
-            unported.append("the paged/int8 KV arena")
+        if self.arena.kv_dtype == "int8":
+            unported.append("int8 KV pages")
         if not self.sched.fused:
             unported.append("the stepwise (fused=False) path")
         if self.fault != FaultConfig():
@@ -134,12 +138,21 @@ class EngineConfig:
             out = dataclasses.replace(out, **{section: sec})
         return out
 
+    @staticmethod
+    def heavy_gen_cap(gen_lens: Sequence[int]) -> int:
+        """Generation cap of ``length_dist="heavy"`` traces: twice the
+        largest nominal gen length, so the arena bound stays finite."""
+        return 2 * max(gen_lens)
+
     @classmethod
     def derive_cache_len(cls, prompt_lens: Sequence[int],
-                         gen_lens: Sequence[int]) -> int:
-        """The trace-driven arena bound: longest prompt + longest generation
-        + 1 feedback token."""
-        return max(prompt_lens) + max(gen_lens) + 1
+                         gen_lens: Sequence[int],
+                         length_dist: str = "choice") -> int:
+        """The trace-driven arena bound: longest prompt + the generation
+        cap + 1 feedback token."""
+        gen_cap = (cls.heavy_gen_cap(gen_lens) if length_dist == "heavy"
+                   else max(gen_lens))
+        return max(prompt_lens) + gen_cap + 1
 
     @classmethod
     def from_args(cls, args: Any, defaults: Optional[Dict[str, Any]] = None

@@ -1,11 +1,14 @@
-"""Continuous-batching serving engine: fixed slot-pool KV arena, FCFS
-scheduler and the fused decode path — the counterpart of
-``repro/runtime/engine.py`` (single device, fixed arena, fused ticks).
+"""Continuous-batching serving engine: the fixed or paged slot-pool KV
+arena, FCFS scheduler and the fused decode path — the counterpart of
+``repro/runtime/engine.py`` (single device, fused ticks).
 
 A ``num_slots x cache_len`` cache arena is shared by all in-flight
-requests.  Each tick admits waiting requests into free slots (prefilling
-each alone at a power-of-two bucketed prompt length and writing its cache
-into the slot in place), then advances every running slot by a fused chunk
+requests; with ``ArenaConfig.page_size`` set it is a pool of pages
+(``runtime/paging.py``) from which each admission reserves only what its
+prompt + generation needs.  Each tick admits waiting requests into free
+slots (prefilling each alone at a power-of-two bucketed prompt length and
+writing its cache into the slot, or onto its pages, in place), then
+advances every running slot by a fused chunk
 of decode steps (``runtime.serve.make_decode_chunk_fn``) that keeps argmax,
 token feedback and per-slot bookkeeping on the device.  One host transfer
 per tick brings back the (chunk, B) token ring, the admissions' first tokens
@@ -36,6 +39,7 @@ from ..models.common import sparse_execution
 from ..models.registry import ModelApi
 from ..sparsity.pruning import GEMM_WEIGHTS, sparsity_of
 from .config import EngineConfig
+from .paging import PageAllocator, build_spec, paged_tree
 from .serve import make_chunk_ladder, pad_prompt_batch
 
 # Category knob handed to the sparse_execution scope when the measured
@@ -45,6 +49,10 @@ DEFAULT_DECLARED_A = 0.5
 
 # Smallest prefill bucket: the bucket set is {8, 16, ..., cache_len}.
 MIN_BUCKET = 8
+
+# Pareto shape of ``synthetic_trace(length_dist="heavy")``'s generation
+# lengths: the reference's default
+HEAVY_ALPHA = 1.6
 
 
 # ---------------------------------------------------------------------------
@@ -136,9 +144,16 @@ class Scheduler:
     def waiting_count(self) -> int:
         return len(self._by_arrival) + len(self._ready)
 
-    def admissions(self, step: int) -> List[Tuple[int, Request]]:
+    def admissions(self, step: int,
+                   gate: Optional[Callable[[Request], bool]] = None
+                   ) -> List[Tuple[int, Request]]:
         """Pop the (slot, request) pairs to admit at ``step``: FCFS over the
-        arrived requests, bounded by free slots and the admission budget."""
+        arrived requests, bounded by free slots and the admission budget.
+        ``gate`` (the paged arena's page reservation) may veto the head
+        request: it goes back to the front of the ready queue and admission
+        stops, so FCFS order holds while the pool drains.  The gate is only
+        asked when a slot and budget are available, so a True verdict (and
+        the reservation it made) always commits."""
         while self._by_arrival and self._by_arrival[0][0] <= step:
             _, seq, req = heapq.heappop(self._by_arrival)
             heapq.heappush(self._ready, (seq, req))
@@ -148,7 +163,10 @@ class Scheduler:
                   else self.max_admissions)
         out: List[Tuple[int, Request]] = []
         while self._free and self._ready and len(out) < budget:
-            _, req = heapq.heappop(self._ready)
+            seq, req = heapq.heappop(self._ready)
+            if gate is not None and not gate(req):
+                heapq.heappush(self._ready, (seq, req))
+                break
             slot = self._free.pop()
             self.running[slot] = req
             self.remaining[slot] = req.max_new_tokens
@@ -246,6 +264,15 @@ class ServeEngine:
     ``idle_steps``, ``retraces`` (function sets built, one per selected
     Mode), ``chunk_calls`` and ``host_syncs`` exactly as the reference
     engine does, so a trace gives the same counters on both.
+    ``peak_active`` is the most slots held at once (after a tick's
+    admissions).
+
+    With ``ArenaConfig.page_size`` the arena is paged: ``cache_len`` rounds
+    up to a page multiple, an admission reserves the pages its prompt +
+    generation needs (head-of-line blocking when the pool is short), and a
+    finished slot's pages return to the pool at the next tick's start.
+    Page-table rows reach the card from pinned host rows without a stream
+    sync, and are reset to DUMP by fills.
     """
 
     def __init__(self, api: ModelApi, params: Any,
@@ -259,7 +286,10 @@ class ServeEngine:
         self.params = params
         self.device = api.device
         self.num_slots = config.arena.num_slots
-        self.cache_len = config.arena.cache_len
+        arena = config.arena
+        self._paged, self.cache_len = build_spec(
+            api, arena.num_slots, arena.cache_len, arena.page_size,
+            arena.num_pages, arena.kv_dtype)
         self.decode_chunk = max(1, config.sched.decode_chunk)
         self.bucket_prompts = config.sched.bucket_prompts
         self.use_kernels = config.kernels.use_kernels
@@ -281,15 +311,74 @@ class ServeEngine:
                       "idle_steps": 0, "retraces": 0, "chunk_calls": 0,
                       "host_syncs": 0}
         self.prefill_buckets: set = set()
+        self.peak_active = 0
         window = api.cfg.window
         self._bucket_cap = min(self.cache_len, window or self.cache_len)
         self._axes = _batch_axes(api)
-        self.cache = _promote_arena(
-            api.init_cache(self.num_slots, self.cache_len), self.num_slots)
+        self.cache = self._arena()
+        # paged-arena host state: the page allocator, each slot's pages,
+        # reservations made by this tick's admission gate, finished slots
+        # whose pages return at the next tick's start, and the pinned host
+        # rows their page-table rows are copied from.  A slot's row is
+        # rewritten only when the slot is admitted again, after the host
+        # has read that slot's tokens (a sync that the earlier copy
+        # precedes), so no copy in flight ever reads a row being written.
+        self._page_alloc = (PageAllocator(self._paged.num_pages)
+                            if self._paged is not None else None)
+        self._slot_pages: Dict[int, List[int]] = {}
+        self._reserved_pages: Dict[int, List[int]] = {}
+        self._dirty_slots: set = set()
+        self._page_rows = (torch.zeros(
+            (self.num_slots, self._paged.max_pages), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+            if self._paged is not None else None)
         self._tokens = torch.zeros((self.num_slots, 1), dtype=torch.int64,
                                    device=self.device)
         self._remaining = torch.zeros((self.num_slots,), dtype=torch.int32,
                                       device=self.device)
+
+    def _arena(self) -> Dict[str, torch.Tensor]:
+        """The zeroed device arena: ``init_cache``'s tree with counters
+        promoted per slot, rewritten into pools and a page table when the
+        arena is paged (built on the meta device, then allocated once)."""
+        if self._paged is None:
+            return _promote_arena(
+                self.api.init_cache(self.num_slots, self.cache_len),
+                self.num_slots)
+        base = _promote_arena(self.api.init_cache(
+            self.num_slots, self.cache_len, device=torch.device("meta")),
+            self.num_slots)
+        return {k: torch.zeros(v.shape, dtype=v.dtype, device=self.device)
+                for k, v in paged_tree(base, self.num_slots,
+                                       self._paged).items()}
+
+    # -- paged-arena bookkeeping --------------------------------------------
+
+    def _page_gate(self, req: Request) -> bool:
+        """Admission gate: reserve the physical pages covering prompt +
+        generation before the scheduler commits the slot; on exhaustion
+        the request stays at the head of the queue."""
+        need = self._paged.pages_needed(req.prompt_len + req.max_new_tokens)
+        ids = self._page_alloc.reserve(need)
+        if ids is None:
+            return False
+        self._reserved_pages[req.rid] = ids
+        return True
+
+    def _admission_gate(self) -> Optional[Callable[[Request], bool]]:
+        return self._page_gate if self._paged is not None else None
+
+    def _flush_dirty(self) -> None:
+        """Tick-start reclamation: finished slots' page-table rows point
+        at DUMP again (so their garbage decode writes stop landing on
+        reclaimable pages) and their pages return to the allocator, ready
+        for this tick's admissions.  No page is copied."""
+        if self._paged is None or not self._dirty_slots:
+            return
+        for slot in sorted(self._dirty_slots):
+            self.cache["pages"][slot].zero_()
+            self._page_alloc.free(self._slot_pages.pop(slot, ()))
+        self._dirty_slots.clear()
 
     # -- mode plumbing ------------------------------------------------------
 
@@ -388,12 +477,31 @@ class ServeEngine:
         return cache1, logits
 
     def _insert(self, slot: int, sub: Dict[str, torch.Tensor],
-                logits: torch.Tensor, rem: int) -> torch.Tensor:
+                logits: torch.Tensor, rem: int,
+                page_ids: Sequence[int] = ()) -> torch.Tensor:
         """Admission, in place on the device: write the prefilled
         single-request cache into ``slot`` of the arena, seed the slot's
         feedback token from the prefill logits and its owed-token counter.
+        On a paged arena the pageable leaves, cut into (stack, max_pages,
+        page_size, ...) pages, are scattered onto ``page_ids`` (logical
+        pages past them go to DUMP, so bucket padding is discarded) and the
+        slot's page-table row is installed; no resident page is copied.
         Returns the (1,) first token, fetched with the next sync."""
+        spec = self._paged
+        if spec is not None:
+            row = self._page_rows[slot]
+            row.copy_(torch.from_numpy(spec.page_row(page_ids)))
+            dev_row = self.cache["pages"][slot]
+            dev_row.copy_(row, non_blocking=True)
+            idx = dev_row.long()
+            for key in spec.paged_keys:
+                x = sub[key][:, 0]               # (stack, cache_len, ...)
+                self.cache[key][:, idx] = x.reshape(
+                    x.shape[0], spec.max_pages, spec.page_size,
+                    *x.shape[2:]).to(self.cache[key].dtype)
         for key, ax in self._axes.items():
+            if spec is not None and key in spec.paged_keys:
+                continue
             if ax < 0:
                 self.cache[key][slot] = sub[key].reshape(())
             else:
@@ -401,7 +509,7 @@ class ServeEngine:
                     sub[key].select(ax, 0))
         tok = torch.argmax(logits, dim=-1)                      # (1,)
         self._tokens[slot] = tok
-        self._remaining[slot] = rem
+        self._remaining[slot].fill_(rem)          # no host-to-device copy
         return tok
 
     def _emit(self, slot: int, token: int) -> None:
@@ -413,6 +521,11 @@ class ServeEngine:
         self.stats["emitted"] += 1
         if self.sched.emit(slot):
             out.finished = self.clock
+            if self._paged is not None:
+                # the pages stay owned while the slot may still take
+                # garbage decode writes (until this chunk ends); the next
+                # tick's _flush_dirty frees them before any admission
+                self._dirty_slots.add(slot)
 
     def step(self) -> List[Tuple[int, int, int]]:
         """One engine tick: admissions, then one fused chunk advancing every
@@ -420,12 +533,20 @@ class ServeEngine:
         tick's (step, rid, token) events."""
         ev_start = len(self.events)
         pending: List[Tuple[int, int, torch.Tensor]] = []
-        for slot, req in self.sched.admissions(self.clock):
+        self._flush_dirty()
+        for slot, req in self.sched.admissions(self.clock,
+                                               gate=self._admission_gate()):
             cache1, logits = self._prefill(req)
-            tok = self._insert(slot, cache1, logits, req.max_new_tokens - 1)
+            ids = ()
+            if self._paged is not None:
+                ids = self._slot_pages[slot] = \
+                    self._reserved_pages.pop(req.rid)
+            tok = self._insert(slot, cache1, logits, req.max_new_tokens - 1,
+                               ids)
             self.outputs[req.rid] = RequestOutput(req.rid,
                                                   admitted=self.clock)
             pending.append((slot, req.rid, tok))
+        self.peak_active = max(self.peak_active, len(self.sched.running))
         admitted = frozenset(s for s, _, _ in pending)
         if self.sched.active and all(
                 self.sched.remaining[s] - (s in admitted) <= 0
@@ -497,15 +618,28 @@ class ServeEngine:
 def synthetic_trace(cfg, *, num_requests: int, seed: int = 0,
                     prompt_lens: Sequence[int] = (8, 16, 24),
                     gen_lens: Sequence[int] = (4, 8, 16),
-                    arrival_every: int = 0) -> List[Request]:
+                    arrival_every: int = 0, length_dist: str = "choice",
+                    max_gen: Optional[int] = None) -> List[Request]:
     """Deterministic mixed prompt/gen-length request trace with fixed
-    arrival staggering: the same ``np.random.default_rng`` draws as the
-    reference's ``synthetic_trace`` defaults, so the traces are equal."""
+    arrival staggering: the same ``np.random.default_rng`` draws, in the
+    same order, as the reference's ``synthetic_trace`` with fixed arrivals,
+    so the traces are equal.  ``length_dist="heavy"`` replaces the uniform
+    gen-length choice with a Pareto draw (shape ``HEAVY_ALPHA``) floored at
+    ``min(gen_lens)`` and capped at ``max_gen`` (default ``8 *
+    max(gen_lens)``): most requests stay short, stragglers make the tail."""
+    if length_dist not in ("choice", "heavy"):
+        raise ValueError(f"unknown length distribution {length_dist!r}")
     rng = np.random.default_rng(seed)
     reqs: List[Request] = []
     for i in range(num_requests):
         plen = int(rng.choice(np.asarray(prompt_lens)))
-        glen = int(rng.choice(np.asarray(gen_lens)))
+        if length_dist == "heavy":
+            gmin = int(min(gen_lens))
+            cap = int(max_gen) if max_gen else 8 * int(max(gen_lens))
+            glen = min(cap, max(1, int(gmin * (1.0
+                                               + rng.pareto(HEAVY_ALPHA)))))
+        else:
+            glen = int(rng.choice(np.asarray(gen_lens)))
         toks = rng.integers(1, cfg.vocab_size, (plen,), dtype=np.int32)
         reqs.append(Request(rid=i, tokens=toks, max_new_tokens=glen,
                             arrival=i * arrival_every))

@@ -35,18 +35,20 @@ TRACE = dict(num_requests=7, seed=11, prompt_lens=(6, 10, 17),
              gen_lens=(2, 4, 7), arrival_every=1)
 
 
-@pytest.fixture(scope="module", params=[(3, 4), (2, 8)],
-                ids=["slots3-chunk4", "slots2-chunk8"])
+@pytest.fixture(scope="module", params=[(3, 4, None), (2, 8, None),
+                                        (3, 4, 4)],
+                ids=["slots3-chunk4", "slots2-chunk8", "slots3-chunk4-paged"])
 def served(request):
-    """Both engines on the same weights and trace."""
-    slots, chunk = request.param
+    """Both engines on the same weights and trace; the third pair serves
+    from paged arenas of 4-token pages."""
+    slots, chunk, page_size = request.param
     cfg = jax_get_config("llama3.2-1b").reduced()
     japi = jax_build_model(cfg)
     jparams = jax_sparsify(japi.init(jax.random.PRNGKey(0)), 0.6,
                            block_k=16, block_n=16, unit=8)
     jconf = JaxEngineConfig().with_fields(
         num_slots=slots, cache_len=32, decode_chunk=chunk, use_kernels=True,
-        interpret=True)
+        interpret=True, page_size=page_size)
     jeng = JaxServeEngine(japi, jparams, config=jconf)
     jouts = jeng.run(jax_synthetic_trace(cfg, **TRACE))
 
@@ -54,7 +56,8 @@ def served(request):
     tapi = build_model(tcfg, device="cpu")
     tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
     tconf = EngineConfig().with_fields(num_slots=slots, cache_len=32,
-                                       decode_chunk=chunk, use_kernels=True)
+                                       decode_chunk=chunk, use_kernels=True,
+                                       page_size=page_size)
     reqs = synthetic_trace(tcfg, **TRACE)
     teng = ServeEngine(tapi, tparams, tconf)
     reset_kernel_dispatch()
@@ -176,6 +179,37 @@ def test_launch_serve_cli_on_cpu(capsys):
     assert "parity OK: all 5 requests" in out and "mode B" in out
 
 
+def test_launch_serve_cli_paged_on_cpu(capsys):
+    launch_serve.main(["--reduced", "--device", "cpu", "--page-size", "4",
+                       "--num-pages", "40", "--slots", "6",
+                       "--length-dist", "heavy", "--parity"])
+    out = capsys.readouterr().out
+    # heavy lengths: 32 + 2 * 16 + 1 = 65, rounded up to a page multiple
+    assert "cache_len 68 (paged, 40 pages of 4)" in out
+    assert "parity OK: all 8 requests" in out
+    # int8 pages are not ported: the CLI has no --kv-dtype flag
+    with pytest.raises(SystemExit):
+        launch_serve.main(["--reduced", "--device", "cpu", "--page-size",
+                           "4", "--kv-dtype", "int8"])
+
+
+@pytest.mark.parametrize("dist", ["choice", "heavy"])
+def test_heavy_trace_and_cache_bound_equal_reference(dist):
+    kw = dict(num_requests=12, seed=3, prompt_lens=(5, 9), gen_lens=(3, 6),
+              length_dist=dist, max_gen=12 if dist == "heavy" else None)
+    cfg = jax_get_config("llama3.2-1b").reduced()
+    want = jax_synthetic_trace(cfg, **kw)
+    got = synthetic_trace(get_config("llama3.2-1b").reduced(), **kw)
+    assert [(r.max_new_tokens, list(r.tokens)) for r in want] == \
+        [(r.max_new_tokens, list(r.tokens)) for r in got]
+    assert EngineConfig.derive_cache_len((5, 9), (3, 6), dist) == \
+        JaxEngineConfig.derive_cache_len((5, 9), (3, 6), dist)
+    assert EngineConfig.heavy_gen_cap((3, 6)) == \
+        JaxEngineConfig.heavy_gen_cap((3, 6))
+    with pytest.raises(ValueError):
+        synthetic_trace(cfg, num_requests=1, length_dist="zipf")
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default is valid here")
@@ -190,7 +224,8 @@ def test_entry_points_default_to_cuda():
 # host-side machinery
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("field", [dict(page_size=8), dict(kv_dtype="int8"),
+@pytest.mark.parametrize("field", [dict(page_size=16, kv_dtype="int8"),
+                                   dict(kv_dtype="int8"),
                                    dict(fused=False), dict(mesh="1x1"),
                                    dict(snapshot_dir="x")])
 def test_unported_config_fields_raise(field):
@@ -213,7 +248,7 @@ def test_engine_config_json_round_trip_and_reference_file():
 
 @pytest.mark.parametrize("raw", [
     '{"kernels": {"interpret": true}}', '{"kernels": {"plan": "p.json"}}',
-    '{"arena": {"page_size": 8}}', '{"router": {"replicas": 2}}'])
+    '{"arena": {"kv_dtype": "int8"}}', '{"router": {"replicas": 2}}'])
 def test_engine_config_json_unported_fields_raise(raw):
     with pytest.raises(NotImplementedError):
         EngineConfig.from_json(raw)
@@ -230,13 +265,16 @@ def test_engine_config_from_args_flag_beats_file(tmp_path):
     path = tmp_path / "engine.json"
     path.write_text(EngineConfig().with_fields(
         decode_chunk=2, num_slots=5, a_sparsity=0.5).to_json())
-    defaults = dict(config=None, slots=4, decode_chunk=8, use_kernels=False)
+    defaults = dict(config=None, slots=4, decode_chunk=8, use_kernels=False,
+                    page_size=None, num_pages=None, kv_dtype="fp32")
     args = argparse.Namespace(config=str(path), slots=4, decode_chunk=4,
-                              use_kernels=False)
+                              use_kernels=False, page_size=8, num_pages=None,
+                              kv_dtype="fp32")
     conf = EngineConfig.from_args(args, defaults)
-    # --decode-chunk 4 was given; --slots left at its default keeps 5
+    # --decode-chunk 4 and --page-size 8 were given; --slots left at its
+    # default keeps 5
     assert (conf.sched.decode_chunk, conf.arena.num_slots,
-            conf.kernels.a_sparsity) == (4, 5, 0.5)
+            conf.kernels.a_sparsity, conf.arena.page_size) == (4, 5, 0.5, 8)
     # the CLI defines no flag for an unported field
     with pytest.raises(SystemExit):
         launch_serve.main(["--reduced", "--device", "cpu", "--replicas", "2"])

@@ -24,6 +24,7 @@ from repro_torch.kernels.sparse_a import kernel as k3
 from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
                                               sparse_a_ref)
 from repro_torch.models import build_model
+from repro_torch.models.common import sparse_execution
 from repro_torch.runtime.config import EngineConfig
 from repro_torch.runtime.engine import ServeEngine, synthetic_trace
 from repro_torch.runtime.serve import greedy_generate
@@ -422,3 +423,84 @@ def test_engine_matches_oracle_bf16_on_card(cuda):
                                   steps=r.max_new_tokens, cache_len=40,
                                   prompt_bucket=eng.bucket_for(r.prompt_len))
         assert outs[r.rid].tokens == ref[0].tolist(), r.rid
+
+
+@pytest.mark.gpu
+def test_long_prefill_at_full_width_stays_under_3_gib(cuda):
+    """A 4096-token prompt through full-width llama3.2-1b (compacted 0.8,
+    kernels on): prefill attention walks 512-key chunks in 64-row query
+    tiles, so the memory rise over the level before the call stays within
+    3 GiB (the S x S product of one layer alone would need ~137 GB)."""
+    api = build_model(get_config("llama3.2-1b"), device=cuda)
+    params = sparsify_params(api.init(api.generator(0)), 0.8, compact=True)
+    toks = torch.randint(1, api.cfg.vocab_size, (1, 4096), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = launch_counts()
+    with sparse_execution(use_kernels=True):
+        cache, logits = api.prefill(params, {"tokens": toks}, cache_len=4096)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= 3 << 30
+    after = launch_counts()
+    assert after["griffin_spmm"] - before["griffin_spmm"] == 112
+    assert after["dense_gemm"] - before["dense_gemm"] == 1
+    assert logits.shape == (1, 128256) and bool(torch.isfinite(logits).all())
+    assert cache["k"].shape == (16, 1, 4096, 8, 64)
+
+
+def _paged_pair(cuda, **kw):
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = sparsify_params(api.init(api.generator(0)), 0.6, block_k=16,
+                             block_n=16, unit=8)
+    conf = EngineConfig().with_fields(num_slots=2, cache_len=32,
+                                      use_kernels=True, **kw)
+    return api, params, conf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decode_chunk", [1, 3])
+def test_paged_tokens_bit_equal_fixed_on_card(cuda, decode_chunk):
+    """At the same page-multiple cache_len the gathered paged view has the
+    fixed arena's shape, so tokens are equal; 8 requests on 2 slots reuse
+    slots and pages."""
+    api, params, conf = _paged_pair(cuda, decode_chunk=decode_chunk)
+    reqs = lambda: synthetic_trace(api.cfg, num_requests=8, seed=11,  # noqa
+                                   prompt_lens=(6, 10, 17),
+                                   gen_lens=(2, 4, 7), arrival_every=1)
+    fixed = ServeEngine(api, params, conf).run(reqs())
+    eng = ServeEngine(api, params, conf.with_fields(page_size=4))
+    assert eng._paged is not None and eng.cache_len == 32
+    paged = eng.run(reqs())
+    for r in reqs():
+        assert paged[r.rid].tokens == fixed[r.rid].tokens, r.rid
+
+
+@pytest.mark.gpu
+def test_paged_admission_prefill_and_chunk_never_sync(cuda):
+    """A paged admission (page-table row from pinned host memory, pages
+    scattered on the card), a prefill and a fused chunk on the paged cache
+    run under CUDA's sync debug mode, which raises on any synchronising
+    call."""
+    api, params, conf = _paged_pair(cuda, decode_chunk=4, page_size=4)
+    eng = ServeEngine(api, params, conf)
+    req = synthetic_trace(api.cfg, num_requests=1, seed=3,
+                          prompt_lens=(11,), gen_lens=(4,))[0]
+    batch = req.as_batch(cuda, eng.bucket_for(req.prompt_len))
+    ids = eng._page_alloc.reserve(4)
+    prefill_fn, chunk_for = eng._fns()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with eng._scope():
+            cache1, logits = prefill_fn(params, batch)
+            eng._insert(1, cache1, logits, 3, ids)
+            chunk_for(4)(params, eng.cache, eng._tokens, eng._remaining)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert eng.cache["pages"][1].tolist() == ids + [0] * 4
+    assert eng._remaining.tolist() == [0, 0]

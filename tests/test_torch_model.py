@@ -54,12 +54,13 @@ def test_reduced_config_matches_reference():
     tcfg = get_config("llama3.2-1b").reduced()
     for f in ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
               "vocab_size", "hd", "tie_embeddings", "act", "norm_eps",
-              "rope_theta", "dtype", "window", "qk_norm"):
+              "rope_theta", "dtype", "window", "qk_norm", "kv_chunk"):
         assert getattr(jcfg, f) == getattr(tcfg, f), f
     full = get_config("llama3.2-1b")
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
-            full.d_ff, full.vocab_size, full.dtype) == \
-        (16, 2048, 32, 8, 8192, 128256, "bfloat16")
+            full.d_ff, full.vocab_size, full.dtype, full.kv_chunk) == \
+        (16, 2048, 32, 8, 8192, 128256, "bfloat16",
+         jax_get_config("llama3.2-1b").kv_chunk)
 
 
 @pytest.mark.parametrize("bucket", [None, 16])
@@ -84,6 +85,27 @@ def test_prefill_logits_and_cache_match(pair, bucket):
                                    np.asarray(jcache[key]), **TOL)
     np.testing.assert_array_equal(tcache["pos"].numpy(),
                                   np.asarray(jcache["pos"]))
+
+
+def test_prefill_over_kv_chunks_matches(pair):
+    """A 40-token prompt in a 64-token bucket: with kv_chunk 16, prefill
+    attention walks three (and, padded, four) KV chunks."""
+    japi, jparams, tapi, tparams, compacted = pair
+    toks = np.random.RandomState(8).randint(1, 128, (1, 40)).astype(np.int32)
+    jbatch = {"tokens": jnp.pad(jnp.asarray(toks), ((0, 0), (0, 24))),
+              "lengths": jnp.full((1,), 40, jnp.int32)}
+    tbatch = {"tokens": torch.nn.functional.pad(
+        torch.from_numpy(toks.astype(np.int64)), (0, 24)),
+        "lengths": torch.full((1,), 40, dtype=torch.int32)}
+    js, ts = _scopes(compacted)
+    with js():
+        jcache, jlog = japi.prefill(jparams, jbatch, cache_len=64)
+    with ts():
+        tcache, tlog = tapi.prefill(tparams, tbatch, cache_len=64)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(),
+                                   np.asarray(jcache[key]), **TOL)
 
 
 @pytest.mark.parametrize("per_row", [False, True])
