@@ -55,16 +55,36 @@ Phases, in order; any failure exits non-zero before the result line:
                           rounded up to 64 (4 pages), 13 pages = 12 usable
                           + DUMP, i.e. 192 KV rows, no more than the 4 x 49
                           of sparse_b's fixed arena; its peak of active
-                          slots must exceed the 4 those rows hold fixed.
+                          slots must exceed the 4 those rows hold fixed;
+               sparse_b_paged_int8 - the same with int8 pages: no oracle
+                          parity (int8 is gated by a logit tolerance);
+                          instead every request's tokens equal those of a
+                          one-slot int8 paged engine serving it alone, the
+                          teacher-forced relative logit gap of int8 to
+                          same-dtype pages (one 24-token prompt, 48 steps)
+                          is at most 0.02, the K/V pools plus scales take
+                          (512 + 4) / 1024 of sparse_b_paged's bytes, and
+                          the token match with sparse_b_paged is printed;
+               mode_a_paged, mode_ab_paged - mode_a's and mode_ab's
+                          weights and kernels on sparse_b_paged's arena;
+               sparse_b_stepwise, sparse_b_static - sparse_b on the
+                          stepwise path (fused=False, decode_chunk 1: one
+                          decode step and one host sync per tick, one sync
+                          per admission) with the continuous and the
+                          static policy; their stats equal STEPWISE_STATS,
+                          which tests/test_torch_stepwise.py holds on the
+                          CPU for the same trace.
              Launch counters are zeroed just before and read just after
              each engine run.  Each path checks: every request
-             token-identical to the batch-1 greedy oracle; no plain GEMM;
-             its exact launch counts; at most 0.25 host syncs per token; a
-             prefill and a fused chunk run under CUDA's sync debug mode;
-             prefill logits finite and within 2% (relative L2) of the same
-             model served through plain torch matmuls (the dense weights,
-             or the compacted ones decompacted); both routes' gaps to the
-             model widened to fp32 are reported beside it.  ``--profile``
+             token-identical to the batch-1 greedy oracle (not int8); no
+             plain GEMM; its exact launch counts; at most 0.25 host syncs
+             per token on the fused paths; a prefill (and on the paged
+             paths an admission) and, on the fused paths, a fused chunk
+             run under CUDA's sync debug mode; prefill logits finite and
+             within 2% (relative L2) of the same model served through
+             plain torch matmuls (the dense weights, or the compacted ones
+             decompacted); both routes' gaps to the model widened to fp32
+             are reported beside it.  ``--profile``
              adds a profiled engine run and one profiled decode step (a
              1-step chunk, the arena's cost apart from admission policy)
              after each path, and a profiled 4096-token prefill after
@@ -99,28 +119,45 @@ UNEMBED = (2048, 128256)
 M_ROWS = (4, 8, 16, 32)          # decode slots, prefill buckets 8..32
 A_SPARSITY = 0.5                 # the reference's category knob
 FIXED = dict(num_slots=4)
-SB_LAUNCHES = {"dense_gemm": 1, "griffin_spmm": 112, "sparse_a": 0,
-               "sparse_a_meta": 0}
+PAGED = dict(num_slots=8, page_size=16, num_pages=13,
+             max_admissions_per_step=8)
+STEPWISE = dict(num_slots=4, fused=False, decode_chunk=1)
+# the stepwise paths' counters on TRACE: they depend only on the trace
+# and the scheduler (tests/test_torch_stepwise.py holds them on the CPU)
+STEPWISE_STATS = {"decode_steps": 22, "prefill_calls": 8, "emitted": 52,
+                  "host_syncs": 32}
+SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
+          launches={"dense_gemm": 1, "griffin_spmm": 112, "sparse_a": 0,
+                    "sparse_a_meta": 0}, dual=0)
+MODE_A = dict(sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
+              launches={"dense_gemm": 0, "griffin_spmm": 0, "sparse_a": 113,
+                        "sparse_a_meta": 113}, dual=0)
+MODE_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
+               launches={"dense_gemm": 0, "griffin_spmm": 112,
+                         "sparse_a": 1, "sparse_a_meta": 1}, dual=112)
+SB_LAUNCHES = SB["launches"]
 # per serve path: kernel -> launches per model call (a prefill or a decode
-# step), dual griffin_spmm GEMMs per model call, and the arena's fields
+# step), dual griffin_spmm GEMMs per model call, the engine's arena and
+# scheduler fields, and the stats a path must give exactly
 PATHS = {
-    "sparse_b": dict(sparsity=0.8, a_sparsity=None, mode="B",
-                     launches=SB_LAUNCHES, dual=0, arena=FIXED),
-    "mode_a": dict(sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
-                   launches={"dense_gemm": 0, "griffin_spmm": 0,
-                             "sparse_a": 113, "sparse_a_meta": 113}, dual=0,
-                   arena=FIXED),
-    "mode_ab": dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
-                    launches={"dense_gemm": 0, "griffin_spmm": 112,
-                              "sparse_a": 1, "sparse_a_meta": 1}, dual=112,
-                    arena=FIXED),
-    "sparse_b_paged": dict(sparsity=0.8, a_sparsity=None, mode="B",
-                           launches=SB_LAUNCHES, dual=0,
-                           arena=dict(num_slots=8, page_size=16,
-                                      num_pages=13,
-                                      max_admissions_per_step=8)),
+    "sparse_b": dict(SB, arena=FIXED),
+    "mode_a": dict(MODE_A, arena=FIXED),
+    "mode_ab": dict(MODE_AB, arena=FIXED),
+    "sparse_b_paged": dict(SB, arena=PAGED),
+    "sparse_b_paged_int8": dict(SB, arena=dict(PAGED, kv_dtype="int8")),
+    "mode_a_paged": dict(MODE_A, arena=PAGED),
+    "mode_ab_paged": dict(MODE_AB, arena=PAGED),
+    "sparse_b_stepwise": dict(SB, arena=dict(STEPWISE, policy="continuous"),
+                              stats=STEPWISE_STATS),
+    "sparse_b_static": dict(SB, arena=dict(STEPWISE, policy="static"),
+                            stats=STEPWISE_STATS),
 }
 TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
+# the reference benchmark's int8 gate (benchmarks/bench_serve.py
+# PAGED_INT8_TOL), on its teacher-forced recipe: one 24-token prompt, 48
+# decode steps, pages of 16 in a cache of 128
+INT8_TOL = 0.02
+INT8_GAP = dict(cache_len=128, steps=48, plen=24)
 LONG_PROMPTS = (2048, 4096)
 MAX_PREFILL_RISE = 3 << 30
 # per (layer, position) K/V row of a long prefill, kernel route against
@@ -548,19 +585,23 @@ def dense_twin(torch, params):
 
 
 def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
-                launches: dict, dual: int, arena: dict):
+                launches: dict, dual: int, arena: dict, stats=None,
+                paged_ref=None):
     """Serve the trace on one path and check it: ``launches`` maps each
     kernel to its launches per model call, ``dual`` the dual griffin_spmm
     GEMMs per model call, ``mode`` the engine's Mode, ``arena`` the
-    engine's arena (and admission) fields."""
+    engine's arena and scheduler fields, ``stats`` the counters it must
+    give; an int8 path is held against ``paged_ref``, the same-dtype paged
+    path's record."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launch
     from repro_torch.models.common import sparse_execution
     from repro_torch.runtime.config import EngineConfig
 
     tag = f"[serve {name}]"
-    config = EngineConfig().with_fields(decode_chunk=8, use_kernels=True,
-                                        a_sparsity=a_sparsity, **arena)
+    fields = dict(decode_chunk=8, use_kernels=True, a_sparsity=a_sparsity)
+    fields.update(arena)
+    config = EngineConfig().with_fields(**fields)
     reset_launch_counts()
     run = launch.serve("llama3.2-1b", sparsity=sparsity, device="cuda",
                        config=config, **TRACE)
@@ -570,15 +611,18 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     calls = st["prefill_calls"] + st["decode_steps"]
     print(f"{tag} llama3.2-1b full width bf16, weight sparsity "
           f"{eng.b_sparsity:.3f}, declared activation sparsity "
-          f"{a_sparsity}, mode {eng.mode.value}: {len(run.requests)} "
+          f"{a_sparsity}, mode {eng.mode.value}, policy {eng.sched.policy},"
+          f" {'fused' if eng.fused else 'stepwise'}: {len(run.requests)} "
           f"requests / {st['emitted']} tokens in {run.seconds:.3f}s = "
           f"{run.tokens_per_second:.1f} tok/s; {st['decode_steps']} decode "
           f"steps in {st['chunk_calls']} chunks, {st['prefill_calls']} "
           f"prefills, {run.syncs_per_token:.4f} host syncs/token, peak "
           f"{eng.peak_active} of {eng.num_slots} slots active; launches "
           f"{got}; dispatch {run.dispatch}")
+    extra = {}
     if eng._paged is not None:
         check_paged_arena(eng)
+        extra["kv_bytes"] = kv_bytes(eng)
     if eng.mode.value != mode or len(eng.mode_history) != 1:
         fail(f"{name}: mode {eng.mode_history}, expected {mode} throughout")
     if run.dispatch.get("plain", 0) != 0:
@@ -590,30 +634,47 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     if run.dispatch.get("dual", 0) != dual * calls:
         fail(f"{name}: {run.dispatch.get('dual', 0)} dual GEMMs, expected "
              f"{dual} x {calls}")
-    if run.syncs_per_token > 0.25:
+    if eng.fused and run.syncs_per_token > 0.25:
         fail(f"{name}: {run.syncs_per_token:.3f} host syncs per token > "
              "0.25")
-    n = launch.check_parity(run)
-    print(f"{tag} parity OK: all {n} requests token-identical to the "
-          "batch-1 greedy oracle")
+    if stats is not None:
+        if {k: st[k] for k in stats} != stats:
+            fail(f"{name}: stats {st}, expected {stats}")
+        print(f"{tag} stats {stats} as on the CPU")
+    if eng._paged is not None and eng._paged.kv_dtype == "int8":
+        extra.update(check_int8(torch, run, paged_ref))
+    else:
+        n = launch.check_parity(run)
+        print(f"{tag} parity OK: all {n} requests token-identical to the "
+              "batch-1 greedy oracle")
 
-    # no hidden host sync on the hot path: a bucketed prefill and a fused
-    # chunk under CUDA's sync debug mode, which raises on any synchronising
-    # call (the engine's one transfer per tick happens outside the chunk)
+    # no hidden host sync on the hot path: a bucketed prefill (and on a
+    # paged arena its admission) and on the fused path a chunk, under
+    # CUDA's sync debug mode, which raises on any synchronising call (the
+    # engine's one transfer per tick happens outside them)
     req = run.requests[0]
     batch = req.as_batch(eng.device, eng.bucket_for(req.prompt_len))
-    prefill_fn, chunk_for = eng._fns()
+    prefill_fn, _, chunk_for = eng._fns()
+    ids = ()
+    if eng._paged is not None:
+        eng._flush_dirty()
+        ids = eng._page_alloc.reserve(eng._paged.max_pages)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         with eng._scope():
-            prefill_fn(run.params, batch)
-            chunk_for(eng.decode_chunk)(run.params, eng.cache, eng._tokens,
-                                        eng._remaining)
+            cache1, logits = prefill_fn(run.params, batch)
+            if ids:
+                eng._insert(0, cache1, logits, 1, ids)
+            if eng.fused:
+                chunk_for(eng.decode_chunk)(run.params, eng.cache,
+                                            eng._tokens, eng._remaining)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print(f"{tag} a prefill and a fused chunk ran with no host sync")
+    print(f"{tag} a prefill{', its admission' if ids else ''}"
+          f"{' and a fused chunk' if eng.fused else ''} ran with no host "
+          "sync")
 
     # what comes out is right: the kernel route's prefill logits against
     # the same model through plain torch matmuls
@@ -623,7 +684,8 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
         _, ref = eng.api.prefill(dense_twin(torch, run.params), batch,
                                  cache_len=64)
     rel = rel_l2(logits, ref)
-    if logits.shape != (1, 128256) or not bool(torch.isfinite(logits).all()):
+    if logits.shape != (1, eng.api.cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
         fail(f"{name}: prefill logits shape {tuple(logits.shape)} or not "
              "finite")
     if rel > 2e-2:
@@ -639,7 +701,63 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     print(f"{tag} prefill logits finite, relative L2 gap to the plain route "
           f"{rel:.5f}; to fp32: kernel route {gaps['fp32_kernel']:.5f}, "
           f"plain route {gaps['fp32_plain']:.5f}")
-    return run, got, gaps
+    return run, got, gaps, extra
+
+
+def kv_bytes(eng) -> int:
+    """Bytes of the paged arena's K/V pools and their scales."""
+    keys = [k for k in eng.cache
+            if k.removesuffix("_scale") in eng._paged.paged_keys]
+    return sum(eng.cache[k].numel() * eng.cache[k].element_size()
+               for k in keys)
+
+
+def check_int8(torch, run, paged_ref) -> dict:
+    """The int8 path's gates in place of oracle parity: each request's
+    tokens equal those of a one-slot int8 engine serving it alone (row
+    quantization reads only its own row); the teacher-forced logit gap to
+    same-dtype pages within INT8_TOL; the pools plus scales at (row + 4) /
+    (row x the cache's element size) of the same-dtype arena's bytes, (512
+    + 4) / 1024 at full width.  The token match with the
+    same-dtype paged path is printed, not gated: top-2 ties are common at
+    vocab 128256."""
+    from repro_torch.runtime.engine import ServeEngine, int8_logit_gap
+
+    eng = run.engine
+    tag = "[serve int8]"
+    alone = ServeEngine(eng.api, run.params, eng.config.with_fields(
+        num_slots=1, num_pages=None, max_admissions_per_step=1))
+    outs = alone.run(run.requests)
+    for r in run.requests:
+        if outs[r.rid].tokens != eng.outputs[r.rid].tokens:
+            fail(f"int8 pages: request {r.rid} served alone gave "
+                 f"{outs[r.rid].tokens}, in the batch "
+                 f"{eng.outputs[r.rid].tokens}")
+    print(f"{tag} every request token-identical to a one-slot int8 "
+          f"engine serving it alone ({alone.stats['emitted']} tokens)")
+    gap = int8_logit_gap(eng.api, run.params, eng.config.with_fields(
+        cache_len=INT8_GAP["cache_len"], num_pages=None),
+        steps=INT8_GAP["steps"], plen=INT8_GAP["plen"])
+    print(f"{tag} teacher-forced relative logit gap to same-dtype pages "
+          f"{gap:.6f} (limit {INT8_TOL})")
+    if not gap <= INT8_TOL:
+        fail(f"int8 pages: logit gap {gap} > {INT8_TOL}")
+    match = sum(eng.outputs[r.rid].tokens == paged_ref["tokens"][r.rid]
+                for r in run.requests) / len(run.requests)
+    nbytes = kv_bytes(eng)
+    ratio = nbytes / paged_ref["kv_bytes"]
+    cfg = eng.api.cfg
+    row = cfg.num_kv_heads * cfg.hd           # one K or V token row
+    esz = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    want = (row + 4) / (row * esz)
+    print(f"{tag} token match with same-dtype pages {match:.3f} (printed, "
+          f"not gated); K/V pools + scales {nbytes} B against "
+          f"{paged_ref['kv_bytes']} B = {ratio:.6f}")
+    if ratio != want:
+        fail(f"int8 pages: {ratio} of the same-dtype bytes, expected "
+             f"{want}")
+    return {"alone_tokens_equal": True, "logit_gap": gap,
+            "token_match_same_dtype": match, "kv_bytes_ratio": ratio}
 
 
 def check_paged_arena(eng) -> None:
@@ -652,11 +770,11 @@ def check_paged_arena(eng) -> None:
                                               TRACE["gen_lens"])
     fixed_rows = FIXED["num_slots"] * fixed_len
     rows = spec.usable_pages * spec.page_size
-    print(f"[serve paged] {spec.num_pages} pages of {spec.page_size} "
-          f"({spec.usable_pages} usable + DUMP) = {rows} KV rows against "
-          f"{FIXED['num_slots']} x {fixed_len} = {fixed_rows} fixed; "
-          f"cache_len {eng.cache_len} = {spec.max_pages} pages; peak "
-          f"{eng.peak_active} slots active")
+    print(f"[serve paged] {spec.num_pages} {spec.kv_dtype} pages of "
+          f"{spec.page_size} ({spec.usable_pages} usable + DUMP) = {rows} "
+          f"KV rows against {FIXED['num_slots']} x {fixed_len} = "
+          f"{fixed_rows} fixed; cache_len {eng.cache_len} = "
+          f"{spec.max_pages} pages; peak {eng.peak_active} slots active")
     if (eng.cache_len, spec.max_pages) != (64, 4) or rows > fixed_rows:
         fail(f"paged arena: cache_len {eng.cache_len}, {spec.max_pages} "
              f"pages per slot, {rows} KV rows against {fixed_rows} fixed")
@@ -789,7 +907,7 @@ def phase_profile(torch, name: str, run):
                   f"{ops} device ops = {ops / calls:.2f} per model call")
     # one decode step alone (a 1-step chunk on the drained arena): the
     # arena's own cost, apart from the trace's prefill share and policy
-    _, chunk_for = eng._fns()
+    _, _, chunk_for = eng._fns()
 
     def step():
         with eng._scope():
@@ -834,9 +952,10 @@ def main() -> None:
           f", cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     build_s = phase_build(build)
     rows, summary = phase_kernels(torch)
-    serves, long_prefill = {}, None
+    serves, long_prefill, paged_ref = {}, None, None
     for name, path in PATHS.items():
-        run, launches, gaps = phase_serve(torch, name, **path)
+        run, launches, gaps, extra = phase_serve(torch, name, **path,
+                                                 paged_ref=paged_ref)
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, name, run)
         st = run.engine.stats
@@ -845,7 +964,10 @@ def main() -> None:
                         "syncs_per_token": run.syncs_per_token,
                         "peak_active": run.engine.peak_active,
                         "launches": launches, "dispatch": run.dispatch,
-                        "logits_rel_l2": gaps}
+                        "logits_rel_l2": gaps, **extra}
+        if name == "sparse_b_paged":
+            paged_ref = {"kv_bytes": extra["kv_bytes"], "tokens": {
+                r: o.tokens for r, o in run.engine.outputs.items()}}
         if name == "sparse_b":
             long_prefill = phase_long_prefill(torch, run)
             if "--profile" in sys.argv[1:]:

@@ -10,8 +10,11 @@ single-engine path.
 runs full-width llama3.2-1b on the CUDA card; ``--reduced --device cpu``
 runs the reduced config on the host (the kernels' plain versions).
 ``--page-size 16`` serves from the paged KV arena (``--num-pages`` sizes
-its pool) and ``--length-dist heavy`` draws heavy-tailed generation
-lengths.
+its pool, ``--kv-dtype int8`` quantizes its pages), ``--policy static``
+admits only into a drained pool, and ``--length-dist heavy`` draws
+heavy-tailed generation lengths.  The stepwise decode path is chosen
+through the config file (``{"sched": {"fused": false}}``), as in the
+reference.
 ``--config engine.json`` reads an ``EngineConfig`` (explicit flags beat
 the file); its ``kernels.a_sparsity`` declares the activation sparsity of
 the workload category, which with ``--use-kernels`` selects Sparse.A
@@ -113,8 +116,12 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
 def check_parity(run: ServeRun) -> int:
     """Replay every request through the batch-1 greedy oracle under the
     engine's scope; raise on the first divergence.  Returns the number of
-    requests checked."""
+    requests checked.  An int8-paged run is refused: its pages are gated
+    by a logit tolerance, not by token equality."""
     eng = run.engine
+    if eng._paged is not None and eng._paged.kv_dtype == "int8":
+        raise ValueError("int8 KV pages are gated by a logit tolerance, "
+                         "not by token parity with the greedy oracle")
     if len(eng.mode_history) > 1:
         raise RuntimeError("execution mode changed mid-run: "
                            f"{eng.mode_history}; a single-mode oracle "
@@ -148,6 +155,11 @@ def main(argv=None) -> None:
     ap.add_argument("--num-pages", type=int, default=None,
                     help="physical page-pool size (default: the fixed "
                          "arena's capacity + the DUMP page)")
+    ap.add_argument("--kv-dtype", choices=("fp32", "int8"), default="fp32",
+                    help="paged KV page dtype: int8 stores quantized pages "
+                         "with per-token-row scales (gated logit "
+                         "tolerance; fp32, the cache's own dtype, stays "
+                         "token-exact)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-lens", default="8,16,32")
     ap.add_argument("--gen-lens", default="4,8,16")
@@ -163,6 +175,8 @@ def main(argv=None) -> None:
                          "run every GEMM through the hand-written kernels; "
                          "default keeps the pruned-dense twin on plain "
                          "torch matmuls")
+    ap.add_argument("--policy", choices=("continuous", "static"),
+                    default="continuous")
     ap.add_argument("--decode-chunk", type=int, default=8,
                     help="fused decode steps per host round-trip")
     ap.add_argument("--measure-every", type=int, default=8)
@@ -187,8 +201,11 @@ def main(argv=None) -> None:
     spec = eng._paged
     arena = ("fixed" if spec is None else
              f"paged, {spec.num_pages} pages of {spec.page_size}")
+    kv = "" if spec is None else f", {spec.kv_dtype} pages"
     print(f"engine: {eng.num_slots} slots x cache_len {eng.cache_len} "
-          f"({arena}) on {eng.device}, peak {eng.peak_active} slots active, "
+          f"({arena}){kv} on {eng.device}, policy {eng.sched.policy}, "
+          f"{'fused' if eng.fused else 'stepwise'}, peak "
+          f"{eng.peak_active} slots active, "
           f"weight sparsity {eng.b_sparsity:.2f}, "
           f"declared activation sparsity {eng.a_declared} -> mode "
           f"{eng.mode.value}")
@@ -206,6 +223,10 @@ def main(argv=None) -> None:
         raise SystemExit(f"host syncs/token {run.syncs_per_token:.3f} "
                          f"exceeds {args.max_syncs_per_token}")
     if args.parity:
+        if spec is not None and spec.kv_dtype == "int8":
+            print("parity SKIPPED: int8 KV pages are gated by logit "
+                  "tolerance, not token equality")
+            return
         n = check_parity(run)
         print(f"parity OK: all {n} requests token-identical to "
               "greedy_generate")

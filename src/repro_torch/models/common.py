@@ -25,6 +25,7 @@ from ..core.spec import Mode
 from ..kernels.dense_gemm.ops import dense_matmul
 from ..kernels.griffin_spmm.ops import GriffinWeights, griffin_matmul
 from ..kernels.sparse_a.ops import sparse_a_matmul
+from ..optim.compression import dequantize_rows, quantize_rows
 
 
 # ---------------------------------------------------------------------------
@@ -172,24 +173,31 @@ def paged_write(pool: torch.Tensor, scale: Optional[torch.Tensor],
     """Write a one-token K/V update into a paged pool, in place (the
     reference's ``paged_write`` returns an updated copy).  ``pool``:
     (num_pages, page_size, ...); ``slot``: :func:`paged_slot`'s (page,
-    offset) pair; ``update``: (B, 1, ...).  ``scale`` is the int8 pools'
-    per-token scale, not ported yet."""
-    if scale is not None:
-        raise NotImplementedError("int8 KV pages are not ported yet")
-    pool[slot] = update[:, 0].to(pool.dtype)
+    offset) pair; ``update``: (B, 1, ...).  With ``scale`` (num_pages,
+    page_size) the pool is int8: each row is quantized on the way in
+    (``optim.compression.quantize_rows``) and its scale stored beside."""
+    row = update[:, 0]
+    if scale is None:
+        pool[slot] = row.to(pool.dtype)
+        return
+    q, s = quantize_rows(row, 1)
+    pool[slot] = q
+    scale[slot] = s
 
 
 def paged_view(pool: torch.Tensor, scale: Optional[torch.Tensor],
-               pages: torch.Tensor) -> torch.Tensor:
-    """Gather each row's pages into a (B, max_pages * page_size, ...) view:
-    exactly the fixed arena's (B, cache_len, ...) shape, so
-    ``decode_attention`` sees the same shapes and masks, and paged decode
-    equals the fixed arena bit for bit (masked entries add exact zeros).
-    ``pages`` is an int64 (B, max_pages) table."""
-    if scale is not None:
-        raise NotImplementedError("int8 KV pages are not ported yet")
+               pages: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Gather each row's pages into a (B, max_pages * page_size, ...) view
+    in ``dtype``: exactly the fixed arena's (B, cache_len, ...) shape, so
+    ``decode_attention`` sees the same shapes and masks, and same-dtype
+    paged decode equals the fixed arena bit for bit (masked entries add
+    exact zeros).  int8 pools dequantize in fp32 through the per-token
+    ``scale`` before the cast.  ``pages`` is an int64 (B, max_pages)
+    table."""
     v = pool[pages]                      # (B, max_pages, page_size, ...)
-    return v.reshape(v.shape[0], -1, *v.shape[3:])
+    if scale is not None:
+        v = dequantize_rows(v, scale[pages])
+    return v.reshape(v.shape[0], -1, *v.shape[3:]).to(dtype)
 
 
 def length_mask(lengths: torch.Tensor, seq_len: int) -> torch.Tensor:

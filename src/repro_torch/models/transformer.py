@@ -10,7 +10,8 @@ sliced per layer) run the Sparse.B kernel.  The layer stack is a Python loop.
 
 KV caches: ``{"k", "v": (L, B, S, KVH, hd), "pos": scalar or (B,)}``, or
 a paged arena (``runtime/paging.py``): ``"k"``/``"v"`` pools (L,
-num_pages, page_size, KVH, hd) read through the ``"pages"`` table.
+num_pages, page_size, KVH, hd) read through the ``"pages"`` table, int8
+beside ``"k_scale"``/``"v_scale"`` (L, num_pages, page_size) scales.
 ``decode_step`` writes the new K/V rows into the cache tensors in place
 (the reference's donated update) and returns the cache with the advanced
 position.
@@ -146,11 +147,15 @@ def _fixed_kv(slot: torch.Tensor, k_cache: torch.Tensor,
     return k_cache, v_cache
 
 
-def _paged_kv(pages: torch.Tensor, slot, k_pool: torch.Tensor,
-              v_pool: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    paged_write(k_pool, None, slot, k)
-    paged_write(v_pool, None, slot, v)
-    return paged_view(k_pool, None, pages), paged_view(v_pool, None, pages)
+def _paged_kv(pages: torch.Tensor, slot, dtype: torch.dtype,
+              k_pool: torch.Tensor, v_pool: torch.Tensor,
+              k_scale: Optional[torch.Tensor],
+              v_scale: Optional[torch.Tensor], k: torch.Tensor,
+              v: torch.Tensor):
+    paged_write(k_pool, k_scale, slot, k)
+    paged_write(v_pool, v_scale, slot, v)
+    return (paged_view(k_pool, k_scale, pages, dtype),
+            paged_view(v_pool, v_scale, pages, dtype))
 
 
 def init_cache(cfg: ModelConfig, batch: int, length: int,
@@ -214,23 +219,31 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         # paging is on only where the arch has no rolling window at this
         # cache length, so for every live row the fixed arena's window
         # algebra reduces to: write at pos, attend the gathered view with
-        # no window -- bit-identical to the fixed arena
+        # no window -- bit-identical to the fixed arena.  int8 pools carry
+        # their per-token scales under "<key>_scale".
         pages = cache["pages"].long()
-        page_size = cache["k"].shape[2]
-        kv = partial(_paged_kv, pages, paged_slot(pages, pos, page_size))
+        slot = paged_slot(pages, pos, cache["k"].shape[2])
+        ks, vs = cache.get("k_scale"), cache.get("v_scale")
+
+        def kv(i):
+            return partial(_paged_kv, pages, slot, x.dtype, cache["k"][i],
+                           cache["v"][i], None if ks is None else ks[i],
+                           None if vs is None else vs[i])
         attend_pos, window = pos, None
     else:
         cache_len = cache["k"].shape[2]
         if cfg.window is not None and cache_len <= cfg.window:  # rolling
-            kv = partial(_fixed_kv, pos % cache_len)
+            slot = pos % cache_len
             attend_pos, window = pos.clamp(max=cache_len - 1), None
         else:
-            kv = partial(_fixed_kv, pos.clamp(max=cache_len - 1))
+            slot = pos.clamp(max=cache_len - 1)
             attend_pos, window = pos, cfg.window
+
+        def kv(i):
+            return partial(_fixed_kv, slot, cache["k"][i], cache["v"][i])
     for i in range(cfg.num_layers):
-        x = block_decode(cfg, _layer(params, i), x, pos,
-                         partial(kv, cache["k"][i], cache["v"][i]),
-                         attend_pos, window)
+        x = block_decode(cfg, _layer(params, i), x, pos, kv(i), attend_pos,
+                         window)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = griffin_linear(x[:, 0], unembed(cfg, params))
     return logits, out

@@ -1,10 +1,10 @@
 """Engine configuration — the port's own copy of ``repro/runtime/config.py``.
 
 A frozen ``EngineConfig`` of frozen sections with the reference's field
-names.  The port serves the fixed or paged slot arena through the fused
-decode path on one device: ``kv_dtype="int8"`` and the fault, router and
-mesh fields keep the reference's shape and raise ``NotImplementedError``
-when set, as does ``fused=False``.  The reference's kernel fields ``interpret``,
+names.  The port serves the fixed or paged slot arena (same-dtype or int8
+pages) through the fused or the stepwise decode path on one device; the
+fault, router and mesh fields keep the reference's shape and raise
+``NotImplementedError`` when set.  The reference's kernel fields ``interpret``,
 ``spmd_kernels`` and ``plan`` have no counterpart: a JSON file may carry
 them at their defaults, and any other value raises; ``launch/serve.py``
 defines no flag for an unported field.  ``to_json``/``from_json``
@@ -23,7 +23,8 @@ class ArenaConfig:
     cache_len`` arena; a power of two activates the paged pool
     (``runtime/paging.py``) of ``num_pages`` physical pages (default: the
     fixed arena's capacity + the DUMP page).  ``kv_dtype="fp32"`` keeps
-    pages in the cache's own dtype; int8 pages are not ported yet.
+    pages in the cache's own dtype; ``"int8"`` quantizes each token row
+    with its own scale (a gated logit tolerance, not token parity).
     ``cache_len=None`` means "derive from the trace"
     (:meth:`EngineConfig.derive_cache_len`)."""
 
@@ -36,6 +37,11 @@ class ArenaConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SchedConfig:
+    """Admission ``policy`` (``"continuous"`` or ``"static"``), the fused
+    chunk ladder, bucketed prefill; ``fused=False`` is the stepwise path
+    (one decode step and one host sync per tick, the reference's
+    baseline)."""
+
     policy: str = "continuous"
     max_admissions_per_step: int = 1
     decode_chunk: int = 8
@@ -77,7 +83,8 @@ _UNPORTED_DEFAULTS = {"kernels": {"interpret": False, "spmd_kernels": True,
 # launch/serve.py flag dest -> flat field name
 _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
           "decode_chunk": "decode_chunk", "use_kernels": "use_kernels",
-          "page_size": "page_size", "num_pages": "num_pages"}
+          "page_size": "page_size", "num_pages": "num_pages",
+          "kv_dtype": "kv_dtype", "policy": "policy"}
 
 # flat field name -> (section, field), as in the reference
 _FIELDS = {
@@ -111,10 +118,6 @@ class EngineConfig:
 
     def __post_init__(self):
         unported = []
-        if self.arena.kv_dtype == "int8":
-            unported.append("int8 KV pages")
-        if not self.sched.fused:
-            unported.append("the stepwise (fused=False) path")
         if self.fault != FaultConfig():
             unported.append("fault tolerance")
         if self.router != RouterConfig():

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: the fixed or paged slot-pool KV
-arena, FCFS scheduler and the fused decode path — the counterpart of
-``repro/runtime/engine.py`` (single device, fused ticks).
+arena, FCFS scheduler and the fused or stepwise decode path — the
+counterpart of ``repro/runtime/engine.py`` (single device).
 
 A ``num_slots x cache_len`` cache arena is shared by all in-flight
 requests; with ``ArenaConfig.page_size`` set it is a pool of pages
@@ -12,7 +12,9 @@ advances every running slot by a fused chunk
 of decode steps (``runtime.serve.make_decode_chunk_fn``) that keeps argmax,
 token feedback and per-slot bookkeeping on the device.  One host transfer
 per tick brings back the (chunk, B) token ring, the admissions' first tokens
-and the two measurement scalars.
+and the two measurement scalars.  ``SchedConfig.fused=False`` keeps the
+reference's stepwise baseline: one pooled decode step per tick, with a
+host sync for every admission's first token and for every step's tokens.
 
 The engine keeps a running measured activation sparsity (exact-zero
 fraction of the live rows' decode logits), re-invokes
@@ -37,6 +39,7 @@ from ..core.spec import Mode
 from ..kernels.griffin_spmm.ops import GriffinWeights
 from ..models.common import sparse_execution
 from ..models.registry import ModelApi
+from ..optim.compression import quantize_rows
 from ..sparsity.pruning import GEMM_WEIGHTS, sparsity_of
 from .config import EngineConfig
 from .paging import PageAllocator, build_spec, paged_tree
@@ -272,7 +275,9 @@ class ServeEngine:
     generation needs (head-of-line blocking when the pool is short), and a
     finished slot's pages return to the pool at the next tick's start.
     Page-table rows reach the card from pinned host rows without a stream
-    sync, and are reset to DUMP by fills.
+    sync, and are reset to DUMP by fills.  int8 pools quantize the
+    prefilled rows per token (``quantize_rows``) and store the scales
+    beside them.
     """
 
     def __init__(self, api: ModelApi, params: Any,
@@ -291,6 +296,7 @@ class ServeEngine:
             api, arena.num_slots, arena.cache_len, arena.page_size,
             arena.num_pages, arena.kv_dtype)
         self.decode_chunk = max(1, config.sched.decode_chunk)
+        self.fused = config.sched.fused
         self.bucket_prompts = config.sched.bucket_prompts
         self.use_kernels = config.kernels.use_kernels
         self.a_declared = config.kernels.a_sparsity
@@ -298,7 +304,7 @@ class ServeEngine:
         self.measure_every = max(1, config.sched.measure_every)
         self.sched = Scheduler(self.num_slots, config.sched.policy,
                                config.sched.max_admissions_per_step)
-        self._mode_fns: Dict[Mode, Tuple[Callable, Callable]] = {}
+        self._mode_fns: Dict[Mode, Tuple[Callable, ...]] = {}
         self.b_sparsity = weight_sparsity(params)
         self.a_measured = 0.0
         self.mode = self._select_mode()
@@ -399,10 +405,11 @@ class ServeEngine:
                                 a_sparsity=a_scope, block_m=self.block_m,
                                 a_threshold=SPARSE_THRESHOLD)
 
-    def _fns(self) -> Tuple[Callable, Callable]:
-        """(prefill_fn, chunk_for) of the current Mode.  Eager PyTorch reads
-        the scope on every call, so each Mode's set is built from the same
-        functions; keying by Mode keeps the reference's bookkeeping."""
+    def _fns(self) -> Tuple[Callable, Callable, Callable]:
+        """(prefill_fn, decode_fn, chunk_for) of the current Mode.  Eager
+        PyTorch reads the scope on every call, so each Mode's set is built
+        from the same functions; keying by Mode keeps the reference's
+        bookkeeping."""
         fns = self._mode_fns.get(self.mode)
         if fns is None:
             cache_len = self.cache_len
@@ -410,14 +417,16 @@ class ServeEngine:
             def prefill(params, batch):
                 return self.api.prefill(params, batch, cache_len=cache_len)
 
-            fns = (prefill, make_chunk_ladder(self.api, self.decode_chunk))
+            fns = (prefill, self.api.decode_step,
+                   make_chunk_ladder(self.api, self.decode_chunk))
             self._mode_fns[self.mode] = fns
             self.stats["retraces"] += 1
         return fns
 
     def _measure(self, zero_frac: float) -> None:
-        """Re-select the category from the fused chunk's measurement; a flip
-        takes effect from the next chunk."""
+        """Re-select the category from the measured exact-zero fraction of
+        the live rows' logits; a flip takes effect from the next chunk (or
+        step)."""
         self._since_measure = 0
         self.a_measured = float(zero_frac)
         mode = self._select_mode()
@@ -496,9 +505,12 @@ class ServeEngine:
             idx = dev_row.long()
             for key in spec.paged_keys:
                 x = sub[key][:, 0]               # (stack, cache_len, ...)
-                self.cache[key][:, idx] = x.reshape(
-                    x.shape[0], spec.max_pages, spec.page_size,
-                    *x.shape[2:]).to(self.cache[key].dtype)
+                x = x.reshape(x.shape[0], spec.max_pages, spec.page_size,
+                              *x.shape[2:])
+                if spec.kv_dtype == "int8":
+                    x, scale = quantize_rows(x, 3)
+                    self.cache[key + "_scale"][:, idx] = scale
+                self.cache[key][:, idx] = x.to(self.cache[key].dtype)
         for key, ax in self._axes.items():
             if spec is not None and key in spec.paged_keys:
                 continue
@@ -528,11 +540,16 @@ class ServeEngine:
                 self._dirty_slots.add(slot)
 
     def step(self) -> List[Tuple[int, int, int]]:
-        """One engine tick: admissions, then one fused chunk advancing every
-        running slot, then the tick's single host transfer.  Returns the
-        tick's (step, rid, token) events."""
-        ev_start = len(self.events)
-        pending: List[Tuple[int, int, torch.Tensor]] = []
+        """One engine tick on the fused or the stepwise path
+        (``SchedConfig.fused``).  Returns the tick's (step, rid, token)
+        events."""
+        return self._step_fused() if self.fused else self._step_stepwise()
+
+    def _admit(self) -> List[Tuple[int, torch.Tensor]]:
+        """This tick's admissions, after the finished slots' pages come
+        home: each request is prefilled and written into its slot on the
+        device.  Returns (slot, first token on the device) per admission."""
+        pending: List[Tuple[int, torch.Tensor]] = []
         self._flush_dirty()
         for slot, req in self.sched.admissions(self.clock,
                                                gate=self._admission_gate()):
@@ -545,29 +562,36 @@ class ServeEngine:
                                ids)
             self.outputs[req.rid] = RequestOutput(req.rid,
                                                   admitted=self.clock)
-            pending.append((slot, req.rid, tok))
+            pending.append((slot, tok))
         self.peak_active = max(self.peak_active, len(self.sched.running))
-        admitted = frozenset(s for s, _, _ in pending)
+        return pending
+
+    def _step_fused(self) -> List[Tuple[int, int, int]]:
+        """Admissions, then one fused chunk advancing every running slot,
+        then the tick's single host transfer."""
+        ev_start = len(self.events)
+        pending = self._admit()
+        admitted = frozenset(s for s, _ in pending)
         if self.sched.active and all(
                 self.sched.remaining[s] - (s in admitted) <= 0
                 for s in self.sched.active):
             # pure-admission tick: nothing owes a decode step, so fetch the
             # prefill tokens without running a dead chunk
-            first = torch.cat([t for _, _, t in pending]).tolist()
+            first = torch.cat([t for _, t in pending]).tolist()
             self.stats["host_syncs"] += 1
-            for (slot, _, _), tok in zip(pending, first):
+            for (slot, _), tok in zip(pending, first):
                 self._emit(slot, int(tok))
             self.clock += 1
         elif self.sched.active:
             chunk = self._chunk_len(admitted)
-            chunk_fn = self._fns()[1](chunk)
+            chunk_fn = self._fns()[2](chunk)
             with self._scope():
                 (self.cache, self._tokens, self._remaining, ring,
                  zf_num, zf_den) = chunk_fn(self.params, self.cache,
                                             self._tokens, self._remaining)
             # the tick's one host transfer: ring, first tokens, measurement
             parts = [ring.reshape(-1).double()]
-            parts += [t.double() for _, _, t in pending]
+            parts += [t.double() for _, t in pending]
             parts += [zf_num.double().reshape(1), zf_den.double().reshape(1)]
             host = torch.cat(parts).cpu().numpy()
             self.stats["host_syncs"] += 1
@@ -578,7 +602,7 @@ class ServeEngine:
             zf_num_h, zf_den_h = float(host[-2]), float(host[-1])
             # prefill-boundary emissions first: the chunk consumed these
             # tokens as its first feedback, so they precede the ring rows
-            for (slot, _, _), tok in zip(pending, first):
+            for (slot, _), tok in zip(pending, first):
                 self._emit(slot, int(tok))
             for t in range(chunk):
                 live = self.sched.active
@@ -596,6 +620,40 @@ class ServeEngine:
             self.clock += 1
         return self.events[ev_start:]
 
+    def _step_stepwise(self) -> List[Tuple[int, int, int]]:
+        """The reference's per-step baseline (``fused=False``): admissions,
+        each with a sync for its first token, then one pooled decode step
+        with argmax on the device and one host transfer of the (B,) tokens;
+        every ``measure_every`` steps one more sync measures the exact-zero
+        fraction of the live rows' full logits.  Tokens equal the fused
+        path's."""
+        ev_start = len(self.events)
+        for slot, tok in self._admit():
+            self.stats["host_syncs"] += 1
+            self._emit(slot, int(tok))
+        active = self.sched.active
+        if active:
+            decode_fn = self._fns()[1]
+            with self._scope():
+                logits, self.cache = decode_fn(self.params, self.cache,
+                                               self._tokens)
+            toks = torch.argmax(logits, dim=-1)
+            self._tokens.copy_(toks[:, None])
+            host = toks.cpu().numpy()
+            self.stats["host_syncs"] += 1
+            self.stats["decode_steps"] += 1
+            self._since_measure += 1
+            if self._since_measure >= self.measure_every:
+                rows = torch.as_tensor(active, device=logits.device)
+                self._measure(float(sparsity_of(logits[rows])))
+                self.stats["host_syncs"] += 1
+            for slot in active:
+                self._emit(slot, int(host[slot]))
+        elif self.sched.waiting_count:
+            self.stats["idle_steps"] += 1
+        self.clock += 1
+        return self.events[ev_start:]
+
     def run(self, requests: Sequence[Request] = (),
             max_steps: Optional[int] = None) -> Dict[int, RequestOutput]:
         """Add ``requests`` and tick until every request finished (or
@@ -609,6 +667,40 @@ class ServeEngine:
             if max_steps is not None and steps >= max_steps:
                 break
         return self.outputs
+
+
+def int8_logit_gap(api: ModelApi, params: Any, config: EngineConfig,
+                   steps: int = 48, plen: int = 24) -> float:
+    """Teacher-forced int8 against same-dtype paged decode, the twin of
+    the reference benchmark's ``int8_logit_gap``: one ``plen``-token
+    prompt (numpy seed 7) is prefilled into a one-slot paged arena of each
+    page dtype (``config``'s cache_len, page_size and kernel fields) and
+    decoded ``steps`` steps, the int8 run fed the same-dtype run's tokens.
+    Returns max |logit difference| / max |same-dtype logit| over the
+    prefill's and every step's logits."""
+    prompt = np.random.default_rng(7).integers(1, api.cfg.vocab_size,
+                                               (1, plen))
+    req = Request(rid=0, tokens=prompt[0], max_new_tokens=steps + 1)
+
+    def decode(kv_dtype: str, forced: Optional[torch.Tensor] = None):
+        eng = ServeEngine(api, params, config.with_fields(
+            num_slots=1, kv_dtype=kv_dtype, bucket_prompts=False))
+        cache1, logits = eng._prefill(req)
+        ids = eng._page_alloc.reserve(eng._paged.pages_needed(plen + steps))
+        nxt = eng._insert(0, cache1, logits, steps, ids)[:, None]
+        outs = [logits[0]]
+        with eng._scope():
+            for t in range(steps):
+                if forced is not None:
+                    nxt = forced[t].reshape(1, 1)
+                logits, eng.cache = api.decode_step(params, eng.cache, nxt)
+                outs.append(logits[0])
+                nxt = torch.argmax(logits, dim=-1)[:, None]
+        return torch.stack(outs).float()
+
+    same = decode("fp32")
+    int8 = decode("int8", forced=torch.argmax(same, dim=-1))
+    return float((int8 - same).abs().max() / same.abs().max())
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Paged KV arena: fixed-size pages drawn from one shared device pool and
 indexed through an on-device page table — the port's copy of
-``repro/runtime/paging.py`` with pages in the cache's own dtype.
+``repro/runtime/paging.py``.
 
 The fixed ``num_slots x cache_len`` arena provisions every slot for the
 longest request.  Here a slot's rows become pages of ``page_size`` tokens,
@@ -24,8 +24,11 @@ Layout invariants:
 * ``cache_len`` is rounded up to a multiple of ``page_size``, so a slot's
   gathered view ``(batch, max_pages * page_size, *rest)`` has exactly the
   fixed arena's shape and paged decode equals the fixed arena bit for bit.
-* Pages hold the cache's own dtype (``kv_dtype="fp32"``, the reference's
-  name for unquantised pages).  int8 pages are not ported yet.
+* ``kv_dtype="fp32"`` (the reference's name for unquantised pages) keeps
+  pages in the cache's own dtype.  ``"int8"`` pools hold per-token-row
+  quantized K/V (``optim.compression.quantize_rows``) beside a
+  ``<key>_scale`` fp32 pool ``(stack, num_pages, page_size)``; the paged
+  view dequantizes through it (a gated logit tolerance, not bit-exact).
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ class PagedSpec:
     num_pages: int            # total physical pages, including DUMP page 0
     max_pages: int            # page-table width = cache_len // page_size
     cache_len: int            # rounded up to a multiple of page_size
-    kv_dtype: str             # "fp32": the cache's own dtype
+    kv_dtype: str             # "fp32": the cache's own dtype; or "int8"
     paged_keys: Tuple[str, ...]
 
     @property
@@ -107,8 +110,6 @@ def build_spec(api: Any, num_slots: int, cache_len: int,
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
                          f"got {kv_dtype!r}")
-    if kv_dtype == "int8":
-        raise NotImplementedError("int8 KV pages are not ported yet")
     clen = -(-cache_len // page_size) * page_size
     keys = discover_paged_keys(api, clen)
     if not keys:
@@ -129,9 +130,10 @@ def build_spec(api: Any, num_slots: int, cache_len: int,
 def paged_tree(base: Dict[str, torch.Tensor], num_slots: int,
                spec: PagedSpec) -> Dict[str, torch.Tensor]:
     """Rewrite a (promoted) fixed arena tree into its paged form: paged
-    leaves become zeroed pools ``(stack, num_pages, page_size, *rest)`` in
-    their own dtype, and a zeroed (all-DUMP) ``"pages"`` table is added.
-    ``base`` may live on the ``meta`` device."""
+    leaves become zeroed pools ``(stack, num_pages, page_size, *rest)``
+    in their own dtype, or int8 beside a ``<key>_scale`` fp32 leaf
+    ``(stack, num_pages, page_size)``, and a zeroed (all-DUMP) ``"pages"``
+    table is added.  ``base`` may live on the ``meta`` device."""
     out: Dict[str, torch.Tensor] = {}
     ref = None
     for key, leaf in base.items():
@@ -140,8 +142,14 @@ def paged_tree(base: Dict[str, torch.Tensor], num_slots: int,
             if shape[1] != num_slots or shape[2] != spec.cache_len:
                 raise ValueError(f"leaf {key!r} of shape {tuple(shape)} is "
                                  "not a fixed arena of this spec")
-            out[key] = leaf.new_zeros((shape[0], spec.num_pages,
-                                       spec.page_size) + tuple(shape[3:]))
+            pool = (shape[0], spec.num_pages, spec.page_size)
+            if spec.kv_dtype == "int8":
+                out[key] = leaf.new_zeros(pool + tuple(shape[3:]),
+                                          dtype=torch.int8)
+                out[key + "_scale"] = leaf.new_zeros(pool,
+                                                     dtype=torch.float32)
+            else:
+                out[key] = leaf.new_zeros(pool + tuple(shape[3:]))
             ref = leaf
         else:
             out[key] = leaf

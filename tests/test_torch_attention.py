@@ -18,6 +18,17 @@ from repro_torch.models import attention as att
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Eager torch ops at these sizes gain nothing from threads, and with
+    pytest-xdist's parallel workers OpenMP's pools oversubscribe the cores
+    (a test of seconds then takes minutes): one thread for the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(seed, S, H=4, KVH=4, hd=16, B=2):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((B, S, h, hd)).astype(np.float32)

@@ -35,6 +35,17 @@ TRACE = dict(num_requests=7, seed=11, prompt_lens=(6, 10, 17),
              gen_lens=(2, 4, 7), arrival_every=1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Eager torch ops at these sizes gain nothing from threads, and with
+    pytest-xdist's parallel workers OpenMP's pools oversubscribe the cores
+    (a test of seconds then takes minutes): one thread for the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=[(3, 4, None), (2, 8, None),
                                         (3, 4, 4)],
                 ids=["slots3-chunk4", "slots2-chunk8", "slots3-chunk4-paged"])
@@ -187,10 +198,13 @@ def test_launch_serve_cli_paged_on_cpu(capsys):
     # heavy lengths: 32 + 2 * 16 + 1 = 65, rounded up to a page multiple
     assert "cache_len 68 (paged, 40 pages of 4)" in out
     assert "parity OK: all 8 requests" in out
-    # int8 pages are not ported: the CLI has no --kv-dtype flag
-    with pytest.raises(SystemExit):
-        launch_serve.main(["--reduced", "--device", "cpu", "--page-size",
-                           "4", "--kv-dtype", "int8"])
+    # int8 pages serve, and the oracle parity is skipped for them as in
+    # the reference (they are gated by a logit tolerance)
+    launch_serve.main(["--reduced", "--device", "cpu", "--page-size", "4",
+                       "--kv-dtype", "int8", "--parity"])
+    out = capsys.readouterr().out
+    assert "(paged, 53 pages of 4), int8 pages" in out
+    assert "parity SKIPPED: int8 KV pages" in out
 
 
 @pytest.mark.parametrize("dist", ["choice", "heavy"])
@@ -224,13 +238,26 @@ def test_entry_points_default_to_cuda():
 # host-side machinery
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("field", [dict(page_size=16, kv_dtype="int8"),
-                                   dict(kv_dtype="int8"),
-                                   dict(fused=False), dict(mesh="1x1"),
+@pytest.mark.parametrize("field", [dict(mesh="1x1"),
                                    dict(snapshot_dir="x")])
 def test_unported_config_fields_raise(field):
     with pytest.raises(NotImplementedError):
         EngineConfig().with_fields(**field)
+
+
+@pytest.mark.parametrize("field", [dict(page_size=16, kv_dtype="int8"),
+                                   dict(kv_dtype="int8"),
+                                   dict(fused=False),
+                                   dict(policy="static", fused=False,
+                                        decode_chunk=1)])
+def test_int8_and_stepwise_config_fields_round_trip(field):
+    """int8 pages and the stepwise path, unported before, build and
+    round-trip through JSON; the reference's file of the same fields
+    loads equal."""
+    conf = EngineConfig().with_fields(**field)
+    assert EngineConfig.from_json(conf.to_json()) == conf
+    ref = JaxEngineConfig().with_fields(**field)
+    assert EngineConfig.from_json(ref.to_json()) == conf
 
 
 def test_engine_config_json_round_trip_and_reference_file():
@@ -248,10 +275,19 @@ def test_engine_config_json_round_trip_and_reference_file():
 
 @pytest.mark.parametrize("raw", [
     '{"kernels": {"interpret": true}}', '{"kernels": {"plan": "p.json"}}',
-    '{"arena": {"kv_dtype": "int8"}}', '{"router": {"replicas": 2}}'])
+    '{"router": {"replicas": 2}}'])
 def test_engine_config_json_unported_fields_raise(raw):
     with pytest.raises(NotImplementedError):
         EngineConfig.from_json(raw)
+
+
+@pytest.mark.parametrize("raw,want", [
+    ('{"arena": {"kv_dtype": "int8", "page_size": 16}}',
+     dict(kv_dtype="int8", page_size=16)),
+    ('{"sched": {"fused": false, "policy": "static"}}',
+     dict(fused=False, policy="static"))])
+def test_engine_config_json_serves_int8_and_stepwise(raw, want):
+    assert EngineConfig.from_json(raw) == EngineConfig().with_fields(**want)
 
 
 @pytest.mark.parametrize("raw", ['[]', '{"kernels": {"bogus": 1}}',
@@ -266,15 +302,17 @@ def test_engine_config_from_args_flag_beats_file(tmp_path):
     path.write_text(EngineConfig().with_fields(
         decode_chunk=2, num_slots=5, a_sparsity=0.5).to_json())
     defaults = dict(config=None, slots=4, decode_chunk=8, use_kernels=False,
-                    page_size=None, num_pages=None, kv_dtype="fp32")
+                    page_size=None, num_pages=None, kv_dtype="fp32",
+                    policy="continuous")
     args = argparse.Namespace(config=str(path), slots=4, decode_chunk=4,
                               use_kernels=False, page_size=8, num_pages=None,
-                              kv_dtype="fp32")
+                              kv_dtype="int8", policy="static")
     conf = EngineConfig.from_args(args, defaults)
-    # --decode-chunk 4 and --page-size 8 were given; --slots left at its
-    # default keeps 5
+    # --decode-chunk 4, --page-size 8, --kv-dtype int8 and --policy static
+    # were given; --slots left at its default keeps 5
     assert (conf.sched.decode_chunk, conf.arena.num_slots,
             conf.kernels.a_sparsity, conf.arena.page_size) == (4, 5, 0.5, 8)
+    assert (conf.arena.kv_dtype, conf.sched.policy) == ("int8", "static")
     # the CLI defines no flag for an unported field
     with pytest.raises(SystemExit):
         launch_serve.main(["--reduced", "--device", "cpu", "--replicas", "2"])

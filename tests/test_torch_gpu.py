@@ -26,7 +26,8 @@ from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
 from repro_torch.models import build_model
 from repro_torch.models.common import sparse_execution
 from repro_torch.runtime.config import EngineConfig
-from repro_torch.runtime.engine import ServeEngine, synthetic_trace
+from repro_torch.runtime.engine import (ServeEngine, int8_logit_gap,
+                                        synthetic_trace)
 from repro_torch.runtime.serve import greedy_generate
 from repro_torch.sparsity import block_prune, sparsify_params
 
@@ -338,7 +339,7 @@ def test_prefill_and_decode_chunk_never_sync(cuda):
     req = synthetic_trace(cfg, num_requests=1, seed=3,
                           prompt_lens=(11,), gen_lens=(4,))[0]
     batch = req.as_batch(cuda, eng.bucket_for(req.prompt_len))
-    prefill_fn, chunk_for = eng._fns()
+    prefill_fn, _, chunk_for = eng._fns()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -364,7 +365,7 @@ def test_mode_a_prefill_and_chunk_never_sync(cuda):
     req = synthetic_trace(cfg, num_requests=1, seed=3,
                           prompt_lens=(11,), gen_lens=(4,))[0]
     batch = req.as_batch(cuda, eng.bucket_for(req.prompt_len))
-    prefill_fn, chunk_for = eng._fns()
+    prefill_fn, _, chunk_for = eng._fns()
     before = launch_counts()["sparse_a"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -491,7 +492,7 @@ def test_paged_admission_prefill_and_chunk_never_sync(cuda):
                           prompt_lens=(11,), gen_lens=(4,))[0]
     batch = req.as_batch(cuda, eng.bucket_for(req.prompt_len))
     ids = eng._page_alloc.reserve(4)
-    prefill_fn, chunk_for = eng._fns()
+    prefill_fn, _, chunk_for = eng._fns()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -504,3 +505,48 @@ def test_paged_admission_prefill_and_chunk_never_sync(cuda):
     torch.cuda.synchronize()
     assert eng.cache["pages"][1].tolist() == ids + [0] * 4
     assert eng._remaining.tolist() == [0, 0]
+
+
+def _full_width_sparse_b(cuda):
+    api = build_model(get_config("llama3.2-1b"), device=cuda)
+    params = sparsify_params(api.init(api.generator(0)), 0.8, compact=True)
+    reqs = lambda: synthetic_trace(api.cfg, num_requests=8, seed=1,  # noqa
+                                   prompt_lens=(8, 16, 32),
+                                   gen_lens=(4, 8, 16))
+    return api, params, reqs
+
+
+@pytest.mark.gpu
+def test_int8_pages_at_full_width(cuda):
+    """Full-width llama3.2-1b (compacted 0.8, kernels on) from int8 pages:
+    a four-slot engine gives each request the tokens a one-slot engine
+    gives it alone (row quantization reads only its own row), and the
+    teacher-forced relative logit gap to same-dtype pages stays within the
+    reference's 0.02."""
+    api, params, reqs = _full_width_sparse_b(cuda)
+    conf = EngineConfig().with_fields(cache_len=49, page_size=16,
+                                      kv_dtype="int8", use_kernels=True,
+                                      max_admissions_per_step=4)
+    four = ServeEngine(api, params, conf).run(reqs())
+    one = ServeEngine(api, params, conf.with_fields(num_slots=1)).run(reqs())
+    for r in reqs():
+        assert four[r.rid].tokens == one[r.rid].tokens, r.rid
+    gap = int8_logit_gap(api, params, conf.with_fields(cache_len=128))
+    assert 0 < gap <= 0.02
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["continuous", "static"])
+def test_stepwise_at_full_width_equals_fused(cuda, policy):
+    """The stepwise path (fused=False, one decode step per tick) serves
+    full-width llama3.2-1b with the fused path's tokens."""
+    api, params, reqs = _full_width_sparse_b(cuda)
+    conf = EngineConfig().with_fields(cache_len=49, use_kernels=True,
+                                      policy=policy)
+    fused = ServeEngine(api, params, conf).run(reqs())
+    eng = ServeEngine(api, params, conf.with_fields(fused=False,
+                                                    decode_chunk=1))
+    stepwise = eng.run(reqs())
+    assert eng.stats["chunk_calls"] == 0
+    for r in reqs():
+        assert stepwise[r.rid].tokens == fused[r.rid].tokens, r.rid

@@ -26,6 +26,17 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 PRUNE = dict(block_k=16, block_n=16, unit=8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Eager torch ops at these sizes gain nothing from threads, and with
+    pytest-xdist's parallel workers OpenMP's pools oversubscribe the cores
+    (a test of seconds then takes minutes): one thread for the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=["dense", "compacted"])
 def pair(request):
     """(jax api, jax params, port api, port params, compacted?)"""

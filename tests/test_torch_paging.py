@@ -1,7 +1,7 @@
 """The port's paged KV arena (repro_torch.runtime.paging, the paged write
 and view of repro_torch.models.common, the paged engine) against the JAX
 package's, mirroring tests/test_paged_arena.py with pages in the cache's
-own dtype (int8 pages are not ported and must raise):
+own dtype (int8 pages are held in tests/test_torch_int8_pages.py):
 
 * ``PageAllocator`` units: lowest id first, never DUMP, all-or-nothing on
   exhaustion, double free raises, the reference's page ids under one
@@ -51,6 +51,17 @@ from repro_torch.runtime.paging import (DUMP_PAGE, PageAllocator, build_spec,
 
 STATS = ("emitted", "decode_steps", "chunk_calls", "prefill_calls",
          "host_syncs", "idle_steps")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Eager torch ops at these sizes gain nothing from threads, and with
+    pytest-xdist's parallel workers OpenMP's pools oversubscribe the cores
+    (a test of seconds then takes minutes): one thread for the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -179,6 +190,8 @@ def test_build_spec_rounds_like_reference(reduced, args):
 
 
 def test_build_spec_validates_and_int8_raises(reduced):
+    """Bad page sizes, dtypes and pools raise; int8, once unported, now
+    builds the reference's spec and config (the name is kept from then)."""
     api, _ = reduced
     assert build_spec(api, 2, 16, None) == (None, 16)
     with pytest.raises(ValueError):
@@ -187,10 +200,13 @@ def test_build_spec_validates_and_int8_raises(reduced):
         build_spec(api, 2, 16, 4, kv_dtype="fp8")
     with pytest.raises(ValueError):
         build_spec(api, 2, 16, 4, num_pages=4)  # one slot needs 4 + DUMP
-    with pytest.raises(NotImplementedError):
-        build_spec(api, 2, 16, 4, kv_dtype="int8")
-    with pytest.raises(NotImplementedError):
-        EngineConfig().with_fields(page_size=4, kv_dtype="int8")
+    japi = jax_build_model(jax_get_config("llama3.2-1b").reduced())
+    spec, clen = build_spec(api, 2, 16, 4, kv_dtype="int8")
+    assert dataclasses.asdict(spec) == dataclasses.asdict(
+        jax_build_spec(japi, 2, 16, 4, kv_dtype="int8")[0])
+    assert spec.kv_dtype == "int8" and clen == 16
+    conf = EngineConfig().with_fields(page_size=4, kv_dtype="int8")
+    assert (conf.arena.page_size, conf.arena.kv_dtype) == (4, "int8")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -236,13 +252,9 @@ def test_paged_write_and_view_equal_reference(pos):
     slot = paged_slot(tpages, torch.from_numpy(np.asarray(pos)), 4)
     paged_write(tpool, None, slot, torch.from_numpy(update))
     np.testing.assert_array_equal(tpool.numpy(), np.asarray(jpool))
-    view = paged_view(tpool, None, tpages)
+    view = paged_view(tpool, None, tpages, torch.float32)
     assert view.shape == (4, 16, 2, 3)
     np.testing.assert_array_equal(view.numpy(), np.asarray(jview))
-    with pytest.raises(NotImplementedError):
-        paged_write(tpool, torch.ones(9, 4), slot, torch.from_numpy(update))
-    with pytest.raises(NotImplementedError):
-        paged_view(tpool, torch.ones(9, 4), tpages)
 
 
 # ---------------------------------------------------------------------------
