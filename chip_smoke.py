@@ -98,6 +98,38 @@ Phases, in order; any failure exits non-zero before the result line:
              112x and dense_gemm 1x per call; last-token logits finite
              and within 2% (relative L2) of the plain-matmul route, and
              every (layer, position) row of the K/V cache within 5%.
+5. router  - after the serve paths, four cells of the SLO-aware
+             multi-replica router through repro_torch.launch.serve.route
+             (ROUTER_CELLS), every replica an engine over one shared set
+             of weights:
+               router_bounded - sparse_b's weights, 2 replicas x 4 slots,
+                          cache_len 137, the reference benchmark's
+                          48-request bursty heavy-tailed overload trace
+                          with priorities and deadlines, queue bound 6 and
+                          the degradation ladder;
+               router_unbounded - the same trace without SLO fields, an
+                          unbounded queue and no ladder;
+               router_kill - mode_ab's weights, 2 x 2 slots, decode_chunk
+                          2, 6 requests at tick 0; replica 1 killed at
+                          tick 2 mid-decode and rejoined 3 ticks later;
+               router_hedge - mode_a's weights, 3 x 3 slots,
+                          decode_chunk 2, 5 of those requests, hedging
+                          after 1 tick: both hedge losers (a primary and
+                          a hedge copy) are cancelled mid-decode.
+             Each cell checks: building the replicas raised the card's
+             allocated memory by less than half the weights' bytes; every
+             engine built (killed and rejoined ones too) stayed in the
+             path's Mode; launches over all engines equal the path's per
+             model call; no plain GEMM; the virtual-tick row equals the
+             reference's (ROUTER_ROWS, the benchmark's committed router
+             rows) or the router record equals the reference's
+             (ROUTER_RECORDS); completed requests token-identical to the
+             batch-1 oracle (router_unbounded: every third rid); every
+             cancel of a hedge loser under CUDA's sync debug mode, and
+             (router_hedge) a running request cancelled on the fixed and
+             on the paged arena, then a new request admitted into its
+             freed slot, token-identical to the oracle.  ``--profile``
+             adds one profiled routed run per cell.
 
 The line before the last is the kernel summary JSON, the one before it the
 card's name and power limit; the last line is the result JSON.  The full
@@ -105,6 +137,7 @@ per-shape report goes to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -164,6 +197,78 @@ MAX_PREFILL_RISE = 3 << 30
 # the plain route: bf16 rounding drift through 16 layers stays well under
 # this, a wrong 32-row pass of griffin_spmm does not
 MAX_ROW_GAP = 5e-2
+# the router phase (launch.serve.route): the reference benchmark's
+# overload trace (benchmarks/bench_serve.py overload_trace: bursty,
+# heavy-tailed, 48 requests, seed 11) and the smaller trace of the
+# reference's replica-kill test, with the reference's cache_len of 137
+OVERLOAD = dict(requests=48, trace_seed=11, prompt_lens=(8, 16, 24),
+                gen_lens=(4, 8, 12, 16), arrival_process="bursty", rate=1.0,
+                burst_rate=8.0, burst_switch=0.2, length_dist="heavy",
+                max_gen=24)
+OVERLOAD_SLO = dict(priorities=(0, 1), deadline_slack=4.0, ttft_deadline=6)
+SMALL = dict(trace_seed=11, prompt_lens=(6, 10), gen_lens=(4, 6))
+ROUTER_ARENA = dict(num_slots=4, cache_len=137, decode_chunk=8)
+# the virtual-tick rows of benchmarks/out/BENCH_serve.json "router"; every
+# routing decision depends on the trace and the tick only, so full width
+# gives them exactly (tests/test_torch_router.py holds them on the CPU)
+ROUTER_ROWS = {
+    "router_bounded": {
+        "requests": 48, "completed": 33, "shed": 15, "max_queue_depth": 6,
+        "ticks": 21, "ttft_p50": 1, "ttft_p99": 8, "itl_p50": 1,
+        "itl_p99": 1, "slo_attainment": 0.6667,
+        "ladder_history": [[9, 1], [11, 2], [13, 3], [17, 2], [19, 1]]},
+    "router_unbounded": {
+        "requests": 48, "completed": 48, "shed": 0, "max_queue_depth": 29,
+        "ticks": 33, "ttft_p50": 6, "ttft_p99": 19, "itl_p50": 1,
+        "itl_p99": 1, "slo_attainment": None, "ladder_history": []},
+}
+# what the reference's RouterEngine gives on the small cells' traces
+# (tests/test_torch_router.py holds them against it on the CPU): stats,
+# ticks, health log, (attribution, winning replica) per rid, prefills per
+# engine built and the hedge losers' cancels with what each found: rid 3's
+# copy on replica 2 wins and its primary on replica 0 is cancelled
+# mid-decode, rid 4's primary on replica 1 wins and its copy on replica 0
+# is cancelled mid-decode
+ROUTER_RECORDS = {
+    "router_kill": dict(
+        stats={"submitted": 6, "dispatches": 7, "completed": 6, "shed": 0,
+               "retried": 1, "hedged": 0},
+        ticks=7,
+        health_log=[{"tick": 2, "event": "kill", "replica": 1,
+                     "state": "decode", "drained": [3], "rejoin_at": 5},
+                    {"tick": 5, "event": "rejoin", "replica": 1}],
+        served={0: ("normal", 0), 1: ("normal", 1), 2: ("normal", 0),
+                3: ("retried", 1), 4: ("normal", 0), 5: ("normal", 0)},
+        cancels=[]),
+    "router_hedge": dict(
+        stats={"submitted": 5, "dispatches": 7, "completed": 5, "shed": 0,
+               "retried": 0, "hedged": 2},
+        ticks=4, health_log=[], prefills=[3, 2, 2],
+        served={0: ("normal", 0), 1: ("normal", 1), 2: ("normal", 2),
+                3: ("hedged", 2), 4: ("hedged", 1)},
+        cancels=[(3, "running"), (4, "running")]),
+}
+# per router cell: the kernels' launches per model call (SB, MODE_A,
+# MODE_AB above), the engines' and router's config fields, the trace, and
+# the rids replayed through the oracle (None: every completed request)
+ROUTER_CELLS = {
+    "router_bounded": dict(
+        SB, fields=dict(ROUTER_ARENA, replicas=2, queue_bound=6,
+                        shed_policy="degrade"),
+        trace=dict(OVERLOAD, **OVERLOAD_SLO), parity=None),
+    "router_unbounded": dict(
+        SB, fields=dict(ROUTER_ARENA, replicas=2, shed_policy="none"),
+        trace=OVERLOAD, parity=range(0, 48, 3)),
+    "router_kill": dict(
+        MODE_AB, fields=dict(num_slots=2, cache_len=24, decode_chunk=2,
+                             replicas=2, shed_policy="none",
+                             inject="replica:1@2:decode:3"),
+        trace=dict(SMALL, requests=6), parity=None),
+    "router_hedge": dict(
+        MODE_A, fields=dict(num_slots=3, cache_len=24, decode_chunk=2,
+                            replicas=3, hedge_after=1, shed_policy="none"),
+        trace=dict(SMALL, requests=5), parity=None),
+}
 
 
 def fail(msg: str) -> None:
@@ -840,6 +945,229 @@ def phase_long_prefill(torch, run):
     return out
 
 
+def param_bytes(torch, tree) -> int:
+    """Bytes of every tensor in a parameter tree (compacted leaves
+    included)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(param_bytes(torch, v) for v in tree.values())
+    if dataclasses.is_dataclass(tree):
+        return sum(param_bytes(torch, getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return 0
+
+
+def phase_router(torch, name: str, sparsity: float, a_sparsity, mode: str,
+                 launches: dict, dual: int, fields: dict, trace: dict,
+                 parity):
+    """Route one cell's trace through launch.serve.route and check it: the
+    replicas share the weights; every engine built stays in ``mode``; the
+    launches over every engine built equal ``launches`` per model call;
+    the router's record equals ROUTER_ROWS or ROUTER_RECORDS; the
+    completed requests (``parity``: those rids) equal the batch-1 oracle;
+    every cancel the router makes runs under CUDA's sync debug mode and
+    is logged as (rid, what it found: "running", "waiting" or "none")."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.config import EngineConfig
+    from repro_torch.runtime.engine import ServeEngine
+
+    tag = f"[router {name}]"
+    config = EngineConfig().with_fields(use_kernels=True,
+                                        a_sparsity=a_sparsity, **fields)
+    cancels = []
+    cancel = ServeEngine.cancel
+
+    def guarded(self, rid):
+        running = any(r.rid == rid for r in self.sched.running.values())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            hit = cancel(self, rid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cancels.append((rid, "running" if running else
+                        "waiting" if hit else "none"))
+        return hit
+
+    t0 = time.perf_counter()
+    ServeEngine.cancel = guarded
+    reset_launch_counts()
+    try:
+        run = launch.route("llama3.2-1b", sparsity=sparsity, device="cuda",
+                           config=config, **trace)
+    except Exception as e:                  # noqa: BLE001 - any is a failure
+        fail(f"{name}: the routed run raised {e!r}")
+    finally:
+        ServeEngine.cancel = cancel
+    got = launch_counts()
+    router = run.router
+    calls = run.model_calls
+    summary = run.summary()
+    wbytes = param_bytes(torch, run.params)
+    print(f"{tag} llama3.2-1b full width bf16, weight sparsity "
+          f"{run.engines[0].b_sparsity:.3f}, declared activation sparsity "
+          f"{a_sparsity}, mode {run.engines[0].mode.value}: "
+          f"{fields['replicas']} replicas x {fields['num_slots']} slots, "
+          f"{len(run.requests)} requests over {router.clock} ticks in "
+          f"{run.seconds:.3f}s; {run.delivered} tokens delivered = "
+          f"{run.tokens_per_second:.1f} tok/s ({run.total('emitted')} "
+          f"emitted = {run.total('emitted') / run.seconds:.1f} tok/s over "
+          f"the engines); {len(run.engines)} engines "
+          f"built, {calls} model calls, {run.syncs_per_token:.4f} host "
+          f"syncs/token over the engines; stats {router.stats}; launches "
+          f"{got}; dispatch {run.dispatch}")
+    print(f"{tag} replicas took {run.build_bytes / 2**20:.1f} MiB over "
+          f"{wbytes / 2**20:.1f} MiB of weights")
+    if run.build_bytes >= wbytes / 2:
+        fail(f"{name}: building the replicas took {run.build_bytes} B, not "
+             f"less than half of the {wbytes} B of weights: the replicas "
+             "do not share them")
+    for eng in run.engines:
+        if eng.mode.value != mode or len(eng.mode_history) != 1:
+            fail(f"{name}: an engine ran {eng.mode_history}, expected "
+                 f"{mode} throughout")
+    if run.dispatch.get("plain", 0) != 0:
+        fail(f"{name}: plain GEMMs on the main path: {run.dispatch}")
+    want = {k: v * calls for k, v in launches.items()}
+    if got != want:
+        fail(f"{name}: launches {got}, expected {want} ({calls} model calls "
+             f"over {len(run.engines)} engines)")
+    if run.dispatch.get("dual", 0) != dual * calls:
+        fail(f"{name}: {run.dispatch.get('dual', 0)} dual GEMMs, expected "
+             f"{dual} x {calls}")
+    if name in ROUTER_ROWS:
+        row = {k: summary[k] for k in ROUTER_ROWS[name]}
+        if row != ROUTER_ROWS[name]:
+            fail(f"{name}: virtual-tick row {row}, expected "
+                 f"{ROUTER_ROWS[name]}")
+        print(f"{tag} virtual-tick row equal to the reference's: {row}")
+    else:
+        check_router_record(name, run, cancels)
+    try:
+        n = launch.check_route_parity(run, rids=parity)
+    except Exception as e:                  # noqa: BLE001 - any is a failure
+        fail(f"{name}: {e}")
+    which = ("every completed request" if parity is None else
+             f"the completed requests of rids {list(parity)}")
+    print(f"{tag} parity OK: {n} requests ({which}) token-identical to the "
+          "batch-1 greedy oracle")
+    if name == "router_hedge":
+        check_running_cancel(torch, run)
+    found = [k for _, k in cancels]
+    print(f"{tag} {len(cancels)} cancels under sync debug mode 'error' "
+          f"({found.count('running')} of a running request, "
+          f"{found.count('waiting')} of a waiting one, "
+          f"{found.count('none')} of a finished one); phase "
+          f"{time.perf_counter() - t0:.1f}s")
+    return run, got, {"seconds": run.seconds,
+                      "tokens_per_second": run.tokens_per_second,
+                      "delivered": run.delivered,
+                      "syncs_per_token": run.syncs_per_token,
+                      "model_calls": calls, "engines": len(run.engines),
+                      "stats": router.stats, "summary": summary,
+                      "build_bytes": run.build_bytes, "weight_bytes": wbytes,
+                      "cancels": cancels, "dispatch": run.dispatch}
+
+
+def check_router_record(name: str, run, cancels) -> None:
+    """The small cells' record against the reference's (ROUTER_RECORDS):
+    stats, ticks, health log, (attribution, winning replica) per rid,
+    prefills per engine, the hedge losers' cancels; every request finished
+    with exactly its max_new_tokens; no engine still owns a hedged rid its
+    replica lost."""
+    rec = ROUTER_RECORDS[name]
+    router = run.router
+    got = dict(stats=router.stats, ticks=router.clock,
+               health_log=router.health_log,
+               served={rid: (o.attribution.value, o.replica)
+                       for rid, o in router.outputs.items()})
+    if "prefills" in rec:
+        got["prefills"] = [e.stats["prefill_calls"] for e in run.engines]
+    if "cancels" in rec:
+        got["cancels"] = cancels
+    if got != rec:
+        fail(f"{name}: router record {got}, expected {rec}")
+    for r in run.requests:
+        o = router.outputs[r.rid]
+        if o.finished < 0 or len(o.tokens) != r.max_new_tokens:
+            fail(f"{name}: request {r.rid} finished at {o.finished} with "
+                 f"{len(o.tokens)} of {r.max_new_tokens} tokens")
+    for h in router.replicas:
+        for o in router.outputs.values():
+            if o.hedged and h.engine.outputs.get(o.rid) is not None \
+                    and o.replica != h.index:
+                fail(f"{name}: replica {h.index} still owns hedged request "
+                     f"{o.rid}, which replica {o.replica} won")
+    print(f"[router {name}] record equal to the reference's: {rec}")
+
+
+def check_running_cancel(torch, run) -> None:
+    """``ServeEngine.cancel`` of a *running* request at full width, on the
+    cell's first engine (fixed arena) and on a paged engine over the same
+    weights (pages of 16): a request is admitted and decoded part way, then
+    cancelled under CUDA's sync debug mode; its slot is free and its
+    owed-token counter 0 on the card.  A second request is then admitted
+    into the freed slot (on the paged arena after the slot's pages came
+    home, with its page-table row rewritten) and must equal the batch-1
+    oracle; the paged pool is whole again at the end."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.engine import ServeEngine
+
+    first = run.engines[0]
+    paged = ServeEngine(first.api, run.params,
+                        first.config.with_fields(page_size=16))
+    for arena, eng in (("fixed", first), ("paged", paged)):
+        tag = f"[router router_hedge] {arena} arena:"
+        req = dataclasses.replace(run.requests[2], rid=10_000,
+                                  arrival=eng.clock)
+        eng.add(req)
+        eng.step()
+        slots = [s for s, r in eng.sched.running.items() if r.rid == req.rid]
+        if not slots:
+            fail(f"{arena} running cancel: the request finished in one tick")
+        slot = slots[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            hit = eng.cancel(req.rid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        left = int(eng._remaining[slot])
+        if not hit or eng.sched.has_work() or left != 0:
+            fail(f"{arena} running cancel: returned {hit}, engine has work "
+                 f"{eng.sched.has_work()}, owed tokens on the card {left}")
+        out = len(eng.outputs[req.rid].tokens)
+        nxt = dataclasses.replace(run.requests[4], rid=10_001,
+                                  arrival=eng.clock)
+        eng.add(nxt)
+        eng.step()
+        owner = eng.sched.running.get(slot)
+        if owner is None or owner.rid != nxt.rid:
+            fail(f"{arena} running cancel: the next request was not "
+                 f"admitted into the freed slot {slot}")
+        while eng.sched.has_work():
+            eng.step()
+        try:
+            launch.replay_oracle([eng], run.params, [nxt],
+                                 {nxt.rid: eng.outputs[nxt.rid].tokens})
+        except Exception as e:              # noqa: BLE001 - any is a failure
+            fail(f"{arena} running cancel, then the freed slot: {e}")
+        pool = ""
+        if eng._paged is not None:
+            eng.step()                      # the last slot's pages home
+            free = eng._page_alloc.free_pages
+            if free != eng._paged.num_pages - 1:
+                fail(f"paged running cancel: {free} of "
+                     f"{eng._paged.num_pages - 1} pages free at the end")
+            pool = f"; all {free} pages free at the end"
+        print(f"{tag} a running request ({out} of {req.max_new_tokens} "
+              f"tokens out) cancelled with no host sync, its owed-token "
+              f"counter 0; the next request took slot {slot} and equals "
+              f"the batch-1 oracle{pool}")
+    del paged
+
+
 def rel_l2(x, ref) -> float:
     return float((x.float() - ref.float()).norm() / ref.float().norm())
 
@@ -919,6 +1247,25 @@ def phase_profile(torch, name: str, run):
           f"{eng.num_slots} slots): {step_ops} device ops")
 
 
+def phase_profile_router(torch, name: str, run) -> None:
+    """``--profile``: the cell's trace routed again on the same weights by
+    a fresh router (``launch.serve.build_router``) under torch.profiler:
+    the device's busy share and device ops per model call over every
+    engine built (the router itself only adds host bookkeeping)."""
+    from repro_torch.launch import serve as launch
+
+    eng0 = run.engines[0]
+    router, engines = launch.build_router(eng0.api, run.params, eng0.config)
+    wall_ms, by_name, ops = profiled(torch,
+                                     lambda: router.run(run.requests))
+    calls = sum(e.stats["prefill_calls"] + e.stats["decode_steps"]
+                for e in engines)
+    print_profile(f"[profile {name}]", wall_ms, by_name,
+                  f"routed run, {calls} model calls over {len(engines)} "
+                  f"engines, {ops} device ops = {ops / calls:.2f} per model "
+                  "call")
+
+
 def profile_long_prefill(torch, run, S: int) -> None:
     """``--profile``: where the time of one S-token prefill goes."""
     eng = run.engine
@@ -975,6 +1322,13 @@ def main() -> None:
             serves["long_prefill"] = {"launches": {
                 k: sum(p["launches"][k] for p in long_prefill.values())
                 for k in SB_LAUNCHES}}
+        del run
+        torch.cuda.empty_cache()
+    for name, cell in ROUTER_CELLS.items():
+        run, launches, record = phase_router(torch, name, **cell)
+        serves[name] = {"launches": launches, **record}
+        if "--profile" in sys.argv[1:]:
+            phase_profile_router(torch, name, run)
         del run
         torch.cuda.empty_cache()
 

@@ -15,6 +15,15 @@ admits only into a drained pool, and ``--length-dist heavy`` draws
 heavy-tailed generation lengths.  The stepwise decode path is chosen
 through the config file (``{"sched": {"fused": false}}``), as in the
 reference.
+
+``--replicas N`` serves through the SLO-aware multi-replica router
+(:func:`route`): N engines sharing one set of weights behind one bounded
+EDF admission queue (``--queue-bound``, ``--shed-policy
+none|shed|degrade``, ``--hedge-ms``, ``--inject-fault
+replica:<i>@<tick>[:<during>[:<recover>]]``), fed by bursty arrivals
+(``--arrival-process bursty --rate --burst-rate``) with priorities and
+virtual-tick SLOs (``--priorities 0,1 --slo ttft=6,slack=4``);
+``--overload-smoke`` asserts the queue stayed bounded and shed work.
 ``--config engine.json`` reads an ``EngineConfig`` (explicit flags beat
 the file); its ``kernels.a_sparsity`` declares the activation sparsity of
 the workload category, which with ``--use-kernels`` selects Sparse.A
@@ -25,7 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,14 +42,75 @@ import torch
 from ..configs import get_config
 from ..models import build_model
 from ..models.common import kernel_dispatch_counts
+from ..runtime import slo
 from ..runtime.config import EngineConfig
 from ..runtime.engine import ServeEngine, synthetic_trace
+from ..runtime.fault import parse_fault_spec
+from ..runtime.router import RouterEngine
 from ..runtime.serve import greedy_generate
+from ..runtime.slo import DegradationConfig
 from ..sparsity import sparsify_params
 
 
 def _lens(spec: str):
     return tuple(int(x) for x in spec.split(",") if x)
+
+
+def _parse_slo(spec: str):
+    """``--slo`` spec: comma-separated ``ttft=<ticks>`` (first-token
+    deadline) and ``slack=<factor>`` (completion deadline = slack x the
+    request's own expected service).  Either half may be omitted."""
+    ttft, slack = None, None
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        k, _, v = part.partition("=")
+        if k == "ttft":
+            ttft = int(v)
+        elif k == "slack":
+            slack = float(v)
+        else:
+            raise ValueError(f"--slo {spec!r}: unknown key {k!r} "
+                             "(known: ttft, slack)")
+    return ttft, slack
+
+
+def _setup(arch: str, reduced: bool, sparsity: float, seed: int,
+           device: Optional[str], econf: EngineConfig, requests: int,
+           prompt_lens: Sequence[int], gen_lens: Sequence[int],
+           arrival_every: int, length_dist: str, max_gen: Optional[int],
+           trace_seed: int, trace_kw: Dict):
+    """(api, params, trace, config): the model with seeded random weights
+    on ``device``, pruned (and compacted with ``kernels.use_kernels``) to
+    ``sparsity`` — full-width blocks 128/128/32, the reduced config's
+    16/16/8, as in the reference — and the synthetic trace; the config's
+    ``cache_len`` defaults to the trace's bound."""
+    if econf.arena.cache_len is None:
+        econf = econf.with_fields(cache_len=EngineConfig.derive_cache_len(
+            prompt_lens, gen_lens, length_dist))
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    api = build_model(cfg, device=device)
+    params = api.init(api.generator(seed))
+    if sparsity > 0:
+        prune = (dict(block_k=16, block_n=16, unit=8) if reduced else {})
+        params = sparsify_params(params, sparsity,
+                                 compact=econf.kernels.use_kernels, **prune)
+    if max_gen is None and length_dist == "heavy":
+        max_gen = EngineConfig.heavy_gen_cap(gen_lens)
+    reqs = synthetic_trace(cfg, num_requests=requests, seed=trace_seed,
+                           prompt_lens=prompt_lens, gen_lens=gen_lens,
+                           arrival_every=arrival_every,
+                           length_dist=length_dist, max_gen=max_gen,
+                           **trace_kw)
+    return api, params, reqs, econf
+
+
+def _sync(api) -> None:
+    if api.device.type == "cuda":
+        torch.cuda.synchronize(api.device)
 
 
 @dataclasses.dataclass
@@ -67,77 +137,276 @@ class ServeRun:
 def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
           requests: int = 8, prompt_lens: Sequence[int] = (8, 16, 32),
           gen_lens: Sequence[int] = (4, 8, 16), arrival_every: int = 0,
-          length_dist: str = "choice", sparsity: float = 0.8, seed: int = 0,
+          length_dist: str = "choice", max_gen: Optional[int] = None,
+          sparsity: float = 0.8, seed: int = 0, trace_seed: int = 1,
           device: Optional[str] = "cuda",
-          config: Optional[EngineConfig] = None) -> ServeRun:
+          config: Optional[EngineConfig] = None, **trace_kw) -> ServeRun:
     """Build the model with seeded random weights on ``device``, prune
     (compact with ``config.kernels.use_kernels``), and serve a synthetic
-    trace.  With ``sparsity > 0`` the full-width pruning blocks are
-    128/128/32 and the reduced config's 16/16/8, as in the reference.
-    ``config`` (default ``EngineConfig()``) sets the slots, the chunk, the
-    kernels and the declared activation sparsity
-    (``kernels.a_sparsity``) and the arena, fixed or paged; its
+    trace through one engine.  ``config`` (default ``EngineConfig()``)
+    sets the slots, the chunk, the kernels and the declared activation
+    sparsity (``kernels.a_sparsity``) and the arena, fixed or paged; its
     ``cache_len`` defaults to the trace's bound.  ``length_dist="heavy"``
-    draws Pareto generation lengths capped at
-    ``EngineConfig.heavy_gen_cap(gen_lens)``."""
+    draws Pareto generation lengths capped at ``max_gen`` (default
+    ``EngineConfig.heavy_gen_cap(gen_lens)``); ``trace_kw`` passes the
+    arrival process and SLO fields on to ``synthetic_trace``."""
     econf = config or EngineConfig()
-    if econf.arena.cache_len is None:
-        econf = econf.with_fields(cache_len=EngineConfig.derive_cache_len(
-            prompt_lens, gen_lens, length_dist))
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    api = build_model(cfg, device=device)
-    params = api.init(api.generator(seed))
-    if sparsity > 0:
-        prune = (dict(block_k=16, block_n=16, unit=8) if reduced else {})
-        params = sparsify_params(params, sparsity,
-                                 compact=econf.kernels.use_kernels, **prune)
-    max_gen = (EngineConfig.heavy_gen_cap(gen_lens)
-               if length_dist == "heavy" else None)
-    reqs = synthetic_trace(cfg, num_requests=requests, seed=1,
-                           prompt_lens=prompt_lens, gen_lens=gen_lens,
-                           arrival_every=arrival_every,
-                           length_dist=length_dist, max_gen=max_gen)
+    if econf.fault.inject is not None:
+        raise ValueError("a replica fault needs the router "
+                         "(router.replicas > 0)")
+    api, params, reqs, econf = _setup(
+        arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
+        gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw)
     engine = ServeEngine(api, params, econf)
     before = kernel_dispatch_counts()
-    if api.device.type == "cuda":
-        torch.cuda.synchronize(api.device)
+    _sync(api)
     t0 = time.perf_counter()
     engine.run(reqs)
-    if api.device.type == "cuda":
-        torch.cuda.synchronize(api.device)
+    _sync(api)
     dt = time.perf_counter() - t0
     after = kernel_dispatch_counts()
     dispatch = {k: after.get(k, 0) - before.get(k, 0) for k in after}
     return ServeRun(engine, reqs, params, dt, dispatch)
 
 
-def check_parity(run: ServeRun) -> int:
-    """Replay every request through the batch-1 greedy oracle under the
-    engine's scope; raise on the first divergence.  Returns the number of
-    requests checked.  An int8-paged run is refused: its pages are gated
-    by a logit tolerance, not by token equality."""
-    eng = run.engine
+@dataclasses.dataclass
+class RouteRun:
+    """What :func:`route` did: the router (outputs, ``stats``,
+    ``health_log``, the queue and the ladder), every engine ``make_engine``
+    built (the killed ones and the rejoined ones too, in build order), the
+    trace, the served params, the wall time, the GEMM dispatch counts and
+    the device memory the replicas took on top of the weights
+    (``build_bytes``, None off the card)."""
+
+    router: RouterEngine
+    engines: List[ServeEngine]
+    requests: List
+    params: Dict
+    seconds: float
+    dispatch: Dict[str, int]
+    build_bytes: Optional[int]
+
+    def total(self, key: str) -> int:
+        """``key`` of the engines' stats, summed over every engine."""
+        return sum(e.stats[key] for e in self.engines)
+
+    @property
+    def model_calls(self) -> int:
+        return self.total("prefill_calls") + self.total("decode_steps")
+
+    @property
+    def delivered(self) -> int:
+        """Tokens of the completed requests (what the clients got)."""
+        return sum(len(o.tokens) for o in self.router.outputs.values()
+                   if o.finished >= 0)
+
+    @property
+    def tokens_per_second(self) -> float:
+        return self.delivered / max(self.seconds, 1e-9)
+
+    @property
+    def syncs_per_token(self) -> float:
+        """Host syncs per emitted token, both summed over every engine."""
+        return self.total("host_syncs") / max(self.total("emitted"), 1)
+
+    def summary(self) -> Dict:
+        """The virtual-tick row of the reference benchmark's router rows:
+        the latency summary plus queue depth, ticks and ladder history."""
+        rows = slo.request_rows(self.router.outputs, self.requests)
+        ladder = self.router.ladder
+        return dict(slo.latency_summary(rows),
+                    max_queue_depth=self.router.max_queue_depth,
+                    ticks=self.router.clock,
+                    ladder_history=[list(t) for t in ladder.history]
+                    if ladder else [])
+
+
+def build_router(api, params, econf: EngineConfig
+                 ) -> Tuple[RouterEngine, List[ServeEngine]]:
+    """The router ``econf.router`` describes, over engines that all serve
+    the *same* ``params`` (one set of weights on the device), and the list
+    that every engine ``make_engine`` builds (a rejoining replica's fresh
+    engine too) is appended to.  The queue bound is
+    ``router.queue_bound``, or 2 x slots x replicas when unset, or none
+    under ``shed_policy="none"``; ``"degrade"`` adds the pressure ladder
+    (``DegradationConfig()``); ``fault.inject`` may hold one ``replica:``
+    spec."""
+    rc = econf.router
+    if rc.replicas < 1:
+        raise ValueError("the router needs router.replicas >= 1")
+    if rc.shed_policy not in ("none", "shed", "degrade"):
+        raise ValueError(f"unknown shed policy {rc.shed_policy!r}")
+    faults = ([parse_fault_spec(econf.fault.inject).build_replica()]
+              if econf.fault.inject else [])
+    bound = rc.queue_bound
+    if rc.shed_policy == "none":
+        bound = None
+    elif bound is None:
+        bound = 2 * econf.arena.num_slots * rc.replicas
+    engines: List[ServeEngine] = []
+
+    def make_engine() -> ServeEngine:
+        eng = ServeEngine(api, params, econf)
+        engines.append(eng)
+        return eng
+
+    router = RouterEngine(
+        make_engine, rc.replicas, queue_bound=bound,
+        hedge_after=rc.hedge_after, replica_faults=faults,
+        degradation=(DegradationConfig() if rc.shed_policy == "degrade"
+                     else None))
+    return router, engines
+
+
+def route(arch: str = "llama3.2-1b", *, reduced: bool = False,
+          requests: int = 8, prompt_lens: Sequence[int] = (8, 16, 32),
+          gen_lens: Sequence[int] = (4, 8, 16), arrival_every: int = 0,
+          length_dist: str = "choice", max_gen: Optional[int] = None,
+          sparsity: float = 0.8, seed: int = 0, trace_seed: int = 1,
+          device: Optional[str] = "cuda",
+          config: Optional[EngineConfig] = None, **trace_kw) -> RouteRun:
+    """:func:`serve`'s model and trace served by ``config.router.replicas``
+    engines behind the SLO-aware router, as the reference's ``serve.py
+    --replicas N`` does (:func:`build_router`)."""
+    econf = config or EngineConfig()
+    api, params, reqs, econf = _setup(
+        arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
+        gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw)
+    on_card = api.device.type == "cuda"
+    _sync(api)
+    mem0 = torch.cuda.memory_allocated(api.device) if on_card else 0
+    router, engines = build_router(api, params, econf)
+    build_bytes = (torch.cuda.memory_allocated(api.device) - mem0
+                   if on_card else None)
+    before = kernel_dispatch_counts()
+    _sync(api)
+    t0 = time.perf_counter()
+    router.run(reqs)
+    _sync(api)
+    dt = time.perf_counter() - t0
+    after = kernel_dispatch_counts()
+    dispatch = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    return RouteRun(router, engines, reqs, params, dt, dispatch, build_bytes)
+
+
+def replay_oracle(engines: Sequence[ServeEngine], params: Dict, requests,
+                  tokens: Dict[int, List[int]]) -> int:
+    """Replay each of ``requests`` through the batch-1 greedy oracle under
+    the engines' scope and compare with ``tokens[rid]``; raise on the
+    first divergence.  Returns the number of requests checked.  Refused:
+    int8 KV pages (gated by a logit tolerance, not by token equality), an
+    engine whose Mode changed mid-run, and engines in different Modes (a
+    single-mode replay would compare across categories)."""
+    eng = engines[0]
     if eng._paged is not None and eng._paged.kv_dtype == "int8":
         raise ValueError("int8 KV pages are gated by a logit tolerance, "
                          "not by token parity with the greedy oracle")
-    if len(eng.mode_history) > 1:
-        raise RuntimeError("execution mode changed mid-run: "
-                           f"{eng.mode_history}; a single-mode oracle "
-                           "replay would compare across categories")
-    for r in run.requests:
+    for e in engines:
+        if len(e.mode_history) > 1:
+            raise RuntimeError("execution mode changed mid-run: "
+                               f"{e.mode_history}; a single-mode oracle "
+                               "replay would compare across categories")
+    if len({e.mode for e in engines}) != 1:
+        raise RuntimeError("replicas ran in different modes: "
+                           f"{[e.mode for e in engines]}")
+    for r in requests:
         with eng._scope():
             ref = greedy_generate(
-                eng.api, run.params, r.as_batch(eng.device),
+                eng.api, params, r.as_batch(eng.device),
                 steps=r.max_new_tokens, cache_len=eng.cache_len,
                 prompt_bucket=eng.bucket_for(r.prompt_len))
-        got = eng.outputs[r.rid].tokens
-        want = ref[0].tolist()
+        got, want = tokens[r.rid], ref[0].tolist()
         if got != want:
             raise AssertionError(f"request {r.rid} diverged from the greedy "
                                  f"oracle: {got} vs {want}")
-    return len(run.requests)
+    return len(requests)
+
+
+def check_parity(run: ServeRun) -> int:
+    """Replay every request through the batch-1 greedy oracle
+    (:func:`replay_oracle`).  Returns the number of requests checked."""
+    eng = run.engine
+    return replay_oracle([eng], run.params, run.requests,
+                         {rid: o.tokens for rid, o in eng.outputs.items()})
+
+
+def check_route_parity(run: RouteRun,
+                       rids: Optional[Sequence[int]] = None) -> int:
+    """Replay every completed request (or those of ``rids``) through the
+    batch-1 greedy oracle (:func:`replay_oracle`).  Returns the number of
+    requests checked."""
+    outs = run.router.outputs
+    reqs = [r for r in run.requests if outs[r.rid].finished >= 0
+            and (rids is None or r.rid in rids)]
+    return replay_oracle(run.engines, run.params, reqs,
+                         {r.rid: outs[r.rid].tokens for r in reqs})
+
+
+def _print_slo(rows, summary) -> None:
+    """Per-request SLO attainment table and the aggregate latency summary
+    (virtual ticks)."""
+    print("per-request SLO attainment (virtual ticks):")
+    for r in rows:
+        mark = {True: "ok", False: "MISS", None: "-"}[r["attained"]]
+        ttft = r["ttft"] if r["ttft"] is not None else "-"
+        done = r["completion"] if r["completion"] is not None else "-"
+        print(f"  rid {r['rid']:>3} prio {r['priority']} ttft {ttft:>4} "
+              f"done {done:>4} tokens {r['tokens']:>3} "
+              f"{r['attribution']:<8} {mark}")
+    print(f"SLO summary: {summary['completed']}/{summary['requests']} "
+          f"completed, {summary['shed']} shed, "
+          f"ttft p50/p99 {summary['ttft_p50']}/{summary['ttft_p99']}, "
+          f"itl p50/p99 {summary['itl_p50']}/{summary['itl_p99']}, "
+          f"attainment {summary['slo_attainment']}")
+
+
+def _main_router(args, econf: EngineConfig, trace: Dict) -> None:
+    """``--replicas N``: route the trace, print the router's record and
+    the SLO rows, then the overload smoke's and the parity's checks."""
+    run = route(args.arch, reduced=args.reduced, sparsity=args.sparsity,
+                seed=args.seed, device=args.device, config=econf, **trace)
+    router = run.router
+    e0 = run.engines[0]
+    rc = e0.config.router
+    bound = router.queue.bound
+    print(f"router: {rc.replicas} replicas x {e0.num_slots} slots on "
+          f"{e0.device}, queue bound {bound or 'unbounded'}, shed policy "
+          f"{rc.shed_policy}, hedge after {rc.hedge_after or 'off'}, "
+          f"weight sparsity {e0.b_sparsity:.2f} -> mode {e0.mode.value}")
+    print(f"routed {len(run.requests)} requests / {run.delivered} tokens in "
+          f"{run.seconds:.2f}s ({run.tokens_per_second:.1f} tok/s) over "
+          f"{router.clock} virtual ticks; stats {router.stats}, max queue "
+          f"depth {router.max_queue_depth}"
+          + (f", ladder history {router.ladder.history}"
+             if router.ladder else "")
+          + f"; {len(run.engines)} engines built, {run.model_calls} model "
+          f"calls, {run.syncs_per_token:.3f} host syncs/token, dispatch "
+          f"{run.dispatch}")
+    if router.faults:
+        print(f"replica fault log: {router.health_log}")
+        if router.stats["completed"] + router.stats["shed"] < \
+                len(run.requests):
+            raise SystemExit("router fault run left requests unaccounted")
+    rows = slo.request_rows(router.outputs, run.requests)
+    _print_slo(rows, slo.latency_summary(rows))
+    if args.overload_smoke:
+        if bound is None:
+            raise SystemExit("--overload-smoke needs a bounded queue")
+        if router.max_queue_depth > bound:
+            raise SystemExit(f"queue depth {router.max_queue_depth} "
+                             f"exceeded bound {bound}")
+        if router.stats["shed"] == 0:
+            raise SystemExit("overload trace shed nothing — not actually "
+                             "overloaded?")
+        print(f"overload smoke OK: depth {router.max_queue_depth} <= "
+              f"{bound}, shed {router.stats['shed']}")
+    if args.parity:
+        if any(len(e.mode_history) > 1 for e in run.engines):
+            print("parity SKIPPED: execution mode changed mid-run")
+            return
+        n = check_route_parity(run)
+        print(f"parity OK: {n} completed requests token-identical to "
+              "greedy_generate")
 
 
 def main(argv=None) -> None:
@@ -164,11 +433,28 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-lens", default="8,16,32")
     ap.add_argument("--gen-lens", default="4,8,16")
     ap.add_argument("--arrival-every", type=int, default=0)
+    ap.add_argument("--arrival-process", choices=("fixed", "bursty"),
+                    default="fixed",
+                    help="'bursty' draws Markov-modulated arrival gaps "
+                         "(seeded, replayable) instead of the fixed "
+                         "--arrival-every stagger")
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="bursty calm-state arrival rate (requests/tick)")
+    ap.add_argument("--burst-rate", type=float, default=4.0,
+                    help="bursty burst-state arrival rate (requests/tick)")
     ap.add_argument("--length-dist", choices=("choice", "heavy"),
                     default="choice",
                     help="'heavy' draws Pareto generation lengths (tail "
                          "stragglers) instead of a uniform choice over "
                          "--gen-lens")
+    ap.add_argument("--priorities", default="0",
+                    help="comma-separated priority classes drawn per "
+                         "request (0 = most important)")
+    ap.add_argument("--slo", default=None, metavar="SPEC",
+                    help="attach virtual-tick SLOs to the trace: "
+                         "'ttft=<ticks>,slack=<factor>' (either half "
+                         "optional); deadlines drive the router's EDF "
+                         "admission and the attainment summary")
     ap.add_argument("--sparsity", type=float, default=0.8)
     ap.add_argument("--use-kernels", action="store_true",
                     help="compact pruned weights into GriffinWeights and "
@@ -185,18 +471,53 @@ def main(argv=None) -> None:
                          "(0 disables)")
     ap.add_argument("--parity", action="store_true",
                     help="check engine tokens == greedy_generate per request")
+    ap.add_argument("--replicas", type=int, default=0, metavar="N",
+                    help="serve through the SLO-aware multi-replica router: "
+                         "N engines sharing one set of weights behind one "
+                         "bounded-EDF admission queue; 0 keeps the "
+                         "single-engine path")
+    ap.add_argument("--queue-bound", type=int, default=0,
+                    help="router admission-queue bound (0 = 2 x slots x "
+                         "replicas, unless --shed-policy none)")
+    ap.add_argument("--hedge-ms", type=int, default=0,
+                    help="router tail-latency hedge: a dispatched request "
+                         "with no first token after this many virtual "
+                         "ticks is re-dispatched to a second replica and "
+                         "the loser cancelled (0 = off)")
+    ap.add_argument("--shed-policy", choices=("none", "shed", "degrade"),
+                    default="shed",
+                    help="router overload response: 'none' = unbounded "
+                         "queue, 'shed' = bounded queue, 'degrade' = "
+                         "bounded queue + the pressure ladder (chunk cap "
+                         "-> cheaper Mode -> priority shed)")
+    ap.add_argument("--inject-fault", default=None, metavar="SPEC",
+                    help="kill a whole replica at the router level: "
+                         "'replica:<i>@<tick>[:<during>[:<recover>]]' "
+                         "(during prefill|decode|idle|any); engine-level "
+                         "'kill:'/'delay:' specs are not ported")
+    ap.add_argument("--overload-smoke", action="store_true",
+                    help="with --replicas: fail unless the queue stayed "
+                         "within its bound and shed work")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     econf = EngineConfig.from_args(
         args, defaults={d: ap.get_default(d) for d in vars(args)})
-    run = serve(args.arch, reduced=args.reduced, requests=args.requests,
-                prompt_lens=_lens(args.prompt_lens),
-                gen_lens=_lens(args.gen_lens),
-                arrival_every=args.arrival_every,
-                length_dist=args.length_dist, sparsity=args.sparsity,
-                seed=args.seed, device=args.device, config=econf)
+    ttft, slack = _parse_slo(args.slo) if args.slo else (None, None)
+    trace = dict(requests=args.requests,
+                 prompt_lens=_lens(args.prompt_lens),
+                 gen_lens=_lens(args.gen_lens),
+                 arrival_every=args.arrival_every,
+                 arrival_process=args.arrival_process, rate=args.rate,
+                 burst_rate=args.burst_rate, length_dist=args.length_dist,
+                 priorities=_lens(args.priorities), deadline_slack=slack,
+                 ttft_deadline=ttft)
+    if econf.router.replicas > 0:
+        _main_router(args, econf, trace)
+        return
+    run = serve(args.arch, reduced=args.reduced, sparsity=args.sparsity,
+                seed=args.seed, device=args.device, config=econf, **trace)
     eng = run.engine
     spec = eng._paged
     arena = ("fixed" if spec is None else
@@ -218,6 +539,9 @@ def main(argv=None) -> None:
           f"syncs/token, dispatch {run.dispatch}")
     print("request 0 token ids:",
           np.asarray(eng.outputs[run.requests[0].rid].tokens[:12]))
+    if args.slo:
+        rows = slo.request_rows(eng.outputs, run.requests)
+        _print_slo(rows, slo.latency_summary(rows))
     if args.max_syncs_per_token > 0 and \
             run.syncs_per_token > args.max_syncs_per_token:
         raise SystemExit(f"host syncs/token {run.syncs_per_token:.3f} "

@@ -2,9 +2,12 @@
 
 A frozen ``EngineConfig`` of frozen sections with the reference's field
 names.  The port serves the fixed or paged slot arena (same-dtype or int8
-pages) through the fused or the stepwise decode path on one device; the
-fault, router and mesh fields keep the reference's shape and raise
-``NotImplementedError`` when set.  The reference's kernel fields ``interpret``,
+pages) through the fused or the stepwise decode path on one device, and
+several such engines behind the multi-replica router (``RouterConfig``,
+``runtime.router``), whose replica faults come from ``FaultConfig.inject``
+(a ``replica:`` spec).  The other fault fields, engine-level fault specs
+and the mesh keep the reference's shape and raise ``NotImplementedError``
+when set.  The reference's kernel fields ``interpret``,
 ``spmd_kernels`` and ``plan`` have no counterpart: a JSON file may carry
 them at their defaults, and any other value raises; ``launch/serve.py``
 defines no flag for an unported field.  ``to_json``/``from_json``
@@ -15,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Any, Dict, Optional, Sequence
+
+from .fault import parse_fault_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +64,9 @@ class KernelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
+    """``inject`` is a fault spec (``runtime.fault.parse_fault_spec``);
+    only ``replica:`` specs, served by the router, are ported."""
+
     inject: Optional[str] = None
     snapshot_dir: Optional[str] = None
     recovery_model_parallel: Optional[int] = None
@@ -66,6 +74,12 @@ class FaultConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RouterConfig:
+    """Multi-replica routing (``launch/serve.py --replicas``):
+    ``replicas=0`` is plain single-engine serving; ``queue_bound=None``
+    with ``shed_policy`` ``"shed"`` or ``"degrade"`` bounds the queue at
+    2 x slots x replicas, ``"none"`` leaves it unbounded, ``"degrade"``
+    adds the pressure ladder; ``hedge_after`` ticks arm hedging."""
+
     replicas: int = 0
     queue_bound: Optional[int] = None
     hedge_after: Optional[int] = None
@@ -84,7 +98,13 @@ _UNPORTED_DEFAULTS = {"kernels": {"interpret": False, "spmd_kernels": True,
 _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
           "decode_chunk": "decode_chunk", "use_kernels": "use_kernels",
           "page_size": "page_size", "num_pages": "num_pages",
-          "kv_dtype": "kv_dtype", "policy": "policy"}
+          "kv_dtype": "kv_dtype", "policy": "policy",
+          "replicas": "replicas", "queue_bound": "queue_bound",
+          "hedge_ms": "hedge_after", "shed_policy": "shed_policy",
+          "inject_fault": "inject"}
+
+# flags whose 0 means "off" (None in the config), as in the reference
+_ZERO_IS_NONE = ("queue_bound", "hedge_after")
 
 # flat field name -> (section, field), as in the reference
 _FIELDS = {
@@ -102,8 +122,13 @@ _FIELDS = {
     "use_kernels": ("kernels", "use_kernels"),
     "a_sparsity": ("kernels", "a_sparsity"),
     "block_m": ("kernels", "block_m"),
+    "inject": ("fault", "inject"),
     "snapshot_dir": ("fault", "snapshot_dir"),
     "recovery_model_parallel": ("fault", "recovery_model_parallel"),
+    "replicas": ("router", "replicas"),
+    "queue_bound": ("router", "queue_bound"),
+    "hedge_after": ("router", "hedge_after"),
+    "shed_policy": ("router", "shed_policy"),
 }
 
 
@@ -118,10 +143,11 @@ class EngineConfig:
 
     def __post_init__(self):
         unported = []
-        if self.fault != FaultConfig():
+        if self.fault != FaultConfig(inject=self.fault.inject):
             unported.append("fault tolerance")
-        if self.router != RouterConfig():
-            unported.append("the multi-replica router")
+        if self.fault.inject is not None and \
+                parse_fault_spec(self.fault.inject).kind != "replica":
+            unported.append("engine-level fault injection")
         if self.mesh is not None:
             unported.append("mesh serving")
         if unported:
@@ -182,6 +208,9 @@ class EngineConfig:
 
         kv = {field: getattr(args, dest) for dest, field in _FLAGS.items()
               if explicit(dest)}
+        for field in _ZERO_IS_NONE:
+            if field in kv:
+                kv[field] = kv[field] or None
         return base.with_fields(**kv) if kv else base
 
     def to_json(self) -> str:

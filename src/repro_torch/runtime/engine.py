@@ -65,8 +65,13 @@ HEAVY_ALPHA = 1.6
 @dataclasses.dataclass
 class Request:
     """One generation request; ``arrival`` is the earliest engine step at
-    which the scheduler may admit it.  The SLO fields are carried for the
-    router (not ported yet) and ignored by the engine."""
+    which the scheduler may admit it.
+
+    ``priority``/``deadline_ms``/``ttft_deadline_ms`` are the SLO fields
+    the multi-replica router's admission control consumes
+    (``runtime.router``): priority 0 is the most important class,
+    deadlines count virtual ticks after ``arrival`` (None = best-effort).
+    A plain ``ServeEngine`` ignores all three."""
 
     rid: int
     tokens: np.ndarray
@@ -90,8 +95,11 @@ class Request:
 
 
 class Attribution(str, enum.Enum):
-    """How a request's output came to be; plain engine runs only produce
-    ``NORMAL`` (the router, not ported yet, stamps the rest)."""
+    """How a request's output came to be: served normally, shed by
+    admission control, replayed on a surviving replica after its first
+    replica died, or won by a hedged duplicate.  Plain engine runs only
+    produce ``NORMAL``; the router (``runtime.router``) stamps the
+    rest."""
 
     NORMAL = "normal"
     SHED = "shed"
@@ -188,6 +196,39 @@ class Scheduler:
         self.finished.append(req.rid)
         return True
 
+    def would_admit(self, step: int) -> bool:
+        """Non-mutating peek: would ``admissions(step)`` pop at least one
+        request, page gate aside?  The router classifies a replica's tick
+        phase with it (prefill vs decode vs idle) without disturbing the
+        queues."""
+        if not self._free:
+            return False
+        if self.policy == "static" and self.running:
+            return False
+        return bool(self._ready) or bool(
+            self._by_arrival and self._by_arrival[0][0] <= step)
+
+    def cancel_slot(self, slot: int) -> Request:
+        """Free ``slot`` without crediting a finished request — the
+        router's hedge-loser path.  The request is *not* appended to
+        ``finished``."""
+        req = self.running.pop(slot)
+        del self.remaining[slot]
+        self._free.append(slot)
+        return req
+
+    def remove_waiting(self, rid: int) -> bool:
+        """Drop a not-yet-admitted request from the queues (the heaps are
+        rebuilt: cancellation is rare and off the hot path).  Returns True
+        when something was removed."""
+        n0 = self.waiting_count
+        self._by_arrival = [(a, s, r) for a, s, r in self._by_arrival
+                            if r.rid != rid]
+        heapq.heapify(self._by_arrival)
+        self._ready = [(s, r) for s, r in self._ready if r.rid != rid]
+        heapq.heapify(self._ready)
+        return self.waiting_count < n0
+
     @property
     def active(self) -> List[int]:
         return sorted(self.running)
@@ -278,6 +319,11 @@ class ServeEngine:
     sync, and are reset to DUMP by fills.  int8 pools quantize the
     prefilled rows per token (``quantize_rows``) and store the scales
     beside them.
+
+    The router's hooks: ``chunk_cap`` caps the fused-chunk ladder
+    (degradation level 1), ``set_degraded`` forces the cheaper Mode
+    (level 2), ``cancel`` withdraws a request (the hedge loser) and
+    ``load`` is the least-loaded dispatch signal.
     """
 
     def __init__(self, api: ModelApi, params: Any,
@@ -302,6 +348,11 @@ class ServeEngine:
         self.a_declared = config.kernels.a_sparsity
         self.block_m = config.kernels.block_m
         self.measure_every = max(1, config.sched.measure_every)
+        # router hooks (runtime.router), inert by default: ``chunk_cap``
+        # caps the fused-chunk ladder (degradation level 1), ``degraded``
+        # zeroes the B-side Mode threshold (level 2)
+        self.chunk_cap: Optional[int] = None
+        self.degraded = False
         self.sched = Scheduler(self.num_slots, config.sched.policy,
                                config.sched.max_admissions_per_step)
         self._mode_fns: Dict[Mode, Tuple[Callable, ...]] = {}
@@ -329,6 +380,9 @@ class ServeEngine:
         # rewritten only when the slot is admitted again, after the host
         # has read that slot's tokens (a sync that the earlier copy
         # precedes), so no copy in flight ever reads a row being written.
+        # A cancelled slot is no exception: every tick that admits ends in
+        # a sync, and ``cancel`` runs only at tick boundaries, so its
+        # slot's copy has landed before the slot can be admitted again.
         self._page_alloc = (PageAllocator(self._paged.num_pages)
                             if self._paged is not None else None)
         self._slot_pages: Dict[int, List[int]] = {}
@@ -393,7 +447,22 @@ class ServeEngine:
                 else self.a_measured)
 
     def _select_mode(self) -> Mode:
-        return select_mode(self._a_now(), self.b_sparsity)
+        return select_mode(self._a_now(), self.b_sparsity,
+                           b_threshold=0.0 if self.degraded else None)
+
+    def set_degraded(self, on: bool) -> None:
+        """Degradation-ladder level 2: force the cheaper execution Mode —
+        ``on`` zeroes the B-side threshold, so any pruned weight selects
+        the Sparse.B kernels even below ``SPARSE_THRESHOLD`` (dense
+        weights stay dense: 0 > 0 is false).  Re-selects at once; a flip
+        swaps the Mode-keyed function set like a measured flip."""
+        if on == self.degraded:
+            return
+        self.degraded = on
+        mode = self._select_mode()
+        if mode != self.mode:
+            self.mode = mode
+            self.mode_history.append((self.clock, mode))
 
     def _scope(self):
         a_scope = 0.0
@@ -458,8 +527,11 @@ class ServeEngine:
         that no live slot finishes inside and that does not overrun a known
         arrival (or a backlog) while a slot is free — the latter floored at
         ``decode_chunk / 4``.  Slots admitted this tick owe one step fewer
-        (their prefill token is emitted from the chunk's sync)."""
+        (their prefill token is emitted from the chunk's sync).
+        ``chunk_cap`` (degradation level 1) lowers the ladder's top."""
         cap = self.decode_chunk
+        if self.chunk_cap is not None:
+            cap = max(1, min(cap, self.chunk_cap))
         bound = min(self.sched.remaining[s] - (s in admitted_slots)
                     for s in self.sched.active)
         bound = max(1, bound)
@@ -538,6 +610,29 @@ class ServeEngine:
                 # garbage decode writes (until this chunk ends); the next
                 # tick's _flush_dirty frees them before any admission
                 self._dirty_slots.add(slot)
+
+    def cancel(self, rid: int) -> bool:
+        """Withdraw a request — the router's hedge-loser hook.  A running
+        request's slot is freed and its owed-token counter zeroed on the
+        device (a fill: no host sync, no transfer), so the live mask drops
+        it and the chunk ladder stops waiting on it; on a paged arena its
+        pages return at the next tick's start.  A waiting request just
+        leaves the queues.  Call at tick boundaries only.  Returns False
+        when ``rid`` is unknown or already finished."""
+        for slot, req in sorted(self.sched.running.items()):
+            if req.rid == rid:
+                self._remaining[slot].fill_(0)
+                self.sched.cancel_slot(slot)
+                if self._paged is not None:
+                    self._dirty_slots.add(slot)
+                return True
+        return self.sched.remove_waiting(rid)
+
+    @property
+    def load(self) -> int:
+        """Requests this engine owns (running + queued) — the router's
+        deterministic least-loaded dispatch signal."""
+        return len(self.sched.running) + self.sched.waiting_count
 
     def step(self) -> List[Tuple[int, int, int]]:
         """One engine tick on the fused or the stepwise path
@@ -710,19 +805,44 @@ def int8_logit_gap(api: ModelApi, params: Any, config: EngineConfig,
 def synthetic_trace(cfg, *, num_requests: int, seed: int = 0,
                     prompt_lens: Sequence[int] = (8, 16, 24),
                     gen_lens: Sequence[int] = (4, 8, 16),
-                    arrival_every: int = 0, length_dist: str = "choice",
-                    max_gen: Optional[int] = None) -> List[Request]:
-    """Deterministic mixed prompt/gen-length request trace with fixed
-    arrival staggering: the same ``np.random.default_rng`` draws, in the
-    same order, as the reference's ``synthetic_trace`` with fixed arrivals,
-    so the traces are equal.  ``length_dist="heavy"`` replaces the uniform
-    gen-length choice with a Pareto draw (shape ``HEAVY_ALPHA``) floored at
-    ``min(gen_lens)`` and capped at ``max_gen`` (default ``8 *
-    max(gen_lens)``): most requests stay short, stragglers make the tail."""
+                    arrival_every: int = 0,
+                    arrival_process: str = "fixed",
+                    rate: float = 0.5, burst_rate: float = 4.0,
+                    burst_switch: float = 0.15,
+                    length_dist: str = "choice",
+                    max_gen: Optional[int] = None,
+                    priorities: Sequence[int] = (0,),
+                    deadline_slack: Optional[float] = None,
+                    ttft_deadline: Optional[int] = None) -> List[Request]:
+    """Deterministic mixed prompt/gen-length request trace: the same
+    ``np.random.default_rng`` draws, in the same order, as the reference's
+    ``synthetic_trace``, so the traces are equal field by field.  Per
+    request: the prompt length, the generation length, the tokens, then
+    (bursty only) the state flip and the exponential gap, then (only with
+    more than one class) the priority.
+
+    ``arrival_process="fixed"`` staggers arrivals (request i at step
+    ``i * arrival_every``); ``"bursty"`` is a two-state Markov-modulated
+    process: each request flips the calm/burst state with probability
+    ``burst_switch``, then advances the arrival clock by an exponential
+    gap at the state's rate (``rate`` / ``burst_rate`` requests per step).
+    ``length_dist="heavy"`` replaces the uniform gen-length choice with a
+    Pareto draw (shape ``HEAVY_ALPHA``) floored at ``min(gen_lens)`` and
+    capped at ``max_gen`` (default ``8 * max(gen_lens)``): most requests
+    stay short, stragglers make the tail.
+
+    SLO fields: ``priorities`` draws each request's priority class,
+    ``deadline_slack`` attaches a completion deadline proportional to the
+    request's own expected service (slack x (gen + prefill share)), and
+    ``ttft_deadline`` a flat first-token deadline.  The defaults attach
+    nothing."""
+    if arrival_process not in ("fixed", "bursty"):
+        raise ValueError(f"unknown arrival process {arrival_process!r}")
     if length_dist not in ("choice", "heavy"):
         raise ValueError(f"unknown length distribution {length_dist!r}")
     rng = np.random.default_rng(seed)
     reqs: List[Request] = []
+    t, burst = 0, False
     for i in range(num_requests):
         plen = int(rng.choice(np.asarray(prompt_lens)))
         if length_dist == "heavy":
@@ -733,6 +853,22 @@ def synthetic_trace(cfg, *, num_requests: int, seed: int = 0,
         else:
             glen = int(rng.choice(np.asarray(gen_lens)))
         toks = rng.integers(1, cfg.vocab_size, (plen,), dtype=np.int32)
+        if arrival_process == "bursty":
+            if rng.random() < burst_switch:
+                burst = not burst
+            r = burst_rate if burst else rate
+            t += int(round(rng.exponential(1.0 / max(r, 1e-6))))
+            arrival = t
+        else:
+            arrival = i * arrival_every
+        priority = (int(rng.choice(np.asarray(priorities)))
+                    if len(priorities) > 1 else int(priorities[0]))
+        deadline = None
+        if deadline_slack is not None:
+            deadline = int(np.ceil(deadline_slack
+                                   * (glen + max(1, plen // 8))))
         reqs.append(Request(rid=i, tokens=toks, max_new_tokens=glen,
-                            arrival=i * arrival_every))
+                            arrival=arrival, priority=priority,
+                            deadline_ms=deadline,
+                            ttft_deadline_ms=ttft_deadline))
     return reqs

@@ -275,7 +275,7 @@ def test_engine_config_json_round_trip_and_reference_file():
 
 @pytest.mark.parametrize("raw", [
     '{"kernels": {"interpret": true}}', '{"kernels": {"plan": "p.json"}}',
-    '{"router": {"replicas": 2}}'])
+    '{"fault": {"snapshot_dir": "s"}}'])
 def test_engine_config_json_unported_fields_raise(raw):
     with pytest.raises(NotImplementedError):
         EngineConfig.from_json(raw)
@@ -285,9 +285,13 @@ def test_engine_config_json_unported_fields_raise(raw):
     ('{"arena": {"kv_dtype": "int8", "page_size": 16}}',
      dict(kv_dtype="int8", page_size=16)),
     ('{"sched": {"fused": false, "policy": "static"}}',
-     dict(fused=False, policy="static"))])
+     dict(fused=False, policy="static")),
+    ('{"router": {"replicas": 2, "queue_bound": 6, "shed_policy": "none"}}',
+     dict(replicas=2, queue_bound=6, shed_policy="none"))])
 def test_engine_config_json_serves_int8_and_stepwise(raw, want):
-    assert EngineConfig.from_json(raw) == EngineConfig().with_fields(**want)
+    conf = EngineConfig.from_json(raw)
+    assert conf == EngineConfig().with_fields(**want)
+    assert EngineConfig.from_json(conf.to_json()) == conf
 
 
 @pytest.mark.parametrize("raw", ['[]', '{"kernels": {"bogus": 1}}',
@@ -315,7 +319,8 @@ def test_engine_config_from_args_flag_beats_file(tmp_path):
     assert (conf.arena.kv_dtype, conf.sched.policy) == ("int8", "static")
     # the CLI defines no flag for an unported field
     with pytest.raises(SystemExit):
-        launch_serve.main(["--reduced", "--device", "cpu", "--replicas", "2"])
+        launch_serve.main(["--reduced", "--device", "cpu", "--snapshot-dir",
+                           "s"])
 
 
 def test_launch_serve_cli_config_selects_sparse_a_on_cpu(tmp_path, capsys):

@@ -23,6 +23,7 @@ from repro_torch.kernels import (ActivationMeta, compact_activations,
 from repro_torch.kernels.sparse_a import kernel as k3
 from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
                                               sparse_a_ref)
+from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build_model
 from repro_torch.models.common import sparse_execution
 from repro_torch.runtime.config import EngineConfig
@@ -550,3 +551,102 @@ def test_stepwise_at_full_width_equals_fused(cuda, policy):
     assert eng.stats["chunk_calls"] == 0
     for r in reqs():
         assert stepwise[r.rid].tokens == fused[r.rid].tokens, r.rid
+
+
+def _router_setup(cuda, **fields):
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = sparsify_params(api.init(api.generator(0)), 0.6, block_k=16,
+                             block_n=16, unit=8)
+    conf = EngineConfig().with_fields(num_slots=2, cache_len=40,
+                                      use_kernels=True, **fields)
+    return api, params, conf
+
+
+@pytest.mark.gpu
+def test_two_replica_router_matches_oracle_on_card(cuda):
+    """Two replicas of a reduced-depth bf16 model behind the bounded
+    router with the degradation ladder, on a bursty SLO trace: every
+    completed request token-identical to the batch-1 oracle, every engine
+    in Mode B throughout."""
+    api, params, conf = _router_setup(cuda, replicas=2, queue_bound=3,
+                                      shed_policy="degrade", decode_chunk=4)
+    router, engines = serve_cli.build_router(api, params, conf)
+    reqs = synthetic_trace(api.cfg, num_requests=16, seed=11,
+                           prompt_lens=(8, 16, 23), gen_lens=(4, 8, 16),
+                           arrival_process="bursty", rate=1.0,
+                           burst_rate=8.0, priorities=(0, 1),
+                           deadline_slack=4.0, ttft_deadline=6)
+    router.run(reqs)
+    assert router.stats["completed"] > 0
+    assert router.stats["completed"] + router.stats["shed"] == 16
+    run = serve_cli.RouteRun(router, engines, reqs, params, 0.0, {}, None)
+    assert serve_cli.check_route_parity(run) == router.stats["completed"]
+    assert all(e.mode_history == [(0, e.mode)] and e.mode.value == "B"
+               for e in engines)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page_size", [None, 8], ids=["fixed", "paged"])
+def test_cancel_running_request_never_syncs(cuda, page_size):
+    """``ServeEngine.cancel`` of a running request on a CUDA engine is a
+    device write with no host sync: it runs under sync debug mode
+    "error", frees the slot and zeroes the slot's owed-token counter.  The
+    next request is admitted into the freed slot (on a paged arena with
+    the slot's page-table row rewritten) and equals the batch-1 oracle."""
+    api, params, conf = _router_setup(cuda, decode_chunk=2,
+                                      page_size=page_size)
+    eng = ServeEngine(api, params, conf)
+    req, nxt = synthetic_trace(api.cfg, num_requests=2, seed=3,
+                               prompt_lens=(11,), gen_lens=(8,))
+    eng.add(req)
+    eng.step()
+    (slot,) = [s for s, r in eng.sched.running.items() if r.rid == req.rid]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert eng.cancel(req.rid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not eng.sched.has_work() and eng.load == 0
+    assert eng._remaining.tolist() == [0, 0]
+    assert eng.outputs[req.rid].finished < 0
+    assert not eng.cancel(req.rid)
+    eng.add(dataclasses.replace(nxt, arrival=eng.clock))
+    eng.step()
+    assert eng.sched.running[slot].rid == nxt.rid
+    while eng.sched.has_work():
+        eng.step()
+    run = serve_cli.ServeRun(eng, [nxt], params, 0.0, {})
+    assert serve_cli.check_parity(run) == 1
+
+
+@pytest.mark.gpu
+def test_router_replicas_share_the_weights(cuda):
+    """Full-width llama3.2-1b (compacted 0.8): building two replicas
+    raises the card's allocated memory by their arenas only, less than
+    half of one copy of the weights."""
+    api = build_model(get_config("llama3.2-1b"), device=cuda)
+    params = sparsify_params(api.init(api.generator(0)), 0.8, compact=True)
+    weights = sum(t.numel() * t.element_size()
+                  for t in _tensors(params))
+    conf = EngineConfig().with_fields(num_slots=4, cache_len=137,
+                                      use_kernels=True, replicas=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    router, engines = serve_cli.build_router(api, params, conf)
+    rise = torch.cuda.memory_allocated() - base
+    assert len(engines) == 2 and all(e.params is params for e in engines)
+    assert 0 < rise < weights / 2, (rise, weights)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
