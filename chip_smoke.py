@@ -130,6 +130,27 @@ Phases, in order; any failure exits non-zero before the result line:
              on the paged arena, then a new request admitted into its
              freed slot, token-identical to the oracle.  ``--profile``
              adds one profiled routed run per cell.
+6. cycle_model - the paper's cycle model: the Figure 8 sweep
+             (benchmarks/fig8_overall.py's eight designs, the four modes,
+             CoreConfig(), seed 4, no cache) through the port's
+             core.dse.sweep on the host, its rows (speedup, TOPS/W,
+             TOPS/mm^2) equal to FIG8_ROWS within |rel| 1e-12, with the
+             Griffin-vs-SparTen.AB TOPS/W ratios and sparsity taxes printed
+             beside the paper's.  Every group the numpy engine scheduled
+             cycles-only over full-length streams during the sweep is
+             captured, split by config and run through
+             schedule_batched(..., backend="torch"): the batch_eval kernel's
+             integer cycles must equal the engine's on every row, one launch
+             a stream (counters zeroed just before, read just after).  The
+             wrapper (schedule_cycles on the card) equals the plain version
+             and the engine on each config's largest full stream, the
+             reference test's 8 x 3 random masks with and without shuffle,
+             a T = 1 stream and a stream of empty chunks.  Kernel and plain
+             version (device time, median of 20 after a 64 MB L2 flush) and
+             numpy engine (host wall time, median of 20) on the largest
+             stream (ties: the deepest window), beside the bound (mask bytes
+             / 3.35 TB/s); no PyTorch call computes the schedule, so no
+             library time.
 
 The line before the last is the kernel summary JSON, the one before it the
 card's name and power limit; the last line is the result JSON.  The full
@@ -161,13 +182,14 @@ STEPWISE_STATS = {"decode_steps": 22, "prefill_calls": 8, "emitted": 52,
                   "host_syncs": 32}
 SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
           launches={"dense_gemm": 1, "griffin_spmm": 112, "sparse_a": 0,
-                    "sparse_a_meta": 0}, dual=0)
+                    "sparse_a_meta": 0, "batch_eval": 0}, dual=0)
 MODE_A = dict(sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
               launches={"dense_gemm": 0, "griffin_spmm": 0, "sparse_a": 113,
-                        "sparse_a_meta": 113}, dual=0)
+                        "sparse_a_meta": 113, "batch_eval": 0}, dual=0)
 MODE_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
                launches={"dense_gemm": 0, "griffin_spmm": 112,
-                         "sparse_a": 1, "sparse_a_meta": 1}, dual=112)
+                         "sparse_a": 1, "sparse_a_meta": 1,
+                         "batch_eval": 0}, dual=112)
 SB_LAUNCHES = SB["launches"]
 # per serve path: kernel -> launches per model call (a prefill or a decode
 # step), dual griffin_spmm GEMMs per model call, the engine's arena and
@@ -269,6 +291,84 @@ ROUTER_CELLS = {
                             replicas=3, hedge_after=1, shed_policy="none"),
         trace=dict(SMALL, requests=5), parity=None),
 }
+
+# the cycle_model phase: the paper's Figure 8 sweep as
+# benchmarks/fig8_overall.py runs it (its design list, the four modes,
+# CoreConfig(), seed 4, no cache); (design, mode) -> (speedup, tops_w,
+# tops_mm2) of the JAX package's own sweep (tests/test_torch_core.py holds
+# them against it on the CPU)
+FIG8_MODES = ("dense", "B", "A", "AB")
+FIG8_SEED = 4
+FIG8_REL_TOL = 1e-12
+FIG8_ROWS = {
+    ('Baseline', 'dense'):
+        (1.0, 10.821664464993397, 7.532873563218391),
+    ('Sparse.B*', 'dense'):
+        (1.0, 7.983627326771271, 6.608924629861496),
+    ('TCL.B', 'dense'):
+        (1.0, 8.708130919604988, 6.411480557373047),
+    ('Sparse.A*', 'dense'):
+        (1.0, 6.80521888514698, 5.987078668108866),
+    ('Sparse.AB*', 'dense'):
+        (1.0, 5.64893834161734, 5.479979878198885),
+    ('Griffin', 'dense'):
+        (1.0, 5.613081110118347, 5.445562982934755),
+    ('TDash.AB', 'dense'):
+        (1.0, 5.498754188504167, 5.074293303072575),
+    ('SparTen.AB', 'dense'):
+        (1.0, 1.653279515640767, 1.4384547848990343),
+    ('Baseline', 'B'):
+        (1.0, 10.821664464993397, 7.532873563218391),
+    ('Sparse.B*', 'B'):
+        (2.597841667518951, 20.740199727429342, 17.168939780946456),
+    ('TCL.B', 'B'):
+        (2.24474132786699, 19.547501363713693, 14.392115379950962),
+    ('Sparse.A*', 'B'):
+        (1.0, 6.80521888514698, 5.987078668108866),
+    ('Sparse.AB*', 'B'):
+        (2.2575057978077484, 12.752511057659634, 12.371086346903782),
+    ('Griffin', 'B'):
+        (2.6588760756683194, 14.924487074479444, 14.479077133870227),
+    ('TDash.AB', 'B'):
+        (1.8564991725998217, 10.208432601287791, 9.42042131868305),
+    ('SparTen.AB', 'B'):
+        (1.644043988982991, 2.7180642497979135, 2.3648829425370783),
+    ('Baseline', 'A'):
+        (1.0, 10.821664464993397, 7.532873563218391),
+    ('Sparse.B*', 'A'):
+        (1.0, 7.983627326771271, 6.608924629861496),
+    ('TCL.B', 'A'):
+        (1.0, 8.708130919604988, 6.411480557373047),
+    ('Sparse.A*', 'A'):
+        (1.3634254908929377, 9.27840889911541, 8.162935672080966),
+    ('Sparse.AB*', 'A'):
+        (1.2437079656630432, 7.025629613008867, 6.815494626189146),
+    ('Griffin', 'A'):
+        (1.446998722396289, 8.122121195047992, 7.879722679035115),
+    ('TDash.AB', 'A'):
+        (1.2925118230297525, 7.107204800576009, 6.558584087741999),
+    ('SparTen.AB', 'A'):
+        (1.2526329531918423, 2.0709524021286723, 1.8018558652410135),
+    ('Baseline', 'AB'):
+        (1.0, 10.821664464993397, 7.532873563218391),
+    ('Sparse.B*', 'AB'):
+        (2.6718184661513553, 21.330802918538062, 17.657846867466457),
+    ('TCL.B', 'AB'):
+        (2.239950112156374, 19.50577883004158, 14.361396593576167),
+    ('Sparse.A*', 'AB'):
+        (1.3634254908929377, 9.27840889911541, 8.162935672080966),
+    ('Sparse.AB*', 'AB'):
+        (2.4687711293187684, 13.945935889086732, 13.528816112545188),
+    ('Griffin', 'AB'):
+        (2.4687711293187684, 13.857412591184717, 13.443848675156316),
+    ('TDash.AB', 'AB'):
+        (2.014089701496792, 11.074984182128592, 10.220081884092613),
+    ('SparTen.AB', 'AB'):
+        (4.6730856363236315, 7.725916757368958, 6.722022393812676),
+}
+PAPER_GRIFFIN_VS_SPARTEN = {"dense": 1.2, "B": 3.0, "A": 3.1, "AB": 1.4}
+# sparsity tax, power and area (Section VI-F)
+PAPER_TAX = {"Griffin": (0.29, 0.24), "SparTen.AB": (0.42, 0.80)}
 
 
 def fail(msg: str) -> None:
@@ -1281,6 +1381,207 @@ def profile_long_prefill(torch, run, S: int) -> None:
                   f"one {S}-token prefill, {ops} device ops")
 
 
+def fig8_designs():
+    """benchmarks/fig8_overall.py's design list, from the port's spec."""
+    from repro_torch.core.spec import (DENSE_BASELINE, GRIFFIN, SPARSE_A_STAR,
+                                       SPARSE_AB_STAR, SPARSE_B_STAR,
+                                       SPARTEN_AB, TCL_B, TDASH_AB)
+    return [DENSE_BASELINE, SPARSE_B_STAR, TCL_B, SPARSE_A_STAR,
+            SPARSE_AB_STAR, GRIFFIN, TDASH_AB, SPARTEN_AB]
+
+
+def fig8_sweep():
+    """The port's Figure 8 sweep on the host (numpy engine), capturing every
+    group the engine schedules cycles-only over full-length streams: (mask,
+    d1, d2, d3, shuffle per row, the engine's cycles).  Returns the rows by
+    (design, mode), the groups and the seconds."""
+    from repro_torch.core import CoreConfig, Mode, scheduler
+    from repro_torch.core.dse import sweep
+
+    engine = scheduler._schedule_rows
+    groups = []
+
+    def capture(mask, d1v, d2v, d3v, shv, record, tl, has_t_len):
+        out = engine(mask, d1v, d2v, d3v, shv, record, tl, has_t_len)
+        if not record and not has_t_len:
+            groups.append((mask.copy(), d1v.copy(), d2v.copy(), d3v.copy(),
+                           shv.copy(), out.cycles.copy()))
+        return out
+
+    t0 = time.perf_counter()
+    scheduler._schedule_rows = capture
+    try:
+        rows = {(r["design"], r["mode"]): r for mode in FIG8_MODES
+                for r in sweep(fig8_designs(), Mode(mode), CoreConfig(),
+                               seed=FIG8_SEED)}
+    finally:
+        scheduler._schedule_rows = engine
+    return rows, groups, time.perf_counter() - t0
+
+
+def split_by_config(groups):
+    """[(config, mask, cycles)]: each group's rows split by their (d1, d2,
+    d3, shuffle), the one shared config the kernel takes."""
+    import numpy as np
+    streams = []
+    for mask, d1v, d2v, d3v, shv, cycles in groups:
+        keys = np.stack([d1v, d2v, d3v, shv.astype(np.int64)], axis=1)
+        for key in np.unique(keys, axis=0):
+            sel = (keys == key).all(axis=1)
+            streams.append((tuple(int(k) for k in key), mask[sel],
+                            cycles[sel]))
+    return streams
+
+
+def check_fig8(rows) -> None:
+    from repro_torch.core.efficiency import sparsity_tax
+    from repro_torch.core.spec import GRIFFIN, SPARTEN_AB
+    if set(rows) != set(FIG8_ROWS):
+        fail(f"cycle_model: sweep rows {sorted(rows)}")
+    worst = 0.0
+    for key, want in FIG8_ROWS.items():
+        got = tuple(rows[key][k] for k in ("speedup", "tops_w", "tops_mm2"))
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        worst = max(worst, rel)
+        if rel > FIG8_REL_TOL:
+            fail(f"cycle_model: {key} row {got}, expected {want}")
+    print(f"[cycle_model] Figure 8 sweep: {len(rows)} rows (8 designs x 4 "
+          f"modes) equal to FIG8_ROWS, largest |rel| {worst:.3g} "
+          f"(limit {FIG8_REL_TOL:g})")
+    for mode in FIG8_MODES:
+        ratio = rows[("Griffin", mode)]["tops_w"] / \
+            rows[("SparTen.AB", mode)]["tops_w"]
+        print(f"[cycle_model] Griffin vs SparTen.AB TOPS/W, {mode:5s}: "
+              f"{ratio:.2f}x (paper {PAPER_GRIFFIN_VS_SPARTEN[mode]}x)")
+    for spec in (GRIFFIN, SPARTEN_AB):
+        tax, paper = sparsity_tax(spec), PAPER_TAX[spec.name]
+        print(f"[cycle_model] sparsity tax {spec.name}: power "
+              f"{100 * tax['power_tax']:.0f}% / area "
+              f"{100 * tax['area_tax']:.0f}% (paper {100 * paper[0]:.0f}% / "
+              f"{100 * paper[1]:.0f}%)")
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Median host wall time of ``fn`` over ``iters`` calls (for the numpy
+    engine)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def kernel_cases(streams):
+    """The kernel against its plain version: each config's largest full
+    stream with the numpy engine's captured cycles, the reference test's
+    8 x 3 random masks (tests/test_batched_parity.py) with and without
+    shuffle, a T = 1 stream, and a stream whose chunks are all empty (the
+    engine's cycles computed here).  name -> (config, mask, cycles)."""
+    import numpy as np
+    from repro_torch.core.scheduler import schedule
+    cases = {}
+    for cfg, mask, want in sorted(streams, key=lambda s: -s[1].size):
+        cases.setdefault(f"fig8 {cfg}", (cfg, mask, want))
+    ref_mask = np.random.default_rng(11).random((6, 19, 8, 3)) < 0.3
+    small = {f"8x3 {(d1, d2, d3, sh)}": ((d1, d2, d3, sh), ref_mask)
+             for d1, d2, d3 in ((0, 0, 0), (2, 1, 0), (4, 0, 2))
+             for sh in (0, 1)}
+    small["T=1"] = ((2, 1, 1, 1),
+                    np.random.default_rng(1).random((16, 1, 16, 2)) < 0.5)
+    small["all empty"] = ((2, 1, 0, 0), np.zeros((8, 12, 16, 1), bool))
+    for name, (cfg, mask) in small.items():
+        cases[name] = (cfg, mask, schedule(mask, *cfg[:3],
+                                           shuffle=bool(cfg[3])).cycles)
+    return cases
+
+
+def phase_cycle_model(torch):
+    """The paper's cycle model: the Figure 8 sweep through the port's DSE
+    engine on the host, then every cycles-only stream it scheduled through
+    the batch_eval kernel on the card, its cycles held equal to the numpy
+    engine's; the kernel against its plain version; times on the largest
+    stream."""
+    import numpy as np
+    from repro_torch.core.scheduler import (schedule, schedule_batched,
+                                            shuffle_lanes)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.batch_eval import kernel, schedule_cycles
+    from repro_torch.kernels.batch_eval.ref import schedule_cycles_ref
+
+    t_phase = time.perf_counter()
+    rows, groups, sweep_s = fig8_sweep()
+    print(f"[cycle_model] Figure 8 sweep (numpy engine, host): {sweep_s:.1f}"
+          f"s, {len(groups)} cycles-only full-length groups captured")
+    check_fig8(rows)
+
+    streams = split_by_config(groups)
+    nbytes = sum(m.nbytes for _, m, _ in streams)
+    nrows = sum(len(c) for _, _, c in streams)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    for cfg, mask, want in streams:
+        got = schedule_batched(mask, *cfg[:3], shuffle=bool(cfg[3]),
+                               backend="torch").cycles
+        if not np.array_equal(got, want):
+            bad = int(np.flatnonzero(got != want)[0])
+            fail(f"cycle_model: config {cfg}, shape {mask.shape}: row {bad} "
+                 f"{got[bad]} cycles on the card, {want[bad]} numpy")
+    got = launch_counts()
+    card_s = time.perf_counter() - t0
+    want = {k: (len(streams) if k == "batch_eval" else 0) for k in got}
+    if got != want:
+        fail(f"cycle_model: launches {got}, expected {want}")
+    configs = sorted({cfg for cfg, _, _ in streams})
+    print(f"[cycle_model] {len(streams)} streams (groups split by config "
+          f"(d1, d2, d3, shuffle): {configs}), {nrows} rows, {nbytes} mask "
+          f"bytes: cycles on the card equal to the numpy engine's on every "
+          f"row; {card_s:.2f}s with copies; launches {got}")
+
+    checks = []
+    for name, (cfg, mask, eng) in kernel_cases(streams).items():
+        out = schedule_cycles(mask, *cfg[:3], shuffle=bool(cfg[3]))
+        host = shuffle_lanes(mask, 1, 2) if cfg[3] else mask
+        dev = torch.from_numpy(np.ascontiguousarray(host)).cuda()
+        ref = schedule_cycles_ref(dev, *cfg[:3]).cpu().numpy()
+        err = int(np.abs(out - ref).max())
+        if err or not np.array_equal(out, eng):
+            bad = int(np.flatnonzero((out != ref) | (out != eng))[0])
+            fail(f"cycle_model: kernel {name} {cfg} {mask.shape}: row {bad} "
+                 f"{out[bad]}, plain {ref[bad]}, numpy {eng[bad]}")
+        checks.append({"kernel": "batch_eval", "case": name,
+                       "config": list(cfg), "shape": list(mask.shape),
+                       "max_abs_err": err})
+    print(f"[cycle_model] batch_eval equal to its plain version and to the "
+          f"numpy engine on {len(checks)} cases: "
+          f"{[c['case'] for c in checks]}")
+
+    cfg, mask, want = max(streams, key=lambda s: (s[1].size, s[0][0]))
+    host = shuffle_lanes(mask, 1, 2) if cfg[3] else mask
+    dev = torch.from_numpy(np.ascontiguousarray(host)).cuda()
+    ms = timed_ms(torch, lambda: kernel.batch_eval(dev, *cfg[:3]))
+    plain_ms = timed_ms(torch, lambda: schedule_cycles_ref(dev, *cfg[:3]))
+    numpy_ms = host_ms(lambda: schedule(mask, *cfg[:3],
+                                        shuffle=bool(cfg[3])))
+    bound_ms, bound_by = bound(mask.nbytes, 0, "float32")
+    print(f"[cycle_model] batch_eval on the largest stream {mask.shape} "
+          f"config {cfg} ({mask.nbytes} bytes, {int(want.sum())} cycles "
+          f"over its tiles, at most {int(want.max())}): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, numpy engine {numpy_ms:.2f} ms "
+          f"(host), bound {bound_ms:.6f} ms ({bound_by}), library none")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[cycle_model] phase {phase_s:.1f}s")
+    summary = {"ms": ms, "plain_ms": plain_ms, "numpy_ms": numpy_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "shape": list(mask.shape),
+               "config": list(cfg)}
+    record = {"phase_s": phase_s, "sweep_s": sweep_s, "card_s": card_s,
+              "streams": len(streams),
+              "rows": nrows, "mask_bytes": nbytes, "configs": configs,
+              "fig8_rows": {f"{d}/{m}": r for (d, m), r in rows.items()}}
+    return got, checks, summary, record
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail("run from a checkout of the repository (src/repro_torch "
@@ -1331,6 +1632,11 @@ def main() -> None:
             phase_profile_router(torch, name, run)
         del run
         torch.cuda.empty_cache()
+    launches, cycle_checks, cycle_summary, cycle_model = \
+        phase_cycle_model(torch)
+    serves["cycle_model"] = {"launches": launches}
+    rows += cycle_checks
+    summary["batch_eval"] = cycle_summary
 
     kernels = []
     sources = {"dense_gemm": ("src/repro_torch/csrc/dense_gemm.cu",
@@ -1340,7 +1646,9 @@ def main() -> None:
                "sparse_a": ("src/repro_torch/csrc/sparse_a.cu",
                             "src/repro/kernels/sparse_a/kernel.py:53"),
                "sparse_a_meta": ("src/repro_torch/csrc/sparse_a.cu",
-                                 "src/repro/kernels/sparse_a/ops.py:80")}
+                                 "src/repro/kernels/sparse_a/ops.py:80"),
+               "batch_eval": ("src/repro_torch/csrc/batch_eval.cu",
+                              "src/repro/kernels/batch_eval/ops.py:31")}
     for name, (src, replaces) in sources.items():
         row = summary[name]
         errs = [r["max_abs_err"] for r in rows if r["kernel"] == name]
@@ -1352,11 +1660,14 @@ def main() -> None:
             "max_abs_err": max(errs), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "timed_shape": [row["m"], row["k"], row["n"], row["dtype"]]})
+            "timed_shape": row["shape"] + row["config"]
+            if name == "batch_eval" else
+            [row["m"], row["k"], row["n"], row["dtype"]]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     report = {"card": card, "build_s": build_s, "checks": rows,
               "serve": serves, "long_prefill": long_prefill,
+              "cycle_model": cycle_model,
               "kernels": kernels,
               "wall_s": time.perf_counter() - t0}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
 ``dense_gemm`` (K1), ``griffin_spmm`` (K2) and ``sparse_a`` (K3) replace
-the JAX package's Pallas TPU kernels of the same names.  A wrapper given
-CPU tensors runs its kernel's plain PyTorch version (``ref.py``); given
-CUDA tensors it launches the kernel or raises.
+the JAX package's Pallas TPU kernels of the same names; ``batch_eval`` its
+``jax.vmap`` twin of the cycle model's schedule.  A wrapper given CPU
+tensors runs its kernel's plain PyTorch version (``ref.py``); given CUDA
+tensors it launches the kernel or raises.
 """
 from .build import launch_counts, reset_launch_counts
 from .dense_gemm.ops import dense_matmul

@@ -28,7 +28,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-KERNELS = ("dense_gemm", "griffin_spmm", "sparse_a")
+KERNELS = ("dense_gemm", "griffin_spmm", "sparse_a", "batch_eval")
 # launch counters: one per kernel function a wrapper launches (sparse_a.cu
 # holds two: the GEMM and its activation metadata)
 COUNTERS = KERNELS + ("sparse_a_meta",)

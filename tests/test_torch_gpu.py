@@ -12,14 +12,19 @@ another order); bf16 |err| <= one bf16 ulp of the output plus that term
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.scheduler import schedule, schedule_batched
 from repro_torch.kernels import (ActivationMeta, compact_activations,
                                  decompact_weights, dense_matmul,
                                  griffin_matmul, launch_counts,
                                  preprocess_weights, sparse_a_matmul)
+from repro_torch.kernels.batch_eval import schedule_cycles
+from repro_torch.kernels.batch_eval import kernel as batch_eval_kernel
+from repro_torch.kernels.batch_eval.ref import schedule_cycles_ref
 from repro_torch.kernels.sparse_a import kernel as k3
 from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
                                               sparse_a_ref)
@@ -650,3 +655,63 @@ def _tensors(tree):
     elif dataclasses.is_dataclass(tree):
         for f in dataclasses.fields(tree):
             yield from _tensors(getattr(tree, f.name))
+
+
+# (d1, d2, d3, shuffle): the Figure 8 sweep's configs (SparTen's 128-deep
+# window among them) and the reference test's
+SCHEDULE_CONFIGS = [(0, 0, 0, False), (2, 1, 0, False), (4, 0, 2, True),
+                    (2, 0, 0, True), (2, 1, 1, True), (8, 1, 1, False),
+                    (127, 0, 0, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", SCHEDULE_CONFIGS, ids=str)
+@pytest.mark.parametrize("shape", [(70, 84, 16, 1), (33, 19, 8, 3),
+                                   (20, 40, 16, 2), (5, 400, 16, 1),
+                                   (9, 1, 16, 2)],
+                         ids=["fig8", "n24-bytes", "n32", "scratch", "T1"])
+def test_batch_eval_kernel_matches_numpy_engine(cuda, cfg, shape):
+    """Integer cycles equal to the numpy engine's: 16-, 24- and 32-byte
+    chunks, a T too long for shared memory (global scratch) and T = 1;
+    densities spread over the tiles, one tile all empty."""
+    rng = np.random.default_rng(sum(shape) + cfg[0])
+    dens = np.linspace(0.02, 0.9, shape[0])[:, None, None, None]
+    mask = rng.random(shape) < dens
+    mask[0] = False
+    d1, d2, d3, sh = cfg
+    before = launch_counts()["batch_eval"]
+    got = schedule_batched(mask, d1, d2, d3, shuffle=sh,
+                           backend="torch").cycles
+    assert launch_counts()["batch_eval"] == before + 1
+    np.testing.assert_array_equal(
+        got, schedule(mask, d1, d2, d3, shuffle=sh).cycles)
+    assert got.dtype == np.int64
+
+
+@pytest.mark.gpu
+def test_batch_eval_kernel_matches_plain_and_is_batch_invariant(cuda):
+    """The kernel equals its plain version on the card, and a tile's count
+    does not depend on the tiles launched beside it (one thread a tile)."""
+    rng = np.random.default_rng(3)
+    mask = rng.random((150, 60, 16, 2)) < 0.4
+    dev = torch.from_numpy(mask).to(cuda)
+    for d1, d2, d3, _ in SCHEDULE_CONFIGS:
+        full = batch_eval_kernel.batch_eval(dev, d1, d2, d3)
+        torch.testing.assert_close(full, schedule_cycles_ref(dev, d1, d2,
+                                                             d3))
+        for sl in (slice(0, 1), slice(0, 64), slice(61, 130)):
+            part = batch_eval_kernel.batch_eval(dev[sl].contiguous(), d1,
+                                                d2, d3)
+            torch.testing.assert_close(part, full[sl])
+
+
+@pytest.mark.gpu
+def test_batch_eval_empty_streams_launch_nothing(cuda):
+    before = launch_counts()["batch_eval"]
+    for shape in [(0, 5, 16, 1), (4, 0, 16, 1)]:
+        out = schedule_cycles(np.zeros(shape, dtype=bool), 2, 1, 0)
+        np.testing.assert_array_equal(out, np.zeros(shape[0], np.int64))
+    assert launch_counts()["batch_eval"] == before
+    # all chunks empty: no placement, the window just travels
+    out = schedule_cycles(np.zeros((3, 10, 16, 1), dtype=bool), 2, 1, 0)
+    np.testing.assert_array_equal(out, [4, 4, 4])
