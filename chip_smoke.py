@@ -34,7 +34,16 @@ Phases, in order; any failure exits non-zero before the result line:
              these inputs.  griffin_spmm is timed at M 4 and 32, bf16 dual
              off and on, fp32 dual off, and at M 4096, bf16 dual off; sparse_a at M 4 and 32, bf16,
              every block live and half of them dead, with its metadata
-             kernel beside the plain metadata.
+             kernel beside the plain metadata.  griffin_spmm's dual walk
+             is held bit-equal to its plain walk on every shape.  It is
+             also held on w_up compacted at each block size of the
+             autotune grid (16, 32, 64, 128, 512; unit 8): against its
+             plain version, and bit-equal to the 128 x 128 / unit 32
+             compaction's output (bf16 M 4 and 32, dual and not; fp32 M
+             4); and timed at M 4, bf16, with its grid steps (N tiles x
+             max_cnt) and the cost per grid step fitted from the 16 and
+             128 rows (the constant tuning.search.STEP_OVERHEAD_HW comes
+             from this line).
 3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
              through repro_torch.launch.serve: 8 requests with prompt
              lengths 8/16/32 and generation lengths 4/8/16, decode_chunk
@@ -151,6 +160,28 @@ Phases, in order; any failure exits non-zero before the result line:
              stream (ties: the deepest window), beside the bound (mask bytes
              / 3.35 TB/s); no PyTorch call computes the schedule, so no
              library time.
+7. autotune - repro_torch.launch.autotune's pipeline for the dense family
+             at full width (``AUTOTUNE``): 16 candidates enumerated from
+             the seven GEMM shapes and scored by the cycle-model DSE
+             sweep and the roofline of the compacted decode step (printed
+             with grid steps and predicted seconds), 3 shortlisted; the
+             default engine (128 x 128 / unit 32) and each shortlisted one
+             serve the reference's tuning trace (6 requests, prompts 6/10,
+             generations 4/8/16, 4 slots, decode_chunk 8; a warm run, then
+             best of 3), then the grid's first candidate of every block
+             size the shortlist left out (a warm and one timed run), so
+             griffin_spmm runs at every granularity of the grid.  Each
+             engine: launch counters zeroed just before and read just
+             after its runs, 112 griffin_spmm + 1 dense_gemm per model
+             call, no plain GEMM, tokens equal to the default's, and its
+             logits bit-equal to the default's on a witness the random
+             model's repetitive greedy tokens cannot give: a prefill of 8
+             prompts of 12 seeded ids and 8 decode steps fed seeded ids
+             (``WITNESS``; the largest |diff|, the argmax flips and the
+             smallest top-1/top-2 margin are printed).  The
+             plan goes to chiprun_out/kernel_plan_torch.json and is read
+             back through load_plan, its rule the winner's.  tok/s and
+             the winner are printed with the card line, not gated.
 
 The line before the last is the kernel summary JSON, the one before it the
 card's name and power limit; the last line is the result JSON.  The full
@@ -291,6 +322,19 @@ ROUTER_CELLS = {
                             replicas=3, hedge_after=1, shed_policy="none"),
         trace=dict(SMALL, requests=5), parity=None),
 }
+
+# the autotune phase: launch.autotune's dense pipeline at full width (the
+# reference's tuning trace: 6 requests, prompts 6/10, generations 4/8/16,
+# 4 slots, decode_chunk 8), 16 candidates, 3 shortlisted; every engine's
+# launches per model call are SB's.  The kernel phase times griffin_spmm
+# at each block size of the candidate grid.
+AUTOTUNE = dict(sparsity=0.8, budget=16, shortlist_k=3, requests=6,
+                repeats=3)
+AUTOTUNE_PLAN = "chiprun_out/kernel_plan_torch.json"
+GRANULARITIES = (16, 32, 64, 128, 512)
+# each autotune engine's logits witness: a prefill of 8 prompts of 12
+# seeded token ids, then 8 decode steps fed seeded ids, through the kernels
+WITNESS = dict(batch=8, prompt=12, steps=8, seed=5)
 
 # the cycle_model phase: the paper's Figure 8 sweep as
 # benchmarks/fig8_overall.py runs it (its design list, the four modes,
@@ -497,8 +541,8 @@ def phase_kernels(torch):
                 live = int(gw.cnt.sum())
                 plan = None
                 if dtype == "bfloat16":
-                    plan = split_plan(gw.kidx.shape[0], gw.block_k,
-                                      gw.block_n, gw.kidx.shape[1])
+                    plan = split_plan(k, n, gw.kidx.shape[0], gw.block_k,
+                                      gw.block_n)
                 if plan and balance:
                     blocks = gw.kidx.shape[0] * gw.block_n // plan.cols * \
                         plan.splits
@@ -518,6 +562,10 @@ def phase_kernels(torch):
                         ref = griffin_spmm_ref(a, gw)
                         torch.cuda.synchronize()
                         err, ok = within_tol(torch, out, ref, dtype)
+                        if dual and not torch.equal(out, plain_bits):
+                            fail(f"griffin_spmm {k}x{n} {dtype} M {m}: dual "
+                                 "is not bit-equal to the plain walk")
+                        plain_bits = out
                         row = {"kernel": "griffin_spmm", "dtype": dtype,
                                "m": m, "k": k, "n": n, "balance": balance,
                                "dual": dual, "live_blocks": live,
@@ -536,9 +584,85 @@ def phase_kernels(torch):
                                 summary["griffin_spmm"] = row
                             print(f"[kernels] {json.dumps(row)}")
                         rows.append(row)
+    rows += spmm_granularities(torch, gen, summary)
     rows += kernel_sparse_a(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
     return rows, summary
+
+
+def spmm_granularities(torch, gen, summary):
+    """griffin_spmm on w_up (2048 x 8192, pruned 0.8 at 128 / unit 32)
+    compacted at every block size of the autotune candidate grid
+    (``GRANULARITIES``, unit 8): held against its plain version, and bit
+    for bit against the default 128 x 128 / unit 32 compaction's output
+    (bf16 at M 4 and 32, dual and not, with two all-zero K blocks in A; fp32,
+    the CUDA-core route, at M 4): every output's summation order is a
+    function of (K, N) alone.  Timed as ``timed_spmm`` times (bf16, M 4),
+    with its grid steps (N tiles x max_cnt).  The per-step cost
+    ``tuning.search.STEP_OVERHEAD_HW`` is fitted from the 16 and 128 rows:
+    delta ms over delta grid steps."""
+    from repro_torch.kernels import griffin_matmul, preprocess_weights
+    from repro_torch.kernels.griffin_spmm.kernel import split_plan
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.sparsity import block_prune
+
+    k, n = 2048, 8192
+    w32 = block_prune(torch.randn(k, n, generator=gen, device="cuda"), 0.8)
+    w = w32.to(torch.bfloat16)
+    inputs = []
+    for m, dt in ((4, torch.bfloat16), (32, torch.bfloat16),
+                  (4, torch.float32)):
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        x[:, 512:768] = 0               # two all-zero 128-row K blocks
+        for dual in ((False, True) if dt == torch.bfloat16 else (False,)):
+            inputs.append((x, dual))
+    default = {torch.bfloat16: preprocess_weights(w),   # 128 x 128 / u32
+               torch.float32: preprocess_weights(w32)}
+    base = [griffin_matmul(x, default[x.dtype], dual=d) for x, d in inputs]
+    a = inputs[0][0]
+    rows = []
+    for bk in GRANULARITIES:
+        gws = {dt: preprocess_weights(src, block_k=bk, block_n=bk, unit=8)
+               for dt, src in ((torch.bfloat16, w), (torch.float32, w32))}
+        gw = gws[torch.bfloat16]
+        out = griffin_matmul(a, gw)
+        ref = griffin_spmm_ref(a, gw)
+        torch.cuda.synchronize()
+        err, ok = within_tol(torch, out, ref, "bfloat16")
+        nt, mc = gw.kidx.shape
+        plan = split_plan(k, n, nt, bk, bk)
+        differ = [int((griffin_matmul(x, gws[x.dtype], dual=d) != b).sum())
+                  for (x, d), b in zip(inputs, base)]
+        row = {"kernel": "griffin_spmm", "dtype": "bfloat16", "m": 4,
+               "k": k, "n": n, "block": bk, "unit": 8,
+               "grid_steps": nt * mc, "plan": plan and list(plan),
+               "max_abs_err": err, "ok": ok,
+               "bits_differ_from_default": differ}
+        if not ok:
+            fail(f"griffin_spmm disagrees with its plain version: {row}")
+        if any(differ):
+            fail("griffin_spmm at a block size of the candidate grid is not "
+                 f"bit-equal to the default compaction (outputs differing "
+                 "at bf16 M 4, M 4 dual, M 32, M 32 dual, fp32 M 4): "
+                 f"{row}")
+        timed_spmm(torch, a, gw, False, row)
+        rows.append(row)
+        print(f"[kernels] granularity {json.dumps(row)}")
+    print(f"[kernels] griffin_spmm at blocks {list(GRANULARITIES)} (unit 8) "
+          "bit-equal to the 128 x 128 / unit 32 compaction: bf16 M 4 and "
+          "32, dual and not, and fp32 M 4")
+    r16, r128 = rows[0], rows[GRANULARITIES.index(128)]
+    fit = (r16["ms"] - r128["ms"]) * 1e-3 / (r16["grid_steps"]
+                                             - r128["grid_steps"])
+    summary["griffin_spmm_granularity"] = {
+        "rows": rows, "step_overhead_s": fit,
+        "step_overhead_fallback_s": r128["ms"] * 1e-3 / r128["grid_steps"]}
+    print(f"[kernels] griffin_spmm per grid step on w_up, M 4: "
+          f"({r16['ms']:.5f} - {r128['ms']:.5f}) ms / ({r16['grid_steps']} - "
+          f"{r128['grid_steps']}) steps = {fit:.4g} s (128 x 128 alone: "
+          f"{summary['griffin_spmm_granularity']['step_overhead_fallback_s']:.4g}"
+          f" s a step)")
+    return rows
 
 
 def timed_spmm(torch, a, gw, dual: bool, row) -> None:
@@ -1582,6 +1706,179 @@ def phase_cycle_model(torch):
               "fig8_rows": {f"{d}/{m}": r for (d, m), r in rows.items()}}
     return got, checks, summary, record
 
+def logits_witness(torch, api, params):
+    """The model's logits under one engine's weights, (steps + 1, batch,
+    vocab): a prefill of ``WITNESS`` prompts of seeded token ids, then
+    decode steps fed seeded ids (no sampling, so every engine sees the
+    same inputs), every GEMM through the kernels as the tuning engine runs
+    them.  The ids vary, unlike the random-weight model's greedy
+    continuations, so each step asks for a different argmax."""
+    from repro_torch.models.common import sparse_execution
+
+    g = torch.Generator(device="cuda").manual_seed(WITNESS["seed"])
+    b, p, steps = WITNESS["batch"], WITNESS["prompt"], WITNESS["steps"]
+    ids = torch.randint(0, api.cfg.vocab_size, (b, p + steps), generator=g,
+                        device="cuda")
+    out = []
+    with torch.no_grad(), sparse_execution(use_kernels=True):
+        cache, logits = api.prefill(params, {"tokens": ids[:, :p]},
+                                    cache_len=p + steps)
+        out.append(logits)
+        for t in range(steps):
+            logits, cache = api.decode_step(params, cache,
+                                            ids[:, p + t:p + t + 1])
+            out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out)
+
+
+def phase_autotune(torch, card: str):
+    """launch.autotune's pipeline for the dense family at full width: 16
+    candidates scored (cycle-model DSE and roofline), the default and the
+    3 shortlisted engines served with every kernel counted per engine
+    (counters zeroed just before and read just after each engine's
+    measured runs), every candidate's tokens equal to the default's and
+    its logits witness (``logits_witness``, after the counters are read)
+    bit-equal to the default's, the plan written to chiprun_out/ and read
+    back.  Then the grid's first
+    candidate of each block size the shortlist left out is served the
+    same way (one warm and one timed run), so every granularity of the
+    grid runs end to end.  tok/s is printed, not gated."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import autotune
+    from repro_torch.models.common import (kernel_dispatch_counts,
+                                           reset_kernel_dispatch)
+    from repro_torch.sparsity import sparsify_params
+    from repro_torch.tuning import load_plan
+    from repro_torch.sparsity import prune_for
+    from repro_torch.tuning.measure import tuning_workload
+
+    t_phase = time.perf_counter()
+    runs = []
+    measure = autotune.measure_plan
+
+    def counted(*args, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        reset_kernel_dispatch()
+        m = measure(*args, **kw)
+        torch.cuda.synchronize()
+        runs.append((kw.get("plan"), launch_counts(),
+                     kernel_dispatch_counts(), m,
+                     logits_witness(torch, args[0], args[1])))
+        return m
+
+    autotune.measure_plan = counted
+    try:
+        fp, summary = autotune.autotune_family("dense", device="cuda",
+                                               **AUTOTUNE)
+    except AssertionError as e:
+        fail(f"autotune: {e}")
+    finally:
+        autotune.measure_plan = measure
+    scored, short = summary["scored"], summary["shortlist"]
+    sizes = {r["candidate"].block_k for r in short}
+    extra = []
+    for r in scored:
+        if r["candidate"].block_k not in sizes:
+            sizes.add(r["candidate"].block_k)
+            extra.append(r)
+    _, api, params, cache_len, trace = tuning_workload(
+        "dense", requests=AUTOTUNE["requests"], device="cuda")
+    for r in extra:
+        fp_r = r["candidate"].family_plan("dense")
+        p = sparsify_params(params, AUTOTUNE["sparsity"], compact=True,
+                            plan=fp_r, **prune_for(False))
+        counted(api, p, cache_len, trace, plan=fp_r, repeats=1)
+        del p
+    del params
+    for r in scored:
+        print(f"[autotune] candidate {r['name']}: grid_steps "
+              f"{r['grid_steps']}, bound_s {r['bound_s']:.4g}, predicted_s "
+              f"{r['predicted_s']:.4g}, dse_speedup {r['dse_speedup']}, "
+              f"score {r['score']:.6g}")
+    print(f"[autotune] shortlist {[r['name'] for r in short]}")
+    if len(scored) != AUTOTUNE["budget"] or \
+            len(short) != AUTOTUNE["shortlist_k"]:
+        fail(f"autotune: {len(scored)} candidates scored, {len(short)} "
+             "shortlisted")
+    if len(runs) != 1 + len(short) + len(extra) or \
+            sorted(sizes) != list(GRANULARITIES):
+        fail(f"autotune: {len(runs)} engines measured, block sizes "
+             f"{sorted(sizes)}")
+    base, base_logits = runs[0][3], runs[0][4]
+    print(f"[autotune] default tokens per request: {list(base['tokens'])}")
+    top2 = base_logits.float().topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    total, witness = {}, []
+    for plan, got, dispatch, m, logits in runs:
+        label = plan.rules[0] if plan is not None else "default"
+        calls = m["model_calls"]
+        want = {k: SB_LAUNCHES.get(k, 0) * calls for k in got}
+        if got != want:
+            fail(f"autotune {label}: launches {got}, expected {want} "
+                 f"({calls} model calls)")
+        if dispatch.get("plain", 0) or dispatch.get("dual", 0):
+            fail(f"autotune {label}: dispatch {dispatch}")
+        gap = float((logits.float() - base_logits.float()).abs().max())
+        flips = int((logits.argmax(-1) != base_logits.argmax(-1)).sum())
+        witness.append({"max_abs_logit_diff": gap, "argmax_flips": flips})
+        if not torch.equal(logits, base_logits):
+            fail(f"autotune {label}: logits not bit-equal to the default's "
+                 f"(max |diff| {gap}, {flips} argmax flips of "
+                 f"{base_logits.shape[0] * base_logits.shape[1]}; smallest "
+                 f"top-1/top-2 margin {margin})")
+        if m["tokens"] != base["tokens"]:
+            fail(f"autotune {label}: tokens differ from the default's")
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    print(f"[autotune] logits witness: {len(runs)} engines x "
+          f"{base_logits.shape[0]} model calls x {base_logits.shape[1]} "
+          f"rows x {base_logits.shape[2]} logits bit-equal to the "
+          f"default's; {len(set(base_logits.argmax(-1).flatten().tolist()))}"
+          f" distinct argmax ids; smallest top-1/top-2 margin {margin}")
+    name = {r["name"]: r for r in scored}
+    repeats = [AUTOTUNE["repeats"]] * (1 + len(short)) + [1] * len(extra)
+    for (plan, got, _, m, _), rep in zip(runs, repeats):
+        tag = "default" if plan is None else \
+            next(n for n, r in name.items()
+                 if r["candidate"].family_plan("dense").rules == plan.rules)
+        print(f"[autotune] {tag}: {m['tok_s']:.1f} tok/s (best of "
+              f"{rep}, not gated), {m['tok_per_step']:.3f} "
+              f"tok/step, mode {m['mode']}, {m['model_calls']} model calls, "
+              f"launches {got['griffin_spmm']} griffin_spmm + "
+              f"{got['dense_gemm']} dense_gemm; logits and tokens equal to "
+              f"the default's; {card}")
+    meta = {"tool": "repro_torch.launch.autotune", "device": "cuda",
+            "reduced": False, "prune": prune_for(False), "card": card,
+            **{k: v for k, v in AUTOTUNE.items() if k != "shortlist_k"},
+            "shortlist": AUTOTUNE["shortlist_k"]}
+    autotune.write_plan({fp.family: fp}, meta, str(ROOT / AUTOTUNE_PLAN))
+    got_fp = load_plan(str(ROOT / AUTOTUNE_PLAN)).family("dense")
+    winner = name[summary["winner"]]["candidate"]
+    rule = got_fp.rules[0]
+    if (rule.block_k, rule.block_n, rule.unit, rule.a_threshold) != \
+            (winner.block_k, winner.block_n, winner.unit,
+             winner.a_threshold) or got_fp.measured["winner"] != winner.name:
+        fail(f"autotune: reloaded plan {got_fp} is not the winner "
+             f"{winner}")
+    phase_s = time.perf_counter() - t_phase
+    ratio = got_fp.measured["winner_vs_default"]
+    print(f"[autotune] winner {winner.name} ({ratio}x the default's "
+          f"tok/s, not gated); plan "
+          f"{AUTOTUNE_PLAN} written and read back; launches {total}; "
+          f"phase {phase_s:.1f}s")
+    record = {"phase_s": phase_s, "winner": winner.name,
+              "measured": got_fp.measured,
+              "scored": [{k: v for k, v in r.items() if k != "candidate"}
+                         for r in scored],
+              "shortlist": [r["name"] for r in short],
+              "extra": [r["name"] for r in extra],
+              "tok_s": [r[3]["tok_s"] for r in runs],
+              "model_calls": [r[3]["model_calls"] for r in runs],
+              "witness": witness, "witness_min_margin": margin}
+    return total, record
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail("run from a checkout of the repository (src/repro_torch "
@@ -1637,6 +1934,8 @@ def main() -> None:
     serves["cycle_model"] = {"launches": launches}
     rows += cycle_checks
     summary["batch_eval"] = cycle_summary
+    launches, autotune_record = phase_autotune(torch, card)
+    serves["autotune"] = {"launches": launches}
 
     kernels = []
     sources = {"dense_gemm": ("src/repro_torch/csrc/dense_gemm.cu",
@@ -1668,6 +1967,8 @@ def main() -> None:
     report = {"card": card, "build_s": build_s, "checks": rows,
               "serve": serves, "long_prefill": long_prefill,
               "cycle_model": cycle_model,
+              "autotune": autotune_record,
+              "spmm_granularity": summary["griffin_spmm_granularity"],
               "kernels": kernels,
               "wall_s": time.perf_counter() - t0}
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -33,32 +33,44 @@
 //     nothing against the bytes.
 //  2. A staged in shared memory.  The block loads cnt[j] and copies its
 //     tile's kidx row and its slice's perm entries into shared memory with
-//     async copies, all in one round trip; its first weight copies start as
-//     soon as cnt[j] arrives (point 4).  Then, in one copy group, it stages
-//     the A columns of every compacted chunk it owns, picked by kidx from
-//     shared memory: no load in the loop waits on another global load.
+//     async copies, all in one round trip; its first weight copies start
+//     as soon as the kidx row and cnt[j] arrive (point 5).  Then, in one
+//     copy group, it stages the A columns of every compacted chunk it owns,
+//     picked by kidx from shared memory: no load in the loop waits on
+//     another global load.
 //     With dual, the staged A gives one zero flag per (32-row M pass, K
 //     chunk of up to 64 columns) at no cost per row.
 //  3. Enough blocks for every shape: a deterministic split-K across a
 //     thread block cluster.  An N tile's column slice (16, 32 or 64
-//     columns) is a cluster of S <= 8 blocks; rank r walks the contiguous
-//     range [r T / S, (r + 1) T / S) of the tile's T compacted chunks.  The
-//     S partial tiles meet through distributed shared memory: each output
-//     is summed in rank order 0..S-1 by exactly one rank, which stores it.
-//     No atomics, no second launch.  S, the slice width and the chunk depth
-//     come from the weight's shape alone (split_plan in kernel.py: about
-//     two blocks per SM), never from M or from A, so a row's bits never
-//     depend on the other rows.
-//  4. B streamed through a ring of cp.async.cg 16-byte copies: 5 stages,
-//     3 for 32-row passes (their staged A is twice as large, and three
-//     blocks must still fit on an SM).  The block's 4 warps run the MMAs on
-//     the stage that has landed, each warp on its own 16-deep K slices of
-//     the chunk.  Dead steps (past cnt[j]) are never issued.  With dual,
+//     columns) is a cluster of S <= 8 blocks (a power of two); rank r
+//     walks the tile's compacted chunks whose 64-row group of absolute K
+//     is r mod S, so a live 128-row block gives each of two ranks one
+//     half and the ranks' shares stay close.  The S partial tiles meet
+//     through distributed shared memory: each output is summed in rank
+//     order 0..S-1 by exactly one rank, which stores it.  No atomics, no
+//     second launch.
+//  4. Every output's summation order is a function of (K, N) alone.  S
+//     comes from the weight's (K, N) (split_plan in kernel.py: about two
+//     blocks per SM at 64-column slices), a rank's share is fixed by
+//     absolute K, and within a rank the 16-row MMA step at absolute row k
+//     runs on warp (k / 16) mod 4, each warp walking its steps in
+//     ascending K into one accumulator; warps meet in order 0..3, ranks in
+//     order 0..S-1.  A zero block that one compaction skips and a coarser
+//     one walks adds exact zeros, so the bits of C depend neither on M and
+//     the other rows nor on the compaction granularity (block_k, block_n,
+//     unit, balance) nor on dual: a tuned plan changes how K2 runs, never
+//     what it computes.  The slice width and chunk depth follow the
+//     compaction and only lay out the work.
+//  5. B streamed through a ring of cp.async.cg 16-byte copies: 5 stages,
+//     3 for 32-row passes (their staged A is twice as large).  The block's
+//     4 warps run the MMAs on the stage that has landed, each warp on its
+//     own 16-deep K slices of the chunk (point 4).  Dead steps (past
+//     cnt[j]) are never issued.  With dual,
 //     the first stages - 1 owned chunks are always walked (their copies
 //     start before the flags are known) and a later chunk whose A is all
 //     zero is dropped, B bytes and all.  A and B rows in shared memory are
 //     XOR-swizzled, so every ldmatrix phase hits 8 distinct bank groups.
-//  5. The balance shuffle folded into the store: column p of the slice goes
+//  6. The balance shuffle folded into the store: column p of the slice goes
 //     to output column perm[p] (units of 32 columns stay contiguous, so the
 //     stores stay coalesced), padding columns are dropped, and the caller
 //     gathers nothing.
@@ -67,10 +79,11 @@
 // whose bk or bn is not a multiple of 16, whose A or b_comp is not 16-byte
 // aligned, or whose staged A would not fit in shared memory) take the
 // CUDA-core route: one block of 256 threads per (4-row M tile, 32-column
-// slice), 64 K groups dealt the live compacted rows round-robin, an ordered
-// shared-memory reduction, and the same permuted store.  Which route runs
-// depends on the dtype, the shape and the alignment of the operands, never
-// on M.
+// slice), 64 K groups, group g summing the live rows at absolute K = g mod
+// 64 in ascending order (so its bits, too, do not follow the compaction),
+// an ordered shared-memory reduction, and the same permuted store.  Which
+// route runs depends on the dtype, the shape and the alignment of the
+// operands, never on M.
 
 #include <cooperative_groups.h>
 
@@ -93,6 +106,8 @@ struct SpmmArgs {
   int splits, chunk;      // cluster split S and chunk rows (bf16 route)
 };
 
+constexpr int kSplitRows = 64;  // rank r owns the 64-row groups = r mod S
+
 // the output column of b_comp column p, or -1 for padding
 __device__ __forceinline__ int out_col(const SpmmArgs& p, int col) {
   const int dst = p.perm ? __ldg(p.perm + col) : col;
@@ -104,7 +119,7 @@ __device__ __forceinline__ int out_col(const SpmmArgs& p, int col) {
 // ---------------------------------------------------------------------------
 
 // B ring depth: 5 stages for passes of up to 16 rows; 3 for 32-row passes,
-// whose staged A is 2x larger, so three blocks still fit on an SM
+// whose staged A is 2x larger
 __host__ __device__ constexpr int ring_stages(int mt) {
   return mt == 1 ? 5 : 3;
 }
@@ -114,12 +129,13 @@ __host__ __device__ constexpr int ring_stages(int mt) {
 // 16 MT x KC bf16), reused at the end for the warps' partial tiles (4 x
 // 16 MT rows of CW + 8 fp32) and then the block's partial tile (16 MT x CW
 // fp32); then int lists: the slice's output columns (CW), the tile's kidx
-// row (max_cnt), and, for dual, the zero flags and the visited chunks (cap
-// each) and their count.  At w_down's shape (8 ranks, at most 12 chunks
-// each) a 32-row pass takes under 75 KB, so three blocks fit on an SM and
-// its clusters of 8 find room in every GPC at once.
+// row (max_cnt), the rank's chunks (cap), and, for dual, the zero flags
+// and the visited chunks (cap each); then the counts of the rank's and of
+// the visited chunks.  At w_down's shape (8 ranks of 16 groups of 64 rows)
+// a 32-row pass takes about 91 KB, so two blocks fit on an SM and its
+// clusters of 8 find room in every GPC at once.
 struct TcLayout {
-  int a, part, cols, kid, flag, vis, count, total;
+  int a, part, cols, kid, mine, flag, vis, count, total;
   __host__ __device__ TcLayout(int cw, int mt, int kc, int max_cnt,
                                int cap) {
     const int mp = 16 * mt;
@@ -129,17 +145,23 @@ struct TcLayout {
     const int body = part + mp * cw * 4;
     cols = staged > body ? staged : body;
     kid = cols + cw * 4;
-    flag = kid + max_cnt * 4;
+    mine = kid + max_cnt * 4;
+    flag = mine + cap * 4;
     vis = flag + cap * 4;
     count = vis + cap * 4;
-    total = count + 4;
+    total = count + 2 * 4;
   }
 };
 
-// most chunks a rank owns: ranges are [r T / S, (r + 1) T / S)
-__host__ __device__ inline int chunk_cap(int max_cnt, int bk, int kc,
-                                         int splits) {
-  return (max_cnt * (bk / kc) + splits - 1) / splits;
+// most chunks a rank owns: the tile's chunks (KC rows, aligned to KC)
+// that start below K in the rank's ceil(G / S) of the G 64-row groups of
+// K, no more than the tile has
+__host__ __device__ inline int chunk_cap(const SpmmArgs& p) {
+  const int groups = (p.K + kSplitRows - 1) / kSplitRows;
+  const int span =
+      (groups + p.splits - 1) / p.splits * (kSplitRows / p.chunk);
+  const int all = p.max_cnt * (p.bk / p.chunk);
+  return span < all ? span : all;
 }
 
 template <int CW, int MT>
@@ -154,13 +176,14 @@ __global__ void __launch_bounds__(kTcThreads)
   const int KC = p.chunk, AV = KC / 8;  // AV: 2, 4 or 8 pieces of 16 bytes
   const int av_log = 31 - __clz(AV);
   const int S = p.splits, cpb = p.bk / KC;
-  const int cap = chunk_cap(p.max_cnt, p.bk, KC, S);
+  const int cap = chunk_cap(p);
   const TcLayout lay(CW, MT, KC, p.max_cnt, cap);
   bf16* sB = reinterpret_cast<bf16*>(smem);
   bf16* sA = reinterpret_cast<bf16*>(smem + lay.a);
   float* part = reinterpret_cast<float*>(smem + lay.part);
   int* cols = reinterpret_cast<int*>(smem + lay.cols);
   int* kid = reinterpret_cast<int*>(smem + lay.kid);
+  int* mine = reinterpret_cast<int*>(smem + lay.mine);
   int* flag = reinterpret_cast<int*>(smem + lay.flag);
   int* vis = reinterpret_cast<int*>(smem + lay.vis);
   int* count = reinterpret_cast<int*>(smem + lay.count);
@@ -186,12 +209,31 @@ __global__ void __launch_bounds__(kTcThreads)
   cp_async_commit();
   const int cntj = max(0, min(__ldg(p.cnt + j), p.max_cnt));
   const int total = cntj * cpb;               // the tile's chunks
-  const int lo = rank * total / S, hi = (rank + 1) * total / S;
-  const int own = hi - lo;                    // chunks this rank owns
+  cp_async_wait<0>();                         // kidx row and perm landed
+  __syncthreads();
+  // the rank's chunks in ascending K (point 4): chunk c starts at
+  // absolute row kid[c / cpb] * bk + (c % cpb) * KC; one starting at or
+  // past K meets a zero A and is left out
+  if (warp == 0) {
+    int n = 0;
+    for (int i0 = 0; i0 < total; i0 += 32) {
+      const int c = i0 + lane, kb = c / cpb;
+      const int row = c < total ? kid[kb] * p.bk + (c - kb * cpb) * KC
+                                : p.K;
+      const bool ours =
+          row < p.K && ((row / kSplitRows) & (S - 1)) == rank;
+      const unsigned b = __ballot_sync(0xffffffffu, ours);
+      if (ours) mine[n + __popc(b & ((1u << lane) - 1))] = c;
+      n += __popc(b);
+    }
+    if (lane == 0) count[1] = n;
+  }
+  __syncthreads();
+  const int own = count[1];                   // chunks this rank owns
 
   // B: walk step i streams owned chunk o into ring stage i % ST
   auto issue = [&](int i, int o) {
-    const int c = lo + o;
+    const int c = mine[o];
     bf16* b = sB + (i % ST) * KC * CW;
     const bf16* src = Bc + static_cast<int64_t>(c) * KC * p.Npad +
                       static_cast<int64_t>(j) * p.bn + c0;
@@ -201,11 +243,12 @@ __global__ void __launch_bounds__(kTcThreads)
                  src + static_cast<int64_t>(r) * p.Npad + v * 8, 16);
     }
   };
-  // the first ST - 1 owned chunks need only cnt: their copies start at
-  // once, and they are walked in both modes; with dual, a later chunk whose
-  // staged A is all zero (either sign) is dropped from the walk, B bytes
-  // and all.  Walking or dropping an all-zero chunk adds the same exact
-  // zeros, so the result does not depend on which chunks are walked.
+  // the first ST - 1 owned chunks need only cnt and the kidx row: their
+  // copies start at once, and they are walked in both modes; with dual, a
+  // later chunk whose staged A is all zero (either sign) is dropped from
+  // the walk, B bytes and all.  Walking or dropping an all-zero chunk adds
+  // the same exact zeros, so the result does not depend on which chunks
+  // are walked.
 #pragma unroll
   for (int i = 0; i < ST - 1; ++i) {
     if (i < own) issue(i, i);
@@ -222,7 +265,6 @@ __global__ void __launch_bounds__(kTcThreads)
           make_uint4(0, 0, 0, 0);
     }
   }
-  cp_async_wait<ST - 1>();                    // kidx row and perm landed
   if (tid < CW) {  // output column of each slice column, -1 for padding
     const int dst = p.perm ? cols[tid] : j * p.bn + c0 + tid;
     cols[tid] = dst < p.n ? dst : -1;
@@ -233,7 +275,7 @@ __global__ void __launch_bounds__(kTcThreads)
   // staged once, as the newest copy group; columns at or past K (A may be
   // narrower than the padded K) are zero-filled
   for (int i = 0; i < own; ++i) {
-    const int c = lo + i, kc = c / cpb;
+    const int c = mine[i], kc = c / cpb;
     const int64_t base =
         static_cast<int64_t>(kid[kc]) * p.bk + (c - kc * cpb) * KC;
     for (int e = tid; e < rows * AV; e += kTcThreads) {
@@ -269,10 +311,10 @@ __global__ void __launch_bounds__(kTcThreads)
         if (live) vis[base + __popc(b & ((1u << lane) - 1))] = i;
         base += __popc(b);
       }
-      if (lane == 0) *count = min(base, own);
+      if (lane == 0) count[0] = min(base, own);
     }
     __syncthreads();
-    steps = *count;
+    steps = count[0];
   }
 
   float acc[MT][NT][4];
@@ -293,9 +335,18 @@ __global__ void __launch_bounds__(kTcThreads)
     const int next = i + ST - 1;
     if (next < steps) issue(next, dual ? vis[next] : next);
     cp_async_commit();
+    const int o = dual ? vis[i] : i;
     const bf16* b = sB + (i % ST) * KC * CW;
-    const bf16* a = sA + (dual ? vis[i] : i) * MP * KC;
-    for (int ks = warp; ks < KC / 16; ks += kTcWarps) {
+    const bf16* a = sA + o * MP * KC;
+    // the 16-row step at absolute row k runs on warp (k / 16) mod 4: slice
+    // ks = warp of a 64-row chunk (64-aligned), else by the chunk's row
+    int ks0 = warp;
+    if (KC < 64) {
+      const int c = mine[o], kc = c / cpb;
+      ks0 = (warp - kid[kc] * (p.bk / 16) - (c - kc * cpb) * (KC / 16)) &
+            (kTcWarps - 1);
+    }
+    for (int ks = ks0; ks < KC / 16; ks += kTcWarps) {
       uint32_t af[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -373,16 +424,13 @@ __global__ void __launch_bounds__(kTcThreads)
 // Shared memory the bf16 route needs for this shape at its largest pass:
 // what decides whether the route fits, so never M.
 static int tc_smem(const SpmmArgs& p, int cw) {
-  return TcLayout(cw, 2, p.chunk, p.max_cnt,
-                  chunk_cap(p.max_cnt, p.bk, p.chunk, p.splits))
-      .total;
+  return TcLayout(cw, 2, p.chunk, p.max_cnt, chunk_cap(p)).total;
 }
 
 template <int CW, int MT>
 static cudaError_t launch_tc(const SpmmArgs& p, int dual, int n_tiles,
                              cudaStream_t s) {
-  const TcLayout lay(CW, MT, p.chunk, p.max_cnt,
-                     chunk_cap(p.max_cnt, p.bk, p.chunk, p.splits));
+  const TcLayout lay(CW, MT, p.chunk, p.max_cnt, chunk_cap(p));
   static int allowed = 48 << 10;      // dynamic shared memory opted into
   if (lay.total > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -452,32 +500,37 @@ __global__ void __launch_bounds__(kThreads) spmm_core_kernel(SpmmArgs p) {
     for (int e = 0; e < kVec; ++e) acc[i][e] = 0.f;
 
   if (ncols > 0) {
-    const int rows = min(max(p.cnt[j], 0), p.max_cnt) * p.bk;
+    const int cntj = min(max(p.cnt[j], 0), p.max_cnt);
     const int* kid = p.kidx + (int64_t)j * p.max_cnt;
     const T* bcol = Bc + (int64_t)j * p.bn + c0;
-#pragma unroll 4
-    for (int q = g; q < rows; q += kKGroups) {
-      const int kc = q / p.bk;
-      const int64_t col = (int64_t)kid[kc] * p.bk + (q - kc * p.bk);
-      float a[kRows];
-      bool any = false;
+    // group g walks the live rows at absolute K = g mod 64, ascending
+    for (int kc = 0; kc < cntj; ++kc) {
+      const int64_t base = (int64_t)kid[kc] * p.bk;
+      const T* brow = bcol + (int64_t)kc * p.bk * p.Npad;
+      for (int r = (g - static_cast<int>(base)) & (kKGroups - 1); r < p.bk;
+           r += kKGroups) {
+        const int64_t col = base + r;
+        float a[kRows];
+        bool any = false;
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        a[i] = (m0 + i < p.M && col < p.K)
-                   ? to_f32(A[(int64_t)(m0 + i) * p.lda + col])
-                   : 0.f;
-        any |= a[i] != 0.f;
+        for (int i = 0; i < kRows; ++i) {
+          a[i] = (m0 + i < p.M && col < p.K)
+                     ? to_f32(A[(int64_t)(m0 + i) * p.lda + col])
+                     : 0.f;
+          any |= a[i] != 0.f;
+        }
+        if (DUAL && !any) continue;
+        float b[kVec];
+        if (VEC)
+          load8(brow + (int64_t)r * p.Npad, b);
+        else
+          load8_strided(brow + (int64_t)r * p.Npad, 1, ncols, b);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            acc[i][e] = fmaf(a[i], b[e], acc[i][e]);
       }
-      if (DUAL && !any) continue;
-      float b[kVec];
-      if (VEC)
-        load8(bcol + (int64_t)q * p.Npad, b);
-      else
-        load8_strided(bcol + (int64_t)q * p.Npad, 1, ncols, b);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[i][e] = fmaf(a[i], b[e], acc[i][e]);
     }
   }
 #pragma unroll
@@ -544,6 +597,7 @@ extern "C" int griffin_spmm(int dtype, int dual, const void* A,
   cudaError_t err;
   if (dtype == griffin::kBFloat16 && splits > 0) {
     const bool plan_ok = splits <= griffin::kMaxSplits &&
+                         (splits & (splits - 1)) == 0 &&
                          (cols == 16 || cols == 32 || cols == 64) &&
                          bn % cols == 0 && chunk_rows % 16 == 0 &&
                          chunk_rows <= 64 && bk % chunk_rows == 0;

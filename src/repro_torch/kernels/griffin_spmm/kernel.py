@@ -18,12 +18,14 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
     [ctypes.c_void_p]
 MAX_SPLITS = 8      # the portable cluster size
 MIN_BLOCKS = 256    # about two blocks per SM of an H100 SXM (132 SMs)
+SPLIT_ROWS = 64     # rank r owns the groups of 64 K rows = r mod splits
 
 
 class SplitPlan(NamedTuple):
     """The bf16 route's work split: each ``cols``-wide slice of an N tile
-    is a cluster of ``splits`` blocks, rank r walking the r-th contiguous
-    share of the tile's compacted chunks of ``chunk_rows`` rows."""
+    is a cluster of ``splits`` blocks (a power of two), rank r walking the
+    tile's compacted chunks of ``chunk_rows`` rows whose SPLIT_ROWS-row
+    group of absolute K is r mod ``splits``."""
     splits: int
     cols: int
     chunk_rows: int
@@ -31,7 +33,7 @@ class SplitPlan(NamedTuple):
 
 def least_split(blocks: int, chunks: int) -> int:
     """The least power-of-two split up to MAX_SPLITS that gives MIN_BLOCKS
-    blocks, no finer than one chunk of the deepest tile per rank."""
+    blocks, no finer than one chunk per rank."""
     splits = 1
     while splits < MAX_SPLITS and blocks * splits < MIN_BLOCKS and \
             2 * splits <= chunks:
@@ -40,27 +42,30 @@ def least_split(blocks: int, chunks: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(n_tiles: int, block_k: int, block_n: int,
-               max_cnt: int) -> Optional[SplitPlan]:
-    """The split for a weight of this shape, or None where the tensor-core
-    route does not apply (bk or bn not a multiple of 16).  A function of
-    the weight's shape alone, never of M or of the data: every output's
-    summation order follows from it, so a row's bits never depend on the
-    rows beside it.  Chunks of 64 rows (or the largest of 32 and 16 that
-    divides bk); slices of 64 columns, or 32, where a split fills the card
-    with MIN_BLOCKS blocks; else 16."""
+def split_plan(k: int, n: int, n_tiles: int, block_k: int,
+               block_n: int) -> Optional[SplitPlan]:
+    """The split for a (k, n) weight compacted into ``n_tiles`` N tiles of
+    (block_k x block_n) blocks, or None where the tensor-core route does
+    not apply (bk or bn not a multiple of 16).
+
+    The cluster split S is a function of (k, n) alone: the least that
+    gives MIN_BLOCKS blocks over 64-column slices, no finer than one
+    SPLIT_ROWS group of K per rank.  With the kernel's rank shares fixed
+    by absolute K and its warp per 16-row step, every output's summation
+    order follows from (k, n) alone, so its bits depend neither on the
+    rows beside it nor on the compaction granularity.  The slice width
+    and chunk depth only lay out the work: slices of 64 columns, or 32,
+    where the split fills the card with MIN_BLOCKS blocks, else 16; chunks
+    of 64 rows, or the largest of 32 and 16 that divides bk."""
     if block_k % 16 or block_n % 16:
         return None
+    splits = least_split(-(-n // 64), -(-k // SPLIT_ROWS))
     chunk = next(c for c in (64, 32, 16) if block_k % c == 0)
-    chunks = max_cnt * (block_k // chunk)
     for cols in (64, 32):
-        if block_n % cols == 0:
-            blocks = n_tiles * (block_n // cols)
-            splits = least_split(blocks, chunks)
-            if blocks * splits >= MIN_BLOCKS:
-                return SplitPlan(splits, cols, chunk)
-    return SplitPlan(least_split(n_tiles * (block_n // 16), chunks), 16,
-                     chunk)
+        if block_n % cols == 0 and \
+                n_tiles * (block_n // cols) * splits >= MIN_BLOCKS:
+            return SplitPlan(splits, cols, chunk)
+    return SplitPlan(splits, 16, chunk)
 
 
 def _fn():
@@ -83,7 +88,7 @@ def griffin_spmm(a: torch.Tensor, b_comp: torch.Tensor, kidx: torch.Tensor,
     m, k = a.shape
     n_tiles, max_cnt = kidx.shape
     npad = b_comp.shape[1]
-    plan = split_plan(n_tiles, block_k, block_n, max_cnt) \
+    plan = split_plan(k, n, n_tiles, block_k, block_n) \
         if a.dtype == torch.bfloat16 else None
     splits, cols, chunk = plan or (0, 0, 0)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)

@@ -28,6 +28,13 @@ virtual-tick SLOs (``--priorities 0,1 --slo ttft=6,slack=4``);
 the file); its ``kernels.a_sparsity`` declares the activation sparsity of
 the workload category, which with ``--use-kernels`` selects Sparse.A
 (dense weights, ``--sparsity 0``) or Sparse.AB (compacted weights).
+``--plan PATH`` (or the file's ``kernels.plan``) reads a tuned kernel plan
+(``repro_torch.launch.autotune``, or the JAX package's, same schema): the
+model family's entry steers weight-compaction granularity and the
+Mode-selection thresholds of every engine.  It changes how the GEMMs run,
+not what they compute: griffin_spmm sums every output in an order fixed by
+the weight's (K, N) alone, so every compaction gives the default's bits
+(``chip_smoke.py`` holds this on the card).
 """
 from __future__ import annotations
 
@@ -49,7 +56,8 @@ from ..runtime.fault import parse_fault_spec
 from ..runtime.router import RouterEngine
 from ..runtime.serve import greedy_generate
 from ..runtime.slo import DegradationConfig
-from ..sparsity import sparsify_params
+from ..sparsity import prune_for, sparsify_params
+from ..tuning import load_plan
 
 
 def _lens(spec: str):
@@ -81,23 +89,33 @@ def _setup(arch: str, reduced: bool, sparsity: float, seed: int,
            prompt_lens: Sequence[int], gen_lens: Sequence[int],
            arrival_every: int, length_dist: str, max_gen: Optional[int],
            trace_seed: int, trace_kw: Dict):
-    """(api, params, trace, config): the model with seeded random weights
-    on ``device``, pruned (and compacted with ``kernels.use_kernels``) to
-    ``sparsity`` — full-width blocks 128/128/32, the reduced config's
-    16/16/8, as in the reference — and the synthetic trace; the config's
-    ``cache_len`` defaults to the trace's bound."""
+    """(api, params, trace, config, plan): the model with seeded random
+    weights on ``device``, pruned (and compacted with
+    ``kernels.use_kernels``) to ``sparsity`` — full-width blocks
+    128/128/32, the reduced config's 16/16/8, as in the reference — and
+    the synthetic trace; the config's ``cache_len`` defaults to the
+    trace's bound.  ``plan`` is the family's entry of the plan file
+    ``kernels.plan`` names (None without one, or when the file has no
+    entry for the family: then the defaults serve, as in the reference),
+    applied to the compaction here and to every engine by the caller."""
     if econf.arena.cache_len is None:
         econf = econf.with_fields(cache_len=EngineConfig.derive_cache_len(
             prompt_lens, gen_lens, length_dist))
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    plan = None
+    if econf.kernels.plan:
+        plan = load_plan(econf.kernels.plan).family(cfg.family)
+        if plan is None:
+            print(f"plan {econf.kernels.plan} has no entry for family "
+                  f"{cfg.family!r}; serving with defaults")
     api = build_model(cfg, device=device)
     params = api.init(api.generator(seed))
     if sparsity > 0:
-        prune = (dict(block_k=16, block_n=16, unit=8) if reduced else {})
         params = sparsify_params(params, sparsity,
-                                 compact=econf.kernels.use_kernels, **prune)
+                                 compact=econf.kernels.use_kernels,
+                                 plan=plan, **prune_for(reduced))
     if max_gen is None and length_dist == "heavy":
         max_gen = EngineConfig.heavy_gen_cap(gen_lens)
     reqs = synthetic_trace(cfg, num_requests=requests, seed=trace_seed,
@@ -105,7 +123,7 @@ def _setup(arch: str, reduced: bool, sparsity: float, seed: int,
                            arrival_every=arrival_every,
                            length_dist=length_dist, max_gen=max_gen,
                            **trace_kw)
-    return api, params, reqs, econf
+    return api, params, reqs, econf, plan
 
 
 def _sync(api) -> None:
@@ -154,10 +172,10 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
     if econf.fault.inject is not None:
         raise ValueError("a replica fault needs the router "
                          "(router.replicas > 0)")
-    api, params, reqs, econf = _setup(
+    api, params, reqs, econf, plan = _setup(
         arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
         gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw)
-    engine = ServeEngine(api, params, econf)
+    engine = ServeEngine(api, params, econf, plan=plan)
     before = kernel_dispatch_counts()
     _sync(api)
     t0 = time.perf_counter()
@@ -221,7 +239,7 @@ class RouteRun:
                     if ladder else [])
 
 
-def build_router(api, params, econf: EngineConfig
+def build_router(api, params, econf: EngineConfig, plan=None
                  ) -> Tuple[RouterEngine, List[ServeEngine]]:
     """The router ``econf.router`` describes, over engines that all serve
     the *same* ``params`` (one set of weights on the device), and the list
@@ -230,7 +248,7 @@ def build_router(api, params, econf: EngineConfig
     ``router.queue_bound``, or 2 x slots x replicas when unset, or none
     under ``shed_policy="none"``; ``"degrade"`` adds the pressure ladder
     (``DegradationConfig()``); ``fault.inject`` may hold one ``replica:``
-    spec."""
+    spec.  ``plan`` (a tuned family plan) reaches every engine built."""
     rc = econf.router
     if rc.replicas < 1:
         raise ValueError("the router needs router.replicas >= 1")
@@ -246,7 +264,7 @@ def build_router(api, params, econf: EngineConfig
     engines: List[ServeEngine] = []
 
     def make_engine() -> ServeEngine:
-        eng = ServeEngine(api, params, econf)
+        eng = ServeEngine(api, params, econf, plan=plan)
         engines.append(eng)
         return eng
 
@@ -269,13 +287,13 @@ def route(arch: str = "llama3.2-1b", *, reduced: bool = False,
     engines behind the SLO-aware router, as the reference's ``serve.py
     --replicas N`` does (:func:`build_router`)."""
     econf = config or EngineConfig()
-    api, params, reqs, econf = _setup(
+    api, params, reqs, econf, plan = _setup(
         arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
         gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw)
     on_card = api.device.type == "cuda"
     _sync(api)
     mem0 = torch.cuda.memory_allocated(api.device) if on_card else 0
-    router, engines = build_router(api, params, econf)
+    router, engines = build_router(api, params, econf, plan=plan)
     build_bytes = (torch.cuda.memory_allocated(api.device) - mem0
                    if on_card else None)
     before = kernel_dispatch_counts()
@@ -498,6 +516,12 @@ def main(argv=None) -> None:
     ap.add_argument("--overload-smoke", action="store_true",
                     help="with --replicas: fail unless the queue stayed "
                          "within its bound and shed work")
+    ap.add_argument("--plan", default=None, metavar="PATH",
+                    help="tuned kernel plan JSON (repro_torch.launch"
+                         ".autotune): this model family's entry steers "
+                         "weight-compaction granularity and Mode-selection "
+                         "thresholds; griffin_spmm gives the default "
+                         "compaction's bits at every granularity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")

@@ -7,11 +7,13 @@ several such engines behind the multi-replica router (``RouterConfig``,
 ``runtime.router``), whose replica faults come from ``FaultConfig.inject``
 (a ``replica:`` spec).  The other fault fields, engine-level fault specs
 and the mesh keep the reference's shape and raise ``NotImplementedError``
-when set.  The reference's kernel fields ``interpret``,
-``spmd_kernels`` and ``plan`` have no counterpart: a JSON file may carry
-them at their defaults, and any other value raises; ``launch/serve.py``
-defines no flag for an unported field.  ``to_json``/``from_json``
-round-trip the config and power ``launch/serve.py --config engine.json``.
+when set.  The reference's kernel fields ``interpret`` and
+``spmd_kernels`` have no counterpart: a JSON file may carry them at their
+defaults, and any other value raises; ``launch/serve.py`` defines no flag
+for an unported field.  ``kernels.plan`` names a tuned kernel plan file
+(``repro_torch.tuning``), read by ``launch/serve.py``.
+``to_json``/``from_json`` round-trip the config and power
+``launch/serve.py --config engine.json``.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ class KernelConfig:
     use_kernels: bool = False
     a_sparsity: Optional[float] = None
     block_m: int = 128
+    plan: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +94,7 @@ _SECTIONS = {"arena": ArenaConfig, "sched": SchedConfig,
              "router": RouterConfig}
 
 # reference fields the port has no counterpart for, with their defaults
-_UNPORTED_DEFAULTS = {"kernels": {"interpret": False, "spmd_kernels": True,
-                                  "plan": None}}
+_UNPORTED_DEFAULTS = {"kernels": {"interpret": False, "spmd_kernels": True}}
 
 # launch/serve.py flag dest -> flat field name
 _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
@@ -101,7 +103,7 @@ _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
           "kv_dtype": "kv_dtype", "policy": "policy",
           "replicas": "replicas", "queue_bound": "queue_bound",
           "hedge_ms": "hedge_after", "shed_policy": "shed_policy",
-          "inject_fault": "inject"}
+          "inject_fault": "inject", "plan": "plan"}
 
 # flags whose 0 means "off" (None in the config), as in the reference
 _ZERO_IS_NONE = ("queue_bound", "hedge_after")
@@ -122,6 +124,7 @@ _FIELDS = {
     "use_kernels": ("kernels", "use_kernels"),
     "a_sparsity": ("kernels", "a_sparsity"),
     "block_m": ("kernels", "block_m"),
+    "plan": ("kernels", "plan"),
     "inject": ("fault", "inject"),
     "snapshot_dir": ("fault", "snapshot_dir"),
     "recovery_model_parallel": ("fault", "recovery_model_parallel"),

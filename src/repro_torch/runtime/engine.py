@@ -324,11 +324,28 @@ class ServeEngine:
     (degradation level 1), ``set_degraded`` forces the cheaper Mode
     (level 2), ``cancel`` withdraws a request (the hedge loser) and
     ``load`` is the least-loaded dispatch signal.
+
+    ``plan`` is a tuned kernel plan (``repro_torch.tuning``): a
+    ``KernelPlan``, resolved by the model's family, or a ``FamilyPlan``.
+    Only its Mode-selection thresholds act here (``_a_threshold``,
+    ``_b_threshold``, default ``SPARSE_THRESHOLD``); its compaction rules
+    were applied when the caller ran ``sparsify_params(plan=...)``.
+    Thresholds change which kernels run, never what they compute.
     """
 
     def __init__(self, api: ModelApi, params: Any,
-                 config: Optional[EngineConfig] = None):
+                 config: Optional[EngineConfig] = None, plan: Any = None):
         config = config or EngineConfig()
+        fam = plan
+        if plan is not None and hasattr(plan, "families"):
+            fam = plan.family(api.cfg.family)
+        self.plan = fam
+        self._a_threshold = (fam.a_threshold if fam is not None
+                             and fam.a_threshold is not None
+                             else SPARSE_THRESHOLD)
+        self._b_threshold = (fam.b_threshold if fam is not None
+                             and fam.b_threshold is not None
+                             else SPARSE_THRESHOLD)
         if config.arena.cache_len is None:
             raise ValueError("cache_len is required: set "
                              "ArenaConfig.cache_len")
@@ -448,12 +465,14 @@ class ServeEngine:
 
     def _select_mode(self) -> Mode:
         return select_mode(self._a_now(), self.b_sparsity,
-                           b_threshold=0.0 if self.degraded else None)
+                           threshold=self._a_threshold,
+                           b_threshold=(0.0 if self.degraded
+                                        else self._b_threshold))
 
     def set_degraded(self, on: bool) -> None:
         """Degradation-ladder level 2: force the cheaper execution Mode —
         ``on`` zeroes the B-side threshold, so any pruned weight selects
-        the Sparse.B kernels even below ``SPARSE_THRESHOLD`` (dense
+        the Sparse.B kernels even below ``_b_threshold`` (dense
         weights stay dense: 0 > 0 is false).  Re-selects at once; a flip
         swaps the Mode-keyed function set like a measured flip."""
         if on == self.degraded:
@@ -468,11 +487,11 @@ class ServeEngine:
         a_scope = 0.0
         if self.mode in (Mode.A, Mode.AB):
             a_scope = (self.a_declared if self.a_declared is not None
-                       and self.a_declared > SPARSE_THRESHOLD
+                       and self.a_declared > self._a_threshold
                        else DEFAULT_DECLARED_A)
         return sparse_execution(use_kernels=self.use_kernels,
                                 a_sparsity=a_scope, block_m=self.block_m,
-                                a_threshold=SPARSE_THRESHOLD)
+                                a_threshold=self._a_threshold)
 
     def _fns(self) -> Tuple[Callable, Callable, Callable]:
         """(prefill_fn, decode_fn, chunk_for) of the current Mode.  Eager

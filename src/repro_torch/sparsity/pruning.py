@@ -9,7 +9,8 @@ the weights' own device.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,6 +59,19 @@ GEMM_WEIGHTS: Tuple[str, ...] = (
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_ff1", "w_ff2",
     "wz", "wi", "wf", "head")
 
+# Pruning granularity of the reduced configs (the reference's 16 x 16 /
+# unit 8) and of full width (128 x 128 / unit 32, the defaults below): what
+# the serving entry points and the autotuner prune at.  A tuned plan
+# steers compaction only, so every candidate shares this zero pattern.
+PRUNE: Dict[str, int] = dict(block_k=16, block_n=16, unit=8)
+PRUNE_FULL: Dict[str, int] = dict(block_k=128, block_n=128, unit=32)
+
+
+def prune_for(reduced: bool) -> Dict[str, int]:
+    """The base pruning granularity of the reduced or full-width config."""
+    return dict(PRUNE if reduced else PRUNE_FULL)
+
+
 # Subtrees whose wq/wk/wv are per-head block-diagonal mats, not weight GEMMs
 # (the reference's xlstm m_blocks).
 _BLOCKDIAG_PARENTS: Tuple[str, ...] = ("m_blocks",)
@@ -74,20 +88,33 @@ def sparsify_params(params: Any, sparsity: float, *, block_k: int = 128,
     (stacked leaves get a stacked one whose members share a padded grid
     depth); with ``compact=False`` the pruned weights stay plain tensors,
     the bit-exact dense twin of the compacted run.  Selection is by trailing
-    param name and minimum GEMM dims, as in the reference.  Tuned plans
-    (``plan=``) are not ported yet.
-    """
-    if plan is not None:
-        raise NotImplementedError("tuned kernel plans are not ported yet")
+    param name and minimum GEMM dims, as in the reference.
 
-    def convert(w: torch.Tensor):
+    ``plan`` is a tuned family plan (``repro_torch.tuning.FamilyPlan``, or
+    anything with its ``rule_for(name)``): a matching rule overrides the
+    *compaction* granularity (block sizes and balance unit, clamped to the
+    leaf's dims, the unit also to the block width) and stamps the rule's
+    ``a_threshold`` on the compacted leaf (``GriffinWeights.a_thr``).
+    Pruning stays at the call's ``block_k``/``unit``: a plan never moves a
+    zero, so planned and default engines compute the same products.
+    """
+
+    def convert(w: torch.Tensor, name: str):
         bk = min(block_k, w.shape[-2])
         bn = min(block_n, w.shape[-1])
         un = min(unit or max(8, bn // 4), w.shape[-1])
+        cbk, cbn, cun, thr = bk, bn, un, None
+        rule = plan.rule_for(name) if plan is not None else None
+        if rule is not None:
+            cbk = min(rule.block_k or cbk, w.shape[-2])
+            cbn = min(rule.block_n or cbn, w.shape[-1])
+            cun = min(rule.unit or cun, cbn, w.shape[-1])
+            thr = rule.a_threshold
 
         def pre(m):
-            return preprocess_weights(m, block_k=bk, block_n=bn, unit=un,
-                                      balance=balance)
+            gw = preprocess_weights(m, block_k=cbk, block_n=cbn, unit=cun,
+                                    balance=balance)
+            return gw if thr is None else dataclasses.replace(gw, a_thr=thr)
 
         if w.dim() == 2:
             wp = block_prune(w, sparsity, bk, un)
@@ -113,7 +140,7 @@ def sparsify_params(params: Any, sparsity: float, *, block_k: int = 128,
         if name in names and not blockdiag and \
                 isinstance(tree, torch.Tensor) and tree.dim() >= 2 and \
                 tree.shape[-2] >= min_dim and tree.shape[-1] >= min_dim:
-            return convert(tree)
+            return convert(tree, name)
         return tree
 
     return walk(params)

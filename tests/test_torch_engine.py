@@ -274,7 +274,8 @@ def test_engine_config_json_round_trip_and_reference_file():
 
 
 @pytest.mark.parametrize("raw", [
-    '{"kernels": {"interpret": true}}', '{"kernels": {"plan": "p.json"}}',
+    '{"kernels": {"interpret": true}}',
+    '{"kernels": {"spmd_kernels": false}}',
     '{"fault": {"snapshot_dir": "s"}}'])
 def test_engine_config_json_unported_fields_raise(raw):
     with pytest.raises(NotImplementedError):

@@ -513,6 +513,96 @@ def test_paged_admission_prefill_and_chunk_never_sync(cuda):
     assert eng._remaining.tolist() == [0, 0]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2048, 2048), (2048, 512), (2048, 8192),
+                                   (8192, 2048)])
+@pytest.mark.parametrize("unit", ["8", "block"])
+@pytest.mark.parametrize("block", [16, 32, 64, 128, 512])
+def test_griffin_spmm_at_candidate_granularities(cuda, block, unit, shape):
+    """griffin_spmm on the four layer shapes of llama3.2-1b, pruned 0.8 at
+    the serving path's 128 / unit 32 and compacted at each block size of
+    the autotune candidate grid (unit 8, or the block: a whole 512-wide
+    N tile of wk/wv is then left unbalanced, as in the reference), M 4
+    and 32, bf16, against its plain version, and bit-equal to the default
+    128 x 128 / unit 32 compaction's output, dual and not (A has two
+    all-zero 128-row K blocks); fp32 (the CUDA-core route) at M 4 too."""
+    k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    w = block_prune(torch.randn(k, n, generator=g, device=cuda), 0.8)
+    bk, bn = min(block, k), min(block, n)
+    for dt, rows in ((torch.bfloat16, (4, 32)), (torch.float32, (4,))):
+        gw = preprocess_weights(w.to(dt), block_k=bk, block_n=bn,
+                                unit=8 if unit == "8" else bn)
+        default = preprocess_weights(w.to(dt))
+        for m in rows:
+            a = torch.randn(m, k, generator=g, device=cuda).to(dt)
+            a[:, 256:512] = 0
+            before = launch_counts()["griffin_spmm"]
+            out = griffin_matmul(a, gw)
+            torch.cuda.synchronize()
+            assert launch_counts()["griffin_spmm"] == before + 1
+            ref = (a.float() @ decompact_weights(gw)[:k].float()).to(dt)
+            assert_close(out, ref, str(dt).split(".")[1])
+            want = griffin_matmul(a, default)
+            assert torch.equal(out, want)
+            assert torch.equal(griffin_matmul(a, gw, dual=True), want)
+
+
+def _witness_logits(api, params, cuda):
+    """(9, 8, vocab) logits: a prefill of 8 prompts of 12 seeded ids, then
+    8 decode steps fed seeded ids, every GEMM through the kernels."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ids = torch.randint(0, api.cfg.vocab_size, (8, 20), generator=g,
+                        device=cuda)
+    out = []
+    with torch.no_grad(), sparse_execution(use_kernels=True):
+        cache, logits = api.prefill(params, {"tokens": ids[:, :12]},
+                                    cache_len=20)
+        out.append(logits)
+        for t in range(12, 20):
+            logits, cache = api.decode_step(params, cache, ids[:, t:t + 1])
+            out.append(logits)
+    return torch.stack(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [16, 512])
+def test_full_width_plan_token_identity(cuda, block):
+    """A fine (16 x 16) and a coarse (512 x 512) compaction plan serve
+    full-width llama3.2-1b on the autotuner's trace with the default
+    engine's tokens, every GEMM through griffin_spmm; and the model's
+    logits under the plan are bit-equal to the default's on seeded,
+    varied inputs (a prefill and 8 decode steps), a witness the random
+    model's repetitive greedy tokens cannot give."""
+    from repro_torch.sparsity import PRUNE_FULL
+    from repro_torch.tuning.measure import tuning_workload
+    from repro_torch.tuning.search import Candidate
+
+    _, api, params, cache_len, trace = tuning_workload("dense",
+                                                       device=cuda)
+    conf = EngineConfig().with_fields(num_slots=4, cache_len=cache_len,
+                                      decode_chunk=8, use_kernels=True)
+    base = sparsify_params(params, 0.8, compact=True, **PRUNE_FULL)
+    want = {r: o.tokens for r, o in
+            ServeEngine(api, base, conf).run(trace()).items()}
+    want_logits = _witness_logits(api, base, cuda)
+    del base
+    plan = Candidate(block_k=block, block_n=block, unit=8, fanin=8,
+                     a_threshold=0.05).family_plan("dense")
+    tuned = sparsify_params(params, 0.8, compact=True, plan=plan,
+                            **PRUNE_FULL)
+    assert tuned["layers"]["w_up"].block_k == block
+    before = launch_counts()
+    eng = ServeEngine(api, tuned, conf, plan=plan)
+    got = {r: o.tokens for r, o in eng.run(trace()).items()}
+    after = launch_counts()
+    calls = eng.stats["prefill_calls"] + eng.stats["decode_steps"]
+    assert after["griffin_spmm"] - before["griffin_spmm"] == 112 * calls
+    assert after["dense_gemm"] - before["dense_gemm"] == calls
+    assert got == want
+    assert torch.equal(_witness_logits(api, tuned, cuda), want_logits)
+
+
 def _full_width_sparse_b(cuda):
     api = build_model(get_config("llama3.2-1b"), device=cuda)
     params = sparsify_params(api.init(api.generator(0)), 0.8, compact=True)

@@ -288,19 +288,26 @@ def test_griffin_matmul_rejects_a_mismatched_perm():
 def test_split_plan_depends_only_on_the_weight_shape():
     """The bf16 route's split (cluster size, slice width, chunk rows) is a
     function of the weight's shape: M is not among its inputs, so no row's
-    summation order can depend on how many rows are in the call."""
+    summation order can depend on how many rows are in the call.  The
+    cluster size S, which with the kernel's rank shares fixed by absolute K
+    sets every output's summation order, is a function of (K, N) alone:
+    the same at every compaction granularity of the autotune grid."""
     params = inspect.signature(split_plan).parameters
-    assert list(params) == ["n_tiles", "block_k", "block_n", "max_cnt"]
-    # llama3.2-1b at 0.8 block sparsity: wq/wo, wk/wv, w_gate/w_up, w_down
-    assert split_plan(16, 128, 128, 11) == SplitPlan(8, 64, 64)
-    assert split_plan(4, 128, 128, 10) == SplitPlan(8, 16, 64)
-    assert split_plan(64, 128, 128, 13) == SplitPlan(2, 64, 64)
-    assert split_plan(16, 128, 128, 42) == SplitPlan(8, 64, 64)
-    assert split_plan(3, 16, 30, 5) is None       # no tensor-core route
-    for n_tiles in (1, 2, 4, 16, 64, 256):
-        for bk, bn in ((16, 16), (32, 48), (128, 128), (64, 256)):
-            for max_cnt in (1, 3, 40):
-                s, cols, chunk = split_plan(n_tiles, bk, bn, max_cnt)
-                assert s in (1, 2, 4, 8) and bn % cols == 0
-                assert bk % chunk == 0 and chunk % 16 == 0
-                assert s == 1 or max_cnt * (bk // chunk) >= s
+    assert list(params) == ["k", "n", "n_tiles", "block_k", "block_n"]
+    # llama3.2-1b: wq/wo, wk/wv, w_gate/w_up, w_down at 128 x 128
+    assert split_plan(2048, 2048, 16, 128, 128) == SplitPlan(8, 64, 64)
+    assert split_plan(2048, 512, 4, 128, 128) == SplitPlan(8, 16, 64)
+    assert split_plan(2048, 8192, 64, 128, 128) == SplitPlan(2, 64, 64)
+    assert split_plan(8192, 2048, 16, 128, 128) == SplitPlan(8, 64, 64)
+    assert split_plan(48, 30, 3, 16, 30) is None   # no tensor-core route
+    for k, n in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                 (64, 96), (256, 48)):
+        splits = set()
+        for bk, bn in ((16, 16), (32, 32), (32, 48), (64, 64), (128, 128),
+                       (512, 512), (64, 256)):
+            s, cols, chunk = split_plan(k, n, -(-n // bn), bk, bn)
+            assert s in (1, 2, 4, 8) and bn % cols == 0
+            assert bk % chunk == 0 and chunk % 16 == 0
+            assert s == 1 or -(-k // 64) >= s
+            splits.add(s)
+        assert len(splits) == 1, (k, n, splits)

@@ -104,5 +104,26 @@ def test_sparsify_params_default_blocks_bf16():
 
 
 def test_sparsify_params_plan_not_ported():
-    with pytest.raises(NotImplementedError):
-        sparsify_params({"wq": torch.zeros(64, 64)}, 0.5, plan=object())
+    """A tuned plan (``plan=``, anything with ``rule_for``) steers only the
+    compaction: the result is bitwise the reference's under the same rule,
+    and a name the plan does not match keeps the call's blocks.  (The name
+    dates from when the port's ``plan=`` raised.)"""
+    from repro.tuning import FamilyPlan as JaxFamilyPlan
+    from repro.tuning import GemmRule as JaxGemmRule
+    from repro_torch.tuning import FamilyPlan, GemmRule
+
+    rng = np.random.RandomState(8)
+    tree = {"layers": {"wq": jnp.asarray(rng.randn(2, 64, 96), jnp.float32),
+                       "wo": jnp.asarray(rng.randn(96, 64), jnp.float32)}}
+    rule = dict(match="wq", block_k=32, block_n=48, unit=24,
+                a_threshold=0.3)
+    want = jax_sparsify(tree, 0.5, block_k=16, block_n=16, unit=8,
+                        plan=JaxFamilyPlan("dense", (JaxGemmRule(**rule),)))
+    got = sparsify_params(bridge.to_torch(jax.tree.map(np.asarray, tree)),
+                          0.5, block_k=16, block_n=16, unit=8,
+                          plan=FamilyPlan("dense", (GemmRule(**rule),)))
+    assert_tree_bitwise(want, got)
+    assert (got["layers"]["wq"].block_k, got["layers"]["wq"].a_thr) == \
+        (32, 0.3)
+    assert (got["layers"]["wo"].block_k, got["layers"]["wo"].a_thr) == \
+        (16, None)
