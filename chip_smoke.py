@@ -107,7 +107,35 @@ Phases, in order; any failure exits non-zero before the result line:
              112x and dense_gemm 1x per call; last-token logits finite
              and within 2% (relative L2) of the plain-matmul route, and
              every (layer, position) row of the K/V cache within 5%.
-5. router  - after the serve paths, four cells of the SLO-aware
+5. fault   - after the serve paths, seven engine-level fault cells
+             (FAULT_CELLS) through repro_torch.launch.serve with
+             ``fault.inject = "kill:0@<at>:<phase>"``, each on one serve
+             path's weights, engine and trace: fault_kill_admission,
+             _prefill and _decode on sparse_b's (at clock 5),
+             fault_kill_stepwise on sparse_b_stepwise's,
+             fault_kill_paged_int8 on sparse_b_paged_int8's and
+             fault_kill_mode_ab on mode_ab's (decode, clock 5), and
+             fault_snapshot_dir on sparse_b_paged's with 4 requests
+             (decode, clock 2) and every tick-start snapshot, the weights
+             included, written through checkpoint.save under
+             chiprun_out/fault_snapshots (the arrays are deleted after the
+             cell, the manifests kept).  Each cell checks: the kill fired
+             once at that clock; one recovery, logged as the reference
+             logs it; the model calls the recovery replayed equal the CPU
+             tests' count; launches exactly the path's per model call over
+             every call made, the replayed ones included; no plain GEMM;
+             tokens, stats (host syncs included: a capture is not one),
+             Mode history and the final device state (arena, int8 pages
+             and scales, page table, feedback tokens, counters; a paged
+             arena's never-read DUMP page left out) bit-equal to the
+             path's unfaulted run (the disk cell: an unfaulted engine on
+             the same 4 requests), so also to the batch-1 oracle where
+             that run has parity; the disk cell reads the scheduler and
+             paging state back from its newest manifest.  It prints the
+             recovery log, the model calls made and replayed, the median
+             capture time and bytes per tick, the disk saves' seconds and
+             tok/s (not gated) beside the card's name and power limit.
+6. router  - after the fault cells, four cells of the SLO-aware
              multi-replica router through repro_torch.launch.serve.route
              (ROUTER_CELLS), every replica an engine over one shared set
              of weights:
@@ -139,7 +167,7 @@ Phases, in order; any failure exits non-zero before the result line:
              on the paged arena, then a new request admitted into its
              freed slot, token-identical to the oracle.  ``--profile``
              adds one profiled routed run per cell.
-6. cycle_model - the paper's cycle model: the Figure 8 sweep
+7. cycle_model - the paper's cycle model: the Figure 8 sweep
              (benchmarks/fig8_overall.py's eight designs, the four modes,
              CoreConfig(), seed 4, no cache) through the port's
              core.dse.sweep on the host, its rows (speedup, TOPS/W,
@@ -160,7 +188,7 @@ Phases, in order; any failure exits non-zero before the result line:
              stream (ties: the deepest window), beside the bound (mask bytes
              / 3.35 TB/s); no PyTorch call computes the schedule, so no
              library time.
-7. autotune - repro_torch.launch.autotune's pipeline for the dense family
+8. autotune - repro_torch.launch.autotune's pipeline for the dense family
              at full width (``AUTOTUNE``): 16 candidates enumerated from
              the seven GEMM shapes and scored by the cycle-model DSE
              sweep and the roofline of the compacted decode step (printed
@@ -321,6 +349,32 @@ ROUTER_CELLS = {
         MODE_A, fields=dict(num_slots=3, cache_len=24, decode_chunk=2,
                             replicas=3, hedge_after=1, shed_policy="none"),
         trace=dict(SMALL, requests=5), parity=None),
+}
+
+# the fault phase: engine-level kills through launch.serve
+# (fault.inject), each on one serve path's engine and trace and held
+# against that path's unfaulted run: the kill fires at clock ``at``, one
+# recovery, and the recovery replays ``replayed`` model calls (what the
+# lost tick had launched).  Both depend on the trace and the scheduler
+# only (tests/test_torch_fault.py holds them on the CPU).  The disk cell
+# serves 4 of the 8 requests with tick-start snapshots written through
+# checkpoint.save, the weights in each.
+FAULT_CELLS = {
+    "fault_kill_admission": dict(path="sparse_b", phase="admission", at=5,
+                                 replayed=0),
+    "fault_kill_prefill": dict(path="sparse_b", phase="prefill", at=5,
+                               replayed=1),
+    "fault_kill_decode": dict(path="sparse_b", phase="decode", at=5,
+                              replayed=3),
+    "fault_kill_stepwise": dict(path="sparse_b_stepwise", phase="decode",
+                                at=5, replayed=2),
+    "fault_kill_paged_int8": dict(path="sparse_b_paged_int8",
+                                  phase="decode", at=5, replayed=1),
+    "fault_kill_mode_ab": dict(path="mode_ab", phase="decode", at=5,
+                               replayed=3),
+    "fault_snapshot_dir": dict(path="sparse_b_paged", phase="decode", at=2,
+                               replayed=1, requests=4,
+                               snapshot_dir="chiprun_out/fault_snapshots"),
 }
 
 # the autotune phase: launch.autotune's dense pipeline at full width (the
@@ -915,13 +969,15 @@ def dense_twin(torch, params):
 
 def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
                 launches: dict, dual: int, arena: dict, stats=None,
-                paged_ref=None):
+                paged_ref=None, states=None):
     """Serve the trace on one path and check it: ``launches`` maps each
     kernel to its launches per model call, ``dual`` the dual griffin_spmm
     GEMMs per model call, ``mode`` the engine's Mode, ``arena`` the
     engine's arena and scheduler fields, ``stats`` the counters it must
     give; an int8 path is held against ``paged_ref``, the same-dtype paged
-    path's record."""
+    path's record.  Given ``states``, the run's end state (:func:`end_state`,
+    taken before the checks below reuse the engine) goes in it under
+    ``name``, for a fault cell to equal."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launch
     from repro_torch.models.common import sparse_execution
@@ -936,6 +992,8 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
                        config=config, **TRACE)
     got = launch_counts()
     eng = run.engine
+    if states is not None:
+        states[name] = end_state(eng)
     st = eng.stats
     calls = st["prefill_calls"] + st["decode_steps"]
     print(f"{tag} llama3.2-1b full width bf16, weight sparsity "
@@ -1031,6 +1089,144 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
           f"{rel:.5f}; to fp32: kernel route {gaps['fp32_kernel']:.5f}, "
           f"plain route {gaps['fp32_plain']:.5f}")
     return run, got, gaps, extra
+
+
+def end_state(eng) -> dict:
+    """What an engine run ended with, for a faulted run of the same trace
+    to equal: tokens per rid, stats, Mode history, and host copies of the
+    device state (arena, feedback tokens, owed-token counters) with the
+    paged arena's DUMP page left out (writes from dead rows land there in
+    no fixed order, and it is never read)."""
+    spec = eng._paged
+    dev = dict(eng.cache, tokens=eng._tokens, remaining=eng._remaining)
+    for k, v in dev.items():
+        if spec is not None and k.removesuffix("_scale") in spec.paged_keys:
+            v = v[:, 1:]
+        dev[k] = v.to("cpu", copy=True)
+    return {"tokens": {rid: o.tokens for rid, o in eng.outputs.items()},
+            "stats": dict(eng.stats),
+            "mode_history": [(s, m.value) for s, m in eng.mode_history],
+            "device": dev}
+
+
+def phase_fault(torch, name: str, card: str, unfaulted: dict, path: str,
+                phase: str, at: int, replayed: int, requests: int = 8,
+                snapshot_dir=None) -> dict:
+    """Serve one fault cell (FAULT_CELLS) through launch.serve with
+    ``kill:0@<at>:<phase>`` and hold it: the kill fired once at clock
+    ``at``, one recovery with the reference's log entry, ``replayed``
+    model calls replayed; launches exactly the path's per model call over
+    every call made (the replayed ones included); no plain GEMM; tokens,
+    stats, Mode history and the final device state bit-equal to the
+    unfaulted run's (``unfaulted``: the path's record; the disk cell runs
+    its own unfaulted engine on the same requests).  The disk cell also
+    reads the scheduler and paging state back from the newest snapshot's
+    manifest; the snapshots' arrays are deleted at the end, the manifests
+    kept."""
+    import shutil
+    import statistics
+
+    from repro_torch.checkpoint import read_manifest
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.config import EngineConfig
+    from repro_torch.runtime.engine import Scheduler, ServeEngine
+    from repro_torch.runtime.paging import PageAllocator
+
+    tag = f"[fault {name}]"
+    cell = PATHS[path]
+    inject = f"kill:0@{at}:{phase}"
+    snap = ROOT / snapshot_dir if snapshot_dir is not None else None
+    fields = dict(decode_chunk=8, use_kernels=True,
+                  a_sparsity=cell["a_sparsity"], inject=inject,
+                  snapshot_dir=None if snap is None else str(snap))
+    fields.update(cell["arena"])
+    config = EngineConfig().with_fields(**fields)
+    t0 = time.perf_counter()
+    if snap is not None:
+        shutil.rmtree(snap, ignore_errors=True)
+    reset_launch_counts()
+    try:
+        run = launch.serve("llama3.2-1b", sparsity=cell["sparsity"],
+                           device="cuda", config=config,
+                           **dict(TRACE, requests=requests))
+        got = launch_counts()
+        eng = run.engine
+        if snap is not None:
+            man = read_manifest(str(snap))
+            sched = Scheduler.from_state_dict(man["extra"]["scheduler"])
+            alloc = PageAllocator.from_state_dict(
+                man["extra"]["paging"]["allocator"])
+            print(f"{tag} newest snapshot: step {man['step']}, "
+                  f"{len(man['keys'])} arrays; manifest scheduler: "
+                  f"{sched.num_slots} slots, {len(sched.running)} running, "
+                  f"{sched.waiting_count} waiting; paging: "
+                  f"{alloc.num_pages - 1 - alloc.free_pages} pages held")
+            if sched.num_slots != eng.num_slots or \
+                    alloc.num_pages != eng._paged.num_pages:
+                fail(f"{name}: the manifest's scheduler or paging state "
+                     "is not the engine's")
+            fresh = ServeEngine(eng.api, run.params, eng.config.with_fields(
+                inject=None, snapshot_dir=None))
+            fresh.run(run.requests)
+            unfaulted = end_state(fresh)
+    except Exception as e:                  # noqa: BLE001 - any is a failure
+        fail(f"{name}: the faulted run raised {e!r}")
+    finally:
+        if snap is not None:
+            for npz in snap.glob("*/arrays.npz"):
+                npz.unlink()
+    st = eng.stats
+    calls = st["prefill_calls"] + st["decode_steps"]
+    made = calls + eng.replayed_calls
+    inj = eng.faults
+    cap_ms = statistics.median(eng.capture_s) * 1e3
+    log = [{"step": at, "lost": [0], "mesh": "unsharded"}]
+    save = (f", disk save median {statistics.median(eng.save_s):.3f} s "
+            f"over {len(eng.save_s)} saves" if eng.save_s else "")
+    print(f"{tag} {card}: {inject} on {path}'s engine, {len(run.requests)} "
+          f"requests: fired at clock {inj.fired_at}, recovery_log "
+          f"{eng.recovery_log}; {made} model calls made = {calls} kept + "
+          f"{eng.replayed_calls} replayed; launches {got} = per call "
+          f"{cell['launches']} x {made}; capture median {cap_ms:.3f} ms of "
+          f"{eng.snapshot_bytes} B over {len(eng.capture_s)} ticks{save}; "
+          f"{st['emitted']} tokens in {run.seconds:.3f}s = "
+          f"{run.tokens_per_second:.1f} tok/s (not gated)")
+    if inj.fired_at != at or eng.recoveries != 1 or eng.recovery_log != log:
+        fail(f"{name}: fired at {inj.fired_at}, {eng.recoveries} "
+             f"recoveries, log {eng.recovery_log}; expected {at}, 1, {log}")
+    if eng.replayed_calls != replayed:
+        fail(f"{name}: {eng.replayed_calls} model calls replayed, expected "
+             f"{replayed}")
+    want = {k: v * made for k, v in cell["launches"].items()}
+    if got != want:
+        fail(f"{name}: launches {got}, expected {want} ({made} model calls)")
+    if run.dispatch.get("plain", 0) != 0:
+        fail(f"{name}: plain GEMMs on the main path: {run.dispatch}")
+    if run.dispatch.get("dual", 0) != cell["dual"] * made:
+        fail(f"{name}: {run.dispatch.get('dual', 0)} dual GEMMs, expected "
+             f"{cell['dual']} x {made}")
+    end = end_state(eng)
+    for key in ("stats", "mode_history"):
+        if end[key] != unfaulted[key]:
+            fail(f"{name}: {key} {end[key]}, unfaulted {unfaulted[key]}")
+    for r in run.requests:
+        if end["tokens"][r.rid] != unfaulted["tokens"][r.rid]:
+            fail(f"{name}: request {r.rid} gave {end['tokens'][r.rid]}, "
+                 f"unfaulted {unfaulted['tokens'][r.rid]}")
+    for k, v in unfaulted["device"].items():
+        if not torch.equal(end["device"][k], v):
+            fail(f"{name}: device state {k!r} differs from the unfaulted "
+                 "run's")
+    print(f"{tag} tokens, stats {st}, Mode history and the final device "
+          f"state ({', '.join(sorted(end['device']))}) bit-equal to the "
+          f"unfaulted run's; phase {time.perf_counter() - t0:.1f}s")
+    return {"launches": got, "recovery_log": eng.recovery_log,
+            "model_calls": made, "replayed_calls": eng.replayed_calls,
+            "capture_ms_median": cap_ms, "snapshot_bytes": eng.snapshot_bytes,
+            "captures": len(eng.capture_s), "save_s": list(eng.save_s),
+            "seconds": run.seconds,
+            "tokens_per_second": run.tokens_per_second}
 
 
 def kv_bytes(eng) -> int:
@@ -1897,10 +2093,13 @@ def main() -> None:
           f", cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     build_s = phase_build(build)
     rows, summary = phase_kernels(torch)
-    serves, long_prefill, paged_ref = {}, None, None
+    serves, long_prefill, paged_ref, unfaulted = {}, None, None, {}
     for name, path in PATHS.items():
-        run, launches, gaps, extra = phase_serve(torch, name, **path,
-                                                 paged_ref=paged_ref)
+        keep = any(c["path"] == name and c.get("snapshot_dir") is None
+                   for c in FAULT_CELLS.values())
+        run, launches, gaps, extra = phase_serve(
+            torch, name, **path, paged_ref=paged_ref,
+            states=unfaulted if keep else None)
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, name, run)
         st = run.engine.stats
@@ -1921,6 +2120,10 @@ def main() -> None:
                 k: sum(p["launches"][k] for p in long_prefill.values())
                 for k in SB_LAUNCHES}}
         del run
+        torch.cuda.empty_cache()
+    for name, cell in FAULT_CELLS.items():
+        serves[name] = phase_fault(torch, name, card,
+                                   unfaulted.get(cell["path"]), **cell)
         torch.cuda.empty_cache()
     for name, cell in ROUTER_CELLS.items():
         run, launches, record = phase_router(torch, name, **cell)

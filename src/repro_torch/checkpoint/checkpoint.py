@@ -1,0 +1,177 @@
+"""Atomic, self-describing checkpoints of tensor trees — the port's own copy
+of ``repro/checkpoint/checkpoint.py``, with the same on-disk layout:
+
+- atomic: written to ``<dir>/tmp.<step>`` then ``os.replace``d to
+  ``step_NNNNNNNNNN`` (a crash mid-save never corrupts the latest
+  checkpoint);
+- self-describing: ``arrays.npz`` holds one array per leaf under the
+  leaf's path (``['cache']['k']``, ``['params']['layers']['wq'].b_comp``:
+  the reference's key strings, dict keys sorted), and ``manifest.json``
+  records ``step``, ``keys``, ``shapes``, the true ``dtypes`` and the
+  caller's ``extra`` dict;
+- retention: ``save`` keeps the newest ``keep`` checkpoints.
+
+Trees are dicts, lists and tuples of ``torch.Tensor`` (or numpy) leaves,
+with compacted ``GriffinWeights`` leaves stored field by field; ``None``
+is an empty subtree.  numpy has no bfloat16 (nor float8), so those
+tensors round-trip through a same-width unsigned integer view, their true
+dtype in the manifest.  ``restore`` rebuilds the structure of a template
+tree and places every leaf on an explicit ``device`` (default: the
+template leaf's own, the CPU for a ``meta`` template).
+
+The serving engine writes its tick-start snapshots through ``save`` (its
+scheduler and paging state in ``extra``, which ``read_manifest`` returns)
+and recovers through ``restore`` (``runtime.engine.ServeEngine``,
+``FaultConfig.snapshot_dir``).  The trainer's SIGTERM preemption flag is
+not part of this module.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels.griffin_spmm.ops import GriffinWeights
+
+# dtypes numpy cannot hold -> (numpy storage dtype, the signed integer
+# type of the same width that both numpy and torch carry the bits in)
+_EXOTIC = {torch.bfloat16: (np.uint16, torch.int16, np.int16),
+           torch.float8_e4m3fn: (np.uint8, torch.int8, np.int8),
+           torch.float8_e5m2: (np.uint8, torch.int8, np.int8)}
+# GriffinWeights fields that are arrays (the rest are metadata; ``perm`` is
+# derived from ``inv_perm`` when the weights are built)
+_GW_ARRAYS = ("b_comp", "kidx", "cnt", "inv_perm")
+
+
+def _leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) pairs in the reference's order and key syntax."""
+    if tree is None:
+        return
+    if isinstance(tree, GriffinWeights):
+        for f in _GW_ARRAYS:
+            yield from _leaves(getattr(tree, f), f"{path}.{f}")
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _dtype_name(leaf: Any) -> str:
+    return str(leaf.dtype).removeprefix("torch.")
+
+
+def _to_numpy(leaf: Any) -> np.ndarray:
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
+    t = leaf.detach()
+    if t.dtype in _EXOTIC:
+        store, bits, _ = _EXOTIC[t.dtype]
+        return t.view(bits).cpu().numpy().view(store)
+    return t.cpu().numpy()
+
+
+def save(ckpt_dir: str, step: int, state: Any, keep: int = 3,
+         extra: Optional[Dict] = None) -> str:
+    """Write ``state`` as checkpoint ``step`` under ``ckpt_dir``; returns
+    its directory."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = os.path.join(ckpt_dir, f"tmp.{step}")
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    flat = list(_leaves(state))
+    arrs = {k: _to_numpy(v) for k, v in flat}
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrs)
+    manifest = {
+        "step": step,
+        "keys": sorted(arrs),
+        "shapes": {k: list(v.shape) for k, v in arrs.items()},
+        "dtypes": {k: _dtype_name(v) for k, v in flat},
+        "extra": extra or {},
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    _retain(ckpt_dir, keep)
+    return final
+
+
+def _steps(ckpt_dir: str):
+    return sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+
+
+def _retain(ckpt_dir: str, keep: int) -> None:
+    for d in _steps(ckpt_dir)[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = _steps(ckpt_dir)
+    return int(steps[-1].split("_")[1]) if steps else None
+
+
+def _step_dir(ckpt_dir: str, step: Optional[int]) -> str:
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    return os.path.join(ckpt_dir, f"step_{step:010d}")
+
+
+def read_manifest(ckpt_dir: str, step: Optional[int] = None) -> Dict:
+    """The manifest of checkpoint ``step`` (latest by default): keys,
+    shapes, dtypes and the ``extra`` dict ``save`` recorded."""
+    with open(os.path.join(_step_dir(ckpt_dir, step), "manifest.json")) as f:
+        return json.load(f)
+
+
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
+            device: Any = None) -> Any:
+    """Checkpoint ``step`` (latest by default) in the structure of
+    ``template``, whose leaves give each array's shape and dtype (tensors
+    on any device, ``meta`` included).  A template may be a subtree of
+    what was saved: only its keys are read.  Leaves land on ``device``, or
+    on the template leaf's device."""
+    with np.load(os.path.join(_step_dir(ckpt_dir, step),
+                              "arrays.npz")) as data:
+        return _rebuild(template, "", data, device)
+
+
+def _rebuild(tmpl: Any, path: str, data, device: Any) -> Any:
+    if tmpl is None:
+        return None
+    if isinstance(tmpl, GriffinWeights):
+        arrays = {f: _rebuild(getattr(tmpl, f), f"{path}.{f}", data, device)
+                  for f in _GW_ARRAYS}
+        return dataclasses.replace(tmpl, **arrays, perm=None)
+    if isinstance(tmpl, dict):
+        return {k: _rebuild(v, f"{path}[{k!r}]", data, device)
+                for k, v in tmpl.items()}
+    if isinstance(tmpl, (list, tuple)):
+        return type(tmpl)(_rebuild(v, f"{path}[{i}]", data, device)
+                          for i, v in enumerate(tmpl))
+    arr = data[path]
+    if tuple(arr.shape) != tuple(tmpl.shape):
+        raise ValueError(f"shape mismatch for {path}: {arr.shape} vs "
+                         f"{tuple(tmpl.shape)}")
+    dtype = tmpl.dtype
+    if dtype in _EXOTIC and arr.dtype == _EXOTIC[dtype][0]:
+        t = torch.from_numpy(arr.view(_EXOTIC[dtype][2])).view(dtype)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
+    if device is None:
+        device = tmpl.device if tmpl.device.type != "meta" else "cpu"
+    return t.to(device)

@@ -16,6 +16,13 @@ heavy-tailed generation lengths.  The stepwise decode path is chosen
 through the config file (``{"sched": {"fused": false}}``), as in the
 reference.
 
+``--inject-fault kill:<dev>@<step>[:<phase>]`` kills the serving device
+at an engine step (phase admission, prefill or decode): the engine rolls
+back to its tick-start snapshot and replays the tick, and the run prints
+its recovery log and still ends in parity; ``delay:<host>@<step>`` feeds
+the straggler detector (``--evict-after``) instead.  ``--snapshot-dir``
+writes every tick-start snapshot to disk through ``checkpoint.save``.
+
 ``--replicas N`` serves through the SLO-aware multi-replica router
 (:func:`route`): N engines sharing one set of weights behind one bounded
 EDF admission queue (``--queue-bound``, ``--shed-policy
@@ -56,6 +63,7 @@ from ..runtime.fault import parse_fault_spec
 from ..runtime.router import RouterEngine
 from ..runtime.serve import greedy_generate
 from ..runtime.slo import DegradationConfig
+from ..runtime.straggler import StragglerConfig, StragglerDetector
 from ..sparsity import prune_for, sparsify_params
 from ..tuning import load_plan
 
@@ -82,6 +90,34 @@ def _parse_slo(spec: str):
             raise ValueError(f"--slo {spec!r}: unknown key {k!r} "
                              "(known: ttft, slack)")
     return ttft, slack
+
+
+def _devices(device: torch.device) -> List[torch.device]:
+    """The serving device list a ``kill:`` spec's index resolves
+    against: every visible card, or the host."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def fault_hooks(econf: EngineConfig, device: torch.device,
+                evict_after: int = 3) -> Dict:
+    """The engine's ``fault_injector`` and ``straggler`` keywords from a
+    ``kill:``/``delay:`` spec in ``fault.inject`` (none for no spec or a
+    router-level ``replica:`` spec).  A delay spec also arms a one-host
+    straggler detector, so the eviction path, not the injector, drives
+    recovery; one host is its own median and is never evicted."""
+    if econf.fault.inject is None:
+        return {}
+    spec = parse_fault_spec(econf.fault.inject)
+    if spec.kind == "replica":
+        return {}
+    hooks = {"fault_injector": spec.build(_devices(device))}
+    if spec.kind == "delay":
+        hooks["straggler"] = StragglerDetector(
+            1, StragglerConfig(evict_after=evict_after))
+    return hooks
 
 
 def _setup(arch: str, reduced: bool, sparsity: float, seed: int,
@@ -158,24 +194,29 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
           length_dist: str = "choice", max_gen: Optional[int] = None,
           sparsity: float = 0.8, seed: int = 0, trace_seed: int = 1,
           device: Optional[str] = "cuda",
-          config: Optional[EngineConfig] = None, **trace_kw) -> ServeRun:
+          config: Optional[EngineConfig] = None, evict_after: int = 3,
+          **trace_kw) -> ServeRun:
     """Build the model with seeded random weights on ``device``, prune
     (compact with ``config.kernels.use_kernels``), and serve a synthetic
     trace through one engine.  ``config`` (default ``EngineConfig()``)
     sets the slots, the chunk, the kernels and the declared activation
     sparsity (``kernels.a_sparsity``) and the arena, fixed or paged; its
-    ``cache_len`` defaults to the trace's bound.  ``length_dist="heavy"``
-    draws Pareto generation lengths capped at ``max_gen`` (default
+    ``cache_len`` defaults to the trace's bound; its ``fault`` section
+    arms recovery (:func:`fault_hooks`, ``evict_after`` the straggler
+    streak of a delay spec).  ``length_dist="heavy"`` draws Pareto
+    generation lengths capped at ``max_gen`` (default
     ``EngineConfig.heavy_gen_cap(gen_lens)``); ``trace_kw`` passes the
     arrival process and SLO fields on to ``synthetic_trace``."""
     econf = config or EngineConfig()
-    if econf.fault.inject is not None:
+    if econf.fault.inject is not None and \
+            parse_fault_spec(econf.fault.inject).kind == "replica":
         raise ValueError("a replica fault needs the router "
                          "(router.replicas > 0)")
     api, params, reqs, econf, plan = _setup(
         arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
         gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw)
-    engine = ServeEngine(api, params, econf, plan=plan)
+    engine = ServeEngine(api, params, econf, plan=plan,
+                         **fault_hooks(econf, api.device, evict_after))
     before = kernel_dispatch_counts()
     _sync(api)
     t0 = time.perf_counter()
@@ -248,14 +289,18 @@ def build_router(api, params, econf: EngineConfig, plan=None
     ``router.queue_bound``, or 2 x slots x replicas when unset, or none
     under ``shed_policy="none"``; ``"degrade"`` adds the pressure ladder
     (``DegradationConfig()``); ``fault.inject`` may hold one ``replica:``
-    spec.  ``plan`` (a tuned family plan) reaches every engine built."""
+    spec, or a ``kill:``/``delay:`` spec that arms every engine built
+    (:func:`fault_hooks`), as in the reference.  ``plan`` (a tuned family
+    plan) reaches every engine built."""
     rc = econf.router
     if rc.replicas < 1:
         raise ValueError("the router needs router.replicas >= 1")
     if rc.shed_policy not in ("none", "shed", "degrade"):
         raise ValueError(f"unknown shed policy {rc.shed_policy!r}")
-    faults = ([parse_fault_spec(econf.fault.inject).build_replica()]
-              if econf.fault.inject else [])
+    spec = (parse_fault_spec(econf.fault.inject) if econf.fault.inject
+            else None)
+    faults = ([spec.build_replica()] if spec is not None
+              and spec.kind == "replica" else [])
     bound = rc.queue_bound
     if rc.shed_policy == "none":
         bound = None
@@ -264,7 +309,8 @@ def build_router(api, params, econf: EngineConfig, plan=None
     engines: List[ServeEngine] = []
 
     def make_engine() -> ServeEngine:
-        eng = ServeEngine(api, params, econf, plan=plan)
+        eng = ServeEngine(api, params, econf, plan=plan,
+                          **fault_hooks(econf, api.device))
         engines.append(eng)
         return eng
 
@@ -509,10 +555,25 @@ def main(argv=None) -> None:
                          "bounded queue + the pressure ladder (chunk cap "
                          "-> cheaper Mode -> priority shed)")
     ap.add_argument("--inject-fault", default=None, metavar="SPEC",
-                    help="kill a whole replica at the router level: "
-                         "'replica:<i>@<tick>[:<during>[:<recover>]]' "
-                         "(during prefill|decode|idle|any); engine-level "
-                         "'kill:'/'delay:' specs are not ported")
+                    help="deterministic chaos: 'kill:<dev>@<step>[:<phase>]'"
+                         " raises a device loss for device index <dev> at "
+                         "engine step <step> (phase admission|prefill|"
+                         "decode, default decode), and the engine rolls "
+                         "back to its tick-start snapshot and replays the "
+                         "tick; 'delay:<host>@<step>[:<factor>]' inflates "
+                         "one host's step times for the straggler "
+                         "detector; with --replicas, 'replica:<i>@<tick>"
+                         "[:<during>[:<recover>]]' kills a whole replica "
+                         "(during prefill|decode|idle|any)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="write tick-start snapshots through "
+                         "checkpoint.save here and recover through "
+                         "checkpoint.restore (default keeps snapshots in "
+                         "host memory)")
+    ap.add_argument("--evict-after", type=int, default=3,
+                    help="straggler eviction streak for delay faults; no "
+                    "effect on one device, whose one host is its own median "
+                    "and is never evicted")
     ap.add_argument("--overload-smoke", action="store_true",
                     help="with --replicas: fail unless the queue stayed "
                          "within its bound and shed work")
@@ -541,7 +602,8 @@ def main(argv=None) -> None:
         _main_router(args, econf, trace)
         return
     run = serve(args.arch, reduced=args.reduced, sparsity=args.sparsity,
-                seed=args.seed, device=args.device, config=econf, **trace)
+                seed=args.seed, device=args.device, config=econf,
+                evict_after=args.evict_after, **trace)
     eng = run.engine
     spec = eng._paged
     arena = ("fixed" if spec is None else
@@ -566,6 +628,15 @@ def main(argv=None) -> None:
     if args.slo:
         rows = slo.request_rows(eng.outputs, run.requests)
         _print_slo(rows, slo.latency_summary(rows))
+    if econf.fault.inject is not None:
+        done = sum(o.finished >= 0 and len(o.tokens) > 0
+                   for o in eng.outputs.values())
+        if done != len(run.requests):
+            raise SystemExit(f"fault run finished {done}/"
+                             f"{len(run.requests)} requests")
+        print(f"fault injected ({econf.fault.inject}): {eng.recoveries} "
+              f"recoveries, log {eng.recovery_log}, {eng.replayed_calls} "
+              f"model calls replayed; all {done} requests completed")
     if args.max_syncs_per_token > 0 and \
             run.syncs_per_token > args.max_syncs_per_token:
         raise SystemExit(f"host syncs/token {run.syncs_per_token:.3f} "

@@ -4,10 +4,12 @@ A frozen ``EngineConfig`` of frozen sections with the reference's field
 names.  The port serves the fixed or paged slot arena (same-dtype or int8
 pages) through the fused or the stepwise decode path on one device, and
 several such engines behind the multi-replica router (``RouterConfig``,
-``runtime.router``), whose replica faults come from ``FaultConfig.inject``
-(a ``replica:`` spec).  The other fault fields, engine-level fault specs
-and the mesh keep the reference's shape and raise ``NotImplementedError``
-when set.  The reference's kernel fields ``interpret`` and
+``runtime.router``).  ``FaultConfig.inject`` is a fault spec: ``kill:`` or
+``delay:`` arms an engine's recovery, ``replica:`` kills a router replica;
+``snapshot_dir`` sends the engine's tick-start snapshots to disk.
+``recovery_model_parallel`` and the mesh keep the reference's shape and
+raise ``NotImplementedError`` when set: remeshing and mesh serving are
+not ported.  The reference's kernel fields ``interpret`` and
 ``spmd_kernels`` have no counterpart: a JSON file may carry them at their
 defaults, and any other value raises; ``launch/serve.py`` defines no flag
 for an unported field.  ``kernels.plan`` names a tuned kernel plan file
@@ -67,8 +69,12 @@ class KernelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
-    """``inject`` is a fault spec (``runtime.fault.parse_fault_spec``);
-    only ``replica:`` specs, served by the router, are ported."""
+    """``inject`` is a fault spec (``runtime.fault.parse_fault_spec``):
+    ``kill:``/``delay:`` arm the engine's rollback and replay, ``replica:``
+    the router's replica kill.  ``snapshot_dir`` writes every tick-start
+    snapshot through ``checkpoint.save`` and recovers through
+    ``checkpoint.restore``.  ``recovery_model_parallel`` (the post-loss
+    mesh) is not ported."""
 
     inject: Optional[str] = None
     snapshot_dir: Optional[str] = None
@@ -103,7 +109,8 @@ _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
           "kv_dtype": "kv_dtype", "policy": "policy",
           "replicas": "replicas", "queue_bound": "queue_bound",
           "hedge_ms": "hedge_after", "shed_policy": "shed_policy",
-          "inject_fault": "inject", "plan": "plan"}
+          "inject_fault": "inject", "snapshot_dir": "snapshot_dir",
+          "plan": "plan"}
 
 # flags whose 0 means "off" (None in the config), as in the reference
 _ZERO_IS_NONE = ("queue_bound", "hedge_after")
@@ -145,16 +152,16 @@ class EngineConfig:
     mesh: Optional[str] = None
 
     def __post_init__(self):
+        if self.fault.inject is not None:
+            parse_fault_spec(self.fault.inject)
         unported = []
-        if self.fault != FaultConfig(inject=self.fault.inject):
-            unported.append("fault tolerance")
-        if self.fault.inject is not None and \
-                parse_fault_spec(self.fault.inject).kind != "replica":
-            unported.append("engine-level fault injection")
+        if self.fault.recovery_model_parallel is not None:
+            unported.append("recovery_model_parallel (remeshing)")
         if self.mesh is not None:
             unported.append("mesh serving")
         if unported:
-            raise NotImplementedError("not ported yet: " + ", ".join(unported))
+            raise NotImplementedError("not ported yet (ROADMAP 1.15): "
+                                      + ", ".join(unported))
 
     def with_fields(self, **kv: Any) -> "EngineConfig":
         """Functional update by flat field name (``num_slots=8``)."""

@@ -26,14 +26,19 @@ same bucketed prompt.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import enum
 import heapq
+import time
+from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..checkpoint import restore as ckpt_restore
+from ..checkpoint import save as ckpt_save
 from ..core.hybrid import SPARSE_THRESHOLD, select_mode
 from ..core.spec import Mode
 from ..kernels.griffin_spmm.ops import GriffinWeights
@@ -42,8 +47,10 @@ from ..models.registry import ModelApi
 from ..optim.compression import quantize_rows
 from ..sparsity.pruning import GEMM_WEIGHTS, sparsity_of
 from .config import EngineConfig
+from .fault import DeviceLoss, FaultInjector
 from .paging import PageAllocator, build_spec, paged_tree
 from .serve import make_chunk_ladder, pad_prompt_batch
+from .straggler import StragglerDetector
 
 # Category knob handed to the sparse_execution scope when the measured
 # activation sparsity selects an A-side mode and no declared value exists:
@@ -56,6 +63,9 @@ MIN_BUCKET = 8
 # Pareto shape of ``synthetic_trace(length_dist="heavy")``'s generation
 # lengths: the reference's default
 HEAVY_ALPHA = 1.6
+
+# Captures and disk saves whose seconds an armed engine keeps (the newest)
+TIMING_WINDOW = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +254,61 @@ class Scheduler:
     def has_work(self) -> bool:
         return bool(self._by_arrival or self._ready or self.running)
 
+    # -- snapshots ----------------------------------------------------------
+
+    def state_dict(self) -> Dict:
+        """JSON-serialisable snapshot of every queue, equal to the
+        reference's for the same calls: it rides a disk snapshot's
+        manifest (``checkpoint.read_manifest``), so a fresh process can
+        rebuild the host side of an engine and resume the trace."""
+        def req(r: Request) -> Dict:
+            return {"rid": r.rid, "tokens": np.asarray(r.tokens).tolist(),
+                    "max_new_tokens": r.max_new_tokens,
+                    "arrival": r.arrival, "priority": r.priority,
+                    "deadline_ms": r.deadline_ms,
+                    "ttft_deadline_ms": r.ttft_deadline_ms}
+        return {"num_slots": self.num_slots, "policy": self.policy,
+                "max_admissions": self.max_admissions, "seq": self._seq,
+                "by_arrival": [[a, s, req(r)]
+                               for a, s, r in sorted(self._by_arrival)],
+                "ready": [[s, req(r)] for s, r in sorted(self._ready)],
+                "running": {str(slot): req(r)
+                            for slot, r in self.running.items()},
+                "remaining": {str(s): int(n)
+                              for s, n in self.remaining.items()},
+                "finished": list(self.finished),
+                "free": list(self._free)}
+
+    @classmethod
+    def from_state_dict(cls, d: Dict) -> "Scheduler":
+        """Inverse of ``state_dict``: the exact queue state (heap entries,
+        submission counter, free-slot stack), so admission order after a
+        restore equals the uninterrupted run's.  Requests with ``extras``
+        (an encoder-decoder's frames) have no counterpart in the port."""
+        def req(rd: Dict) -> Request:
+            if rd.get("extras"):
+                raise ValueError(f"request {rd['rid']} carries extras, "
+                                 "which the port's dense family never has")
+            return Request(rid=rd["rid"],
+                           tokens=np.asarray(rd["tokens"], np.int32),
+                           max_new_tokens=rd["max_new_tokens"],
+                           arrival=rd["arrival"],
+                           priority=rd.get("priority", 0),
+                           deadline_ms=rd.get("deadline_ms"),
+                           ttft_deadline_ms=rd.get("ttft_deadline_ms"))
+        sched = cls(d["num_slots"], d["policy"], d["max_admissions"])
+        sched._seq = d["seq"]
+        sched._by_arrival = [(a, s, req(r)) for a, s, r in d["by_arrival"]]
+        heapq.heapify(sched._by_arrival)
+        sched._ready = [(s, req(r)) for s, r in d["ready"]]
+        heapq.heapify(sched._ready)
+        sched.running = {int(k): req(r) for k, r in d["running"].items()}
+        sched.remaining = {int(k): int(n)
+                           for k, n in d["remaining"].items()}
+        sched.finished = list(d["finished"])
+        sched._free = list(d["free"])
+        return sched
+
 
 # ---------------------------------------------------------------------------
 # arena plumbing
@@ -297,6 +362,72 @@ def weight_sparsity(params: Any,
 
 
 # ---------------------------------------------------------------------------
+# recovery snapshots
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class EngineSnapshot:
+    """Host-side copy of everything one engine tick can mutate, captured at
+    tick start while recovery is armed.  ``device`` holds host copies of
+    the arena (pools, page table and int8 scales included), the feedback
+    tokens and the per-slot owed-token counters under the keys ``cache``,
+    ``tokens`` and ``remaining``; the scheduler and outputs are deep
+    copies.  Beside the reference's fields, the port keeps the state it
+    adds: ``peak_active`` and the Mode-keyed function sets built so far
+    (so a set first built in a lost tick is built, and counted in
+    ``stats["retraces"]``, again by the replay).  ``ckpt_step`` is set
+    when the snapshot also went to disk (``FaultConfig.snapshot_dir``):
+    recovery then reloads the device state through
+    ``checkpoint.restore``.  ``paging`` is the paged arena's host state
+    (allocator, slot -> pages map, finished slots awaiting reclamation)."""
+
+    device: Dict[str, Any]
+    sched: Scheduler
+    outputs: Dict[int, RequestOutput]
+    events_len: int
+    clock: int
+    mode: Mode
+    a_measured: float
+    since_measure: int
+    mode_history: List[Tuple[int, Mode]]
+    stats: Dict[str, int]
+    prefill_buckets: set
+    peak_active: int
+    mode_fns: Dict[Mode, Tuple[Callable, ...]]
+    ckpt_step: Optional[int] = None
+    paging: Optional[Dict] = None
+
+
+def _cpu_tree(tree: Any) -> Any:
+    """``tree`` (dicts, lists, compacted weights) with every tensor on the
+    host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu")
+    if isinstance(tree, GriffinWeights):
+        return dataclasses.replace(tree, **{
+            f.name: _cpu_tree(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_tree(v) for v in tree)
+    return tree
+
+
+def _model_calls(stats: Dict[str, int]) -> int:
+    return stats["prefill_calls"] + stats["decode_steps"]
+
+
+def _leaf_pairs(dst: Dict[str, Any], src: Dict[str, Any]):
+    """(dst, src) tensor pairs of two device-state trees of one layout
+    (``cache``, ``tokens``, ``remaining``)."""
+    for k, v in src["cache"].items():
+        yield dst["cache"][k], v
+    for k in ("tokens", "remaining"):
+        yield dst[k], src[k]
+
+
+# ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
 
@@ -331,10 +462,31 @@ class ServeEngine:
     ``_b_threshold``, default ``SPARSE_THRESHOLD``); its compaction rules
     were applied when the caller ran ``sparsify_params(plan=...)``.
     Thresholds change which kernels run, never what they compute.
+
+    Failure handling arms when a ``fault_injector`` (``runtime.fault``), a
+    ``straggler`` detector or ``FaultConfig.snapshot_dir`` is given: every
+    tick first captures an :class:`EngineSnapshot` (one device-to-host
+    copy of the arena, not counted in ``host_syncs``; with a snapshot
+    directory also a ``checkpoint.save`` of it, the weights and the
+    scheduler), and a ``DeviceLoss`` raised at one of the tick's three
+    polls (admission, prefill, decode) rolls every host structure back,
+    writes the device state back into the live tensors and replays the
+    tick, which is deterministic, so the trace ends token-identical to
+    an uninterrupted run.  One device has no survivors to remesh onto:
+    recovery restarts in place.  ``recoveries`` and ``recovery_log``
+    record what happened; ``replayed_calls`` counts the model calls
+    (prefills, decode steps) whose work a recovery threw away, which the
+    replay makes again; ``capture_s``/``save_s`` hold the seconds of the
+    last ``TIMING_WINDOW`` captures and disk saves (bounded, so a
+    long-running armed engine does not grow), ``snapshot_bytes`` the
+    device bytes one capture copies.  An unarmed engine captures
+    nothing.
     """
 
     def __init__(self, api: ModelApi, params: Any,
-                 config: Optional[EngineConfig] = None, plan: Any = None):
+                 config: Optional[EngineConfig] = None, plan: Any = None, *,
+                 fault_injector: Optional[FaultInjector] = None,
+                 straggler: Optional[StragglerDetector] = None):
         config = config or EngineConfig()
         fam = plan
         if plan is not None and hasattr(plan, "families"):
@@ -413,6 +565,21 @@ class ServeEngine:
                                    device=self.device)
         self._remaining = torch.zeros((self.num_slots,), dtype=torch.int32,
                                       device=self.device)
+        # failure handling: armed by any of these three
+        self.faults = fault_injector
+        self.straggler = straggler
+        self.snapshot_dir = config.fault.snapshot_dir
+        self.recoveries = 0
+        self.recovery_log: List[Dict] = []
+        self.replayed_calls = 0
+        self.capture_s: deque = deque(maxlen=TIMING_WINDOW)
+        self.save_s: deque = deque(maxlen=TIMING_WINDOW)
+        self.snapshot_bytes = 0
+        self._snapshot: Optional[EngineSnapshot] = None
+        self._snap_host: Optional[Dict[str, Any]] = None
+        self._evicted: set = set()
+        self._params_host = (_cpu_tree(params)
+                             if self.snapshot_dir is not None else None)
 
     def _arena(self) -> Dict[str, torch.Tensor]:
         """The zeroed device arena: ``init_cache``'s tree with counters
@@ -656,18 +823,34 @@ class ServeEngine:
     def step(self) -> List[Tuple[int, int, int]]:
         """One engine tick on the fused or the stepwise path
         (``SchedConfig.fused``).  Returns the tick's (step, rid, token)
-        events."""
-        return self._step_fused() if self.fused else self._step_stepwise()
+        events.  While recovery is armed the tick starts with a snapshot,
+        and a ``DeviceLoss`` inside it rolls back and replays the tick;
+        the straggler detector then reads the tick's wall time."""
+        t0 = time.perf_counter()
+        if self._recovery_armed():
+            self._snapshot = self._capture()
+        impl = self._step_fused if self.fused else self._step_stepwise
+        try:
+            events = impl()
+        except DeviceLoss as loss:
+            self._recover(list(loss.lost), self._snapshot)
+            events = impl()
+        self._observe_hosts(time.perf_counter() - t0)
+        return events
 
     def _admit(self) -> List[Tuple[int, torch.Tensor]]:
         """This tick's admissions, after the finished slots' pages come
         home: each request is prefilled and written into its slot on the
-        device.  Returns (slot, first token on the device) per admission."""
+        device.  Returns (slot, first token on the device) per admission.
+        The admission fault poll comes before the pops, the prefill poll
+        after each prefill and before its slot insert."""
         pending: List[Tuple[int, torch.Tensor]] = []
+        self._poll_fault("admission")
         self._flush_dirty()
         for slot, req in self.sched.admissions(self.clock,
                                                gate=self._admission_gate()):
             cache1, logits = self._prefill(req)
+            self._poll_fault("prefill")
             ids = ()
             if self._paged is not None:
                 ids = self._slot_pages[slot] = \
@@ -703,14 +886,15 @@ class ServeEngine:
                 (self.cache, self._tokens, self._remaining, ring,
                  zf_num, zf_den) = chunk_fn(self.params, self.cache,
                                             self._tokens, self._remaining)
+            self.stats["chunk_calls"] += 1
+            self.stats["decode_steps"] += chunk
+            self._poll_fault("decode")
             # the tick's one host transfer: ring, first tokens, measurement
             parts = [ring.reshape(-1).double()]
             parts += [t.double() for _, t in pending]
             parts += [zf_num.double().reshape(1), zf_den.double().reshape(1)]
             host = torch.cat(parts).cpu().numpy()
             self.stats["host_syncs"] += 1
-            self.stats["chunk_calls"] += 1
-            self.stats["decode_steps"] += chunk
             ring_h = host[:ring.numel()].reshape(ring.shape).astype(np.int64)
             first = host[ring.numel():ring.numel() + len(pending)]
             zf_num_h, zf_den_h = float(host[-2]), float(host[-1])
@@ -751,11 +935,12 @@ class ServeEngine:
             with self._scope():
                 logits, self.cache = decode_fn(self.params, self.cache,
                                                self._tokens)
+            self.stats["decode_steps"] += 1
+            self._poll_fault("decode")
             toks = torch.argmax(logits, dim=-1)
             self._tokens.copy_(toks[:, None])
             host = toks.cpu().numpy()
             self.stats["host_syncs"] += 1
-            self.stats["decode_steps"] += 1
             self._since_measure += 1
             if self._since_measure >= self.measure_every:
                 rows = torch.as_tensor(active, device=logits.device)
@@ -767,6 +952,174 @@ class ServeEngine:
             self.stats["idle_steps"] += 1
         self.clock += 1
         return self.events[ev_start:]
+
+    # -- failure handling ---------------------------------------------------
+
+    def _recovery_armed(self) -> bool:
+        return (self.faults is not None or self.straggler is not None
+                or self.snapshot_dir is not None)
+
+    def _poll_fault(self, phase: str) -> None:
+        if self.faults is not None:
+            self.faults.poll(phase, self.clock)
+
+    def _device_tree(self) -> Dict[str, Any]:
+        return {"cache": self.cache, "tokens": self._tokens,
+                "remaining": self._remaining}
+
+    def _paging_state(self) -> Dict:
+        """JSON-serialisable snapshot of the paged host state, so a replay
+        reproduces the exact page assignments."""
+        return {"allocator": self._page_alloc.state_dict(),
+                "slot_pages": {str(s): [int(i) for i in ids]
+                               for s, ids in self._slot_pages.items()},
+                "dirty": sorted(int(s) for s in self._dirty_slots)}
+
+    def _restore_paging(self, state: Dict) -> None:
+        self._page_alloc = PageAllocator.from_state_dict(state["allocator"])
+        self._slot_pages = {int(s): [int(i) for i in ids]
+                            for s, ids in state["slot_pages"].items()}
+        self._dirty_slots = set(int(s) for s in state["dirty"])
+        self._reserved_pages = {}
+
+    def _capture(self) -> EngineSnapshot:
+        """Tick-start snapshot.  The device state is copied, not referenced
+        (the tick writes the arena, the tokens and the counters in place),
+        into host buffers allocated once (pinned on the card) and reused
+        by every capture: one stream sync per tick.  With a snapshot
+        directory the copy, the weights (a host copy taken once) and the
+        scheduler and paging state also go through ``checkpoint.save``
+        (the newest two kept)."""
+        t0 = time.perf_counter()
+        live = self._device_tree()
+        if self._snap_host is None:
+            pin = self.device.type == "cuda"
+
+            def buf(t):
+                return torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+            self._snap_host = {"cache": {k: buf(v) for k, v in
+                                         live["cache"].items()},
+                               "tokens": buf(self._tokens),
+                               "remaining": buf(self._remaining)}
+            self.snapshot_bytes = sum(
+                t.numel() * t.element_size()
+                for t, _ in _leaf_pairs(self._snap_host, live))
+        host = self._snap_host
+        for dst, src in _leaf_pairs(host, live):
+            dst.copy_(src, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        snap = EngineSnapshot(
+            device=host, sched=copy.deepcopy(self.sched),
+            outputs=copy.deepcopy(self.outputs),
+            events_len=len(self.events), clock=self.clock, mode=self.mode,
+            a_measured=self.a_measured, since_measure=self._since_measure,
+            mode_history=list(self.mode_history), stats=dict(self.stats),
+            prefill_buckets=set(self.prefill_buckets),
+            peak_active=self.peak_active, mode_fns=dict(self._mode_fns),
+            paging=(self._paging_state() if self._paged is not None
+                    else None))
+        self.capture_s.append(time.perf_counter() - t0)
+        if self.snapshot_dir is not None:
+            t1 = time.perf_counter()
+            extra = {"scheduler": self.sched.state_dict(),
+                     "clock": self.clock, "mode": self.mode.value}
+            if snap.paging is not None:
+                extra["paging"] = snap.paging
+            ckpt_save(self.snapshot_dir, self.clock,
+                      dict(host, params=self._params_host), keep=2,
+                      extra=extra)
+            snap.ckpt_step = self.clock
+            self.save_s.append(time.perf_counter() - t1)
+        return snap
+
+    def _recover(self, lost: List[int],
+                 snap: Optional[EngineSnapshot]) -> None:
+        """A device loss: settle the lost tick's work on the stream (its
+        pinned page-table rows included, before a replay rewrites them),
+        roll every host structure back to ``snap`` and write its device
+        state back into the live tensors.  The caller replays from the
+        snapshot's clock."""
+        if snap is None:
+            raise RuntimeError("device loss with no snapshot armed")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.replayed_calls += _model_calls(self.stats) - \
+            _model_calls(snap.stats)
+        self._remesh(lost)
+        self.sched = copy.deepcopy(snap.sched)
+        self.outputs = copy.deepcopy(snap.outputs)
+        del self.events[snap.events_len:]
+        self.clock = snap.clock
+        self.mode = snap.mode
+        self.a_measured = snap.a_measured
+        self._since_measure = snap.since_measure
+        self.mode_history = list(snap.mode_history)
+        self.stats = dict(snap.stats)
+        self.prefill_buckets = set(snap.prefill_buckets)
+        self.peak_active = snap.peak_active
+        self._mode_fns = dict(snap.mode_fns)
+        if self._paged is not None:
+            if snap.paging is None:
+                raise RuntimeError("paged engine snapshot lacks paging state")
+            self._restore_paging(snap.paging)
+        self._restore_device(snap)
+        self.recoveries += 1
+        self.recovery_log.append({"step": snap.clock, "lost": sorted(lost),
+                                  "mesh": self._mesh_desc()})
+
+    def _remesh(self, lost: List[int]) -> None:
+        """One device has no mesh to shrink: recovery restarts in place
+        (remeshing onto survivors comes with mesh serving)."""
+
+    def _mesh_desc(self) -> str:
+        return "unsharded"
+
+    def _host_device_ids(self, host: int) -> List[int]:
+        """Device ids owned by straggler host ``host``: the single-device
+        engine has one host and nothing to evict onto, so evictions only
+        reach the recovery log."""
+        return []
+
+    def _snapshot_state(self, snap: EngineSnapshot) -> Dict[str, Any]:
+        """The snapshot's device-state tree: from disk through
+        ``checkpoint.restore`` (on the host) when it was checkpointed,
+        else the in-memory copy."""
+        if snap.ckpt_step is None:
+            return snap.device
+        return ckpt_restore(self.snapshot_dir, self._device_tree(),
+                            step=snap.ckpt_step, device="cpu")
+
+    def _restore_device(self, snap: EngineSnapshot) -> None:
+        """Write the snapshot's device state back into the live tensors,
+        so every holder of them sees the rollback."""
+        for dst, src in _leaf_pairs(self._device_tree(),
+                                    self._snapshot_state(snap)):
+            dst.copy_(src, non_blocking=True)
+
+    def _observe_hosts(self, dt: float) -> None:
+        """Feed per-host step times to the straggler detector (the
+        injector's ``delay_host`` inflates one host's reading) and route
+        its eviction verdict into the recovery path at the tick boundary,
+        where the state is consistent: nothing is replayed."""
+        if self.straggler is None:
+            return
+        for h in range(self.straggler.num_hosts):
+            f = (self.faults.host_delay(h, self.clock)
+                 if self.faults is not None else 1.0)
+            self.straggler.record(h, dt * f)
+        self.straggler.observe()
+        evict = [h for h in self.straggler.evictions()
+                 if h not in self._evicted]
+        if not evict:
+            return
+        self._evicted.update(evict)
+        lost = sorted({d for h in evict for d in self._host_device_ids(h)})
+        if not lost:
+            self.recovery_log.append({"step": self.clock, "evicted": evict,
+                                      "lost": [], "mesh": self._mesh_desc()})
+            return
+        self._recover(lost, self._capture())
 
     def run(self, requests: Sequence[Request] = (),
             max_steps: Optional[int] = None) -> Dict[int, RequestOutput]:

@@ -190,3 +190,20 @@ class PageAllocator:
                 raise ValueError(f"freeing page {i} that is not reserved")
             self._held.discard(i)
             heapq.heappush(self._free, i)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """JSON-serialisable snapshot (the held pages); the engine's
+        tick-start snapshots and disk checkpoints carry it."""
+        return {"num_pages": self.num_pages, "held": sorted(self._held)}
+
+    @classmethod
+    def from_state_dict(cls, state: Dict[str, Any]) -> "PageAllocator":
+        """Inverse of ``state_dict``: the free heap is rebuilt from the
+        held set, so later reservations (lowest id first) equal the
+        original allocator's."""
+        alloc = cls(int(state["num_pages"]))
+        alloc._held = set(int(i) for i in state["held"])
+        alloc._free = [i for i in range(1, alloc.num_pages)
+                       if i not in alloc._held]
+        heapq.heapify(alloc._free)
+        return alloc

@@ -239,10 +239,14 @@ def test_entry_points_default_to_cuda():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field", [dict(mesh="1x1"),
-                                   dict(snapshot_dir="x")])
+                                   dict(recovery_model_parallel=2)])
 def test_unported_config_fields_raise(field):
-    with pytest.raises(NotImplementedError):
+    """Mesh serving and the post-loss mesh's TP degree wait for mesh
+    serving (ROADMAP 1.15); ``snapshot_dir`` is served since 1.13."""
+    with pytest.raises(NotImplementedError, match="1.15"):
         EngineConfig().with_fields(**field)
+    assert EngineConfig().with_fields(snapshot_dir="x").fault.snapshot_dir \
+        == "x"
 
 
 @pytest.mark.parametrize("field", [dict(page_size=16, kv_dtype="int8"),
@@ -276,7 +280,7 @@ def test_engine_config_json_round_trip_and_reference_file():
 @pytest.mark.parametrize("raw", [
     '{"kernels": {"interpret": true}}',
     '{"kernels": {"spmd_kernels": false}}',
-    '{"fault": {"snapshot_dir": "s"}}'])
+    '{"fault": {"recovery_model_parallel": 2}}'])
 def test_engine_config_json_unported_fields_raise(raw):
     with pytest.raises(NotImplementedError):
         EngineConfig.from_json(raw)
@@ -318,10 +322,13 @@ def test_engine_config_from_args_flag_beats_file(tmp_path):
     assert (conf.sched.decode_chunk, conf.arena.num_slots,
             conf.kernels.a_sparsity, conf.arena.page_size) == (4, 5, 0.5, 8)
     assert (conf.arena.kv_dtype, conf.sched.policy) == ("int8", "static")
-    # the CLI defines no flag for an unported field
+    # --snapshot-dir is served (ROADMAP 1.13) and lands in the config;
+    # the CLI defines no flag for an unported field (the post-loss mesh)
+    args.snapshot_dir = "s"
+    assert EngineConfig.from_args(args, defaults).fault.snapshot_dir == "s"
     with pytest.raises(SystemExit):
-        launch_serve.main(["--reduced", "--device", "cpu", "--snapshot-dir",
-                           "s"])
+        launch_serve.main(["--reduced", "--device", "cpu",
+                           "--remesh-model-parallel", "2"])
 
 
 def test_launch_serve_cli_config_selects_sparse_a_on_cpu(tmp_path, capsys):

@@ -34,6 +34,7 @@ from repro_torch.models.common import sparse_execution
 from repro_torch.runtime.config import EngineConfig
 from repro_torch.runtime.engine import (ServeEngine, int8_logit_gap,
                                         synthetic_trace)
+from repro_torch.runtime.fault import FaultInjector
 from repro_torch.runtime.serve import greedy_generate
 from repro_torch.sparsity import block_prune, sparsify_params
 
@@ -734,6 +735,40 @@ def test_router_replicas_share_the_weights(cuda):
     rise = torch.cuda.memory_allocated() - base
     assert len(engines) == 2 and all(e.params is params for e in engines)
     assert 0 < rise < weights / 2, (rise, weights)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena,phase", [
+    ({}, "admission"), ({}, "prefill"), ({}, "decode"),
+    ({"page_size": 8, "kv_dtype": "int8"}, "decode")],
+    ids=["fixed-admission", "fixed-prefill", "fixed-decode",
+         "int8-pages-decode"])
+def test_fault_kill_recovers_token_exact_on_card(cuda, arena, phase):
+    """A device kill at an engine step rolls back to the tick-start
+    snapshot (copied off the card) and replays the tick: the finished
+    trace gives the unfaulted engine's tokens and stats, and the launches
+    count every model call made, the replayed ones too."""
+    api, params, conf = _router_setup(cuda, decode_chunk=4, **arena)
+    conf = conf.with_fields(num_slots=3)
+    reqs = lambda: synthetic_trace(api.cfg, num_requests=6, seed=11,  # noqa
+                                   prompt_lens=(6, 10, 17),
+                                   gen_lens=(2, 4, 7), arrival_every=1)
+    plain = ServeEngine(api, params, conf)
+    want = plain.run(reqs())
+    inj = FaultInjector(kill_devices=(0,), at_step=2, phase=phase)
+    eng = ServeEngine(api, params, conf, fault_injector=inj)
+    before = launch_counts()["griffin_spmm"]
+    got = eng.run(reqs())
+    assert inj.fired and eng.recoveries == 1
+    assert eng.recovery_log == [{"step": inj.fired_at, "lost": [0],
+                                 "mesh": "unsharded"}]
+    assert eng.stats == plain.stats
+    for r in reqs():
+        assert got[r.rid].tokens == want[r.rid].tokens, r.rid
+    calls = eng.stats["prefill_calls"] + eng.stats["decode_steps"]
+    assert launch_counts()["griffin_spmm"] - before == \
+        14 * (calls + eng.replayed_calls)
+    assert (eng.replayed_calls > 0) == (phase != "admission")
 
 
 def _tensors(tree):
