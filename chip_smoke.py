@@ -43,7 +43,13 @@ Phases, in order; any failure exits non-zero before the result line:
              4); and timed at M 4, bf16, with its grid steps (N tiles x
              max_cnt) and the cost per grid step fitted from the 16 and
              128 rows (the constant tuning.search.STEP_OVERHEAD_HW comes
-             from this line).
+             from this line).  At xlstm-1.3b's shapes (``XLSTM_SPMM``:
+             w_up, w_down, the sLSTM gates, w_ff1 with N 2730, w_ff2 with
+             an A row 2730 wide, which takes the CUDA-core route, and the
+             2048 x 50304 untied head) griffin_spmm is checked, held batch
+             invariant and timed at M 4 and 32 (bf16; dual too at w_ff2),
+             and dense_gemm and sparse_a (with its metadata) at the
+             (4096 x 4) mLSTM gate leaves, the N edge below one vector.
 3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
              through repro_torch.launch.serve: 8 requests with prompt
              lengths 8/16/32 and generation lengths 4/8/16, decode_chunk
@@ -98,6 +104,24 @@ Phases, in order; any failure exits non-zero before the result line:
              1-step chunk, the arena's cost apart from admission policy)
              after each path, and a profiled 4096-token prefill after
              long_prefill.
+             Then full-width xlstm-1.3b (48 blocks, 6 groups of 7 mLSTM +
+             1 sLSTM, d=2048, 4 heads, vocab 50304, untied head, bf16,
+             seed 0) on the same trace and checks, in three paths
+             (``XLSTM_PATHS``):
+               xlstm_sparse_b - pruned 0.8 at 128x128 / unit 32 and
+                          compacted, 4 slots: griffin_spmm 121x and
+                          dense_gemm 84x (the 4096 x 4 gate leaves, below
+                          the pruning's minimum width) per model call;
+               xlstm_mode_ab - the same weights, declared activation
+                          sparsity 0.5: griffin_spmm 121x dual, sparse_a
+                          and sparse_a_meta 84x each;
+               xlstm_paged_degrades - xlstm_sparse_b with 16-token pages
+                          asked for: the recurrent state does not track
+                          cache_len, so no paged arena is built (as in the
+                          reference) and the tokens equal xlstm_sparse_b's.
+             After xlstm_sparse_b, its weights prefill 32 and 256 tokens
+             (seconds, memory rise within 3 GiB, the sLSTM blocks' share of
+             the 32-token prefill).
 4. long_prefill - after sparse_b, its weights prefill one 2048-token and
              one 4096-token prompt (cache_len = prompt length): seconds
              and the rise of torch.cuda.max_memory_allocated() over the
@@ -218,6 +242,7 @@ per-shape report goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -231,6 +256,7 @@ SPMM_SHAPES = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 UNEMBED = (2048, 128256)
 M_ROWS = (4, 8, 16, 32)          # decode slots, prefill buckets 8..32
 A_SPARSITY = 0.5                 # the reference's category knob
+SEED = 0                         # every serve path's random weights
 FIXED = dict(num_slots=4)
 PAGED = dict(num_slots=8, page_size=16, num_pages=13,
              max_admissions_per_step=8)
@@ -267,11 +293,42 @@ PATHS = {
                             stats=STEPWISE_STATS),
 }
 TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
+# the ssm family: full-width xlstm-1.3b (6 groups of 7 mLSTM + 1 sLSTM) on
+# TRACE.  Per model call griffin_spmm runs its 121 compacted leaves (w_up
+# and w_down x 42, the sLSTM's six x 6, the untied head) and its 84 plain
+# (4096 x 4) mLSTM gate leaves go through dense_gemm, or in Mode.AB through
+# sparse_a and its metadata (tests/test_torch_xlstm.py counts them on the
+# CPU).  The paged config must degrade to the fixed arena: the recurrent
+# state does not grow with the sequence.
+XLSTM = "xlstm-1.3b"
+XLSTM_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
+                launches={"dense_gemm": 84, "griffin_spmm": 121,
+                          "sparse_a": 0, "sparse_a_meta": 0,
+                          "batch_eval": 0}, dual=0)
+XLSTM_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
+                launches={"dense_gemm": 0, "griffin_spmm": 121,
+                          "sparse_a": 84, "sparse_a_meta": 84,
+                          "batch_eval": 0}, dual=121)
+XLSTM_PATHS = {
+    "xlstm_sparse_b": dict(XLSTM_SB, arena=FIXED),
+    "xlstm_mode_ab": dict(XLSTM_AB, arena=FIXED),
+    "xlstm_paged_degrades": dict(XLSTM_SB, arena=dict(
+        FIXED, page_size=16, num_pages=13)),
+}
 # the reference benchmark's int8 gate (benchmarks/bench_serve.py
 # PAGED_INT8_TOL), on its teacher-forced recipe: one 24-token prompt, 48
 # decode steps, pages of 16 in a cache of 128
 INT8_TOL = 0.02
 INT8_GAP = dict(cache_len=128, steps=48, plen=24)
+# xlstm-1.3b's GEMM shapes (K x N): its compacted leaves, which
+# griffin_spmm runs (w_ff1's N and w_ff2's K ragged, w_ff2's A row 2730
+# wide, so its K2 takes the CUDA-core route), and the plain (din x heads)
+# gate leaves, which dense_gemm (Sparse.B) or sparse_a (Mode.AB) runs
+XLSTM_SPMM = {"w_up": (2048, 8192), "w_down": (4096, 2048),
+              "gates": (2048, 2048), "w_ff1": (2048, 2730),
+              "w_ff2": (2730, 2048), "head": (2048, 50304)}
+XLSTM_GATE = (4096, 4)
+XLSTM_ROWS = (4, 32)             # decode slots, the largest prefill bucket
 LONG_PROMPTS = (2048, 4096)
 MAX_PREFILL_RISE = 3 << 30
 # per (layer, position) K/V row of a long prefill, kernel route against
@@ -639,6 +696,7 @@ def phase_kernels(torch):
                             print(f"[kernels] {json.dumps(row)}")
                         rows.append(row)
     rows += spmm_granularities(torch, gen, summary)
+    rows += kernel_xlstm(torch, gen)
     rows += kernel_sparse_a(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
     return rows, summary
@@ -719,6 +777,89 @@ def spmm_granularities(torch, gen, summary):
     return rows
 
 
+def kernel_xlstm(torch, gen):
+    """griffin_spmm at xlstm-1.3b's compacted shapes (``XLSTM_SPMM``, bf16,
+    pruned 0.8 at 128 x 128 / unit 32, balanced) and dense_gemm at its
+    (4096 x 4) gate leaves, at M 4 and 32, each against its plain version
+    and timed beside its bound and torch.matmul; griffin_spmm also dual at
+    w_ff2 and held batch invariant (rows 0, 0:4 of 32) at every shape.
+    sparse_a meets the gate shape in :func:`kernel_sparse_a`."""
+    from repro_torch.kernels import (dense_matmul, griffin_matmul,
+                                     preprocess_weights)
+    from repro_torch.kernels.dense_gemm.ref import dense_matmul_ref
+    from repro_torch.kernels.griffin_spmm.kernel import split_plan
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.sparsity import block_prune
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    rows = []
+    for leaf, (k, n) in XLSTM_SPMM.items():
+        w = block_prune(torch.randn(k, n, generator=gen, device=dev), 0.8)
+        gw = preprocess_weights(w.to(dt))
+        del w
+        plan = split_plan(k, n, gw.kidx.shape[0], gw.block_k, gw.block_n)
+        route = "tensor-core" if k % 8 == 0 else "cuda-core"
+        print(f"[kernels] xlstm griffin_spmm {leaf} {k}x{n} (padded "
+              f"{gw.k}x{gw.b_comp.shape[1]}, max_cnt {gw.kidx.shape[1]}): "
+              f"{route} route, plan {plan and list(plan)}")
+        spmm_batch_invariance(torch, gen, gw, k)
+        for m in XLSTM_ROWS:
+            a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+            a[:, :256] = 0              # two all-zero K blocks for dual
+            for dual in ((False, True) if leaf == "w_ff2" else (False,)):
+                out = griffin_matmul(a, gw, dual=dual)
+                ref = griffin_spmm_ref(a, gw)
+                torch.cuda.synchronize()
+                err, ok = within_tol(torch, out, ref, "bfloat16")
+                row = {"kernel": "griffin_spmm", "model": XLSTM,
+                       "leaf": leaf, "dtype": "bfloat16", "m": m, "k": k,
+                       "n": n, "route": route, "dual": dual,
+                       "max_cnt": gw.kidx.shape[1],
+                       "plan": plan and list(plan), "max_abs_err": err,
+                       "ok": ok}
+                if not ok:
+                    fail(f"griffin_spmm disagrees with its plain version: "
+                         f"{row}")
+                if dual and not torch.equal(out, griffin_matmul(a, gw)):
+                    fail(f"griffin_spmm {leaf}: dual is not bit-equal to "
+                         "the plain walk")
+                timed_spmm(torch, a, gw, dual, row)
+                rows.append(row)
+                print(f"[kernels] {json.dumps(row)}")
+        del gw
+    k, n = XLSTM_GATE
+    w = torch.randn(k, n, generator=gen, device=dev).to(dt)
+    for m in XLSTM_ROWS:
+        a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        out = dense_matmul(a, w)
+        ref = dense_matmul_ref(a, w)
+        torch.cuda.synchronize()
+        err, ok = within_tol(torch, out, ref, "bfloat16")
+        row = {"kernel": "dense_gemm", "model": XLSTM, "leaf": "wi/wf",
+               "dtype": "bfloat16", "m": m, "k": k, "n": n,
+               "max_abs_err": err, "ok": ok}
+        if not ok:
+            fail(f"dense_gemm disagrees with its plain version: {row}")
+        for rows_ in (1, 4):
+            if not torch.equal(dense_matmul(a[:rows_].contiguous(), w),
+                               out[:rows_]):
+                fail(f"dense_gemm is not batch invariant at {k}x{n}: rows "
+                     f"0:{rows_} differ from the same rows of an {m}-row "
+                     "call")
+        b_ms, b_by = bound((a.numel() + w.numel() + m * n) * 2,
+                           2.0 * m * k * n, "bfloat16")
+        row.update(ms=timed_ms(torch, lambda: dense_matmul(a, w)),
+                   plain_ms=timed_ms(torch, lambda: dense_matmul_ref(a, w)),
+                   library_ms=timed_ms(torch, lambda: torch.matmul(a, w)),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print(f"[kernels] {json.dumps(row)}")
+    print(f"[kernels] xlstm-1.3b: griffin_spmm at {len(XLSTM_SPMM)} shapes "
+          f"and dense_gemm at {k}x{n} agree with their plain versions and "
+          "are batch invariant")
+    return rows
+
+
 def timed_spmm(torch, a, gw, dual: bool, row) -> None:
     """Time griffin_matmul, its plain version and torch.matmul on the
     decompacted weight; bound by the bytes of the live blocks this A
@@ -740,7 +881,7 @@ def timed_spmm(torch, a, gw, dual: bool, row) -> None:
         + (0 if gw.perm is None else gw.perm.numel()))
     b_ms, b_by = bound(nbytes, 2.0 * m * blocks * bk * gw.block_n,
                        row["dtype"])
-    w_dense = decompact_weights(gw)
+    w_dense = decompact_weights(gw)[:k]       # A may be narrower than gw.k
     row.update(
         ms=timed_ms(torch, lambda: griffin_matmul(a, gw, dual=dual)),
         plain_ms=timed_ms(torch, lambda: griffin_spmm_ref(a, gw)),
@@ -748,12 +889,13 @@ def timed_spmm(torch, a, gw, dual: bool, row) -> None:
         bound_ms=b_ms, bound_by=b_by, needed_blocks=blocks)
 
 
-def spmm_batch_invariance(torch, gen, gw) -> None:
-    """Rows 0, 0:4 and 0:32 of one A give bit-equal rows through
-    griffin_matmul, dual and not, at this full-width shape."""
+def spmm_batch_invariance(torch, gen, gw, k=None) -> None:
+    """Rows 0, 0:4 and 0:32 of one A (``k`` columns, default the padded K)
+    give bit-equal rows through griffin_matmul, dual and not, at this
+    full-width shape."""
     from repro_torch.kernels import griffin_matmul
 
-    a = torch.randn(32, gw.k, generator=gen, device="cuda").to(
+    a = torch.randn(32, k or gw.k, generator=gen, device="cuda").to(
         gw.b_comp.dtype)
     a[:16, :256] = 0                    # a dead K block in the first rows
     for dual in (False, True):
@@ -782,8 +924,9 @@ def zero_k_blocks(a, bm: int, every: int):
 
 def kernel_sparse_a(torch, gen, summary):
     """K3 at every serving shape (the four dense layer shapes with B
-    row-major, the unembedding with B = embed.T), and its metadata kernel
-    held bitwise against the plain metadata on every A it is given."""
+    row-major, the unembedding with B = embed.T, xlstm-1.3b's (4096 x 4)
+    gate leaves), and its metadata kernel held bitwise against the plain
+    metadata on every A it is given."""
     from repro_torch.kernels import (ActivationMeta, compact_activations,
                                      sparse_a_matmul)
     from repro_torch.kernels.sparse_a.kernel import ROUTE_NAMES, route
@@ -862,7 +1005,7 @@ def kernel_sparse_a(torch, gen, summary):
             live_blocks=f"{sum(cnt)}/{len(cnt) * (meta.k // bk)}")
         print(f"[kernels] {json.dumps(row)}")
 
-    for (k, n) in SPMM_SHAPES + (UNEMBED,):
+    for (k, n) in SPMM_SHAPES + (UNEMBED, XLSTM_GATE):
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             w = torch.randn(n, k, generator=gen, device=dev).to(dt).T
@@ -872,11 +1015,14 @@ def kernel_sparse_a(torch, gen, summary):
             if dtype == "bfloat16":
                 path, plan = route(torch.empty(4, k, dtype=dt, device=dev),
                                    w, 128)
-                blocks = -(-n // plan.cols) * plan.splits
+                how = "no cluster split"
+                if plan is not None:
+                    how = (f"cluster split S={plan.splits}, {plan.cols}-"
+                           f"column slices, {plan.chunk}-row chunks, "
+                           f"{-(-n // plan.cols) * plan.splits} blocks per "
+                           "32-row pass")
                 print(f"[kernels] sparse_a plan {k}x{n} ({layout}): "
-                      f"{ROUTE_NAMES[path]}, cluster split S={plan.splits}, "
-                      f"{plan.cols}-column slices, {plan.chunk}-row chunks, "
-                      f"{blocks} blocks per 32-row pass")
+                      f"{ROUTE_NAMES[path]}, {how}")
                 sparse_a_batch_invariance(torch, gen, w)
             for m in M_ROWS:
                 a = torch.randn(m, k, generator=gen, device=dev).to(dt)
@@ -954,22 +1100,18 @@ def sparse_a_batch_invariance(torch, gen, w) -> None:
           "8:16, 16:32 of a 32-row A bit-equal alone and in the full call")
 
 
-def dense_twin(torch, params):
-    """The served params with every compacted leaf decompacted back to its
-    stacked block-pruned dense weights (plain torch matmuls then serve it)."""
-    from repro_torch.kernels import GriffinWeights, decompact_weights
-    layers = {}
-    for name, leaf in params["layers"].items():
-        if isinstance(leaf, GriffinWeights):
-            leaf = torch.stack([decompact_weights(leaf[i])
-                                for i in range(leaf.b_comp.shape[0])])
-        layers[name] = leaf
-    return dict(params, layers=layers)
+def pruned_twin(torch, api, sparsity: float):
+    """The served weights as plain tensors: the same seeded draw pruned at
+    the same granularity but not compacted (compaction keeps every value,
+    so plain torch matmuls on this twin compute what the kernels should)."""
+    from repro_torch.sparsity import prune_for, sparsify_params
+    return sparsify_params(api.init(api.generator(SEED)), sparsity,
+                           compact=False, **prune_for(False))
 
 
 def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
                 launches: dict, dual: int, arena: dict, stats=None,
-                paged_ref=None, states=None):
+                paged_ref=None, states=None, arch: str = "llama3.2-1b"):
     """Serve the trace on one path and check it: ``launches`` maps each
     kernel to its launches per model call, ``dual`` the dual griffin_spmm
     GEMMs per model call, ``mode`` the engine's Mode, ``arena`` the
@@ -988,7 +1130,7 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     fields.update(arena)
     config = EngineConfig().with_fields(**fields)
     reset_launch_counts()
-    run = launch.serve("llama3.2-1b", sparsity=sparsity, device="cuda",
+    run = launch.serve(arch, sparsity=sparsity, seed=SEED, device="cuda",
                        config=config, **TRACE)
     got = launch_counts()
     eng = run.engine
@@ -996,7 +1138,7 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
         states[name] = end_state(eng)
     st = eng.stats
     calls = st["prefill_calls"] + st["decode_steps"]
-    print(f"{tag} llama3.2-1b full width bf16, weight sparsity "
+    print(f"{tag} {arch} full width bf16, weight sparsity "
           f"{eng.b_sparsity:.3f}, declared activation sparsity "
           f"{a_sparsity}, mode {eng.mode.value}, policy {eng.sched.policy},"
           f" {'fused' if eng.fused else 'stepwise'}: {len(run.requests)} "
@@ -1067,9 +1209,9 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     # the same model through plain torch matmuls
     with eng._scope():
         _, logits = eng.api.prefill(run.params, batch, cache_len=64)
+    twin = pruned_twin(torch, eng.api, sparsity)
     with sparse_execution(use_kernels=False):
-        _, ref = eng.api.prefill(dense_twin(torch, run.params), batch,
-                                 cache_len=64)
+        _, ref = eng.api.prefill(twin, batch, cache_len=64)
     rel = rel_l2(logits, ref)
     if logits.shape != (1, eng.api.cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -1081,14 +1223,23 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     # how much of that gap each bf16 route owns: both against the same
     # model with every leaf widened to fp32
     with sparse_execution(use_kernels=False):
-        _, truth = eng.api.prefill(widened(dense_twin(torch, run.params)),
-                                   batch, cache_len=64)
+        _, truth = eng.api.prefill(widened(twin), batch, cache_len=64)
+    del twin
     gaps = {"plain": rel, "fp32_kernel": rel_l2(logits, truth),
             "fp32_plain": rel_l2(ref, truth)}
     print(f"{tag} prefill logits finite, relative L2 gap to the plain route "
           f"{rel:.5f}; to fp32: kernel route {gaps['fp32_kernel']:.5f}, "
           f"plain route {gaps['fp32_plain']:.5f}")
     return run, got, gaps, extra
+
+
+def serve_record(run, launches, gaps, extra) -> dict:
+    """What the report keeps of one serve path."""
+    return {"stats": run.engine.stats, "seconds": run.seconds,
+            "tokens_per_second": run.tokens_per_second,
+            "syncs_per_token": run.syncs_per_token,
+            "peak_active": run.engine.peak_active, "launches": launches,
+            "dispatch": run.dispatch, "logits_rel_l2": gaps, **extra}
 
 
 def end_state(eng) -> dict:
@@ -1308,6 +1459,88 @@ def check_paged_arena(eng) -> None:
              f"above the fixed arena's {FIXED['num_slots']}")
 
 
+def check_paged_degrades(run, fixed_tokens) -> None:
+    """A paged config on the xlstm family: no cache leaf tracks cache_len,
+    so the engine keeps the fixed arena (as the reference's does) and
+    serves the fixed arena's tokens."""
+    eng = run.engine
+    if eng.config.arena.page_size is None or eng._paged is not None or \
+            "pages" in eng.cache:
+        fail(f"xlstm_paged_degrades: page_size {eng.config.arena.page_size}"
+             f", paged spec {eng._paged}")
+    tokens = {r: o.tokens for r, o in eng.outputs.items()}
+    if tokens != fixed_tokens:
+        fail("xlstm_paged_degrades: tokens differ from xlstm_sparse_b's")
+    print(f"[serve xlstm_paged_degrades] page_size "
+          f"{eng.config.arena.page_size} asked, no paged arena built (no "
+          f"cache leaf tracks cache_len); all {len(tokens)} requests' tokens "
+          "equal xlstm_sparse_b's")
+
+
+def phase_xlstm_prefill(torch, run):
+    """xlstm-1.3b's prefill on ``run``'s weights at the trace's largest
+    bucket (32 tokens, one chunk) and at 256 tokens (four 64-token
+    chunks): seconds, the rise of max_memory_allocated over the level
+    before the call (within the long_prefill gate's 3 GiB), and the
+    sLSTM blocks' share of the 32-token prefill's wall time (each block
+    bracketed by synchronisations in a second, instrumented call)."""
+    from repro_torch.models import xlstm
+
+    eng = run.engine
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for S in (32, 256):
+        batch = {"tokens": torch.randint(1, eng.api.cfg.vocab_size, (1, S),
+                                         generator=gen, device="cuda")}
+        with eng._scope():
+            eng.api.prefill(run.params, batch)          # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with eng._scope():
+            _, logits = eng.api.prefill(run.params, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rise = torch.cuda.max_memory_allocated() - base
+        if rise > MAX_PREFILL_RISE or not bool(torch.isfinite(logits).all()):
+            fail(f"xlstm prefill {S}: memory rise {rise} B (gate "
+                 f"{MAX_PREFILL_RISE} B) or logits not finite")
+        out[S] = {"seconds": seconds, "memory_rise_bytes": rise}
+    slstm_s = []
+    seq = xlstm.slstm_seq
+
+    def timed_slstm(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = seq(*args, **kw)
+        torch.cuda.synchronize()
+        slstm_s.append(time.perf_counter() - t)
+        return res
+
+    xlstm.slstm_seq = timed_slstm
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eng._scope():
+            eng.api.prefill(run.params, {"tokens": torch.randint(
+                1, eng.api.cfg.vocab_size, (1, 32), generator=gen,
+                device="cuda")})
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        xlstm.slstm_seq = seq
+    out["slstm_share_32"] = sum(slstm_s) / total
+    print(f"[xlstm prefill] 32 tokens: {out[32]['seconds']:.4f}s, memory "
+          f"rise {out[32]['memory_rise_bytes'] / 2**30:.3f} GiB; 256 tokens "
+          f"(4 chunks): {out[256]['seconds']:.4f}s, memory rise "
+          f"{out[256]['memory_rise_bytes'] / 2**30:.3f} GiB; the "
+          f"{len(slstm_s)} sLSTM blocks take {sum(slstm_s):.4f}s of "
+          f"{total:.4f}s = {out['slstm_share_32']:.3f} of an instrumented "
+          "32-token prefill")
+    return out
+
+
 def phase_long_prefill(torch, run):
     """Prefill 2048 and 4096 tokens at full width on ``run``'s weights:
     seconds, memory rise over the level before the call, launches, and
@@ -1317,7 +1550,7 @@ def phase_long_prefill(torch, run):
 
     eng = run.engine
     api = eng.api
-    twin = dense_twin(torch, run.params)
+    twin = pruned_twin(torch, api, SB["sparsity"])
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
     for S in LONG_PROMPTS:
@@ -1602,8 +1835,9 @@ def rows_rel_l2(x, ref) -> float:
 
 def widened(params):
     """The params with every leaf in fp32."""
-    return {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
-                else v.float()) for k, v in params.items()}
+    if isinstance(params, dict):
+        return {k: widened(v) for k, v in params.items()}
+    return params.float()
 
 
 def profiled(torch, fn):
@@ -2102,13 +2336,7 @@ def main() -> None:
             states=unfaulted if keep else None)
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, name, run)
-        st = run.engine.stats
-        serves[name] = {"stats": st, "seconds": run.seconds,
-                        "tokens_per_second": run.tokens_per_second,
-                        "syncs_per_token": run.syncs_per_token,
-                        "peak_active": run.engine.peak_active,
-                        "launches": launches, "dispatch": run.dispatch,
-                        "logits_rel_l2": gaps, **extra}
+        serves[name] = serve_record(run, launches, gaps, extra)
         if name == "sparse_b_paged":
             paged_ref = {"kv_bytes": extra["kv_bytes"], "tokens": {
                 r: o.tokens for r, o in run.engine.outputs.items()}}
@@ -2120,6 +2348,22 @@ def main() -> None:
                 k: sum(p["launches"][k] for p in long_prefill.values())
                 for k in SB_LAUNCHES}}
         del run
+        torch.cuda.empty_cache()
+    xlstm_tokens = xlstm_prefill = None
+    for name, path in XLSTM_PATHS.items():
+        run, launches, gaps, extra = phase_serve(torch, name, arch=XLSTM,
+                                                 **path)
+        if "--profile" in sys.argv[1:]:
+            phase_profile(torch, name, run)
+        serves[name] = serve_record(run, launches, gaps, extra)
+        if name == "xlstm_sparse_b":
+            xlstm_tokens = {r: o.tokens
+                            for r, o in run.engine.outputs.items()}
+            xlstm_prefill = phase_xlstm_prefill(torch, run)
+        if name == "xlstm_paged_degrades":
+            check_paged_degrades(run, xlstm_tokens)
+        del run
+        gc.collect()            # an engine's closures hold it in a cycle
         torch.cuda.empty_cache()
     for name, cell in FAULT_CELLS.items():
         serves[name] = phase_fault(torch, name, card,
@@ -2169,6 +2413,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     report = {"card": card, "build_s": build_s, "checks": rows,
               "serve": serves, "long_prefill": long_prefill,
+              "xlstm_prefill": xlstm_prefill,
               "cycle_model": cycle_model,
               "autotune": autotune_record,
               "spmm_granularity": summary["griffin_spmm_granularity"],

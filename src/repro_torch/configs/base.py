@@ -1,16 +1,16 @@
-"""Model configuration: the dense decoder family's fields of
-``repro.configs.base.ModelConfig`` and the same ``reduced()`` rule, so a
-reduced config here has exactly the reference's dims."""
+"""Model configuration: the dense decoder's and the ssm (xlstm) family's
+fields of ``repro.configs.base.ModelConfig`` and the same ``reduced()``
+rule, so a reduced config here has exactly the reference's dims."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # only "dense" is served by the port so far
+    family: str                 # "dense" and "ssm" are served by the port
     num_layers: int
     d_model: int
     num_heads: int
@@ -24,6 +24,9 @@ class ModelConfig:
     act: str = "silu"
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # ssm (xlstm): blocks per group, e.g. 7 mLSTM + 1 sLSTM
+    xlstm_pattern: Tuple[str, ...] = ()
+    proj_factor: float = 2.0                     # mLSTM up-projection
     dtype: str = "bfloat16"
     kv_chunk: int = 512         # prefill attention's KV chunk (online softmax)
 
@@ -33,12 +36,15 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's dims)."""
-        return dataclasses.replace(
+        r = dataclasses.replace(
             self, name=self.name + "-smoke", num_layers=2, d_model=64,
             num_heads=4, num_kv_heads=min(4, max(1, self.num_kv_heads)),
             head_dim=16, d_ff=128 if self.d_ff else 0, vocab_size=128,
             window=min(self.window, 32) if self.window else None,
             dtype="float32", kv_chunk=16)
+        if self.xlstm_pattern:
+            r = dataclasses.replace(r, xlstm_pattern=("m", "s"))
+        return r
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}
@@ -56,4 +62,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from . import llama3_2_1b  # noqa: F401
+    from . import llama3_2_1b, xlstm_1_3b  # noqa: F401

@@ -1,7 +1,8 @@
 """Shared model components: the sparse execution scope, ``griffin_linear``
 (the per-GEMM entry point of the substrate), norms, rope, the KV-slot and
-paged KV writes, the paged view and the bucketed-prefill helpers — the counterpart of
-``repro/models/common.py`` for the dense decoder.
+paged KV writes, the paged view, the bucketed-prefill helpers and the
+layer-stack helpers — the counterpart of ``repro/models/common.py`` for the
+dense decoder and the xlstm family.
 
 Batch invariance: the serving engine decodes several rows at once while its
 greedy oracle decodes one, and their tokens must match exactly.  Every
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,6 +142,35 @@ def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         h = x.shape[-1] // 2
         x = x[..., :h] + x[..., h:]
     return x[..., 0]
+
+
+def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """A normal draw from ``gen`` on its device, times ``scale`` (default
+    1 / sqrt(in_dim)), in ``dtype`` (the reference's ``dense_init``
+    scheme; the draws themselves differ from ``jax.random``'s)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * scale).to(dtype)
+
+
+def stack_layers(init_one: Callable[[torch.Generator], Dict[str, Any]],
+                 gen: torch.Generator, n: int) -> Dict[str, Any]:
+    """Initialise ``n`` layers from ``gen`` in turn and stack each leaf
+    along a new leading axis (the reference's ``stack_layers``; nesting it
+    gives the xlstm family's (groups, blocks) stacks)."""
+    if n < 1:
+        raise ValueError(f"stack_layers needs at least one layer, got {n}")
+    layers = [init_one(gen) for _ in range(n)]
+    return {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}
+
+
+def stack_slice(stack: Dict[str, Any], *idx: int) -> Dict[str, Any]:
+    """One layer's leaves of a stacked parameter dict: ``idx`` indexes the
+    leading axes, e.g. (group, block) of an xlstm stack.  Compacted leaves
+    slice the same way (``GriffinWeights.__getitem__``)."""
+    return {name: leaf[idx] for name, leaf in stack.items()}
 
 
 def write_kv_slot(cache: torch.Tensor, update: torch.Tensor,

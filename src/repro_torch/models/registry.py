@@ -1,5 +1,6 @@
 """Model registry: one uniform API per architecture family — the
-counterpart of ``repro/models/registry.py`` (dense family only so far).
+counterpart of ``repro/models/registry.py`` (the dense and ssm families so
+far).
 
 ``build_model(cfg, device)`` binds the family's functions to ``cfg`` and to
 the device the model runs on; the default is the CUDA card.
@@ -14,7 +15,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import transformer
+from . import transformer, xlstm
 
 Params = Dict[str, Any]
 
@@ -48,10 +49,27 @@ def _transformer_api(cfg: ModelConfig, device: torch.device) -> ModelApi:
     )
 
 
+def _xlstm_api(cfg: ModelConfig, device: torch.device) -> ModelApi:
+    def prefill_fn(params, batch, cache_len=None):
+        return xlstm.prefill(cfg, params, batch["tokens"], cache_len,
+                             lengths=batch.get("lengths"))
+
+    return ModelApi(
+        cfg=cfg, device=device,
+        init=functools.partial(xlstm.init_params, cfg),
+        prefill=prefill_fn,
+        decode_step=functools.partial(xlstm.decode_step, cfg),
+        init_cache=functools.partial(xlstm.init_cache, cfg, device=device),
+    )
+
+
 def build_model(cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = "cuda"
                 ) -> ModelApi:
     device = resolve_device(device)
     if cfg.family == "dense":
         return _transformer_api(cfg, device)
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "ssm":
+        return _xlstm_api(cfg, device)
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                              "(ROADMAP 1.12)")

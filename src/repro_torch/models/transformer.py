@@ -18,7 +18,6 @@ position.
 """
 from __future__ import annotations
 
-import math
 from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
@@ -26,8 +25,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import attention, decode_attention
-from .common import (act_fn, griffin_linear, paged_slot, paged_view,
-                     paged_write, rms_norm, rope, take_last, write_kv_slot)
+from .common import (act_fn, dense_init, griffin_linear, paged_slot,
+                     paged_view, paged_write, rms_norm, rope, take_last,
+                     write_kv_slot)
 
 Params = Dict[str, Any]
 
@@ -36,20 +36,13 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
-                scale: Optional[float] = None) -> torch.Tensor:
-    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * scale).to(dtype)
-
-
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random weights from ``gen`` on ``gen.device``: normal / sqrt(fan_in)
     GEMMs, unit-normal embeddings, zero norm scales (the reference's
     scheme; the draws themselves differ from ``jax.random``'s)."""
     if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  "(ROADMAP 1.12)")
     dt = _dtype(cfg)
     dev = gen.device
     L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
@@ -57,25 +50,25 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     layers: Params = {
         "ln1": torch.zeros((L, D), dtype=dt, device=dev),
         "ln2": torch.zeros((L, D), dtype=dt, device=dev),
-        "wq": _dense_init(gen, (L, D, H * hd), D, dt),
-        "wk": _dense_init(gen, (L, D, KVH * hd), D, dt),
-        "wv": _dense_init(gen, (L, D, KVH * hd), D, dt),
-        "wo": _dense_init(gen, (L, H * hd, D), H * hd, dt),
-        "w_gate": _dense_init(gen, (L, D, F), D, dt),
-        "w_up": _dense_init(gen, (L, D, F), D, dt),
-        "w_down": _dense_init(gen, (L, F, D), F, dt),
+        "wq": dense_init(gen, (L, D, H * hd), D, dt),
+        "wk": dense_init(gen, (L, D, KVH * hd), D, dt),
+        "wv": dense_init(gen, (L, D, KVH * hd), D, dt),
+        "wo": dense_init(gen, (L, H * hd, D), H * hd, dt),
+        "w_gate": dense_init(gen, (L, D, F), D, dt),
+        "w_up": dense_init(gen, (L, D, F), D, dt),
+        "w_down": dense_init(gen, (L, F, D), F, dt),
     }
     if cfg.qk_norm:
         layers["qn"] = torch.zeros((L, hd), dtype=dt, device=dev)
         layers["kn"] = torch.zeros((L, hd), dtype=dt, device=dev)
     params: Params = {
-        "embed": _dense_init(gen, (cfg.vocab_size, D), cfg.vocab_size, dt,
-                             scale=1.0),
+        "embed": dense_init(gen, (cfg.vocab_size, D), cfg.vocab_size, dt,
+                            scale=1.0),
         "final_norm": torch.zeros((D,), dtype=dt, device=dev),
         "layers": layers,
     }
     if not cfg.tie_embeddings:
-        params["head"] = _dense_init(gen, (D, cfg.vocab_size), D, dt)
+        params["head"] = dense_init(gen, (D, cfg.vocab_size), D, dt)
     return params
 
 

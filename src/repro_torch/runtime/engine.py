@@ -288,7 +288,7 @@ class Scheduler:
         def req(rd: Dict) -> Request:
             if rd.get("extras"):
                 raise ValueError(f"request {rd['rid']} carries extras, "
-                                 "which the port's dense family never has")
+                                 "which no family the port serves has")
             return Request(rid=rd["rid"],
                            tokens=np.asarray(rd["tokens"], np.int32),
                            max_new_tokens=rd["max_new_tokens"],
@@ -324,8 +324,12 @@ def _promote_arena(cache: Dict[str, torch.Tensor], num_slots: int
 
 def _batch_axes(api: ModelApi) -> Dict[str, int]:
     """Per-leaf batch-axis index of the cache (-1 for scalar counters),
-    found by diffing the shapes ``init_cache`` gives for batch 2 and 1."""
-    two, one = api.init_cache(2, 1), api.init_cache(1, 1)
+    found by diffing the shapes ``init_cache`` gives for batch 2 and 1 on
+    the ``meta`` device (nothing is allocated: xlstm-1.3b's state is 0.7
+    GB a row)."""
+    meta = torch.device("meta")
+    two = api.init_cache(2, 1, device=meta)
+    one = api.init_cache(1, 1, device=meta)
     axes = {}
     for key in two:
         diffs = [i for i, (a, b) in enumerate(zip(two[key].shape,

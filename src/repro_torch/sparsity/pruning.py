@@ -85,9 +85,10 @@ def sparsify_params(params: Any, sparsity: float, *, block_k: int = 128,
     """Block-prune the weight GEMM leaves of a parameter tree.
 
     With ``compact=True`` each pruned leaf becomes a ``GriffinWeights``
-    (stacked leaves get a stacked one whose members share a padded grid
-    depth); with ``compact=False`` the pruned weights stay plain tensors,
-    the bit-exact dense twin of the compacted run.  Selection is by trailing
+    (stacked leaves, with one leading axis or more, get a stacked one with
+    the leaf's leading axes whose members share a padded grid depth); with
+    ``compact=False`` the pruned weights stay plain tensors, the bit-exact
+    dense twin of the compacted run.  Selection is by trailing
     param name and minimum GEMM dims, as in the reference.
 
     ``plan`` is a tuned family plan (``repro_torch.tuning.FamilyPlan``, or
@@ -119,16 +120,22 @@ def sparsify_params(params: Any, sparsity: float, *, block_k: int = 128,
         if w.dim() == 2:
             wp = block_prune(w, sparsity, bk, un)
             return pre(wp) if compact else wp
-        if w.dim() != 3:
-            raise NotImplementedError("only (layers, in, out) stacks are "
-                                      "ported")
-        if w.shape[0] == 0:
+        lead = tuple(w.shape[:-2])
+        flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+        if flat.shape[0] == 0:
             return w
-        slices = [block_prune(w[i], sparsity, bk, un)
-                  for i in range(w.shape[0])]
+        slices = [block_prune(flat[i], sparsity, bk, un)
+                  for i in range(flat.shape[0])]
         if not compact:
-            return torch.stack(slices)
-        return stack_weights([pre(s) for s in slices])
+            return torch.stack(slices).reshape(w.shape)
+        gw = stack_weights([pre(s) for s in slices])
+        if len(lead) == 1:
+            return gw
+        # e.g. the (groups, blocks) stacks of xlstm
+        return dataclasses.replace(gw, **{
+            f: t.reshape(lead + tuple(t.shape[1:]))
+            for f in ("b_comp", "kidx", "cnt", "inv_perm", "perm")
+            if (t := getattr(gw, f)) is not None})
 
     def walk(tree, name="", path=()):
         if isinstance(tree, dict):

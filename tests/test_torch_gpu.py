@@ -840,3 +840,127 @@ def test_batch_eval_empty_streams_launch_nothing(cuda):
     # all chunks empty: no placement, the window just travels
     out = schedule_cycles(np.zeros((3, 10, 16, 1), dtype=bool), 2, 1, 0)
     np.testing.assert_array_equal(out, [4, 4, 4])
+
+
+# ---------------------------------------------------------------------------
+# the ssm family: xlstm-1.3b's shapes and its full-width serving rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("shape", [(2048, 2730), (2730, 2048)],
+                         ids=["w_ff1", "w_ff2"])
+def test_griffin_spmm_at_xlstm_ragged_shapes(cuda, shape, dual, m):
+    """sLSTM's w_ff1 (N 2730, padded to 2816) and w_ff2 (K 2730: an A row
+    2730 wide, not a multiple of 8, so the CUDA-core route, the padded K
+    tail zero-filled), pruned 0.8 at 128 x 128 / unit 32: against the
+    plain version, and rows 0:1 and 0:4 bit-equal alone and in the
+    call."""
+    k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(8)
+    gw = preprocess_weights(block_prune(
+        torch.randn(k, n, generator=g, device=cuda), 0.8).bfloat16())
+    assert gw.k == 2816 if k == 2730 else gw.b_comp.shape[1] == 2816
+    a = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    a[:, :256] = 0
+    out = griffin_matmul(a, gw, dual=dual)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n)
+    ref = (a.float() @ decompact_weights(gw)[:k].float()).bfloat16()
+    assert_close(out, ref, "bfloat16")
+    for rows in (1, 4):
+        assert torch.equal(griffin_matmul(a[:rows].contiguous(), gw,
+                                          dual=dual), out[:rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 32])
+def test_dense_gemm_and_sparse_a_at_xlstm_gates(cuda, m):
+    """The mLSTM's (4096 x 4) gate leaves: dense_gemm (its scalar route,
+    N below a vector) and sparse_a (its masked N edge) with its metadata
+    kernel, against their plain versions, row slices bit-equal to the
+    full call."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = torch.randn(4096, 4, generator=g, device=cuda).bfloat16()
+    a = torch.randn(m, 4096, generator=g, device=cuda).bfloat16()
+    a[:, 1024:1280] = 0
+    plain = (a.float() @ w.float()).bfloat16()
+    k1 = dense_matmul(a, w)
+    meta = compact_activations(a)
+    kidx, cnt = compact_activations_ref(a, block_m=meta.block_m,
+                                        block_k=meta.block_k)
+    assert torch.equal(meta.kidx, kidx) and torch.equal(meta.cnt, cnt)
+    k3 = sparse_a_matmul(a, w, meta=meta)
+    torch.cuda.synchronize()
+    assert_close(k1, plain, "bfloat16")
+    assert_close(k3, sparse_a_ref(a, w, kidx, cnt, block_m=meta.block_m,
+                                  block_k=meta.block_k), "bfloat16")
+    for rows in (1, min(m, 4)):
+        part = a[:rows].contiguous()
+        assert torch.equal(dense_matmul(part, w), k1[:rows])
+        assert torch.equal(sparse_a_matmul(part, w), k3[:rows])
+
+
+@pytest.fixture(scope="module")
+def xlstm_full():
+    """Full-width xlstm-1.3b on the card, seed 0, pruned 0.8 and compacted
+    at 128 x 128 / unit 32 (what launch.serve serves)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    api = build_model(get_config("xlstm-1.3b"), device="cuda")
+    params = sparsify_params(api.init(api.generator(0)), 0.8, compact=True)
+    return api, params
+
+
+def _scope(mode):
+    return sparse_execution(use_kernels=True,
+                            a_sparsity=0.5 if mode == "AB" else 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["B", "AB"])
+def test_xlstm_rows_bit_equal_to_batch_one_at_full_width(xlstm_full, mode):
+    """Batch invariance at full width: four prompts prefilled alone (the
+    engine's admissions), their states stacked into one 4-row batch, then
+    4 decode steps batched and each row alone (the batch-1 oracle): every
+    row's logits bit-equal, in Sparse.B and in Mode.AB."""
+    api, params = xlstm_full
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(1, api.cfg.vocab_size, (4, 16), generator=g,
+                        device="cuda")
+    with _scope(mode):
+        solo = [api.prefill(params, {"tokens": ids[i:i + 1]})[0]
+                for i in range(4)]
+        batch = {k: (torch.cat([c[k] for c in solo], dim=2) if k != "pos"
+                     else torch.stack([c[k] for c in solo]))
+                 for k in solo[0]}
+        feed = ids[:, -1:]
+        for _ in range(4):
+            logits, batch = api.decode_step(params, batch, feed)
+            for i in range(4):
+                one, solo[i] = api.decode_step(params, solo[i],
+                                               feed[i:i + 1])
+                assert torch.equal(one[0], logits[i]), i
+            feed = torch.argmax(logits, dim=-1)[:, None]
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+def test_xlstm_padded_prefill_bit_equal_at_full_width(xlstm_full):
+    """A 13-token prompt prefilled in its 16-token bucket carries exactly
+    the exact-length prefill's state and last-token logits."""
+    api, params = xlstm_full
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ids = torch.randint(1, api.cfg.vocab_size, (1, 13), generator=g,
+                        device="cuda")
+    with _scope("B"):
+        exact, want = api.prefill(params, {"tokens": ids})
+        cache, got = api.prefill(params, {
+            "tokens": torch.nn.functional.pad(ids, (0, 3)),
+            "lengths": torch.tensor([13], dtype=torch.int32,
+                                    device="cuda")})
+    assert torch.equal(got, want)
+    for key in ("mC", "mn", "mm", "sc", "sn", "sh", "sm"):
+        assert torch.equal(cache[key], exact[key]), key

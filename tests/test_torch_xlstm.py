@@ -1,0 +1,703 @@
+"""The port's ssm family (repro_torch.models.xlstm) against the JAX
+package's on reduced xlstm-1.3b in fp32 (d_model 64, one group of one
+mLSTM and one sLSTM block), on the reference's own weights bridged through
+numpy and on inputs drawn with numpy from a seed.
+
+Tolerances: block outputs, carried states and logits within rtol 1e-4 /
+atol 1e-5 (fp32, summation orders differ); greedy and engine tokens,
+pruned and compacted leaves, dispatch counts and the committed benchmark
+numbers exact (the committed numbers to the digits they are quoted with);
+pad steps and row batching bit-exact within the port.
+"""
+import dataclasses
+import json
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models.xlstm as jx
+from repro.configs import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.runtime.config import ArenaConfig as JaxArenaConfig
+from repro.runtime.config import EngineConfig as JaxEngineConfig
+from repro.runtime.engine import ServeEngine as JaxServeEngine
+from repro.runtime.engine import synthetic_trace as jax_synthetic_trace
+from repro.runtime.serve import greedy_generate as jax_greedy
+from repro.sparsity import sparsify_params as jax_sparsify
+from repro.tuning.search import gemm_leaves as jax_gemm_leaves
+import chip_smoke
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.kernels import GriffinWeights
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model
+from repro_torch.models import xlstm
+from repro_torch.models.common import (kernel_dispatch_counts,
+                                       reset_kernel_dispatch)
+from repro_torch.runtime.config import EngineConfig
+from repro_torch.runtime.engine import (ServeEngine, synthetic_trace,
+                                        weight_sparsity)
+from repro_torch.runtime.serve import greedy_generate
+from repro_torch.sparsity import PRUNE, sparsify_params
+from repro_torch.tuning.measure import tuning_workload
+from repro_torch.tuning.search import (enumerate_candidates, gemm_leaves,
+                                       predict_scores)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+TOL = dict(rtol=1e-4, atol=1e-5)
+ARCH = "xlstm-1.3b"
+# the reference engine test's trace (tests/test_engine.py _family_parity)
+TRACE = dict(num_requests=3, seed=11, prompt_lens=(6, 10), gen_lens=(2, 4),
+             arrival_every=1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Eager torch ops at these sizes gain nothing from threads, and with
+    pytest-xdist's parallel workers OpenMP's pools oversubscribe the cores
+    (a test of seconds then takes minutes): one thread for the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """(jax cfg, jax api, jax params, port cfg, port api, port params) on
+    the reference's seed-0 weights."""
+    jcfg = jax_get_config(ARCH).reduced()
+    japi = jax_build_model(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    tcfg = get_config(ARCH).reduced()
+    tapi = build_model(tcfg, device="cpu")
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    return jcfg, japi, jparams, tcfg, tapi, tparams
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, want):
+    if isinstance(got, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _close(g, w)
+        return
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
+def _block(params, kind, g=0, j=0):
+    return {k: v[g, j] for k, v in params[kind].items()}
+
+
+# ---------------------------------------------------------------------------
+# config and the numerical edge cases
+# ---------------------------------------------------------------------------
+
+def test_config_matches_reference():
+    for jcfg, tcfg in ((jax_get_config(ARCH), get_config(ARCH)),
+                       (jax_get_config(ARCH).reduced(),
+                        get_config(ARCH).reduced())):
+        for f in ("family", "num_layers", "d_model", "num_heads", "d_ff",
+                  "vocab_size", "norm_eps", "dtype", "xlstm_pattern",
+                  "proj_factor"):
+            assert getattr(jcfg, f) == getattr(tcfg, f), f
+    full = get_config(ARCH)
+    assert xlstm.group_counts(full) == (6, 7, 1)
+    assert xlstm.group_counts(full.reduced()) == (1, 1, 1)
+
+
+def test_parameter_count_of_full_width(monkeypatch):
+    """The full-width tree's shapes, its draws on the meta device: 1.99 B
+    parameters, every block leaf with the (6 groups, 7 or 1 blocks)
+    lead."""
+    cfg = get_config(ARCH)
+    api = build_model(cfg, device="cpu")
+    monkeypatch.setattr(xlstm, "dense_init",
+                        lambda gen, shape, in_dim, dtype, scale=None:
+                        torch.empty(shape, dtype=dtype, device="meta"))
+    params = xlstm.init_params(cfg, api.generator(0))
+    n = {k: sum(t.numel() for t in v.values()) if isinstance(v, dict)
+         else v.numel() for k, v in params.items()}
+    assert n["embed"] == n["head"] == 2048 * 50304
+    assert n["m_blocks"] == 42 * (2048 * 8192 + 3 * 4 * 1024 ** 2
+                                  + 2 * 4096 * 4 + 4096 * 2048 + 2048
+                                  + 4096)
+    assert n["s_blocks"] == 6 * (4 * 2048 ** 2 + 4 * 4 * 512 ** 2
+                                 + 2 * 2048 * 2730 + 3 * 2048)
+    assert 1.98e9 < sum(n.values()) < 2.0e9
+    assert params["m_blocks"]["w_up"].shape == (6, 7, 2048, 8192)
+    assert params["s_blocks"]["w_ff2"].shape == (6, 1, 2730, 2048)
+    cache = api.init_cache(4, 1, device=torch.device("meta"))
+    assert cache["mC"].shape == (6, 7, 4, 4, 1024, 1024)
+    assert cache["mC"].numel() * 4 // 4 == 42 * 4 * 1024 ** 2 * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stabiliser_constants_are_exact(dtype):
+    """A pad step is an exact no-op only if logsigmoid(+1e30) is exactly 0
+    and exp(-inf) exactly 0, in both dtypes."""
+    big = torch.tensor([xlstm.PAD_GATE], dtype=dtype)
+    assert torch.nn.functional.logsigmoid(big).item() == 0.0
+    assert torch.nn.functional.logsigmoid(big.float()).item() == 0.0
+    assert torch.exp(torch.tensor([-float("inf")], dtype=dtype)).item() == 0.0
+    assert torch.exp(-big).item() == 0.0
+
+
+def test_mlstm_seq_rejects_a_ragged_chunking(ref):
+    _, _, _, tcfg, _, tparams = ref
+    x = torch.zeros((1, 100, tcfg.d_model))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        xlstm.mlstm_seq(tcfg, _block(tparams, "m_blocks"), x)
+
+
+# ---------------------------------------------------------------------------
+# blocks against the reference
+# ---------------------------------------------------------------------------
+
+def _chunk_inputs(rng, B=2, L=8, H=4, hd=32):
+    q, k, v = (rng.standard_normal((B, L, H, hd)).astype(np.float32)
+               for _ in range(3))
+    i_pre, f_pre = (rng.standard_normal((B, L, H)).astype(np.float32)
+                    for _ in range(2))
+    return q, k / np.sqrt(hd), v, i_pre, f_pre
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mlstm_chunk_matches_reference(with_state):
+    rng = np.random.default_rng(3)
+    ins = _chunk_inputs(rng)
+    B, L, H, hd = ins[0].shape
+    if with_state:
+        state = (rng.standard_normal((B, H, hd, hd)).astype(np.float32),
+                 rng.standard_normal((B, H, hd)).astype(np.float32),
+                 rng.standard_normal((B, H)).astype(np.float32))
+    else:
+        state = (np.zeros((B, H, hd, hd), np.float32),
+                 np.zeros((B, H, hd), np.float32),
+                 np.full((B, H), -1e30, np.float32))
+    h, st = jx._mlstm_chunk(*map(jnp.asarray, ins),
+                            tuple(map(jnp.asarray, state)))
+    port_state = tuple(map(_t, state)) if with_state else None
+    th, tst = xlstm._mlstm_chunk(*map(_t, ins), port_state)
+    _close(th, h)
+    _close(tst, st)
+    if not with_state:
+        # the skipped inter-chunk terms are exact zeros: the explicit zero
+        # state gives the same bits
+        zh, zst = xlstm._mlstm_chunk(*map(_t, ins), tuple(map(_t, state)))
+        assert torch.equal(zh, th)
+        for a, b in zip(zst, tst):
+            assert torch.equal(a, b)
+
+
+def _mask(lengths, S):
+    return np.arange(S)[None, :] < np.asarray(lengths)[:, None]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mlstm_seq_matches_reference(ref, masked, with_state):
+    jcfg, _, jparams, tcfg, _, tparams = ref
+    rng = np.random.default_rng(5)
+    B, S = 2, 16
+    x = rng.standard_normal((B, S, tcfg.d_model)).astype(np.float32)
+    mask = _mask([16, 11], S) if masked else None
+    jstate = tstate = None
+    if with_state:
+        # a carried state from a first pass over other tokens
+        x0 = rng.standard_normal((B, 8, tcfg.d_model)).astype(np.float32)
+        _, jstate = jx.mlstm_seq(jcfg, _block(jparams, "m_blocks"),
+                                 jnp.asarray(x0), chunk=4)
+        tstate = tuple(_t(s) for s in jstate)
+    out, st = jx.mlstm_seq(jcfg, _block(jparams, "m_blocks"),
+                           jnp.asarray(x), state=jstate, chunk=8,
+                           mask=None if mask is None else jnp.asarray(mask))
+    tout, tst = xlstm.mlstm_seq(tcfg, _block(tparams, "m_blocks"), _t(x),
+                                state=tstate, chunk=8,
+                                mask=None if mask is None else _t(mask))
+    _close(tout, out)
+    _close(tst, st)
+    # one decode step (a chunk of one token) from the carried state
+    x1 = x[:, :1]
+    out, st = jx.mlstm_step(jcfg, _block(jparams, "m_blocks"),
+                            jnp.asarray(x1), st)
+    tout, tst = xlstm.mlstm_step(tcfg, _block(tparams, "m_blocks"), _t(x1),
+                                 tst)
+    _close(tout, out)
+    _close(tst, st)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_slstm_seq_matches_reference(ref, masked, with_state):
+    jcfg, _, jparams, tcfg, _, tparams = ref
+    rng = np.random.default_rng(7)
+    B, S = 2, 9
+    x = rng.standard_normal((B, S, tcfg.d_model)).astype(np.float32)
+    mask = _mask([9, 4], S) if masked else None
+    jstate = tstate = None
+    if with_state:
+        x0 = rng.standard_normal((B, 5, tcfg.d_model)).astype(np.float32)
+        _, jstate = jx.slstm_seq(jcfg, _block(jparams, "s_blocks"),
+                                 jnp.asarray(x0))
+        tstate = tuple(_t(s) for s in jstate)
+    out, st = jx.slstm_seq(jcfg, _block(jparams, "s_blocks"),
+                           jnp.asarray(x), state=jstate,
+                           mask=None if mask is None else jnp.asarray(mask))
+    tout, tst = xlstm.slstm_seq(tcfg, _block(tparams, "s_blocks"), _t(x),
+                                state=tstate,
+                                mask=None if mask is None else _t(mask))
+    _close(tout, out)
+    _close(tst, st)
+
+
+def _prompts(rng, B, S, vocab=128):
+    return rng.integers(1, vocab, (B, S)).astype(np.int32)
+
+
+@pytest.mark.parametrize("length", [5, 8, 13])
+def test_padded_row_state_bit_equals_unpadded(ref, length):
+    """Within the port, a right-padded bucketed prefill carries exactly the
+    recurrent state of the exact-length prefill: every state leaf bit for
+    bit.  The last-token logits agree within the tolerance only: on the
+    CPU the final norm's vectorised rsqrt over S or bucket rows may differ
+    in the last bit (the card's test holds them bit-equal too)."""
+    _, _, _, _, tapi, tparams = ref
+    toks = torch.from_numpy(_prompts(np.random.default_rng(length), 1,
+                                     length).astype(np.int64))
+    bucket = 8 if length <= 8 else 16
+    exact, lexact = tapi.prefill(tparams, {"tokens": toks})
+    padded = torch.nn.functional.pad(toks, (0, bucket - length))
+    cache, logits = tapi.prefill(tparams, {
+        "tokens": padded,
+        "lengths": torch.tensor([length], dtype=torch.int32)})
+    for key in xlstm.MLSTM_STATE + xlstm.SLSTM_STATE:
+        assert torch.equal(cache[key], exact[key]), key
+    assert cache["pos"].tolist() == [length - 1]
+    _close(logits, lexact.numpy())
+
+
+def test_padded_chunk_state_bit_equals_unpadded():
+    """The same at the chunk: a chunk of 8 whose last 3 steps carry the pad
+    gates ends in exactly the state of the 5-step chunk."""
+    rng = np.random.default_rng(9)
+    q, k, v, i_pre, f_pre = map(_t, _chunk_inputs(rng, B=1))
+    i_pad, f_pad = i_pre.clone(), f_pre.clone()
+    i_pad[:, 5:], f_pad[:, 5:] = -xlstm.PAD_GATE, xlstm.PAD_GATE
+    for state in (None, tuple(_t(a) for a in (
+            rng.standard_normal((1, 4, 32, 32)).astype(np.float32),
+            rng.standard_normal((1, 4, 32)).astype(np.float32),
+            rng.standard_normal((1, 4)).astype(np.float32)))):
+        h, padded = xlstm._mlstm_chunk(q, k, v, i_pad, f_pad, state)
+        h5, exact = xlstm._mlstm_chunk(q[:, :5], k[:, :5], v[:, :5],
+                                       i_pre[:, :5], f_pre[:, :5], state)
+        for a, b in zip(padded, exact):
+            assert torch.equal(a, b)
+        assert torch.equal(h[:, :5], h5)
+
+
+@pytest.mark.parametrize("lengths", [None, (9, 14)])
+def test_prefill_and_decode_match_reference(ref, lengths):
+    """prefill logits and ``pos``, then 8 decode steps' logits and every
+    carried state leaf."""
+    _, japi, jparams, _, tapi, tparams = ref
+    rng = np.random.default_rng(11)
+    toks = _prompts(rng, 2, 16)
+    batch = {"tokens": jnp.asarray(toks)}
+    tbatch = {"tokens": torch.from_numpy(toks.astype(np.int64))}
+    if lengths is not None:
+        batch["lengths"] = jnp.asarray(lengths, jnp.int32)
+        tbatch["lengths"] = torch.tensor(lengths, dtype=torch.int32)
+    jcache, jlog = japi.prefill(jparams, batch)
+    tcache, tlog = tapi.prefill(tparams, tbatch)
+    _close(tlog, jlog)
+    assert tcache["pos"].tolist() == np.asarray(jcache["pos"]).tolist()
+    feed = _prompts(rng, 2, 8)
+    for t in range(8):
+        jlog, jcache = japi.decode_step(jparams, jcache,
+                                        jnp.asarray(feed[:, t:t + 1]))
+        tlog, tcache = tapi.decode_step(
+            tparams, tcache, torch.from_numpy(feed[:, t:t + 1].astype(
+                np.int64)))
+        _close(tlog, jlog)
+    for key in xlstm.MLSTM_STATE + xlstm.SLSTM_STATE:
+        _close(tcache[key], jcache[key])
+    assert tcache["pos"].tolist() == np.asarray(jcache["pos"]).tolist()
+
+
+def test_greedy_tokens_equal_reference(ref):
+    _, japi, jparams, _, tapi, tparams = ref
+    toks = _prompts(np.random.default_rng(2), 2, 8)
+    want = jax_greedy(japi, jparams, {"tokens": jnp.asarray(toks)}, steps=6,
+                      cache_len=16)
+    got = greedy_generate(tapi, tparams,
+                          {"tokens": torch.from_numpy(toks.astype(np.int64))},
+                          steps=6, cache_len=16)
+    assert got.tolist() == np.asarray(want).tolist()
+
+
+# ---------------------------------------------------------------------------
+# pruning and the bridge on the (groups, blocks) stacks
+# ---------------------------------------------------------------------------
+
+def _bits(x):
+    a = bridge.tensor_to_array(x) if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+    return a.view(np.uint8)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_sparsify_params_on_group_stacks(ref, compact):
+    """The same kept blocks, ``kidx``/``cnt``/``b_comp`` bit for bit, the
+    two-axis lead, and the per-head and (din x heads) leaves left dense."""
+    _, _, jparams, _, _, tparams = ref
+    want = jax.tree.map(np.asarray,
+                        jax_sparsify(jparams, 0.8, compact=compact, **PRUNE))
+    got = sparsify_params(tparams, 0.8, compact=compact, **PRUNE)
+    for kind in ("m_blocks", "s_blocks"):
+        for name, leaf in got[kind].items():
+            jl = want[kind][name]
+            if isinstance(leaf, GriffinWeights):
+                assert compact
+                assert leaf.b_comp.shape[:2] == (1, 1)
+                for f in ("b_comp", "kidx", "cnt", "inv_perm"):
+                    np.testing.assert_array_equal(
+                        _bits(getattr(leaf, f)), _bits(getattr(jl, f)), f)
+                assert (leaf.k, leaf.n, leaf.block_k, leaf.block_n) == \
+                    (jl.k, jl.n, jl.block_k, jl.block_n)
+                assert leaf.perm.shape == leaf.inv_perm.shape
+                assert torch.equal(leaf[0, 0].b_comp, leaf.b_comp[0, 0])
+            else:
+                np.testing.assert_array_equal(_bits(leaf), _bits(jl), name)
+    compacted = {n for n, v in got["m_blocks"].items()
+                 if isinstance(v, GriffinWeights)}
+    assert compacted == ({"w_up", "w_down"} if compact else set())
+    for name in ("wq", "wk", "wv", "wi", "wf"):
+        assert torch.equal(got["m_blocks"][name], tparams["m_blocks"][name])
+
+
+def test_bridge_round_trips_group_stacks_and_state(ref):
+    _, japi, jparams, _, _, _ = ref
+    sp = jax.tree.map(np.asarray, jax_sparsify(jparams, 0.8, **PRUNE))
+    cache, _ = japi.prefill(jparams, {"tokens": jnp.ones((2, 8), jnp.int32)})
+    tree = {"params": sp, "cache": jax.tree.map(np.asarray, cache)}
+    port = bridge.to_torch(tree)
+    assert port["cache"]["mC"].shape == (1, 1, 2, 4, 32, 32)
+    back = bridge.to_numpy(port)
+    gw, jgw = back["params"]["s_blocks"]["w_ff1"], sp["s_blocks"]["w_ff1"]
+    for f in ("b_comp", "kidx", "cnt", "inv_perm"):
+        np.testing.assert_array_equal(getattr(gw, f), getattr(jgw, f))
+    for key, leaf in tree["cache"].items():
+        np.testing.assert_array_equal(back["cache"][key], leaf)
+
+
+def test_weight_sparsity_counts_group_stacks(ref):
+    _, _, jparams, _, _, tparams = ref
+    from repro.runtime.engine import weight_sparsity as jax_weight_sparsity
+    sp = jax_sparsify(jparams, 0.6, **PRUNE)
+    assert weight_sparsity(sparsify_params(tparams, 0.6, **PRUNE)) == \
+        pytest.approx(jax_weight_sparsity(sp), abs=1e-12)
+
+
+def _weight_stats(params):
+    """benchmarks/bench_e2e.py's mean density and grid compaction over the
+    compacted leaves."""
+    dens, comp = [], []
+
+    def visit(t):
+        if isinstance(t, GriffinWeights):
+            dens.append(t.density)
+            comp.append(t.compaction)
+        elif isinstance(t, dict):
+            for v in t.values():
+                visit(v)
+
+    visit(params)
+    return float(np.mean(dens)), float(np.mean(comp))
+
+
+def test_bench_e2e_weight_stats():
+    """The committed ssm rows of benchmarks/out/bench_e2e.csv (B_SPARSITY
+    0.6 at PRUNE): weight_density 0.5596, grid_compaction 0.9259.  They
+    were written with JAX's earlier key derivation (threefry not
+    partitionable, the default before JAX 0.5), so the reference's seed-0
+    weights are drawn under it here; the current default draws other
+    weights (density 0.5573)."""
+    with jax.threefry_partitionable(False):
+        jparams = jax_build_model(jax_get_config(ARCH).reduced()).init(
+            jax.random.PRNGKey(0))
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    rows = [line.split(",") for line in
+            (ROOT / "benchmarks" / "out" / "bench_e2e.csv").read_text()
+            .splitlines()]
+    head = rows[0]
+    ssm = [dict(zip(head, r)) for r in rows[1:] if r[0] == ARCH
+           and r[1] in ("B", "AB")]
+    assert len(ssm) == 2
+    dens, comp = _weight_stats(sparsify_params(tparams, 0.6, **PRUNE))
+    for row in ssm:
+        assert dens == pytest.approx(float(row["weight_density"]), abs=1e-12)
+        assert comp == pytest.approx(float(row["grid_compaction"]),
+                                     abs=1e-12)
+    assert (round(dens, 4), round(comp, 4)) == (0.5596, 0.9259)
+
+
+def test_committed_plan_ssm_predicted_table(ref, tmp_path, monkeypatch):
+    """The ssm entry's predicted table of benchmarks/out/kernel_plan.json
+    comes out of the port's scoring of the reference's pruned xlstm
+    weights at the reference's peak, bandwidth and step cost."""
+    import repro.roofline.analysis as jax_roofline
+    from repro_torch.core.dse import ResultsCache
+    from repro_torch.roofline import analysis as roofline
+    from repro_torch.tuning import load_plan
+    monkeypatch.setattr(roofline, "PEAK_FLOPS", jax_roofline.PEAK_FLOPS)
+    monkeypatch.setattr(roofline, "HBM_BW", jax_roofline.HBM_BW)
+    _, _, jparams, _, _, _ = ref
+    pruned = jax_sparsify(jparams, 0.8, compact=False, **PRUNE)
+    jl = jax_gemm_leaves(pruned)
+    tl = gemm_leaves(bridge.to_torch(jax.tree.map(np.asarray, pruned)))
+    assert set(tl) == set(jl) == {"w_up", "w_down", "wz", "wi", "wf", "wo",
+                                  "w_ff1", "w_ff2", "head"}
+    table = load_plan(str(ROOT / "benchmarks" / "out" / "kernel_plan.json")
+                      ).family("ssm").predicted
+    cands = [c for c in enumerate_candidates(
+        {k: tuple(w.shape) for k, w in tl.items()}, 16) if c.name in table]
+    assert len(cands) == len(table) == 3
+    rows = predict_scores(cands, tl, batch=4,
+                          cache=ResultsCache(str(tmp_path)), seed=0,
+                          step_overhead=2e-4)
+    for r in rows:
+        want = table[r["name"]]
+        assert (r["dse_speedup"], r["grid_steps"]) == \
+            (want["dse_speedup"], want["grid_steps"]) == (2.8257, 16)
+        assert round(r["score"], 6) == want["score"] == 882.931171
+        assert abs(r["predicted_s"] - want["predicted_s"]) <= \
+            1e-12 * want["predicted_s"]
+
+
+# ---------------------------------------------------------------------------
+# the serving engine
+# ---------------------------------------------------------------------------
+
+def _jax_engine(api, params, sparse, decode_chunk, page_size=None):
+    conf = JaxEngineConfig(arena=JaxArenaConfig(
+        num_slots=2, cache_len=16, page_size=page_size)).with_fields(
+        decode_chunk=decode_chunk)
+    if sparse:
+        conf = conf.with_fields(use_kernels=True, interpret=True)
+    return JaxServeEngine(api, params, config=conf)
+
+
+def _port_engine(api, params, sparse, decode_chunk, page_size=None, **kw):
+    conf = EngineConfig().with_fields(num_slots=2, cache_len=16,
+                                      decode_chunk=decode_chunk,
+                                      page_size=page_size,
+                                      use_kernels=sparse, **kw)
+    return ServeEngine(api, params, conf)
+
+
+@pytest.mark.parametrize("decode_chunk", [1, 3])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_engine_equals_reference_and_oracle(ref, sparse, decode_chunk):
+    """The port's twin of ``test_engine_parity_dense_fast[xlstm]`` and of
+    its sparse sweep (PRUNE, 0.6): tokens and stats equal to the
+    reference engine's, and every request equal to the port's batch-1
+    greedy oracle on the same bucket."""
+    jcfg, japi, jparams, tcfg, tapi, _ = ref
+    if sparse:
+        jparams = jax_sparsify(jparams, 0.6, **PRUNE)
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    jeng = _jax_engine(japi, jparams, sparse, decode_chunk)
+    jouts = jeng.run(jax_synthetic_trace(jcfg, **TRACE))
+    teng = _port_engine(tapi, tparams, sparse, decode_chunk)
+    reqs = synthetic_trace(tcfg, **TRACE)
+    touts = teng.run(reqs)
+    assert teng.mode.value == jeng.mode.value == ("B" if sparse else "dense")
+    for key in ("emitted", "decode_steps", "prefill_calls", "chunk_calls",
+                "host_syncs"):
+        assert teng.stats[key] == jeng.stats[key], key
+    for r in reqs:
+        assert touts[r.rid].tokens == jouts[r.rid].tokens, r.rid
+        with teng._scope():
+            want = greedy_generate(tapi, tparams, r.as_batch(teng.device),
+                                   steps=r.max_new_tokens,
+                                   cache_len=teng.cache_len,
+                                   prompt_bucket=teng.bucket_for(
+                                       r.prompt_len))
+        assert touts[r.rid].tokens == want[0].tolist(), r.rid
+
+
+def test_stepwise_engine_equals_reference(ref):
+    """The stepwise tick (``fused=False``, one decode step and one host
+    sync a tick) takes xlstm's cache as the fused one does: tokens and
+    counters equal to the reference's stepwise engine, tokens equal to the
+    port's fused engine."""
+    jcfg, japi, jparams, tcfg, tapi, tparams = ref
+    jeng = JaxServeEngine(japi, jparams, config=JaxEngineConfig(
+        arena=JaxArenaConfig(num_slots=2, cache_len=16)).with_fields(
+        decode_chunk=1, fused=False))
+    jouts = jeng.run(jax_synthetic_trace(jcfg, **TRACE))
+    step = _port_engine(tapi, tparams, False, 1, fused=False)
+    fused = _port_engine(tapi, tparams, False, 1)
+    souts = step.run(synthetic_trace(tcfg, **TRACE))
+    fouts = fused.run(synthetic_trace(tcfg, **TRACE))
+    for key in ("emitted", "decode_steps", "prefill_calls", "host_syncs"):
+        assert step.stats[key] == jeng.stats[key], key
+    for rid, o in souts.items():
+        assert o.tokens == jouts[rid].tokens == fouts[rid].tokens, rid
+
+
+def test_paged_config_degrades_to_the_fixed_arena(ref):
+    """The twin of ``test_paged_engine_degrades_for_xlstm``: a paged
+    config builds no paged arena (no cache leaf tracks cache_len), and the
+    tokens equal the fixed arena's."""
+    jcfg, japi, jparams, tcfg, tapi, tparams = ref
+    trace = dict(num_requests=3, seed=11, prompt_lens=(6, 10),
+                 gen_lens=(2, 4), arrival_every=1)
+    jeng = _jax_engine(japi, jparams, False, 3, page_size=4)
+    assert jeng._paged is None
+    jouts = jeng.run(jax_synthetic_trace(jcfg, **trace))
+    paged = _port_engine(tapi, tparams, False, 3, page_size=4)
+    assert paged._paged is None and "pages" not in paged.cache
+    fixed = _port_engine(tapi, tparams, False, 3)
+    pouts = paged.run(synthetic_trace(tcfg, **trace))
+    fouts = fixed.run(synthetic_trace(tcfg, **trace))
+    for rid, o in fouts.items():
+        assert len(o.tokens) > 0
+        assert pouts[rid].tokens == o.tokens == jouts[rid].tokens
+
+
+def _depth_true_cfg():
+    """Full-width xlstm-1.3b's depth and pattern (6 groups of 7 mLSTM + 1
+    sLSTM) at the reduced width: every GEMM of a full-width model call,
+    at a size the CPU runs in seconds."""
+    return dataclasses.replace(get_config(ARCH).reduced(), num_layers=48,
+                               xlstm_pattern=get_config(ARCH).xlstm_pattern)
+
+
+@pytest.mark.parametrize("path", ["xlstm_sparse_b", "xlstm_mode_ab"])
+def test_dispatch_per_model_call_equals_the_smokes_gates(path):
+    """Per model call (a prefill or a decode step) of a depth-true model:
+    the GEMMs the smoke's launch gates count.  Sparse.B: 121 compacted
+    leaves through griffin_spmm + 84 plain (din x heads) leaves through
+    dense_gemm; Mode.AB: the 121 dual, the 84 through sparse_a (and its
+    metadata); no plain GEMM either way."""
+    spec = chip_smoke.XLSTM_PATHS[path]
+    cfg = _depth_true_cfg()
+    api = build_model(cfg, device="cpu")
+    params = sparsify_params(api.init(api.generator(0)), spec["sparsity"],
+                             **PRUNE)
+    conf = EngineConfig().with_fields(num_slots=2, cache_len=16,
+                                      decode_chunk=4, use_kernels=True,
+                                      a_sparsity=spec["a_sparsity"])
+    eng = ServeEngine(api, params, conf)
+    reset_kernel_dispatch()
+    eng.run(synthetic_trace(cfg, **TRACE))
+    got = kernel_dispatch_counts()
+    calls = eng.stats["prefill_calls"] + eng.stats["decode_steps"]
+    launches = spec["launches"]
+    assert eng.mode.value == spec["mode"]
+    want = {"kernel": calls * (launches["griffin_spmm"]
+                               + launches["dense_gemm"]
+                               + launches["sparse_a"])}
+    if spec["dual"]:
+        want["dual"] = calls * spec["dual"]
+    assert got == want
+    assert launches["griffin_spmm"] == 121
+    assert launches["dense_gemm"] + launches["sparse_a"] == 84
+    assert launches["sparse_a"] == launches["sparse_a_meta"]
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def test_build_model_defaults_to_the_card():
+    cfg = get_config(ARCH)
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("a_sparsity", [None, 0.5],
+                         ids=["sparse_b", "mode_ab"])
+def test_serve_cli_reduced_parity(tmp_path, capsys, a_sparsity):
+    """``--arch xlstm-1.3b --reduced --device cpu --sparsity 0.8
+    --use-kernels --parity`` ends in "parity OK" in Sparse.B and (its
+    config file declaring activation sparsity 0.5) in Mode.AB.  The
+    measurement cadence is set past the trace's 27 decode steps: see
+    :func:`test_serve_cli_measured_flip_skips_parity_as_the_reference`."""
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--sparsity",
+            "0.8", "--use-kernels", "--parity", "--measure-every", "64"]
+    if a_sparsity is not None:
+        conf = tmp_path / "engine.json"
+        conf.write_text(json.dumps({"kernels": {"use_kernels": True,
+                                                "a_sparsity": a_sparsity}}))
+        argv += ["--config", str(conf)]
+    launch_serve.main(argv)
+    out = capsys.readouterr().out
+    assert f"mode {'AB' if a_sparsity else 'B'}" in out
+    assert "served 8 requests / 52 tokens" in out
+    assert "parity OK: all 8 requests" in out
+
+
+def test_serve_cli_measured_flip_skips_parity_as_the_reference(capsys):
+    """At the default cadence (a measurement every 8 decode steps) the
+    reduced model's compacted head gives logits that are 41% exact zeros
+    (units whose 4 K blocks were all pruned), so the engine re-selects
+    Mode.AB at clock 8, as the reference's does on the same command; the
+    CLI then skips the single-Mode oracle replay and says so, as the
+    reference's does (it used to raise)."""
+    launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--sparsity", "0.8", "--use-kernels", "--parity"])
+    out = capsys.readouterr().out
+    assert "parity SKIPPED: execution mode changed mid-run " \
+        "([(0, 'B'), (8, 'AB')])" in out
+
+
+def test_serve_cli_paged_degrades(capsys):
+    launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--use-kernels", "--parity", "--requests", "3",
+                       "--page-size", "4"])
+    out = capsys.readouterr().out
+    assert "(fixed)" in out and "parity OK" in out
+
+
+def test_tuning_workload_serves_ssm():
+    cfg, api, params, cache_len, trace = tuning_workload(
+        "ssm", reduced=True, device="cpu")
+    assert cfg.family == "ssm" and api.device.type == "cpu"
+    assert cache_len == 27 and len(trace()) == 6
+    assert params["m_blocks"]["w_up"].shape == (1, 1, 64, 256)
+
+
+def test_autotune_cli_tunes_ssm_and_serve_reads_its_plan(tmp_path, capsys):
+    """``launch.autotune --families ssm`` runs the pipeline on the reduced
+    xlstm and writes a plan with an ssm entry, which ``launch.serve --arch
+    xlstm-1.3b --plan`` applies with the default's tokens ("parity OK")."""
+    from repro_torch.launch import autotune as autotune_cli
+    from repro_torch.tuning import load_plan
+    out = tmp_path / "plan.json"
+    autotune_cli.main(["--families", "ssm", "--reduced", "--device", "cpu",
+                       "--budget", "4", "--shortlist", "2", "--repeats", "1",
+                       "--out", str(out), "--cache-dir",
+                       str(tmp_path / "dse")])
+    text = capsys.readouterr().out
+    assert "tokens identical to default" in text
+    fam = load_plan(str(out)).family("ssm")
+    assert fam is not None and len(fam.predicted) == 2
+    assert fam.measured["winner"] in fam.predicted
+    launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--use-kernels", "--parity", "--measure-every", "64",
+                       "--requests", "4", "--plan", str(out)])
+    assert "parity OK: all 4 requests" in capsys.readouterr().out
