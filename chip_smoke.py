@@ -47,8 +47,11 @@ Phases, in order; any failure exits non-zero before the result line:
              w_up, w_down, the sLSTM gates, w_ff1 with N 2730, w_ff2 with
              an A row 2730 wide, which takes the CUDA-core route, and the
              2048 x 50304 untied head) griffin_spmm is checked, held batch
-             invariant and timed at M 4 and 32 (bf16; dual too at w_ff2),
-             and dense_gemm and sparse_a (with its metadata) at the
+             invariant and timed at M 4 and 32 (bf16; dual too at w_ff2;
+             at w_down also fp32 A against the bf16 weight, the mLSTM
+             block's input, dual and not), and dense_gemm's skinny route
+             (bf16, fp32, fp32 A x bf16 weight) and sparse_a (bf16, fp32,
+             and fp32 A x bf16 weight timed, with its metadata) at the
              (4096 x 4) mLSTM gate leaves, the N edge below one vector.
 3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
              through repro_torch.launch.serve: 8 requests with prompt
@@ -251,7 +254,12 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# "mixed": fp32 A against a bf16 weight, fp32 FMAs on the CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "mixed": 67e12}
+# (A, weight) dtypes of a kernel row, by its "dtype" label
+PAIRS = {"bfloat16": ("bfloat16", "bfloat16"),
+         "float32": ("float32", "float32"),
+         "mixed": ("float32", "bfloat16")}
 SPMM_SHAPES = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
 UNEMBED = (2048, 128256)
 M_ROWS = (4, 8, 16, 32)          # decode slots, prefill buckets 8..32
@@ -696,7 +704,7 @@ def phase_kernels(torch):
                             print(f"[kernels] {json.dumps(row)}")
                         rows.append(row)
     rows += spmm_granularities(torch, gen, summary)
-    rows += kernel_xlstm(torch, gen)
+    rows += kernel_xlstm(torch, gen, summary)
     rows += kernel_sparse_a(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
     return rows, summary
@@ -777,15 +785,22 @@ def spmm_granularities(torch, gen, summary):
     return rows
 
 
-def kernel_xlstm(torch, gen):
+def kernel_xlstm(torch, gen, summary):
     """griffin_spmm at xlstm-1.3b's compacted shapes (``XLSTM_SPMM``, bf16,
     pruned 0.8 at 128 x 128 / unit 32, balanced) and dense_gemm at its
     (4096 x 4) gate leaves, at M 4 and 32, each against its plain version
     and timed beside its bound and torch.matmul; griffin_spmm also dual at
     w_ff2 and held batch invariant (rows 0, 0:4 of 32) at every shape.
-    sparse_a meets the gate shape in :func:`kernel_sparse_a`."""
+    w_down takes fp32 A against its bf16 weight (the mLSTM block's input,
+    fp32 as in the reference): griffin_spmm's mixed entry, dual and not,
+    is checked, held batch invariant and timed there too.  dense_gemm
+    runs its skinny route at the gate shape in bf16, fp32 and fp32 A x
+    bf16 weight, each checked, held batch invariant and timed.  sparse_a
+    meets the gate shape in :func:`kernel_sparse_a`."""
     from repro_torch.kernels import (dense_matmul, griffin_matmul,
                                      preprocess_weights)
+    from repro_torch.kernels.dense_gemm.kernel import route as k1_route
+    from repro_torch.kernels.dense_gemm.kernel import skinny_slices
     from repro_torch.kernels.dense_gemm.ref import dense_matmul_ref
     from repro_torch.kernels.griffin_spmm.kernel import split_plan
     from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
@@ -803,60 +818,80 @@ def kernel_xlstm(torch, gen):
               f"{gw.k}x{gw.b_comp.shape[1]}, max_cnt {gw.kidx.shape[1]}): "
               f"{route} route, plan {plan and list(plan)}")
         spmm_batch_invariance(torch, gen, gw, k)
-        for m in XLSTM_ROWS:
-            a = torch.randn(m, k, generator=gen, device=dev).to(dt)
-            a[:, :256] = 0              # two all-zero K blocks for dual
-            for dual in ((False, True) if leaf == "w_ff2" else (False,)):
-                out = griffin_matmul(a, gw, dual=dual)
-                ref = griffin_spmm_ref(a, gw)
-                torch.cuda.synchronize()
-                err, ok = within_tol(torch, out, ref, "bfloat16")
-                row = {"kernel": "griffin_spmm", "model": XLSTM,
-                       "leaf": leaf, "dtype": "bfloat16", "m": m, "k": k,
-                       "n": n, "route": route, "dual": dual,
-                       "max_cnt": gw.kidx.shape[1],
-                       "plan": plan and list(plan), "max_abs_err": err,
-                       "ok": ok}
-                if not ok:
-                    fail(f"griffin_spmm disagrees with its plain version: "
-                         f"{row}")
-                if dual and not torch.equal(out, griffin_matmul(a, gw)):
-                    fail(f"griffin_spmm {leaf}: dual is not bit-equal to "
-                         "the plain walk")
-                timed_spmm(torch, a, gw, dual, row)
-                rows.append(row)
-                print(f"[kernels] {json.dumps(row)}")
+        labels = ("bfloat16", "mixed") if leaf == "w_down" else ("bfloat16",)
+        if leaf == "w_down":
+            spmm_batch_invariance(torch, gen, gw, k, torch.float32)
+        for label in labels:
+            da = getattr(torch, PAIRS[label][0])
+            for m in XLSTM_ROWS:
+                a = torch.randn(m, k, generator=gen, device=dev).to(da)
+                a[:, :256] = 0          # two all-zero K blocks for dual
+                duals = (False, True) if leaf == "w_ff2" or \
+                    label == "mixed" else (False,)
+                for dual in duals:
+                    out = griffin_matmul(a, gw, dual=dual)
+                    ref = griffin_spmm_ref(a, gw)
+                    torch.cuda.synchronize()
+                    err, ok = within_tol(torch, out, ref, label)
+                    row = {"kernel": "griffin_spmm", "model": XLSTM,
+                           "leaf": leaf, "dtype": label, "m": m, "k": k,
+                           "n": n, "route": "cuda-core"
+                           if label == "mixed" else route, "dual": dual,
+                           "max_cnt": gw.kidx.shape[1],
+                           "plan": None if label == "mixed"
+                           else plan and list(plan), "max_abs_err": err,
+                           "ok": ok}
+                    if not ok or out.dtype != da:
+                        fail("griffin_spmm disagrees with its plain "
+                             f"version: {row}, output {out.dtype}")
+                    if dual and not torch.equal(out, griffin_matmul(a, gw)):
+                        fail(f"griffin_spmm {leaf} {label}: dual is not "
+                             "bit-equal to the plain walk")
+                    timed_spmm(torch, a, gw, dual, row)
+                    rows.append(row)
+                    print(f"[kernels] {json.dumps(row)}")
         del gw
     k, n = XLSTM_GATE
-    w = torch.randn(k, n, generator=gen, device=dev).to(dt)
-    for m in XLSTM_ROWS:
-        a = torch.randn(m, k, generator=gen, device=dev).to(dt)
-        out = dense_matmul(a, w)
-        ref = dense_matmul_ref(a, w)
-        torch.cuda.synchronize()
-        err, ok = within_tol(torch, out, ref, "bfloat16")
-        row = {"kernel": "dense_gemm", "model": XLSTM, "leaf": "wi/wf",
-               "dtype": "bfloat16", "m": m, "k": k, "n": n,
-               "max_abs_err": err, "ok": ok}
-        if not ok:
-            fail(f"dense_gemm disagrees with its plain version: {row}")
-        for rows_ in (1, 4):
-            if not torch.equal(dense_matmul(a[:rows_].contiguous(), w),
-                               out[:rows_]):
-                fail(f"dense_gemm is not batch invariant at {k}x{n}: rows "
-                     f"0:{rows_} differ from the same rows of an {m}-row "
-                     "call")
-        b_ms, b_by = bound((a.numel() + w.numel() + m * n) * 2,
-                           2.0 * m * k * n, "bfloat16")
-        row.update(ms=timed_ms(torch, lambda: dense_matmul(a, w)),
-                   plain_ms=timed_ms(torch, lambda: dense_matmul_ref(a, w)),
-                   library_ms=timed_ms(torch, lambda: torch.matmul(a, w)),
-                   bound_ms=b_ms, bound_by=b_by)
-        rows.append(row)
-        print(f"[kernels] {json.dumps(row)}")
+    for label, (ta, tw) in PAIRS.items():
+        da, dw = getattr(torch, ta), getattr(torch, tw)
+        w = torch.randn(k, n, generator=gen, device=dev).to(dw)
+        w_lib = w.to(da)                # torch.matmul takes one dtype
+        for m in XLSTM_ROWS:
+            a = torch.randn(m, k, generator=gen, device=dev).to(da)
+            out = dense_matmul(a, w)
+            ref = dense_matmul_ref(a, w)
+            torch.cuda.synchronize()
+            err, ok = within_tol(torch, out, ref, label)
+            row = {"kernel": "dense_gemm", "model": XLSTM, "leaf": "wi/wf",
+                   "dtype": label, "m": m, "k": k, "n": n,
+                   "route": k1_route(n), "slices": skinny_slices(k),
+                   "max_abs_err": err, "ok": ok}
+            if not ok or out.dtype != da:
+                fail(f"dense_gemm disagrees with its plain version: {row}, "
+                     f"output {out.dtype}")
+            for rows_ in (1, 4):
+                if not torch.equal(dense_matmul(a[:rows_].contiguous(), w),
+                                   out[:rows_]):
+                    fail(f"dense_gemm is not batch invariant at {k}x{n} "
+                         f"{label}: rows 0:{rows_} differ from the same "
+                         f"rows of an {m}-row call")
+            b_ms, b_by = bound((a.numel() + m * n) * a.element_size()
+                               + w.numel() * w.element_size(),
+                               2.0 * m * k * n, label)
+            row.update(ms=timed_ms(torch, lambda: dense_matmul(a, w)),
+                       plain_ms=timed_ms(torch,
+                                         lambda: dense_matmul_ref(a, w)),
+                       library_ms=timed_ms(torch,
+                                           lambda: torch.matmul(a, w_lib)),
+                       bound_ms=b_ms, bound_by=b_by)
+            if label == "bfloat16" and m == XLSTM_ROWS[0]:
+                summary["dense_gemm_skinny"] = row
+            rows.append(row)
+            print(f"[kernels] {json.dumps(row)}")
     print(f"[kernels] xlstm-1.3b: griffin_spmm at {len(XLSTM_SPMM)} shapes "
-          f"and dense_gemm at {k}x{n} agree with their plain versions and "
-          "are batch invariant")
+          f"(w_down with fp32 A too) and dense_gemm's skinny route at "
+          f"{k}x{n} (bf16, fp32, fp32 x bf16) agree with their plain "
+          "versions and are batch invariant")
     return rows
 
 
@@ -876,12 +911,14 @@ def timed_spmm(torch, a, gw, dual: bool, row) -> None:
     kidx, cnt = gw.kidx.tolist(), gw.cnt.tolist()
     blocks = sum(needed[kb] for ids, c in zip(kidx, cnt) for kb in ids[:c])
     esz = a.element_size()
-    nbytes = (a.numel() + blocks * bk * gw.block_n + m * gw.n) * esz + 4 * (
-        gw.kidx.numel() + gw.cnt.numel()
-        + (0 if gw.perm is None else gw.perm.numel()))
+    nbytes = (a.numel() + m * gw.n) * esz + \
+        blocks * bk * gw.block_n * gw.b_comp.element_size() + 4 * (
+            gw.kidx.numel() + gw.cnt.numel()
+            + (0 if gw.perm is None else gw.perm.numel()))
     b_ms, b_by = bound(nbytes, 2.0 * m * blocks * bk * gw.block_n,
                        row["dtype"])
-    w_dense = decompact_weights(gw)[:k]       # A may be narrower than gw.k
+    # A may be narrower than gw.k; the library call takes A's dtype
+    w_dense = decompact_weights(gw)[:k].to(a.dtype)
     row.update(
         ms=timed_ms(torch, lambda: griffin_matmul(a, gw, dual=dual)),
         plain_ms=timed_ms(torch, lambda: griffin_spmm_ref(a, gw)),
@@ -889,14 +926,14 @@ def timed_spmm(torch, a, gw, dual: bool, row) -> None:
         bound_ms=b_ms, bound_by=b_by, needed_blocks=blocks)
 
 
-def spmm_batch_invariance(torch, gen, gw, k=None) -> None:
-    """Rows 0, 0:4 and 0:32 of one A (``k`` columns, default the padded K)
-    give bit-equal rows through griffin_matmul, dual and not, at this
-    full-width shape."""
+def spmm_batch_invariance(torch, gen, gw, k=None, dtype=None) -> None:
+    """Rows 0, 0:4 and 0:32 of one A (``k`` columns, default the padded K;
+    ``dtype``, default the weight's) give bit-equal rows through
+    griffin_matmul, dual and not, at this full-width shape."""
     from repro_torch.kernels import griffin_matmul
 
     a = torch.randn(32, k or gw.k, generator=gen, device="cuda").to(
-        gw.b_comp.dtype)
+        dtype or gw.b_comp.dtype)
     a[:16, :256] = 0                    # a dead K block in the first rows
     for dual in (False, True):
         full = griffin_matmul(a, gw, dual=dual)
@@ -904,10 +941,11 @@ def spmm_batch_invariance(torch, gen, gw, k=None) -> None:
             part = griffin_matmul(a[:rows].contiguous(), gw, dual=dual)
             if not torch.equal(part, full[:rows]):
                 fail(f"griffin_spmm is not batch invariant at K x N "
-                     f"{gw.k} x {gw.n}, dual {dual}: rows 0:{rows} differ "
-                     "from the same rows of a 32-row call")
+                     f"{gw.k} x {gw.n}, dual {dual}, A {a.dtype}: rows "
+                     f"0:{rows} differ from the same rows of a 32-row call")
     print(f"[kernels] griffin_spmm {gw.k}x{gw.n}: rows 0, 0:4 of a 32-row "
-          "A bit-equal alone and in the full call, dual and not")
+          f"{str(a.dtype)[6:]} A bit-equal alone and in the full call, dual "
+          "and not")
 
 
 def zero_k_blocks(a, bm: int, every: int):
@@ -958,15 +996,16 @@ def kernel_sparse_a(torch, gen, summary):
         ref = sparse_a_ref(a, w, meta.kidx, meta.cnt, block_m=meta.block_m,
                            block_k=meta.block_k)
         torch.cuda.synchronize()
-        dtype = str(a.dtype).split(".")[1]
+        dtype = "mixed" if a.dtype != w.dtype else str(a.dtype).split(".")[1]
         err, ok = within_tol(torch, out, ref, dtype)
         row = {"kernel": "sparse_a", "dtype": dtype, "m": a.shape[0],
                "k": a.shape[1], "n": w.shape[1], "block_m": meta.block_m,
                "route": ROUTE_NAMES[route(a, w, meta.block_k)[0]],
                "cnt": meta.cnt.tolist(), "max_abs_err": err, "ok": ok,
                **info}
-        if not ok:
-            fail(f"sparse_a disagrees with its plain version: {row}")
+        if not ok or out.dtype != a.dtype:
+            fail(f"sparse_a disagrees with its plain version: {row}, output "
+                 f"{out.dtype}")
         rows.append(row)
         return row
 
@@ -986,12 +1025,14 @@ def kernel_sparse_a(torch, gen, summary):
         tile_rows = [min(bm, m - i * bm) for i in range(len(cnt))]
         esz = a.element_size()
         meta_bytes = 4 * (meta.kidx.numel() + meta.cnt.numel())
-        nbytes = (a.numel() + live_rows * n + m * n) * esz + meta_bytes
+        nbytes = (a.numel() + m * n) * esz + live_rows * n * \
+            w.element_size() + meta_bytes
+        w_lib = w.to(a.dtype)           # torch.matmul takes one dtype
         flops = 2.0 * n * sum(r * min(c * bk, k)
                               for r, c in zip(tile_rows, cnt))
         b_ms, b_by = bound(nbytes, flops, row["dtype"])
         mb_ms, mb_by = bound(a.numel() * esz + meta_bytes, a.numel(),
-                             row["dtype"])
+                             str(a.dtype)[6:])
         row.update(
             ms=timed_ms(torch, lambda: sparse_a_matmul(a, w, meta=meta)),
             meta_ms=timed_ms(torch, lambda: compact_activations(a)),
@@ -1000,7 +1041,7 @@ def kernel_sparse_a(torch, gen, summary):
             meta_bound_ms=mb_ms, meta_bound_by=mb_by,
             plain_ms=timed_ms(torch, lambda: sparse_a_ref(
                 a, w, meta.kidx, meta.cnt, block_m=bm, block_k=bk)),
-            library_ms=timed_ms(torch, lambda: torch.matmul(a, w)),
+            library_ms=timed_ms(torch, lambda: torch.matmul(a, w_lib)),
             bound_ms=b_ms, bound_by=b_by,
             live_blocks=f"{sum(cnt)}/{len(cnt) * (meta.k // bk)}")
         print(f"[kernels] {json.dumps(row)}")
@@ -1057,6 +1098,20 @@ def kernel_sparse_a(torch, gen, summary):
             if torch.equal(full, sparse_a_matmul(a, w, meta=cut)):
                 fail("hand-cut metadata did not change sparse_a's output")
             del w
+    # fp32 A against the bf16 gate leaves (the mixed entry): checked, held
+    # batch invariant and timed, every block live and half of them dead
+    k, n = XLSTM_GATE
+    w = torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+    sparse_a_batch_invariance(torch, gen, w, torch.float32)
+    for m in XLSTM_ROWS:
+        a = torch.randn(m, k, generator=gen, device=dev)
+        meta = meta_of(a)
+        timed(a, w, meta, check(a, w, meta, layout="row-major"))
+        half = a.clone()
+        half[:, k // 2:] = 0
+        meta = meta_of(half)
+        timed(half, w, meta, check(half, w, meta, layout="row-major"))
+    del w
     # the ragged metadata case: M and K not whole blocks, dead blocks
     # inside and at the ragged K edge
     for dt in (torch.bfloat16, torch.float32):
@@ -1074,16 +1129,18 @@ def kernel_sparse_a(torch, gen, summary):
     return rows
 
 
-def sparse_a_batch_invariance(torch, gen, w) -> None:
-    """Row slices 0:1, 0:4, 3:7, 8:16 and 16:32 of one 32-row A give
-    bit-equal rows alone and in the full call, at block_m 8 and 128.  The
+def sparse_a_batch_invariance(torch, gen, w, dtype=None) -> None:
+    """Row slices 0:1, 0:4, 3:7, 8:16 and 16:32 of one 32-row A (of
+    ``dtype``, default the weight's) give bit-equal rows alone and in the
+    full call, at block_m 8 and 128.  The
     rows have different live blocks, so a tile visits blocks a row alone
     skips; row 3 is live only in the last eighth of K, so with a split of
     8 every rank but the last has nothing live for it alone."""
     from repro_torch.kernels import sparse_a_matmul
 
     k = w.shape[0]
-    a = torch.randn(32, k, generator=gen, device=w.device).to(w.dtype)
+    a = torch.randn(32, k, generator=gen, device=w.device).to(
+        dtype or w.dtype)
     for r in range(32):
         a[r, (r % 4) * (k // 4):(r % 4 + 1) * (k // 4)] = 0
     a[3, :k - k // 8] = 0
@@ -1094,10 +1151,11 @@ def sparse_a_batch_invariance(torch, gen, w) -> None:
                                    block_m=block_m)
             if not torch.equal(part, full[rows[0]:rows[1]]):
                 fail(f"sparse_a is not batch invariant at K x N {k} x "
-                     f"{w.shape[1]}, block_m {block_m}: rows {rows} differ "
-                     "from the same rows of a 32-row call")
+                     f"{w.shape[1]}, block_m {block_m}, A {a.dtype}: rows "
+                     f"{rows} differ from the same rows of a 32-row call")
     print(f"[kernels] sparse_a {k}x{w.shape[1]}: row slices 0:1, 0:4, 3:7, "
-          "8:16, 16:32 of a 32-row A bit-equal alone and in the full call")
+          f"8:16, 16:32 of a 32-row {str(a.dtype)[6:]} A bit-equal alone "
+          "and in the full call")
 
 
 def pruned_twin(torch, api, sparsity: float):
@@ -1874,7 +1932,8 @@ def phase_profile(torch, name: str, run):
     """``--profile``: where the serving time goes.  Serves a fresh 8-request
     trace on the same weights under torch.profiler (engine.run only) and
     prints the device's busy share of the wall time, device time by kernel,
-    and kernel launches per model call."""
+    and kernel launches per model call.  Returns (wall ms, {kernel: (device
+    ms, launches)}) of the engine run."""
     from repro_torch.runtime.engine import ServeEngine, synthetic_trace
 
     eng0 = run.engine
@@ -1899,6 +1958,7 @@ def phase_profile(torch, name: str, run):
     _, _, step_ops = profiled(torch, step)
     print(f"[profile {name}] one decode step (a 1-step chunk, "
           f"{eng.num_slots} slots): {step_ops} device ops")
+    return wall_ms, by_name
 
 
 def phase_profile_router(torch, name: str, run) -> None:
@@ -2409,6 +2469,13 @@ def main() -> None:
             "timed_shape": row["shape"] + row["config"]
             if name == "batch_eval" else
             [row["m"], row["k"], row["n"], row["dtype"]]})
+        if name == "dense_gemm":      # its skinny route at xlstm's gates
+            sk = summary["dense_gemm_skinny"]
+            kernels[-1]["skinny"] = {
+                key: sk[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}
+            kernels[-1]["skinny"]["timed_shape"] = [sk["m"], sk["k"],
+                                                    sk["n"], sk["dtype"]]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     report = {"card": card, "build_s": build_s, "checks": rows,

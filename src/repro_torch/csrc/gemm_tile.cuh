@@ -28,9 +28,12 @@
 
 namespace griffin {
 
-// dtype codes of the C interface (the Python wrappers pass them)
+// dtype codes of the C interface (the Python wrappers pass them): A, the
+// weight and C all fp32 or all bf16, or A and C fp32 against a bf16 weight
+// (products of the widened values on CUDA cores)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat32BFloat16 = 2;
 
 // elements per vector load: 16 bytes of bf16, 32 bytes of fp32
 constexpr int kVec = 8;

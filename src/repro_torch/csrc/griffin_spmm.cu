@@ -75,10 +75,11 @@
 //     stores stay coalesced), padding columns are dropped, and the caller
 //     gathers nothing.
 //
-// Other inputs (fp32, which keeps a CUDA-core fmaf route with no TF32; bf16
-// whose bk or bn is not a multiple of 16, whose A or b_comp is not 16-byte
-// aligned, or whose staged A would not fit in shared memory) take the
-// CUDA-core route: one block of 256 threads per (4-row M tile, 32-column
+// Other inputs (fp32, which keeps a CUDA-core fmaf route with no TF32; fp32
+// A against a bf16 weight, the mLSTM block's w_down, whose output is fp32;
+// bf16 whose bk or bn is not a multiple of 16, whose A or b_comp is not
+// 16-byte aligned, or whose staged A would not fit in shared memory) take
+// the CUDA-core route: one block of 256 threads per (4-row M tile, 32-column
 // slice), 64 K groups, group g summing the live rows at absolute K = g mod
 // 64 in ascending order (so its bits, too, do not follow the compaction),
 // an ordered shared-memory reduction, and the same permuted store.  Which
@@ -480,11 +481,11 @@ constexpr int kKGroups = 64;
 constexpr int kThreads = kColGroups * kKGroups;   // 256
 constexpr int kRows = 4;                          // M rows per tile (grid.y)
 
-template <typename T, bool DUAL, bool VEC>
+template <typename TA, typename TB, bool DUAL, bool VEC>
 __global__ void __launch_bounds__(kThreads) spmm_core_kernel(SpmmArgs p) {
   __shared__ float part[kKGroups][kRows][kCols];  // 32 KB
-  const T* A = static_cast<const T*>(p.A);
-  const T* Bc = static_cast<const T*>(p.Bc);
+  const TA* A = static_cast<const TA*>(p.A);
+  const TB* Bc = static_cast<const TB*>(p.Bc);
   const int t = threadIdx.x;
   const int colg = t % kColGroups, g = t / kColGroups;
   const int nsub = (p.bn + kCols - 1) / kCols;
@@ -502,11 +503,11 @@ __global__ void __launch_bounds__(kThreads) spmm_core_kernel(SpmmArgs p) {
   if (ncols > 0) {
     const int cntj = min(max(p.cnt[j], 0), p.max_cnt);
     const int* kid = p.kidx + (int64_t)j * p.max_cnt;
-    const T* bcol = Bc + (int64_t)j * p.bn + c0;
+    const TB* bcol = Bc + (int64_t)j * p.bn + c0;
     // group g walks the live rows at absolute K = g mod 64, ascending
     for (int kc = 0; kc < cntj; ++kc) {
       const int64_t base = (int64_t)kid[kc] * p.bk;
-      const T* brow = bcol + (int64_t)kc * p.bk * p.Npad;
+      const TB* brow = bcol + (int64_t)kc * p.bk * p.Npad;
       for (int r = (g - static_cast<int>(base)) & (kKGroups - 1); r < p.bk;
            r += kKGroups) {
         const int64_t col = base + r;
@@ -539,7 +540,7 @@ __global__ void __launch_bounds__(kThreads) spmm_core_kernel(SpmmArgs p) {
     for (int e = 0; e < kVec; ++e) part[g][i][colg * kVec + e] = acc[i][e];
   __syncthreads();
   // the K groups' partial sums meet in K-group order
-  T* C = static_cast<T*>(p.C);
+  TA* C = static_cast<TA*>(p.C);
   for (int o = t; o < kRows * kCols; o += kThreads) {
     const int i = o / kCols, c = o % kCols;
     if (m0 + i >= p.M || s0 + c >= p.bn) continue;
@@ -547,28 +548,29 @@ __global__ void __launch_bounds__(kThreads) spmm_core_kernel(SpmmArgs p) {
     if (dst < 0) continue;
     float sum = 0.f;
     for (int gg = 0; gg < kKGroups; ++gg) sum += part[gg][i][c];
-    C[(int64_t)(m0 + i) * p.n + dst] = from_f32<T>(sum);
+    C[(int64_t)(m0 + i) * p.n + dst] = from_f32<TA>(sum);
   }
 }
 
-template <typename T, bool DUAL>
+template <typename TA, typename TB, bool DUAL>
 static cudaError_t launch_core(const SpmmArgs& p, int n_tiles,
                                cudaStream_t s) {
   const int nsub = (p.bn + kCols - 1) / kCols;
   dim3 grid(n_tiles * nsub, (p.M + kRows - 1) / kRows);
   // vector loads need 16-byte aligned 8-column groups of b_comp
   if (aligned16(p.Bc) && p.bn % kVec == 0 && p.Npad % kVec == 0)
-    spmm_core_kernel<T, DUAL, true><<<grid, kThreads, 0, s>>>(p);
+    spmm_core_kernel<TA, TB, DUAL, true><<<grid, kThreads, 0, s>>>(p);
   else
-    spmm_core_kernel<T, DUAL, false><<<grid, kThreads, 0, s>>>(p);
+    spmm_core_kernel<TA, TB, DUAL, false><<<grid, kThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+// A and C of type TA, the compacted weight of type TB
+template <typename TA, typename TB = TA>
 static cudaError_t dispatch_core(const SpmmArgs& p, int dual, int n_tiles,
                                  cudaStream_t s) {
-  return dual ? launch_core<T, true>(p, n_tiles, s)
-              : launch_core<T, false>(p, n_tiles, s);
+  return dual ? launch_core<TA, TB, true>(p, n_tiles, s)
+              : launch_core<TA, TB, false>(p, n_tiles, s);
 }
 
 }  // namespace griffin
@@ -611,6 +613,8 @@ extern "C" int griffin_spmm(int dtype, int dual, const void* A,
     err = griffin::dispatch_core<__nv_bfloat16>(p, dual, n_tiles, s);
   } else if (dtype == griffin::kFloat32) {
     err = griffin::dispatch_core<float>(p, dual, n_tiles, s);
+  } else if (dtype == griffin::kFloat32BFloat16) {
+    err = griffin::dispatch_core<float, __nv_bfloat16>(p, dual, n_tiles, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -60,8 +60,9 @@
 //    a window ahead, 128-column row-major slices, twice the blocks, and
 //    ranks pushing their partials to the summing rank (one barrier) — none
 //    was faster at the serving shapes.
-//  * CUDA-core routes (fp32, which keeps fmaf with no TF32; bf16 whose bk
-//    is not a multiple of 16, whose K, strides or pointers are not 16-byte
+//  * CUDA-core routes (fp32, which keeps fmaf with no TF32; fp32 A against
+//    a bf16 B, widened per element, its output fp32; bf16 whose bk is not
+//    a multiple of 16, whose K, strides or pointers are not 16-byte
 //    aligned, or whose B is neither row-major nor k-contiguous):
 //     - rows kernel (B n-contiguous, and any other strides with scalar
 //       loads): one block of 256 threads per (4-row group of an M tile,
@@ -444,7 +445,8 @@ static cudaError_t dispatch_tc(const TcArgs& p, int m_tiles, int cw,
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core routes (fp32, and bf16 the tensor-core route does not take)
+// CUDA-core routes (fp32, fp32 A x bf16 B, and bf16 the tensor-core route
+// does not take)
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 4;                          // rows per block
@@ -472,11 +474,11 @@ struct RowGroup {
   }
 };
 
-template <typename T, bool VEC>
+template <typename TA, typename TB, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-    sparse_a_rows_kernel(const T* __restrict__ A, const T* __restrict__ B,
+    sparse_a_rows_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
                          const int* __restrict__ kidx,
-                         const int* __restrict__ cnt, T* __restrict__ C,
+                         const int* __restrict__ cnt, TA* __restrict__ C,
                          int M, int N, int K, int bm, int bk, int max_cnt,
                          int row_groups, int64_t lda, int64_t sbk,
                          int64_t sbn, int64_t ldc) {
@@ -510,7 +512,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kRows; ++i)
         a[i] = i < rg.rows ? to_f32(A[(int64_t)(rg.m0 + i) * lda + k]) : 0.f;
       float b[kVec];
-      const T* pb = B + k * sbk + (int64_t)n0 * sbn;
+      const TB* pb = B + k * sbk + (int64_t)n0 * sbn;
       if (VEC)
         load8(pb, b);
       else
@@ -532,15 +534,16 @@ __global__ void __launch_bounds__(kThreads)
     float sum = 0.f;
     for (int gg = 0; gg < kKGroups; ++gg) sum += part[gg][i][c];
     if (i < rg.rows && s0 + c < N)
-      C[(int64_t)(rg.m0 + i) * ldc + s0 + c] = from_f32<T>(sum);
+      C[(int64_t)(rg.m0 + i) * ldc + s0 + c] = from_f32<TA>(sum);
   }
 }
 
-template <typename T, bool VEC_A>
+template <typename TA, typename TB, bool VEC_A>
 __global__ void __launch_bounds__(kWarps * 32)
-    sparse_a_kmajor_kernel(const T* __restrict__ A, const T* __restrict__ B,
+    sparse_a_kmajor_kernel(const TA* __restrict__ A,
+                           const TB* __restrict__ B,
                            const int* __restrict__ kidx,
-                           const int* __restrict__ cnt, T* __restrict__ C,
+                           const int* __restrict__ cnt, TA* __restrict__ C,
                            int M, int N, int K, int bm, int bk, int max_cnt,
                            int row_groups, int64_t lda, int64_t sbn,
                            int64_t ldc) {
@@ -572,7 +575,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       float a[kRows][kVec];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        const T* pa = A + (int64_t)(rg.m0 + i) * lda + k0;
+        const TA* pa = A + (int64_t)(rg.m0 + i) * lda + k0;
         if (i >= rg.rows)
           load8_strided(pa, 1, 0, a[i]);
         else if (VEC_A)
@@ -609,31 +612,32 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int c = 0; c < kHalfCols; ++c)
       if (l == i * kHalfCols + c && i < rg.rows && n0 + c < N)
-        C[(int64_t)(rg.m0 + i) * ldc + n0 + c] = from_f32<T>(acc[i][c]);
+        C[(int64_t)(rg.m0 + i) * ldc + n0 + c] = from_f32<TA>(acc[i][c]);
 }
 
-template <typename T>
+// A and C of type TA, B of type TB
+template <typename TA, typename TB = TA>
 static int launch_core(const void* A, const void* B, const int* kidx,
                   const int* cnt, void* C, int M, int N, int K, int bm,
                   int bk, int m_tiles, int max_cnt, int64_t lda, int64_t sbk,
                   int64_t sbn, int64_t ldc, cudaStream_t s) {
   const int row_groups = (bm + kRows - 1) / kRows;
   if ((int64_t)m_tiles * row_groups > 65535) return (int)cudaErrorInvalidValue;
-  const T* a = static_cast<const T*>(A);
-  const T* b = static_cast<const T*>(B);
-  T* c = static_cast<T*>(C);
-  const size_t esz = sizeof(T);
+  const TA* a = static_cast<const TA*>(A);
+  const TB* b = static_cast<const TB*>(B);
+  TA* c = static_cast<TA*>(C);
+  const size_t esz = sizeof(TB);
   // k-major: B k-contiguous with 16-byte aligned rows, whole 8-wide chunks
   const bool kmajor = sbk == 1 && bk % kVec == 0 && K % kVec == 0 &&
                       aligned16(B) && (sbn * esz) % 16 == 0;
   if (kmajor) {
     dim3 grid((N + kBlockCols - 1) / kBlockCols, m_tiles * row_groups);
-    if (aligned16(A) && (lda * esz) % 16 == 0)
-      sparse_a_kmajor_kernel<T, true><<<grid, kWarps * 32, 0, s>>>(
+    if (aligned16(A) && (lda * sizeof(TA)) % 16 == 0)
+      sparse_a_kmajor_kernel<TA, TB, true><<<grid, kWarps * 32, 0, s>>>(
           a, b, kidx, cnt, c, M, N, K, bm, bk, max_cnt, row_groups, lda, sbn,
           ldc);
     else
-      sparse_a_kmajor_kernel<T, false><<<grid, kWarps * 32, 0, s>>>(
+      sparse_a_kmajor_kernel<TA, TB, false><<<grid, kWarps * 32, 0, s>>>(
           a, b, kidx, cnt, c, M, N, K, bm, bk, max_cnt, row_groups, lda, sbn,
           ldc);
     return (int)cudaGetLastError();
@@ -641,11 +645,11 @@ static int launch_core(const void* A, const void* B, const int* kidx,
   dim3 grid((N + kCols - 1) / kCols, m_tiles * row_groups);
   // vector loads need n-contiguous, 16-byte aligned 8-column groups of B
   if (sbn == 1 && N % kVec == 0 && aligned16(B) && (sbk * esz) % 16 == 0)
-    sparse_a_rows_kernel<T, true><<<grid, kThreads, 0, s>>>(
+    sparse_a_rows_kernel<TA, TB, true><<<grid, kThreads, 0, s>>>(
         a, b, kidx, cnt, c, M, N, K, bm, bk, max_cnt, row_groups, lda, sbk,
         sbn, ldc);
   else
-    sparse_a_rows_kernel<T, false><<<grid, kThreads, 0, s>>>(
+    sparse_a_rows_kernel<TA, TB, false><<<grid, kThreads, 0, s>>>(
         a, b, kidx, cnt, c, M, N, K, bm, bk, max_cnt, row_groups, lda, sbk,
         sbn, ldc);
   return (int)cudaGetLastError();
@@ -802,6 +806,10 @@ extern "C" int sparse_a_gemm(int dtype, const void* A, const void* B,
     return griffin::launch_core<__nv_bfloat16>(A, B, ki, ct, C, M, N, K, bm,
                                                bk, m_tiles, max_cnt, lda,
                                                sbk, sbn, ldc, s);
+  if (dtype == griffin::kFloat32BFloat16)
+    return griffin::launch_core<float, __nv_bfloat16>(
+        A, B, ki, ct, C, M, N, K, bm, bk, m_tiles, max_cnt, lda, sbk, sbn,
+        ldc, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,19 +8,26 @@ from . import kernel
 from .ref import dense_matmul_ref
 
 
+def check_dtypes(op: str, a: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise unless (A, weight) is a dtype pair the kernels take: both
+    float32, both bfloat16, or float32 A with a bfloat16 weight."""
+    if (a.dtype, w.dtype) not in kernel.PAIR_CODES:
+        raise TypeError(f"{op} dtypes {a.dtype} x {w.dtype}: both float32, "
+                        "both bfloat16, or float32 x bfloat16")
+
+
 def dense_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B with an fp32 accumulator, C in ``a.dtype``.
 
-    ``a``: contiguous (M, K); ``b``: (K, N) of the same dtype and device,
-    any strides (the tied unembedding passes the view ``embed.T``).  Unlike
-    the TPU wrapper nothing is padded: the kernel masks ragged edges.
+    ``a``: contiguous (M, K); ``b``: (K, N) of the same dtype, or bf16
+    against an fp32 ``a``, on the same device, any strides (the tied
+    unembedding passes the view ``embed.T``).  Unlike the TPU wrapper
+    nothing is padded: the kernel masks ragged edges.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"dense_matmul shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
-    if a.dtype not in kernel.DTYPE_CODES or b.dtype != a.dtype:
-        raise TypeError(f"dense_matmul dtypes {a.dtype} x {b.dtype}: both "
-                        "float32 or both bfloat16")
+    check_dtypes("dense_matmul", a, b)
     if a.device != b.device:
         raise ValueError(f"dense_matmul devices {a.device} x {b.device}")
     if not a.is_contiguous():

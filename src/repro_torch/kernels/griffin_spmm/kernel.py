@@ -10,7 +10,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import build
-from ..dense_gemm.kernel import DTYPE_CODES
+from ..dense_gemm.kernel import PAIR_CODES
 
 NAME = "griffin_spmm"
 _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
@@ -80,7 +80,8 @@ def griffin_spmm(a: torch.Tensor, b_comp: torch.Tensor, kidx: torch.Tensor,
                  cnt: torch.Tensor, perm: Optional[torch.Tensor], *, n: int,
                  block_k: int, block_n: int, dual: bool) -> torch.Tensor:
     """(M, n) = A @ W_pruned from the compacted operands, on the current
-    stream, in ``a.dtype``: the kernel stores each column where ``perm``
+    stream, in ``a.dtype`` (``b_comp`` bf16 against an fp32 ``a``, or
+    ``a``'s dtype): the kernel stores each column where ``perm``
     (the balance shuffle, or None) sends it and drops the padding.  ``a``
     (M, K) may be narrower than the padded K the metadata counts; the
     kernel masks the missing columns.  The caller (``ops.griffin_matmul``)
@@ -88,13 +89,16 @@ def griffin_spmm(a: torch.Tensor, b_comp: torch.Tensor, kidx: torch.Tensor,
     m, k = a.shape
     n_tiles, max_cnt = kidx.shape
     npad = b_comp.shape[1]
+    # the tensor-core route takes bf16 A and weight; fp32 A (against either
+    # weight dtype) runs on the CUDA cores
     plan = split_plan(k, n, n_tiles, block_k, block_n) \
         if a.dtype == torch.bfloat16 else None
     splits, cols, chunk = plan or (0, 0, 0)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _fn()(DTYPE_CODES[a.dtype], int(dual), a.data_ptr(),
-                b_comp.data_ptr(), kidx.data_ptr(), cnt.data_ptr(),
+    err = _fn()(PAIR_CODES[(a.dtype, b_comp.dtype)], int(dual),
+                a.data_ptr(), b_comp.data_ptr(), kidx.data_ptr(),
+                cnt.data_ptr(),
                 None if perm is None else perm.data_ptr(), out.data_ptr(),
                 m, k, n, npad, n_tiles, block_k, block_n, max_cnt,
                 a.stride(0), splits, cols, chunk, stream)

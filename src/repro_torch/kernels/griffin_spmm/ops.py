@@ -17,8 +17,7 @@ import torch
 from . import kernel
 from ...core.hybrid import select_mode
 from ...core.spec import Mode
-from ..dense_gemm.kernel import DTYPE_CODES
-from ..dense_gemm.ops import dense_matmul
+from ..dense_gemm.ops import check_dtypes, dense_matmul
 from ..sparse_a.ops import sparse_a_matmul
 from .ref import griffin_spmm_ref
 
@@ -218,9 +217,7 @@ def _check(a: torch.Tensor, gw: GriffinWeights) -> None:
     if a.dim() != 2 or a.shape[1] > gw.k or a.shape[0] < 1 or a.shape[1] < 1:
         raise ValueError(f"griffin_matmul A {tuple(a.shape)} vs padded K "
                          f"{gw.k}")
-    if a.dtype not in DTYPE_CODES or gw.b_comp.dtype != a.dtype:
-        raise TypeError(f"griffin_matmul dtypes {a.dtype} x "
-                        f"{gw.b_comp.dtype}: both float32 or both bfloat16")
+    check_dtypes("griffin_matmul", a, gw.b_comp)
     nt, mc = gw.kidx.shape
     if gw.kidx.dtype != torch.int32 or gw.cnt.dtype != torch.int32 or \
             gw.cnt.shape != (nt,) or gw.b_comp.shape != (mc * gw.block_k,
@@ -243,10 +240,11 @@ def _check(a: torch.Tensor, gw: GriffinWeights) -> None:
 def griffin_matmul(a: torch.Tensor, gw: GriffinWeights, *,
                    dual: bool = False) -> torch.Tensor:
     """C = A @ W_pruned (M, gw.n) from the compacted representation, in
-    ``a.dtype``.  ``dual`` also skips all-zero A blocks (Mode.AB); it never
-    changes the result.  A CUDA ``a`` launches the kernel, which stores
-    the balance shuffle's columns back in place and drops the padding (no
-    gather follows); a CPU ``a`` runs the plain version."""
+    ``a.dtype`` (a bf16 weight takes an fp32 ``a`` too).  ``dual`` also
+    skips all-zero A blocks (Mode.AB); it never changes the result.  A
+    CUDA ``a`` launches the kernel, which stores the balance shuffle's
+    columns back in place and drops the padding (no gather follows); a CPU
+    ``a`` runs the plain version."""
     _check(a, gw)
     if a.device.type == "cpu":
         return griffin_spmm_ref(a, gw)

@@ -11,7 +11,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import build
-from ..dense_gemm.kernel import DTYPE_CODES
+from ..dense_gemm.kernel import DTYPE_CODES, PAIR_CODES
 from ..griffin_spmm.kernel import MIN_BLOCKS, least_split
 
 NAME = "sparse_a"
@@ -78,7 +78,8 @@ def route(a: torch.Tensor, b: torch.Tensor, block_k: int
           ) -> Tuple[int, Optional[SplitPlan]]:
     """Which body runs ``A @ B``, and its plan: the tensor-core rows route
     for bf16 with row-major B, the tensor-core k-major route for bf16 with
-    k-contiguous B (``embed.T``), the CUDA-core route for fp32 and for what
+    k-contiguous B (``embed.T``), the CUDA-core route for fp32 A (against
+    an fp32 or a bf16 B) and for what
     the tensor cores cannot take (bk not a multiple of 16; K, a row stride
     or a pointer not 16-byte aligned).  Depends on the dtype, the shapes,
     strides and alignment, never on M or the data."""
@@ -110,7 +111,8 @@ def sparse_a_gemm(a: torch.Tensor, b: torch.Tensor, kidx: torch.Tensor,
                   cnt: torch.Tensor, *, block_m: int, block_k: int
                   ) -> torch.Tensor:
     """(M, N) = A @ B over the K blocks ``kidx[i, :cnt[i]]`` of each M tile
-    i, on the current stream, in ``a.dtype``.  ``b`` may have any strides
+    i, on the current stream, in ``a.dtype`` (``b`` bf16 against an fp32
+    ``a``, or ``a``'s dtype).  ``b`` may have any strides
     (``embed.T`` is read in place).  The caller (``ops.sparse_a_matmul``)
     has validated every operand."""
     m, k = a.shape
@@ -121,10 +123,10 @@ def sparse_a_gemm(a: torch.Tensor, b: torch.Tensor, kidx: torch.Tensor,
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _fn("sparse_a_gemm", _ARGTYPES)(
-        DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(), kidx.data_ptr(),
-        cnt.data_ptr(), out.data_ptr(), m, n, k, block_m, block_k, m_tiles,
-        max_cnt, a.stride(0), b.stride(0), b.stride(1), out.stride(0), path,
-        splits, cols, chunk, stream)
+        PAIR_CODES[(a.dtype, b.dtype)], a.data_ptr(), b.data_ptr(),
+        kidx.data_ptr(), cnt.data_ptr(), out.data_ptr(), m, n, k, block_m,
+        block_k, m_tiles, max_cnt, a.stride(0), b.stride(0), b.stride(1),
+        out.stride(0), path, splits, cols, chunk, stream)
     build.check_launch(NAME, err)
     build.count_launch(NAME)
     return out

@@ -18,6 +18,7 @@ import torch
 
 from . import kernel
 from ..dense_gemm.kernel import DTYPE_CODES
+from ..dense_gemm.ops import check_dtypes
 from .ref import compact_activations_ref, sparse_a_ref
 
 DEFAULT_BLOCK_M = 128
@@ -120,20 +121,19 @@ def sparse_a_matmul(a: torch.Tensor, w: torch.Tensor, *,
     """C = A @ W visiting only the live A blocks (Sparse.A), fp32
     accumulator, C in ``a.dtype``.
 
-    ``a``: contiguous (M, K); ``w``: (K, N) of the same dtype and device,
-    any strides — the tied unembedding passes the view ``embed.T``, which
-    is read in place: nothing is padded or copied, the kernel masks ragged
-    edges.  ``meta`` defaults to ``compact_activations(a)``.  ``block_n``
-    is the reference's N tile; the card's kernel picks its own column
-    slices, so it only has to be positive.  A CUDA ``a`` launches the
+    ``a``: contiguous (M, K); ``w``: (K, N) of the same dtype (or bf16
+    against an fp32 ``a``) and device, any strides — the tied unembedding
+    passes the view ``embed.T``, which is read in place: nothing is padded
+    or copied, the kernel masks ragged edges.  ``meta`` defaults to
+    ``compact_activations(a)``.  ``block_n`` is the reference's N tile; the
+    card's kernel picks its own column slices, so it only has to be
+    positive.  A CUDA ``a`` launches the
     kernel; a CPU ``a`` runs the plain version.
     """
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"sparse_a_matmul shapes {tuple(a.shape)} x "
                          f"{tuple(w.shape)}")
-    if a.dtype not in DTYPE_CODES or w.dtype != a.dtype:
-        raise TypeError(f"sparse_a_matmul dtypes {a.dtype} x {w.dtype}: "
-                        "both float32 or both bfloat16")
+    check_dtypes("sparse_a_matmul", a, w)
     if min(a.shape[0], a.shape[1], w.shape[1]) < 1 or \
             max(a.shape[0], a.shape[1], w.shape[1]) >= 2 ** 31 or \
             min(block_m, block_k, block_n) < 1:

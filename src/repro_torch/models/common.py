@@ -115,7 +115,9 @@ def griffin_linear(x: torch.Tensor, w) -> torch.Tensor:
         return out.reshape(*lead, w.n).to(x.dtype)
     if not ctx.use_kernels:
         _dispatched("plain")
-        return x @ w
+        # promoted to the wider dtype, as jnp does (fp32 A, bf16 weight)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     _dispatched("kernel")
     if select_mode(ctx.a_sparsity, 0.0, threshold=ctx.a_threshold) == Mode.A:
         out = sparse_a_matmul(x2, w, block_m=ctx.block_m)

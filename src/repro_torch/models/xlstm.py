@@ -246,7 +246,9 @@ def mlstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor, state=None,
         hs.append(h)
     h = torch.cat(hs, dim=1).reshape(B, S, din)
     h = rms_norm(h, p["gn"], cfg.norm_eps)
-    out = griffin_linear((h * F.silu(z.float()).to(dt)).to(dt), p["w_down"])
+    # h is fp32, so w_down takes an fp32 A against its bf16 weight and the
+    # residual add rounds once, as in the reference
+    out = griffin_linear(h * F.silu(z.float()).to(dt), p["w_down"])
     return (x + out).to(dt), state
 
 

@@ -7,8 +7,9 @@ it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances (as in chip_smoke.py): fp32 |err| <= 1e-5 * max|ref| (sums in
-another order); bf16 |err| <= one bf16 ulp of the output plus that term
-(both round one fp32 sum).
+another order), fp32 A against a bf16 weight too (the weight widens
+exactly); bf16 |err| <= one bf16 ulp of the output plus that term (both
+round one fp32 sum).
 """
 import dataclasses
 
@@ -25,6 +26,8 @@ from repro_torch.kernels import (ActivationMeta, compact_activations,
 from repro_torch.kernels.batch_eval import schedule_cycles
 from repro_torch.kernels.batch_eval import kernel as batch_eval_kernel
 from repro_torch.kernels.batch_eval.ref import schedule_cycles_ref
+from repro_torch.kernels.dense_gemm import kernel as dense_gemm_kernel
+from repro_torch.kernels.dense_gemm.ref import dense_matmul_ref
 from repro_torch.kernels.sparse_a import kernel as k3
 from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
                                               sparse_a_ref)
@@ -39,6 +42,11 @@ from repro_torch.runtime.serve import greedy_generate
 from repro_torch.sparsity import block_prune, sparsify_params
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# (A, weight) dtypes the kernels take; "mixed" is the mLSTM block's w_down
+# input: fp32 activations against a bf16 weight, an fp32 output
+PAIRS = {"float32": (torch.float32, torch.float32),
+         "bfloat16": (torch.bfloat16, torch.bfloat16),
+         "mixed": (torch.float32, torch.bfloat16)}
 
 
 def assert_close(out, ref, dtype):
@@ -875,12 +883,109 @@ def test_griffin_spmm_at_xlstm_ragged_shapes(cuda, shape, dual, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("k", [4096, 4100])
+@pytest.mark.parametrize("m", [1, 4, 32, 128])
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_dense_gemm_skinny_route_matches_plain(cuda, n, m, k, pair):
+    """K1's skinny route (N <= 8, K split across a cluster by K alone):
+    against the plain version in fp32, bf16 and fp32 A x bf16 weight, with
+    a ragged last chunk at K 4100 (and A rows that are not 16-byte
+    aligned there), and rows 0 and 0:4 bit-equal to 1- and 4-row calls."""
+    da, dw = PAIRS[pair]
+    assert dense_gemm_kernel.route(n) == "skinny"
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + m + k)
+    a = torch.randn(m, k, generator=g, device=cuda).to(da)
+    w = torch.randn(k, n, generator=g, device=cuda).to(dw)
+    before = launch_counts()["dense_gemm"]
+    out = dense_matmul(a, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["dense_gemm"] == before + 1
+    assert out.dtype == da and out.shape == (m, n)
+    assert_close(out, dense_matmul_ref(a, w),
+                 "bfloat16" if da == torch.bfloat16 else "float32")
+    for rows in (1, min(m, 4)):
+        assert torch.equal(dense_matmul(a[:rows].contiguous(), w),
+                           out[:rows]), rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("k", [4096, 4100])
+def test_dense_gemm_skinny_reads_any_layout_with_the_same_bits(cuda, k,
+                                                               pair):
+    """A k-major B (a transposed view, 16-byte vectors per column at K
+    4096, scalar loads at 4100) and a strided B (every other column of a
+    wider matrix) give the row-major call's bits: the summation order
+    does not follow the layout."""
+    da, dw = PAIRS[pair]
+    g = torch.Generator(device=cuda).manual_seed(k)
+    a = torch.randn(32, k, generator=g, device=cuda).to(da)
+    w = torch.randn(k, 4, generator=g, device=cuda).to(dw)
+    want = dense_matmul(a, w)
+    kmajor = w.T.contiguous().T
+    strided = torch.zeros(k, 8, device=cuda, dtype=dw)
+    strided[:, ::2] = w
+    assert kmajor.stride() == (1, k) and strided[:, ::2].stride() == (8, 2)
+    for b in (kmajor, strided[:, ::2]):
+        assert torch.equal(dense_matmul(a, b), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("leaf", ["w_down", "gate"])
+def test_mixed_pair_at_xlstm_shapes(cuda, leaf, m):
+    """fp32 A against a bf16 weight at w_down's shape (4096 x 2048, pruned
+    0.8 at 128 x 128 / unit 32 and compacted) and the gates' (4096 x 4):
+    griffin_spmm (dual too), sparse_a and dense_gemm against their plain
+    versions within the fp32 tolerance, fp32 outputs, rows 0 and 0:4
+    bit-equal to 1- and 4-row calls, dual bit-equal to the plain walk."""
+    k, n = (4096, 2048) if leaf == "w_down" else (4096, 4)
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    w = torch.randn(k, n, generator=g, device=cuda)
+    if leaf == "w_down":
+        w = block_prune(w, 0.8)
+    w = w.bfloat16()
+    gw = preprocess_weights(w)
+    a = torch.randn(m, k, generator=g, device=cuda)
+    a[:, :256] = 0                       # two all-zero K blocks (dual)
+    plain = a @ w.float()
+    calls = {"griffin_spmm": lambda x: griffin_matmul(x, gw),
+             "griffin_spmm dual": lambda x: griffin_matmul(x, gw, dual=True),
+             "sparse_a": lambda x: sparse_a_matmul(x, w),
+             "dense_gemm": lambda x: dense_matmul(x, w)}
+    outs = {}
+    for name, call in calls.items():
+        out = outs[name] = call(a)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and out.shape == (m, n), name
+        assert_close(out, plain, "float32")
+        for rows in (1, 4):
+            assert torch.equal(call(a[:rows].contiguous()), out[:rows]), \
+                (name, rows)
+    assert torch.equal(outs["griffin_spmm"], outs["griffin_spmm dual"])
+
+
+@pytest.mark.gpu
+def test_other_mixed_pairs_raise_on_the_card(cuda):
+    a = torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(64, 8, device=cuda)
+    gw = preprocess_weights(torch.randn(64, 64, device=cuda), block_k=16,
+                            block_n=16, unit=8)
+    for call in (lambda: dense_matmul(a, w), lambda: sparse_a_matmul(a, w),
+                 lambda: griffin_matmul(a, gw),
+                 lambda: dense_matmul(a.half(), w.half())):
+        with pytest.raises(TypeError):
+            call()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m", [1, 4, 32])
 def test_dense_gemm_and_sparse_a_at_xlstm_gates(cuda, m):
-    """The mLSTM's (4096 x 4) gate leaves: dense_gemm (its scalar route,
-    N below a vector) and sparse_a (its masked N edge) with its metadata
-    kernel, against their plain versions, row slices bit-equal to the
-    full call."""
+    """The mLSTM's (4096 x 4) gate leaves: dense_gemm (its skinny route,
+    K split across a cluster) and sparse_a (its masked N edge) with its
+    metadata kernel, against their plain versions, row slices bit-equal
+    to the full call."""
     g = torch.Generator(device=cuda).manual_seed(9)
     w = torch.randn(4096, 4, generator=g, device=cuda).bfloat16()
     a = torch.randn(m, 4096, generator=g, device=cuda).bfloat16()

@@ -4,8 +4,10 @@ On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX ops
 run their Pallas kernels in interpret mode, as tests/test_kernels.py does.
 Inputs are made with numpy from a seed and handed to both.  Tolerances:
 fp32 rtol = atol = 1e-5 (summation orders differ), bf16 rtol = atol = 2e-2
-(about two bf16 ulps: both sides round an fp32 sum once).  Preprocessing is
-pure data movement and must be bitwise equal.
+(about two bf16 ulps: both sides round an fp32 sum once); fp32 A against a
+bf16 weight (the mixed pair) as fp32: both sides widen the weight exactly
+and sum fp32 products.  Preprocessing is pure data movement and must be
+bitwise equal.
 """
 import dataclasses
 import inspect
@@ -24,7 +26,10 @@ from repro_torch import bridge
 from repro_torch.kernels import (decompact_weights, dense_matmul,
                                  griffin_matmul, launch_counts,
                                  preprocess_weights, stack_weights)
+from repro_torch.kernels.dense_gemm import kernel as k1
 from repro_torch.kernels.griffin_spmm.kernel import SplitPlan, split_plan
+from repro_torch.kernels.sparse_a.ops import sparse_a_matmul
+from repro_torch.models.common import griffin_linear, sparse_execution
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -311,3 +316,119 @@ def test_split_plan_depends_only_on_the_weight_shape():
             assert s == 1 or -(-k // 64) >= s
             splits.add(s)
         assert len(splits) == 1, (k, n, splits)
+
+
+# ---------------------------------------------------------------------------
+# the mixed pair: fp32 A against a bf16 weight (the mLSTM block's w_down)
+# ---------------------------------------------------------------------------
+
+def _mixed_gw(rng, k, n):
+    w = jax_block_prune(jnp.asarray(rng.randn(k, n), jnp.float32), 0.6,
+                        block_k=16, unit=8).astype(jnp.bfloat16)
+    jgw = jax_preprocess(np.asarray(w.astype(jnp.float32)), block_k=16,
+                         block_n=32, unit=8)
+    jgw.b_comp = jgw.b_comp.astype(jnp.bfloat16)
+    return jgw
+
+
+@pytest.mark.parametrize("op", ["dense_matmul", "griffin_matmul",
+                                "griffin_matmul_dual"])
+@pytest.mark.parametrize("shape", [(4, 128, 96), (33, 96, 4), (1, 64, 8)])
+def test_mixed_pair_matches_jax(op, shape):
+    """fp32 A with a bf16 weight gives an fp32 C equal (fp32 tolerance) to
+    the reference's kernel in interpret mode, which takes the same pair
+    and returns A's dtype."""
+    m, k, n = shape
+    rng = np.random.RandomState(11)
+    a = jnp.asarray(rng.randn(m, k), jnp.float32)
+    a = a.at[:, :16].set(0)                    # an all-zero K block (dual)
+    ta = bridge.array_to_tensor(a)
+    if op == "dense_matmul":
+        b = jnp.asarray(rng.randn(k, n), jnp.bfloat16)
+        want = jax_dense_matmul(a, b, interpret=True)
+        got = dense_matmul(ta, bridge.array_to_tensor(b))
+    else:
+        dual = op.endswith("dual")
+        jgw = _mixed_gw(rng, k, n)
+        want = jax_griffin_matmul(a, jgw, dual=dual, interpret=True)
+        got = griffin_matmul(ta, bridge.to_torch(jgw), dual=dual)
+    assert want.dtype == jnp.float32
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("float32"))
+
+
+BAD_PAIRS = [(torch.bfloat16, torch.float32), (torch.float16, torch.float16),
+             (torch.float32, torch.float16), (torch.float64, torch.float64),
+             (torch.float64, torch.bfloat16), (torch.float16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("op", ["dense_matmul", "griffin_matmul",
+                                "sparse_a_matmul"])
+@pytest.mark.parametrize("pair", BAD_PAIRS, ids=lambda p: str(p))
+def test_every_other_mixed_pair_raises(op, pair):
+    da, dw = pair
+    a = torch.randn(4, 32).to(da)
+    w = torch.randn(32, 32)
+    if op == "griffin_matmul":
+        gw = preprocess_weights(w.to(dw), block_k=16, block_n=16, unit=8)
+        call = lambda: griffin_matmul(a, gw)           # noqa: E731
+    else:
+        fn = dense_matmul if op == "dense_matmul" else sparse_a_matmul
+        call = lambda: fn(a, w.to(dw))                 # noqa: E731
+    with pytest.raises(TypeError):
+        call()
+
+
+def test_taken_pairs_are_exactly_the_kernels_codes():
+    assert set(k1.PAIR_CODES) == {(torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.bfloat16)}
+    assert sorted(k1.PAIR_CODES.values()) == [0, 1, 2]
+
+
+@pytest.mark.parametrize("pair", [("float32", "bfloat16"),
+                                  ("bfloat16", "float32"),
+                                  ("bfloat16", "bfloat16"),
+                                  ("float32", "float32")])
+def test_plain_route_promotes_as_jnp(pair):
+    """``griffin_linear`` without kernels computes ``x @ w`` in the wider
+    dtype, as jnp does; equal dtypes are the unpromoted product, bit for
+    bit."""
+    da, dw = pair
+    rng = np.random.RandomState(3)
+    x = jnp.asarray(rng.randn(2, 3, 64), JAX_DTYPES[da])
+    w = jnp.asarray(rng.randn(64, 24), JAX_DTYPES[dw])
+    want = x @ w
+    tx, tw = bridge.array_to_tensor(x), bridge.array_to_tensor(w)
+    with sparse_execution(use_kernels=False):
+        got = griffin_linear(tx, tw)
+    assert got.dtype == TORCH_DTYPES[str(want.dtype)]
+    if da == dw:
+        assert torch.equal(got, tx @ tw)
+    else:
+        np.testing.assert_allclose(_np(got), _np(want), **_tol("float32"))
+
+
+@pytest.mark.parametrize("k", [1, 7, 8, 64, 100, 1024, 2048, 4096, 4100,
+                               8192, 8200, 16384, 50000])
+def test_skinny_split_depends_on_k_alone_and_covers_k_once(k):
+    """K1's skinny route cuts K into 8-row chunks and the chunks into S
+    consecutive slices: S is a function of K alone (M and N are not among
+    its inputs), a power of two up to the cluster size, and the slices
+    cover every chunk of K exactly once, in order."""
+    assert list(inspect.signature(k1.skinny_slices).parameters) == ["k"]
+    s = k1.skinny_slices(k)
+    assert s in (1, 2, 4, 8)
+    chunks = -(-k // k1.SKINNY_CHUNK)
+    ranges = k1.slice_chunks(k, s)
+    assert len(ranges) == s
+    assert [c for r in ranges for c in r] == list(range(chunks))
+    # the least split that leaves a slice no more chunks than threads
+    assert s == k1.MAX_SLICES or max(map(len, ranges)) <= k1.SKINNY_THREADS
+    assert s == 1 or -(-chunks // (s // 2)) > k1.SKINNY_THREADS
+
+
+def test_skinny_route_is_chosen_by_n_alone():
+    assert k1.skinny_slices(4096) == 4       # xlstm's wi / wf
+    assert [k1.route(n) for n in (1, 4, 8, 9, 128256)] == \
+        ["skinny"] * 3 + ["wide"] * 2

@@ -4,7 +4,8 @@ against the JAX package's.
 On the CPU ``sparse_a_matmul`` runs its kernel's plain PyTorch version; the
 JAX side runs its Pallas kernel in interpret mode, as tests/test_sparse_a.py
 does.  Inputs are made with numpy from a seed and handed to both.
-Tolerances: fp32 rtol = atol = 1e-5 (summation orders differ); bf16 one
+Tolerances: fp32 rtol = atol = 1e-5 (summation orders differ), fp32 A
+against a bf16 weight too (both sides widen the weight exactly); bf16 one
 bf16 ulp of the output (both sides round one fp32 sum).  The activation
 metadata is pure data movement and must be bitwise equal to the
 reference's traced (jit) metadata.
@@ -161,6 +162,41 @@ def test_sparse_a_matmul_matches_jax(dtype, sparsity, shape):
     got = sparse_a_matmul(ta, tw, block_m=16, block_k=16, block_n=16)
     assert got.dtype == TORCH_DTYPES[dtype] and got.shape == (m, n)
     assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("layout", ["rows", "embed_t"])
+@pytest.mark.parametrize("sparsity", [0.0, 0.5])
+@pytest.mark.parametrize("shape", [(16, 64, 32), (33, 70, 17), (4, 128, 4)])
+def test_sparse_a_matmul_mixed_pair_matches_jax(shape, sparsity, layout):
+    """fp32 A with a bf16 weight (row-major, or the strided view embed.T)
+    gives an fp32 C equal (fp32 tolerance) to the reference's kernel in
+    interpret mode, which takes the same pair and returns A's dtype."""
+    m, k, n = shape
+    rng = np.random.RandomState(12)
+    ja, ta = _pair(_sparse_a(rng, m, k, 16, 16, sparsity), "float32")
+    if layout == "rows":
+        jw, tw = _pair(rng.randn(k, n), "bfloat16")
+    else:
+        je, te = _pair(rng.randn(n, k), "bfloat16")
+        jw, tw = je.T, te.T
+    want = jax_sparse_a_matmul(ja, jw, block_m=16, block_k=16, block_n=16,
+                               interpret=True)
+    got = sparse_a_matmul(ta, tw, block_m=16, block_k=16, block_n=16)
+    assert want.dtype == jnp.float32
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert_close(got, want, "float32")
+
+
+@pytest.mark.parametrize("pair", [("bfloat16", "float32"),
+                                  ("float16", "float16"),
+                                  ("float32", "float16")])
+def test_sparse_a_matmul_rejects_every_other_mixed_pair(pair):
+    a = torch.randn(4, 32).to(getattr(torch, pair[0]))
+    w = torch.randn(32, 16).to(getattr(torch, pair[1]))
+    with pytest.raises(TypeError):
+        sparse_a_matmul(a, w, block_k=16)
+    with pytest.raises(TypeError):
+        auto_matmul(a, w, a_sparsity=0.9)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
