@@ -33,8 +33,7 @@ Phases, in order; any failure exits non-zero before the result line:
              fp32), counting only the blocks a sparse kernel must read for
              these inputs.  griffin_spmm is timed at M 4 and 32, bf16 dual
              off and on, fp32 dual off, and at M 4096, bf16 dual off; sparse_a at M 4 and 32, bf16,
-             every block live and half of them dead, with its metadata
-             kernel beside the plain metadata.  griffin_spmm's dual walk
+             every block live and half of them dead.  griffin_spmm's dual walk
              is held bit-equal to its plain walk on every shape.  It is
              also held on w_up compacted at each block size of the
              autotune grid (16, 32, 64, 128, 512; unit 8): against its
@@ -53,6 +52,12 @@ Phases, in order; any failure exits non-zero before the result line:
              (bf16, fp32, fp32 A x bf16 weight) and sparse_a (bf16, fp32,
              and fp32 A x bf16 weight timed, with its metadata) at the
              (4096 x 4) mLSTM gate leaves, the N edge below one vector.
+             The metadata kernel alone (``META_SHAPES``: 4 x 2048, 4 x
+             4096, 32 x 4096, 128 x 8192, bf16, every block live) with its
+             cluster
+             split, timed (events, as above) beside its device duration
+             under torch.profiler (20 back-to-back launches, warm L2) and
+             the launch floor: a one-element fill timed both ways.
 3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
              through repro_torch.launch.serve: 8 requests with prompt
              lengths 8/16/32 and generation lengths 4/8/16, decode_chunk
@@ -61,8 +66,9 @@ Phases, in order; any failure exits non-zero before the result line:
                           compacted: griffin_spmm 112x and dense_gemm 1x
                           per model call (prefill or decode step);
                mode_a   - dense weights, declared activation sparsity 0.5:
-                          sparse_a and sparse_a_meta 113x each per model
-                          call;
+                          sparse_a 113x and sparse_a_meta 65x per model
+                          call (the metadata built once per distinct
+                          input: wq/wk/wv and w_gate/w_up share one);
                mode_ab  - pruned and compacted as sparse_b, declared
                           activation sparsity 0.5: griffin_spmm 112x, all
                           dual, and sparse_a and sparse_a_meta 1x each per
@@ -117,7 +123,7 @@ Phases, in order; any failure exits non-zero before the result line:
                           the pruning's minimum width) per model call;
                xlstm_mode_ab - the same weights, declared activation
                           sparsity 0.5: griffin_spmm 121x dual, sparse_a
-                          and sparse_a_meta 84x each;
+                          84x and sparse_a_meta 42x (wi and wf share one);
                xlstm_paged_degrades - xlstm_sparse_b with 16-token pages
                           asked for: the recurrent state does not track
                           cache_len, so no paged arena is built (as in the
@@ -209,12 +215,15 @@ Phases, in order; any failure exits non-zero before the result line:
              wrapper (schedule_cycles on the card) equals the plain version
              and the engine on each config's largest full stream, the
              reference test's 8 x 3 random masks with and without shuffle,
-             a T = 1 stream and a stream of empty chunks.  Kernel and plain
-             version (device time, median of 20 after a 64 MB L2 flush) and
-             numpy engine (host wall time, median of 20) on the largest
-             stream (ties: the deepest window), beside the bound (mask bytes
-             / 3.35 TB/s); no PyTorch call computes the schedule, so no
-             library time.
+             a T = 1 stream and a stream of empty chunks.  For each of the
+             kernel's two routes (kernel.route: scan for d2 = d3 = 0, else
+             chain) on its largest stream (ties: the deepest window): the
+             kernel (median of 20 after a 64 MB L2 flush, and its device
+             duration under torch.profiler), the plain version (median of
+             5) and the numpy engine (host wall time, median of 5), beside
+             the bound (mask bytes / 3.35 TB/s) and the launch floor (a
+             one-element fill); no PyTorch call computes the schedule, so
+             no library time.
 8. autotune - repro_torch.launch.autotune's pipeline for the dense family
              at full width (``AUTOTUNE``): 16 candidates enumerated from
              the seven GEMM shapes and scored by the cycle-model DSE
@@ -276,9 +285,11 @@ STEPWISE_STATS = {"decode_steps": 22, "prefill_calls": 8, "emitted": 52,
 SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
           launches={"dense_gemm": 1, "griffin_spmm": 112, "sparse_a": 0,
                     "sparse_a_meta": 0, "batch_eval": 0}, dual=0)
+# Mode.A builds the activation metadata once per distinct input: per layer
+# wq/wk/wv, wo, w_gate/w_up and w_down, then the unembedding (16 x 4 + 1)
 MODE_A = dict(sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
               launches={"dense_gemm": 0, "griffin_spmm": 0, "sparse_a": 113,
-                        "sparse_a_meta": 113, "batch_eval": 0}, dual=0)
+                        "sparse_a_meta": 65, "batch_eval": 0}, dual=0)
 MODE_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
                launches={"dense_gemm": 0, "griffin_spmm": 112,
                          "sparse_a": 1, "sparse_a_meta": 1,
@@ -305,8 +316,8 @@ TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
 # TRACE.  Per model call griffin_spmm runs its 121 compacted leaves (w_up
 # and w_down x 42, the sLSTM's six x 6, the untied head) and its 84 plain
 # (4096 x 4) mLSTM gate leaves go through dense_gemm, or in Mode.AB through
-# sparse_a and its metadata (tests/test_torch_xlstm.py counts them on the
-# CPU).  The paged config must degrade to the fixed arena: the recurrent
+# sparse_a and its metadata, built once per mLSTM block for wi and wf
+# (tests/test_torch_xlstm.py counts them on the CPU).  The paged config must degrade to the fixed arena: the recurrent
 # state does not grow with the sequence.
 XLSTM = "xlstm-1.3b"
 XLSTM_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
@@ -315,7 +326,7 @@ XLSTM_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
                           "batch_eval": 0}, dual=0)
 XLSTM_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
                 launches={"dense_gemm": 0, "griffin_spmm": 121,
-                          "sparse_a": 84, "sparse_a_meta": 84,
+                          "sparse_a": 84, "sparse_a_meta": 42,
                           "batch_eval": 0}, dual=121)
 XLSTM_PATHS = {
     "xlstm_sparse_b": dict(XLSTM_SB, arena=FIXED),
@@ -337,6 +348,10 @@ XLSTM_SPMM = {"w_up": (2048, 8192), "w_down": (4096, 2048),
               "w_ff2": (2730, 2048), "head": (2048, 50304)}
 XLSTM_GATE = (4096, 4)
 XLSTM_ROWS = (4, 32)             # decode slots, the largest prefill bucket
+# the metadata kernel alone: a decode step's A at llama's K 2048 and at
+# xlstm's gate K 4096, a 32-row bucket at K 4096 and one full 128-row
+# prefill tile at w_down's K 8192
+META_SHAPES = ((4, 2048), (4, 4096), (32, 4096), (128, 8192))
 LONG_PROMPTS = (2048, 4096)
 MAX_PREFILL_RISE = 3 << 30
 # per (layer, position) K/V row of a long prefill, kernel route against
@@ -573,6 +588,37 @@ def timed_ms(torch, fn, iters: int = 20) -> float:
     return ms[len(ms) // 2]
 
 
+def device_ms(torch, fn, match: str, iters: int = 20):
+    """Mean device duration (torch.profiler) of the kernels whose name
+    holds ``match`` over ``iters`` back-to-back calls of ``fn`` (warm L2):
+    the kernel's own time, without the events' ~4-5 us floor.  None where
+    the profiler recorded no kernel at all in three tries (it happens,
+    rarely): a measurement not taken, never a failed check."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        _, by_name, _ = profiled(torch, lambda: [fn() for _ in
+                                                 range(iters)])
+        if by_name:
+            break
+    else:
+        print(f"[profile] no device kernel recorded for {match!r}: device "
+              "duration not measured")
+        return None
+    mine = [(t, n) for k, (t, n) in by_name.items() if match in k]
+    if not mine:
+        fail(f"no device kernel named like {match!r} in {sorted(by_name)}")
+    return sum(t for t, _ in mine) / sum(n for _, n in mine)
+
+
+def launch_floor(torch) -> dict:
+    """The floor of both ways of timing: a one-element fill, a kernel that
+    does nothing but launch, by ``timed_ms`` and by its device duration."""
+    tiny = torch.zeros(1, device="cuda")
+    return {"ms": timed_ms(torch, tiny.zero_),
+            "device_ms": device_ms(torch, tiny.zero_, "")}
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -706,6 +752,7 @@ def phase_kernels(torch):
     rows += spmm_granularities(torch, gen, summary)
     rows += kernel_xlstm(torch, gen, summary)
     rows += kernel_sparse_a(torch, gen, summary)
+    rows += kernel_meta(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
     return rows, summary
 
@@ -1010,9 +1057,9 @@ def kernel_sparse_a(torch, gen, summary):
         return row
 
     def timed(a, w, meta, row):
-        """Time the kernel (metadata given), the metadata kernel and its
-        plain version, the plain GEMM and torch.matmul; bound by the bytes
-        and operations of the visited blocks."""
+        """Time the kernel (metadata given), the plain GEMM and
+        torch.matmul; bound by the bytes and operations of the visited
+        blocks."""
         m, k = a.shape
         n = w.shape[1]
         bm, bk = meta.block_m, meta.block_k
@@ -1031,14 +1078,8 @@ def kernel_sparse_a(torch, gen, summary):
         flops = 2.0 * n * sum(r * min(c * bk, k)
                               for r, c in zip(tile_rows, cnt))
         b_ms, b_by = bound(nbytes, flops, row["dtype"])
-        mb_ms, mb_by = bound(a.numel() * esz + meta_bytes, a.numel(),
-                             str(a.dtype)[6:])
         row.update(
             ms=timed_ms(torch, lambda: sparse_a_matmul(a, w, meta=meta)),
-            meta_ms=timed_ms(torch, lambda: compact_activations(a)),
-            meta_plain_ms=timed_ms(torch, lambda: compact_activations_ref(
-                a, block_m=bm, block_k=bk)),
-            meta_bound_ms=mb_ms, meta_bound_by=mb_by,
             plain_ms=timed_ms(torch, lambda: sparse_a_ref(
                 a, w, meta.kidx, meta.cnt, block_m=bm, block_k=bk)),
             library_ms=timed_ms(torch, lambda: torch.matmul(a, w_lib)),
@@ -1120,12 +1161,48 @@ def kernel_sparse_a(torch, gen, summary):
         a[:, 288:] = 0
         a[:4, 96:112] = 0
         meta_of(a, block_m=8, block_k=16, ragged=True)
-    row = summary["sparse_a"]
-    summary["sparse_a_meta"] = {
-        "dtype": row["dtype"], "m": row["m"], "k": row["k"], "n": None,
-        "ms": row["meta_ms"], "plain_ms": row["meta_plain_ms"],
-        "bound_ms": row["meta_bound_ms"], "bound_by": row["meta_bound_by"],
-        "library_ms": None}
+    return rows
+
+
+def kernel_meta(torch, gen, summary):
+    """The metadata kernel alone at the decode shape and the two tall ones
+    (``META_SHAPES``, bf16, every block live): bit-equal to the plain
+    metadata; its cluster split, ``timed_ms`` beside its device duration,
+    the plain version's time and the byte bound; and the launch floor."""
+    from repro_torch.kernels import compact_activations
+    from repro_torch.kernels.sparse_a.kernel import meta_slices
+    from repro_torch.kernels.sparse_a.ref import compact_activations_ref
+
+    floor = launch_floor(torch)
+    summary["launch_floor"] = floor
+    print(f"[kernels] launch floor (a one-element fill): "
+          f"{json.dumps(floor)}")
+    rows = []
+    for m, k in META_SHAPES:
+        a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        meta = compact_activations(a)
+        kidx, cnt = compact_activations_ref(a, block_m=meta.block_m,
+                                            block_k=meta.block_k)
+        if not (torch.equal(meta.kidx, kidx) and torch.equal(meta.cnt, cnt)):
+            fail(f"sparse_a_meta differs from the plain metadata at "
+                 f"{m} x {k}")
+        meta_bytes = 4 * (meta.kidx.numel() + meta.cnt.numel())
+        b_ms, b_by = bound(a.numel() * 2 + meta_bytes, a.numel(),
+                           "bfloat16")
+        row = {"kernel": "sparse_a_meta", "dtype": "bfloat16", "m": m,
+               "k": k, "block_m": meta.block_m, "block_k": meta.block_k,
+               "slices": meta_slices(min(m, meta.block_m), k,
+                                     meta.block_k, 2),
+               "max_abs_err": 0.0, "ok": True,
+               "ms": timed_ms(torch, lambda: compact_activations(a)),
+               "device_ms": device_ms(torch, lambda: compact_activations(a),
+                                      "sparse_a_meta"),
+               "plain_ms": timed_ms(torch, lambda: compact_activations_ref(
+                   a, block_m=meta.block_m, block_k=meta.block_k)),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        print(f"[kernels] {json.dumps(row)}")
+        rows.append(row)
+    summary["sparse_a_meta"] = dict(rows[0], n=None)   # the decode shape
     return rows
 
 
@@ -2171,27 +2248,44 @@ def phase_cycle_model(torch):
           f"numpy engine on {len(checks)} cases: "
           f"{[c['case'] for c in checks]}")
 
-    cfg, mask, want = max(streams, key=lambda s: (s[1].size, s[0][0]))
-    host = shuffle_lanes(mask, 1, 2) if cfg[3] else mask
-    dev = torch.from_numpy(np.ascontiguousarray(host)).cuda()
-    ms = timed_ms(torch, lambda: kernel.batch_eval(dev, *cfg[:3]))
-    plain_ms = timed_ms(torch, lambda: schedule_cycles_ref(dev, *cfg[:3]))
-    numpy_ms = host_ms(lambda: schedule(mask, *cfg[:3],
-                                        shuffle=bool(cfg[3])))
-    bound_ms, bound_by = bound(mask.nbytes, 0, "float32")
-    print(f"[cycle_model] batch_eval on the largest stream {mask.shape} "
-          f"config {cfg} ({mask.nbytes} bytes, {int(want.sum())} cycles "
-          f"over its tiles, at most {int(want.max())}): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.2f} ms, numpy engine {numpy_ms:.2f} ms "
-          f"(host), bound {bound_ms:.6f} ms ({bound_by}), library none")
+    floor = launch_floor(torch)
+    print(f"[cycle_model] launch floor (a one-element fill): "
+          f"{json.dumps(floor)}")
+    by_route = {}
+    for route in ("scan", "chain"):
+        cfg, mask, want = max(
+            (st for st in streams if kernel.route(*st[0][:3]) == route),
+            key=lambda st: (st[1].size, st[0][0]))
+        host = shuffle_lanes(mask, 1, 2) if cfg[3] else mask
+        dev = torch.from_numpy(np.ascontiguousarray(host)).cuda()
+        ms = timed_ms(torch, lambda: kernel.batch_eval(dev, *cfg[:3]))
+        dev_ms = device_ms(torch, lambda: kernel.batch_eval(dev, *cfg[:3]),
+                           f"batch_eval_{route}")
+        plain_ms = timed_ms(torch, lambda: schedule_cycles_ref(dev,
+                                                               *cfg[:3]),
+                            iters=5)
+        numpy_ms = host_ms(lambda: schedule(mask, *cfg[:3],
+                                            shuffle=bool(cfg[3])), iters=5)
+        bound_ms, bound_by = bound(mask.nbytes, 0, "float32")
+        by_route[route] = {
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "numpy_ms": numpy_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": list(mask.shape), "config": list(cfg)}
+        print(f"[cycle_model] batch_eval {route} route, its largest stream "
+              f"{mask.shape} config {cfg} ({mask.nbytes} bytes, "
+              f"{int(want.sum())} cycles over its tiles, at most "
+              f"{int(want.max())}): kernel {ms:.6f} ms (device "
+              f"{dev_ms} ms), plain {plain_ms:.2f} ms, numpy engine "
+              f"{numpy_ms:.2f} ms (host), bound {bound_ms:.6f} ms "
+              f"({bound_by}, below the launch floor {floor['ms']:.6f} / "
+              f"{floor['device_ms']} ms), library none")
     phase_s = time.perf_counter() - t_phase
     print(f"[cycle_model] phase {phase_s:.1f}s")
-    summary = {"ms": ms, "plain_ms": plain_ms, "numpy_ms": numpy_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None, "shape": list(mask.shape),
-               "config": list(cfg)}
+    summary = by_route["scan"]        # the sweep's largest stream
     record = {"phase_s": phase_s, "sweep_s": sweep_s, "card_s": card_s,
-              "streams": len(streams),
+              "streams": len(streams), "routes": by_route,
+              "launch_floor": floor,
               "rows": nrows, "mask_bytes": nbytes, "configs": configs,
               "fig8_rows": {f"{d}/{m}": r for (d, m), r in rows.items()}}
     return got, checks, summary, record
@@ -2466,6 +2560,7 @@ def main() -> None:
             "max_abs_err": max(errs), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row.get("device_ms"),
             "timed_shape": row["shape"] + row["config"]
             if name == "batch_eval" else
             [row["m"], row["k"], row["n"], row["dtype"]]})

@@ -87,13 +87,28 @@
 // would break here.)  An output's bits thus depend on K, N, bk, the layout
 // of B and the constants here, never on M or on the other rows.
 //
-// Metadata kernel (sparse_a_meta): one block per M tile reduces "any
-// element != 0" (by bits: -0 is zero, NaN is live) over each bm x bk block
-// of A into shared flags, masking the ragged M and K edge as the reference's
-// zero padding does, then one warp writes cnt[i] and kidx[i, :] by ballot
+// Metadata kernel (sparse_a_meta): reduces "any element != 0" (by bits:
+// -0 is zero, NaN and denormals are live) over each bm x bk block of A into
+// shared flags, masking the ragged M and K edge as the reference's zero
+// padding does, then one warp writes cnt[i] and kidx[i, :] by ballot
 // scans: the live ids ascending, then the dead ids ascending — the stable
-// argsort of the dead mask, bit for bit.  It reads A once (16 KB at decode)
-// and is bound by its launch and one round trip.
+// argsort of the dead mask, bit for bit.  It reads A once and writes
+// 4 (kt + 1) bytes a tile: 16 KB at decode, where it is bound by its
+// launch and one round trip, up to 2 MB for a 128-row prefill tile at K
+// 8192, where one block on one SM (the first design) read at ~35 GB/s.
+// So each M tile is a thread block cluster of S blocks, S a power of two
+// up to 16 from the tile's bytes alone (kernel.py meta_slices: one block
+// under 128 KB, else a share of at least one 16-byte unit a thread and at
+// least one whole K block a rank);
+// rank r ORs the whole K blocks [r kt / S, (r + 1) kt / S) into its own
+// flags and writes them into rank 0's through distributed shared memory,
+// one cluster barrier overlapping the loads and one after the writes.
+// S = 1 (decode's 16-64 KB) is a plain launch with no cluster barrier:
+// on the card a cluster costs ~1.1 us more than one block, more than
+// spreading those loads saves.  One
+// launch, no workspace, no atomics: nothing outlives the launch.  The
+// flags are a pure function of A, so the split never changes a bit of
+// kidx or cnt.
 
 #include <cooperative_groups.h>
 
@@ -661,6 +676,7 @@ static int launch_core(const void* A, const void* B, const int* kidx,
 
 constexpr int kMetaThreads = 1024;
 constexpr int kMaxMetaBlocks = 12288;    // K blocks: 48 KB of flags
+constexpr int kMaxMetaSlices = 16;       // a non-portable cluster above 8
 
 // the bits of x that make it nonzero: -0 is zero, NaN and denormals live
 __device__ __forceinline__ uint32_t value_bits(float x) {
@@ -679,42 +695,72 @@ __device__ __forceinline__ uint32_t value_bits(uint4 u, bf16) {
   return (u.x | u.y | u.z | u.w) & m;
 }
 
-// One block per M tile.  live[kb] = any A[m, k] != 0 over the tile's rows
-// and the k of block kb: thread t takes column unit t % U of the row
-// group t / U (a unit is a 16-byte piece with VEC, else one element) and
-// ORs its rows' bits in registers, every load of the loop independent of
-// the others; then kidx[tile, :] = live ids ascending, dead ids ascending
-// (ballot scans) and cnt[tile] = the live count.  VEC: 16-byte loads (K,
-// lda and A aligned to 16 bytes) and bk a multiple of the piece.
-template <typename T, bool VEC>
+// One M tile per cluster of S blocks (grid.x = S m_tiles), or with
+// CLUSTER false one block per M tile (S = 1: a plain launch, no cluster
+// barrier).  Rank r owns the K blocks [r kt / S, (r + 1) kt / S)
+// (kernel.py meta_ranges): whole blocks, so no flag is written by two
+// ranks.  Each rank ORs its share of the tile's bm x K slab: thread t takes
+// column unit t % U of the row group t / U (U units in the rank's columns;
+// a unit is a 16-byte piece with VEC, else one element) and ORs its rows'
+// bits in registers, every load of the loop independent of the others,
+// into its own shared flags.  A peer then writes its flags into rank 0's
+// through distributed shared memory (having waited on the cluster barrier
+// it arrived at on entry, so rank 0 has started) and exits after
+// cluster.sync(); rank 0 writes kidx[tile, :] = live ids ascending, dead
+// ids ascending (ballot scans) and cnt[tile] = the live count.  VEC:
+// 16-byte loads (K, lda and A aligned to 16 bytes) and bk a multiple of
+// the piece.
+template <typename T, bool VEC, bool CLUSTER>
 __global__ void __launch_bounds__(kMetaThreads)
     sparse_a_meta_kernel(const T* __restrict__ A, int* __restrict__ kidx,
                          int* __restrict__ cnt, int M, int K, int bm, int bk,
                          int kt, int64_t lda) {
   extern __shared__ int live[];
   constexpr int E = VEC ? 16 / sizeof(T) : 1;    // elements per unit
-  const int tile = blockIdx.x, tid = threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  int S = 1, rank = 0;
+  if constexpr (CLUSTER) {
+    S = static_cast<int>(cluster.num_blocks());
+    rank = static_cast<int>(cluster.block_rank());
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  }
+  const int tile = blockIdx.x / S, tid = threadIdx.x;
   const int64_t m0 = static_cast<int64_t>(tile) * bm;
   const int rows = static_cast<int>(M - m0 < bm ? M - m0 : bm);
-  const int U = K / E;                           // units per row
+  const int lo = static_cast<int>(static_cast<int64_t>(rank) * kt / S);
+  const int hi = static_cast<int>(static_cast<int64_t>(rank + 1) * kt / S);
+  const int k0 = lo * bk;                        // < K: lo < kt
+  const int k1 = static_cast<int>(
+      static_cast<int64_t>(hi) * bk < K ? static_cast<int64_t>(hi) * bk : K);
+  const int U = (k1 - k0) / E;                   // the rank's units per row
   const int groups = U >= kMetaThreads ? 1 : kMetaThreads / U;
-  for (int j = tid; j < kt; j += kMetaThreads) live[j] = 0;
+  for (int j = lo + tid; j < hi; j += kMetaThreads) live[j] = 0;
   __syncthreads();
+  const T* slab = A + m0 * lda + k0;
   for (int e = tid; e < U * groups; e += kMetaThreads) {
     const int g = e / U, v = e - g * U;
     uint32_t bits = 0;
 #pragma unroll 8
     for (int m = g; m < rows; m += groups) {
-      const T* row = A + (m0 + m) * lda;
+      const T* row = slab + m * lda;
       if (VEC)
         bits |= value_bits(__ldg(reinterpret_cast<const uint4*>(row) + v),
                            T());
       else
         bits |= value_bits(row[v]);
     }
-    if (bits) live[v * E / bk] = 1;
+    if (bits) live[(k0 + v * E) / bk] = 1;
   }
-  __syncthreads();
+  __syncthreads();                 // the rank's flags are final
+  if constexpr (CLUSTER) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (rank != 0) {               // into rank 0's flags, which has started
+      int* dst = cluster.map_shared_rank(live, 0);
+      for (int j = lo + tid; j < hi; j += kMetaThreads) dst[j] = live[j];
+    }
+    cluster.sync();                // the peers' flags have landed
+    if (rank != 0) return;
+  }
   if (tid < 32) {  // ballot scans: live ids, then dead ids, each ascending
     int* row = kidx + static_cast<int64_t>(tile) * kt;
     const unsigned below = (1u << tid) - 1;
@@ -735,19 +781,52 @@ __global__ void __launch_bounds__(kMetaThreads)
   }
 }
 
+template <typename T, bool VEC>
+static cudaError_t launch_meta_body(const T* a, int* kidx, int* cnt, int M,
+                                    int K, int bm, int bk, int m_tiles,
+                                    int kt, int64_t lda, int slices,
+                                    cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(kt) * sizeof(int);
+  if (slices == 1) {
+    sparse_a_meta_kernel<T, VEC, false><<<m_tiles, kMetaThreads, smem, s>>>(
+        a, kidx, cnt, M, K, bm, bk, kt, lda);
+    return cudaGetLastError();
+  }
+  auto kernel = sparse_a_meta_kernel<T, VEC, true>;
+  if (slices > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(slices) * m_tiles);
+  cfg.blockDim = dim3(kMetaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a, kidx, cnt, M, K, bm, bk, kt,
+                            lda);
+}
+
 template <typename T>
 static int launch_meta(const void* A, int* kidx, int* cnt, int M, int K,
                        int bm, int bk, int m_tiles, int kt, int64_t lda,
-                       cudaStream_t s) {
+                       int slices, cudaStream_t s) {
   const T* a = static_cast<const T*>(A);
-  const size_t smem = static_cast<size_t>(kt) * sizeof(int);
   constexpr int E = 16 / sizeof(T);
-  if (lda % E == 0 && K % E == 0 && bk % E == 0 && aligned16(A))
-    sparse_a_meta_kernel<T, true><<<m_tiles, kMetaThreads, smem, s>>>(
-        a, kidx, cnt, M, K, bm, bk, kt, lda);
-  else
-    sparse_a_meta_kernel<T, false><<<m_tiles, kMetaThreads, smem, s>>>(
-        a, kidx, cnt, M, K, bm, bk, kt, lda);
+  const cudaError_t err =
+      lda % E == 0 && K % E == 0 && bk % E == 0 && aligned16(A)
+          ? launch_meta_body<T, true>(a, kidx, cnt, M, K, bm, bk, m_tiles,
+                                      kt, lda, slices, s)
+          : launch_meta_body<T, false>(a, kidx, cnt, M, K, bm, bk, m_tiles,
+                                       kt, lda, slices, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -814,23 +893,29 @@ extern "C" int sparse_a_gemm(int dtype, const void* A, const void* B,
 }
 
 // kidx (m_tiles, kt) and cnt (m_tiles,) int32 of A (M, K), row stride lda:
-// M tiles of bm rows, K blocks of bk columns, kt = ceil(K / bk).  Returns
-// the cudaError_t of the launch (0 = cudaSuccess).
+// M tiles of bm rows, K blocks of bk columns, kt = ceil(K / bk); slices:
+// the cluster's blocks per M tile (kernel.py meta_slices: a power of two,
+// 1..16, at most kt).  Returns the cudaError_t of the launch (0 =
+// cudaSuccess).
 extern "C" int sparse_a_meta(int dtype, const void* A, void* kidx, void* cnt,
                              int M, int K, int bm, int bk, int m_tiles,
-                             int kt, long long lda, void* stream) {
+                             int kt, long long lda, int slices,
+                             void* stream) {
   if (M <= 0 || K <= 0 || bm <= 0 || bk <= 0 || m_tiles <= 0 ||
       (int64_t)m_tiles * bm < M || (int64_t)kt * bk < K ||
-      kt > griffin::kMaxMetaBlocks)
+      (int64_t)(kt - 1) * bk >= K || kt > griffin::kMaxMetaBlocks ||
+      slices < 1 || slices > griffin::kMaxMetaSlices ||
+      (slices & (slices - 1)) || slices > kt ||
+      (int64_t)slices * m_tiles > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* ki = static_cast<int*>(kidx);
   int* ct = static_cast<int*>(cnt);
   if (dtype == griffin::kFloat32)
     return griffin::launch_meta<float>(A, ki, ct, M, K, bm, bk, m_tiles, kt,
-                                       lda, s);
+                                       lda, slices, s);
   if (dtype == griffin::kBFloat16)
     return griffin::launch_meta<__nv_bfloat16>(A, ki, ct, M, K, bm, bk,
-                                               m_tiles, kt, lda, s);
+                                               m_tiles, kt, lda, slices, s);
   return (int)cudaErrorInvalidValue;
 }

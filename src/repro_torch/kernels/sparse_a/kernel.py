@@ -20,8 +20,16 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
              + [ctypes.c_void_p])
 _META_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                  + [ctypes.c_longlong, ctypes.c_void_p])
+                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 MAX_RANK_BLOCKS = 4096    # K blocks one rank may own (its lists fit)
+META_THREADS = 1024       # threads of a metadata block (kMetaThreads)
+META_UNIT = 16            # bytes a metadata thread loads at once
+# the metadata cluster's largest split: 16, a non-portable cluster (the
+# portable limit is 8); on the card 16 beat 8 at 32 x 4096 and 128 x 8192
+MAX_META_SLICES = 16
+# a tile's slab below this many bytes is one block: on the card a cluster
+# adds ~1.1 us of barriers and launch, more than spreading these loads saves
+META_MIN_SPLIT_BYTES = 128 << 10
 
 # routes of the C interface
 CORE, ROWS, KMAJOR = 0, 1, 2
@@ -68,6 +76,33 @@ def split_plan(k: int, n: int, block_k: int, kmajor: bool = False
         if slices * splits >= MIN_BLOCKS:
             return SplitPlan(splits, cols, chunk)
     return SplitPlan(least_split(-(-n // 16), kb), 16, chunk)
+
+
+def meta_slices(rows: int, k: int, block_k: int, itemsize: int,
+                cap: int = MAX_META_SLICES) -> int:
+    """The metadata kernel's split S of one M tile across a thread block
+    cluster: 1 (a plain launch) for a ``rows`` x ``k`` slab under
+    ``META_MIN_SPLIT_BYTES``; else the largest power of two up to ``cap``
+    that leaves each block at least one 16-byte unit of the slab a thread
+    and each rank at least one whole K block.  A function of the shapes
+    alone; the flags it yields are a pure function of A whatever S is."""
+    if rows * k * itemsize < META_MIN_SPLIT_BYTES:
+        return 1
+    units = rows * -(-k * itemsize // META_UNIT)
+    kt = -(-k // block_k)
+    slices = 1
+    while slices * 2 <= min(cap, kt) and \
+            units // (slices * 2) >= META_THREADS:
+        slices *= 2
+    return slices
+
+
+def meta_ranges(kt: int, slices: int) -> Tuple[range, ...]:
+    """The K blocks each rank of a metadata cluster owns, as the kernel
+    computes them: rank r takes the whole blocks [r kt / S, (r + 1) kt /
+    S)."""
+    return tuple(range(r * kt // slices, (r + 1) * kt // slices)
+                 for r in range(slices))
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -133,19 +168,23 @@ def sparse_a_gemm(a: torch.Tensor, b: torch.Tensor, kidx: torch.Tensor,
 
 
 def sparse_a_meta(a: torch.Tensor, *, block_m: int, block_k: int,
-                  m_tiles: int, k_tiles: int
+                  m_tiles: int, k_tiles: int, slices: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(kidx (m_tiles, k_tiles), cnt (m_tiles,)) int32 of ``a`` in one
-    launch on the current stream, no host sync.  The caller
+    launch on the current stream, no host sync; each M tile a cluster of
+    ``slices`` blocks (default ``meta_slices``).  The caller
     (``ops.compact_activations``) has validated ``a``."""
     m, k = a.shape
+    if slices is None:
+        slices = meta_slices(min(m, block_m), k, block_k, a.element_size())
     kidx = torch.empty((m_tiles, k_tiles), dtype=torch.int32,
                        device=a.device)
     cnt = torch.empty((m_tiles,), dtype=torch.int32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _fn("sparse_a_meta", _META_ARGTYPES)(
         DTYPE_CODES[a.dtype], a.data_ptr(), kidx.data_ptr(), cnt.data_ptr(),
-        m, k, block_m, block_k, m_tiles, k_tiles, a.stride(0), stream)
+        m, k, block_m, block_k, m_tiles, k_tiles, a.stride(0), slices,
+        stream)
     build.check_launch(META, err)
     build.count_launch(META)
     return kidx, cnt

@@ -26,7 +26,8 @@ from ..core.hybrid import SPARSE_THRESHOLD, select_mode
 from ..core.spec import Mode
 from ..kernels.dense_gemm.ops import dense_matmul
 from ..kernels.griffin_spmm.ops import GriffinWeights, griffin_matmul
-from ..kernels.sparse_a.ops import sparse_a_matmul
+from ..kernels.sparse_a.ops import (ActivationMeta, compact_activations,
+                                    sparse_a_matmul)
 from ..optim.compression import dequantize_rows, quantize_rows
 
 
@@ -90,7 +91,34 @@ def _dispatched(bucket: str) -> None:
     KERNEL_DISPATCH[bucket] = KERNEL_DISPATCH.get(bucket, 0) + 1
 
 
-def griffin_linear(x: torch.Tensor, w) -> torch.Tensor:
+def _mode_a(ctx: SparseExecution) -> bool:
+    """Whether the scope sends a dense leaf through Sparse.A."""
+    return ctx.use_kernels and select_mode(
+        ctx.a_sparsity, 0.0, threshold=ctx.a_threshold) == Mode.A
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the contiguous (M, K) matrix ``griffin_linear`` multiplies:
+    leading batch/sequence axes flattened into M."""
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+def shared_activation_meta(x: torch.Tensor, *ws
+                           ) -> Optional[ActivationMeta]:
+    """The Sparse.A metadata of ``x``, built once for the leaves ``ws``
+    that all multiply it (``griffin_linear(x, w, meta=...)``), when the
+    current scope sends one of them, a dense leaf, through Sparse.A; else
+    None.  The metadata is a pure function of ``x``, so sharing it changes
+    no bit of any output (the reference gets the sharing from XLA under
+    ``jit``)."""
+    ctx = _EXEC_STACK[-1]
+    if not _mode_a(ctx) or all(isinstance(w, GriffinWeights) for w in ws):
+        return None
+    return compact_activations(_rows(x), block_m=ctx.block_m)
+
+
+def griffin_linear(x: torch.Tensor, w,
+                   meta: Optional[ActivationMeta] = None) -> torch.Tensor:
     """The weight GEMM of the model stack: ``x @ w`` morphed per call.
 
       GriffinWeights    -> griffin_spmm kernel (Sparse.B); dual when the
@@ -101,10 +129,13 @@ def griffin_linear(x: torch.Tensor, w) -> torch.Tensor:
                            activations (Sparse.A), else dense_gemm
 
     Leading batch/sequence axes are flattened into the GEMM M axis.
+    ``meta``: the Sparse.A metadata of ``x`` from
+    :func:`shared_activation_meta`, used only where the leaf takes
+    Sparse.A (None: built here).
     """
     ctx = _EXEC_STACK[-1]
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    x2 = _rows(x)
     if isinstance(w, GriffinWeights):
         thr = w.a_thr if w.a_thr is not None else ctx.a_threshold
         dual = select_mode(ctx.a_sparsity, 1.0, threshold=thr) == Mode.AB
@@ -119,8 +150,8 @@ def griffin_linear(x: torch.Tensor, w) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, w.dtype)
         return x.to(dt) @ w.to(dt)
     _dispatched("kernel")
-    if select_mode(ctx.a_sparsity, 0.0, threshold=ctx.a_threshold) == Mode.A:
-        out = sparse_a_matmul(x2, w, block_m=ctx.block_m)
+    if _mode_a(ctx):
+        out = sparse_a_matmul(x2, w, block_m=ctx.block_m, meta=meta)
     else:
         out = dense_matmul(x2, w)
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)

@@ -26,8 +26,8 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import attention, decode_attention
 from .common import (act_fn, dense_init, griffin_linear, paged_slot,
-                     paged_view, paged_write, rms_norm, rope, take_last,
-                     write_kv_slot)
+                     paged_view, paged_write, rms_norm, rope,
+                     shared_activation_meta, take_last, write_kv_slot)
 
 Params = Dict[str, Any]
 
@@ -83,8 +83,9 @@ def _layer(params: Params, i: int) -> Params:
 
 
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = act_fn(cfg.act)(griffin_linear(x, p["w_gate"])) * \
-        griffin_linear(x, p["w_up"])
+    meta = shared_activation_meta(x, p["w_gate"], p["w_up"])
+    h = act_fn(cfg.act)(griffin_linear(x, p["w_gate"], meta=meta)) * \
+        griffin_linear(x, p["w_up"], meta=meta)
     return griffin_linear(h, p["w_down"]).to(x.dtype)
 
 
@@ -92,9 +93,10 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
          positions: torch.Tensor):
     B, S, _ = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = griffin_linear(x, p["wq"]).reshape(B, S, H, hd)
-    k = griffin_linear(x, p["wk"]).reshape(B, S, KVH, hd)
-    v = griffin_linear(x, p["wv"]).reshape(B, S, KVH, hd)
+    meta = shared_activation_meta(x, p["wq"], p["wk"], p["wv"])
+    q = griffin_linear(x, p["wq"], meta=meta).reshape(B, S, H, hd)
+    k = griffin_linear(x, p["wk"], meta=meta).reshape(B, S, KVH, hd)
+    v = griffin_linear(x, p["wv"], meta=meta).reshape(B, S, KVH, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)

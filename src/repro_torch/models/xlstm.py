@@ -38,7 +38,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .common import (dense_init, griffin_linear, length_mask, rms_norm,
-                     stack_layers, stack_slice, take_last, tree_sum)
+                     shared_activation_meta, stack_layers, stack_slice,
+                     take_last, tree_sum)
 
 Params = Dict[str, Any]
 MIN_NORM = 1e-6
@@ -232,8 +233,9 @@ def mlstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor, state=None,
     q = _headwise(xh, _blockdiag_t(p["wq"])).to(dt)
     k = _headwise(xh, _blockdiag_t(p["wk"])).to(dt) / root
     v = _headwise(xh, _blockdiag_t(p["wv"])).to(dt)
-    i_pre = griffin_linear(xm, p["wi"])
-    f_pre = griffin_linear(xm, p["wf"])
+    meta = shared_activation_meta(xm, p["wi"], p["wf"])
+    i_pre = griffin_linear(xm, p["wi"], meta=meta)
+    f_pre = griffin_linear(xm, p["wf"], meta=meta)
     if mask is not None:
         m3 = mask[:, :, None]
         i_pre = torch.where(m3, i_pre, -PAD_GATE)

@@ -235,6 +235,103 @@ def test_compact_activations_on_card_equals_cpu(cuda, shape):
         assert int(meta.cnt.max()) < meta.k // meta.block_k
 
 
+def _meta_input(g, cuda, m, k, bk, dtype, lda, offset):
+    """A (m, k) view of ``dtype`` with row stride ``lda``, ``offset``
+    elements into its storage (unaligned for offset 1): some (tile, K
+    block) pairs zero, a block of -0, a block live only through one NaN."""
+    store = torch.randn(offset + m * lda, generator=g, device=cuda).to(dtype)
+    a = store[offset:].view(m, lda)[:, :k]
+    _zero_blocks(a, 128, bk, 3)
+    kt = -(-k // bk)
+    a[:, bk:2 * bk] = -0.0
+    if kt > 2:
+        a[:, 2 * bk:3 * bk] = 0
+        a[-1, 2 * bk + 1] = float("nan")
+    return a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("k", [2048, 4096, 4100, 8192, 14336])
+@pytest.mark.parametrize("m", [1, 4, 32, 128, 129, 512])
+def test_sparse_a_meta_v2_bit_equal_to_plain(cuda, m, k, bk, dtype):
+    """The cluster metadata kernel (``meta_slices`` blocks a tile) on a
+    contiguous A, on rows wider than K (lda > K) and on an A one element
+    off 16-byte alignment (the scalar path): bit-equal to the plain
+    metadata, -0 dead, NaN live, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + bk)
+    dt = DTYPES[dtype]
+    for lda, offset in ((k, 0), (k + 64, 0), (k, 1)):
+        a = _meta_input(g, cuda, m, k, bk, dt, lda, offset)
+        if lda != k or offset:
+            # the wrapper takes only a contiguous A: launch on the view
+            bm = min(128, -(-m // 8) * 8)
+            mt, kt = -(-m // bm), -(-k // bk)
+            before = launch_counts()["sparse_a_meta"]
+            kidx, cnt = k3.sparse_a_meta(a, block_m=bm, block_k=bk,
+                                         m_tiles=mt, k_tiles=kt)
+        else:
+            before = launch_counts()["sparse_a_meta"]
+            meta = compact_activations(a, block_k=bk)
+            kidx, cnt, bm = meta.kidx, meta.cnt, meta.block_m
+        torch.cuda.synchronize()
+        assert launch_counts()["sparse_a_meta"] == before + 1
+        want = compact_activations_ref(a, block_m=bm, block_k=bk)
+        assert torch.equal(kidx, want[0]) and torch.equal(cnt, want[1]), \
+            (lda, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slices", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", [(128, 8192), (32, 4096), (300, 14336)])
+def test_sparse_a_meta_every_split_gives_the_same_bits(cuda, shape, slices):
+    """Any power-of-two split up to the non-portable 16 gives the plain
+    metadata: the flags are a pure function of A."""
+    m, k = shape
+    g = torch.Generator(device=cuda).manual_seed(slices)
+    a = _meta_input(g, cuda, m, k, 128, torch.bfloat16, k, 0)
+    kidx, cnt = k3.sparse_a_meta(a, block_m=128, block_k=128,
+                                 m_tiles=-(-m // 128), k_tiles=k // 128,
+                                 slices=slices)
+    want = compact_activations_ref(a, block_m=128, block_k=128)
+    torch.cuda.synchronize()
+    assert torch.equal(kidx, want[0]) and torch.equal(cnt, want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["llama-mode-a", "xlstm-mode-ab"])
+def test_shared_metadata_serve_paths_match_oracle_on_card(cuda, family):
+    """With the metadata built once per distinct input (llama: 4 L + 1 a
+    model call in Mode.A; xlstm: one per mLSTM block in Mode.AB), every
+    request equals the batch-1 oracle's tokens."""
+    arch = "llama3.2-1b" if family.startswith("llama") else "xlstm-1.3b"
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = api.init(api.generator(0))
+    if arch == "xlstm-1.3b":
+        params = sparsify_params(params, 0.6, block_k=16, block_n=16, unit=8)
+        per_call = cfg.num_layers * sum(b == "m" for b in cfg.xlstm_pattern) \
+            // len(cfg.xlstm_pattern)
+    else:
+        per_call = 4 * cfg.num_layers + 1
+    eng = ServeEngine(api, params, EngineConfig().with_fields(
+        num_slots=4, cache_len=40, decode_chunk=8, use_kernels=True,
+        a_sparsity=0.5, measure_every=64))
+    reqs = synthetic_trace(cfg, num_requests=6, seed=1,
+                           prompt_lens=(8, 16, 23), gen_lens=(4, 8, 16))
+    before = launch_counts()["sparse_a_meta"]
+    outs = eng.run(reqs)
+    calls = eng.stats["prefill_calls"] + eng.stats["decode_steps"]
+    assert launch_counts()["sparse_a_meta"] - before == calls * per_call
+    for r in reqs:
+        with eng._scope():
+            ref = greedy_generate(api, params, r.as_batch(cuda),
+                                  steps=r.max_new_tokens, cache_len=40,
+                                  prompt_bucket=eng.bucket_for(r.prompt_len))
+        assert outs[r.rid].tokens == ref[0].tolist(), r.rid
+
+
 @pytest.mark.gpu
 def test_kernels_are_batch_invariant(cuda):
     """A row's output bits do not depend on the other rows (engine vs
@@ -848,6 +945,33 @@ def test_batch_eval_empty_streams_launch_nothing(cuda):
     # all chunks empty: no placement, the window just travels
     out = schedule_cycles(np.zeros((3, 10, 16, 1), dtype=bool), 2, 1, 0)
     np.testing.assert_array_equal(out, [4, 4, 4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kg", [(16, 1), (16, 4)], ids=["16x1", "16x4"])
+@pytest.mark.parametrize("route", ["scan", "chain"])
+@pytest.mark.parametrize("d1", [0, 31, 127])
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 84, 200])
+def test_batch_eval_v2_routes_match_engine_and_plain(cuda, T, d1, route, kg):
+    """Both routes (scan: (d1, 0, 0); chain: (d1, 1, 1)) give the numpy
+    engine's cycles and, where its loop is short enough to run here
+    (T x window <= 3000 steps), the plain version's; 16- and 64-bit chunks,
+    one tile empty, one with empty chunks, shuffle on."""
+    cfg = (d1, 0, 0) if route == "scan" else (d1, 1, 1)
+    assert batch_eval_kernel.route(*cfg) == route
+    rng = np.random.default_rng(T + d1)
+    mask = rng.random((40, T) + kg) < \
+        np.linspace(0.02, 0.9, 40)[:, None, None, None]
+    mask[0] = False
+    mask[1, ::2] = False
+    for sh in (False, True):
+        got = schedule_cycles(mask, *cfg, shuffle=sh)
+        np.testing.assert_array_equal(got,
+                                      schedule(mask, *cfg, shuffle=sh).cycles)
+    if T * min(d1 + 1, T) <= 3000:
+        dev = torch.from_numpy(mask).to(cuda)
+        torch.testing.assert_close(batch_eval_kernel.batch_eval(dev, *cfg),
+                                   schedule_cycles_ref(dev, *cfg))
 
 
 # ---------------------------------------------------------------------------

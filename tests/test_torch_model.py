@@ -16,7 +16,8 @@ from repro.runtime.serve import greedy_generate as jax_greedy
 from repro.sparsity import sparsify_params as jax_sparsify
 from repro_torch import bridge
 from repro_torch.configs import get_config
-from repro_torch.models import build_model
+from repro_torch.kernels.sparse_a import ops as sparse_a_ops
+from repro_torch.models import build_model, common, transformer
 from repro_torch.models.common import (kernel_dispatch_counts,
                                        reset_kernel_dispatch,
                                        sparse_execution, tree_sum)
@@ -202,6 +203,81 @@ def test_sparse_a_mode_not_ported(pair, rows):
     if compacted:
         want["dual"] = 14
     assert counts == want
+
+
+def count_meta_builds(monkeypatch):
+    """A list that grows by one at every activation-metadata build, at the
+    shared sites (``models.common``) and inside ``sparse_a_matmul``."""
+    builds = []
+    for mod in (common, sparse_a_ops):
+        def counted(*args, _real=mod.compact_activations, **kw):
+            builds.append(1)
+            return _real(*args, **kw)
+        monkeypatch.setattr(mod, "compact_activations", counted)
+    return builds
+
+
+def _prefill_and_decode(tapi, tparams, toks, steps=2):
+    """Prefill then ``steps`` greedy decode steps under the Mode.A scope:
+    the logits of each model call and the metadata builds of each."""
+    logits = []
+    with sparse_execution(use_kernels=True, a_sparsity=0.5):
+        cache, log = tapi.prefill(tparams, {"tokens": torch.from_numpy(
+            toks.astype(np.int64))}, cache_len=24)
+        logits.append(log)
+        for _ in range(steps):
+            nxt = log.argmax(-1, keepdim=True)
+            log, cache = tapi.decode_step(tparams, cache, nxt)
+            logits.append(log)
+    return logits
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_mode_a_builds_metadata_once_per_distinct_input(pair, rows,
+                                                        monkeypatch):
+    """Under Mode.A each model call builds the activation metadata once
+    per distinct input: wq/wk/wv share one, w_gate/w_up another, wo and
+    w_down one each, plus the unembedding: 4 L + 1 (9 at 2 layers), where
+    every dense GEMM built its own (15).  With compacted weights only the
+    dense unembedding takes Sparse.A: 1.  The logits are bit-equal to a
+    run that shares nothing, and equal to the reference's."""
+    japi, jparams, tapi, tparams, compacted = pair
+    toks = np.random.RandomState(10 + rows).randint(1, 128, (rows, 9)) \
+        .astype(np.int32)
+    layers = tapi.cfg.num_layers
+    builds = count_meta_builds(monkeypatch)
+    shared = _prefill_and_decode(tapi, tparams, toks)
+    assert len(builds) == 3 * (1 if compacted else 4 * layers + 1)
+    builds.clear()
+    monkeypatch.setattr(transformer, "shared_activation_meta",
+                        lambda x, *ws: None)
+    alone = _prefill_and_decode(tapi, tparams, toks)
+    assert len(builds) == 3 * (1 if compacted else 7 * layers + 1)
+    for a, b in zip(shared, alone):
+        assert torch.equal(a, b)
+    with jax_scope(use_kernels=True, interpret=True, a_sparsity=0.5):
+        _, jlog = japi.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                               cache_len=24)
+    np.testing.assert_allclose(shared[0].numpy(), np.asarray(jlog), **TOL)
+
+
+def test_shared_meta_only_where_a_dense_leaf_takes_mode_a(pair):
+    """The helper builds nothing outside a Mode.A kernel scope, and
+    nothing for leaves that are all compacted."""
+    _, _, _, tparams, compacted = pair
+    x = torch.randn(2, 3, 64)
+    w = tparams["layers"]["wq"][0]
+    assert common.shared_activation_meta(x, w) is None
+    with sparse_execution(use_kernels=True):
+        assert common.shared_activation_meta(x, w) is None
+    with sparse_execution(use_kernels=False, a_sparsity=0.5):
+        assert common.shared_activation_meta(x, w) is None
+    with sparse_execution(use_kernels=True, a_sparsity=0.5, block_m=8):
+        meta = common.shared_activation_meta(x, w)
+        if compacted:
+            assert meta is None
+        else:
+            assert (meta.m, meta.k, meta.block_m) == (8, 64, 8)
 
 
 def test_declared_a_sparsity_without_kernels_is_the_plain_dot(pair):

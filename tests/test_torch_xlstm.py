@@ -28,6 +28,7 @@ import torch
 import repro.models.xlstm as jx
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
+from repro.models.common import sparse_execution as jax_scope
 from repro.runtime.config import ArenaConfig as JaxArenaConfig
 from repro.runtime.config import EngineConfig as JaxEngineConfig
 from repro.runtime.engine import ServeEngine as JaxServeEngine
@@ -39,11 +40,13 @@ import chip_smoke
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.kernels import GriffinWeights
+from repro_torch.kernels.sparse_a import ops as sparse_a_ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
-from repro_torch.models import xlstm
+from repro_torch.models import common, xlstm
 from repro_torch.models.common import (kernel_dispatch_counts,
-                                       reset_kernel_dispatch)
+                                       reset_kernel_dispatch,
+                                       sparse_execution)
 from repro_torch.runtime.config import EngineConfig
 from repro_torch.runtime.engine import (ServeEngine, synthetic_trace,
                                         weight_sparsity)
@@ -308,10 +311,10 @@ def test_mlstm_block_at_bf16_takes_the_reference_dtype_flow(ref_bf16,
     seen = []
     real = xlstm.griffin_linear
 
-    def spy(x, w):
+    def spy(x, w, **kw):
         if w is p["w_down"]:
             seen.append(x.dtype)
-        return real(x, w)
+        return real(x, w, **kw)
 
     monkeypatch.setattr(xlstm, "griffin_linear", spy)
     x = jnp.asarray(np.random.default_rng(5).standard_normal(
@@ -382,11 +385,11 @@ def test_every_gemm_input_has_the_reference_dtype_at_bf16(arch,
     seen = {"jax": set(), "torch": set()}
 
     def spy(side, real):
-        def f(x, w):
+        def f(x, w, **kw):
             shape = tuple(w.shape[-2:]) if hasattr(w, "shape") else \
                 (w.k, w.n)
             seen[side].add((str(x.dtype).split(".")[-1], shape))
-            return real(x, w)
+            return real(x, w, **kw)
         return f
 
     for mod, side in ((jx, "jax"), (jtr, "jax"), (xlstm, "torch"),
@@ -725,14 +728,28 @@ def _depth_true_cfg():
                                xlstm_pattern=get_config(ARCH).xlstm_pattern)
 
 
+def count_meta_builds(monkeypatch):
+    """A list that grows by one at every activation-metadata build, at the
+    shared sites (``models.common``) and inside ``sparse_a_matmul``."""
+    builds = []
+    for mod in (common, sparse_a_ops):
+        def counted(*args, _real=mod.compact_activations, **kw):
+            builds.append(1)
+            return _real(*args, **kw)
+        monkeypatch.setattr(mod, "compact_activations", counted)
+    return builds
+
+
 @pytest.mark.parametrize("path", ["xlstm_sparse_b", "xlstm_mode_ab"])
-def test_dispatch_per_model_call_equals_the_smokes_gates(path):
+def test_dispatch_per_model_call_equals_the_smokes_gates(path, monkeypatch):
     """Per model call (a prefill or a decode step) of a depth-true model:
     the GEMMs the smoke's launch gates count.  Sparse.B: 121 compacted
     leaves through griffin_spmm + 84 plain (din x heads) leaves through
-    dense_gemm; Mode.AB: the 121 dual, the 84 through sparse_a (and its
-    metadata); no plain GEMM either way."""
+    dense_gemm; Mode.AB: the 121 dual, the 84 through sparse_a, and its
+    metadata built once per mLSTM block (wi and wf share ``xm``): 42; no
+    plain GEMM either way."""
     spec = chip_smoke.XLSTM_PATHS[path]
+    builds = count_meta_builds(monkeypatch)
     cfg = _depth_true_cfg()
     api = build_model(cfg, device="cpu")
     params = sparsify_params(api.init(api.generator(0)), spec["sparsity"],
@@ -755,7 +772,50 @@ def test_dispatch_per_model_call_equals_the_smokes_gates(path):
     assert got == want
     assert launches["griffin_spmm"] == 121
     assert launches["dense_gemm"] + launches["sparse_a"] == 84
-    assert launches["sparse_a"] == launches["sparse_a_meta"]
+    mode_ab = path == "xlstm_mode_ab"
+    assert launches["sparse_a"] == (84 if mode_ab else 0)
+    assert launches["sparse_a_meta"] == (42 if mode_ab else 0)
+    assert len(builds) == calls * launches["sparse_a_meta"]
+
+
+def _mode_ab_calls(api, params, toks, steps=2):
+    """Prefill then ``steps`` greedy decode steps under the Mode.AB
+    scope: each model call's logits."""
+    logits = []
+    with sparse_execution(use_kernels=True, a_sparsity=0.5):
+        cache, log = api.prefill(params, {"tokens": torch.from_numpy(
+            toks.astype(np.int64))})
+        logits.append(log)
+        for _ in range(steps):
+            log, cache = api.decode_step(params, cache,
+                                         log.argmax(-1, keepdim=True))
+            logits.append(log)
+    return logits
+
+
+def test_mode_ab_shares_the_gate_metadata(ref, monkeypatch):
+    """Reduced xlstm in Mode.AB: ``wi`` and ``wf`` share the metadata of
+    ``xm``, one build per mLSTM block a model call where each gate built
+    its own.  The logits are bit-equal to a run that shares nothing, and
+    equal to the reference's under the same scope."""
+    _, japi, jparams, tcfg, tapi, _ = ref
+    jparams = jax_sparsify(jparams, 0.6, **PRUNE)
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    groups, per_group, _ = xlstm.group_counts(tcfg)
+    blocks = groups * per_group
+    toks = _prompts(np.random.default_rng(12), 2, 8)
+    builds = count_meta_builds(monkeypatch)
+    shared = _mode_ab_calls(tapi, tparams, toks)
+    assert len(builds) == 3 * blocks
+    builds.clear()
+    monkeypatch.setattr(xlstm, "shared_activation_meta", lambda x, *ws: None)
+    alone = _mode_ab_calls(tapi, tparams, toks)
+    assert len(builds) == 3 * 2 * blocks
+    for a, b in zip(shared, alone):
+        assert torch.equal(a, b)
+    with jax_scope(use_kernels=True, interpret=True, a_sparsity=0.5):
+        _, jlog = japi.prefill(jparams, {"tokens": jnp.asarray(toks)})
+    _close(shared[0], jlog)
 
 
 # ---------------------------------------------------------------------------
