@@ -52,6 +52,13 @@ Phases, in order; any failure exits non-zero before the result line:
              (bf16, fp32, fp32 A x bf16 weight) and sparse_a (bf16, fp32,
              and fp32 A x bf16 weight timed, with its metadata) at the
              (4096 x 4) mLSTM gate leaves, the N edge below one vector.
+             At recurrentgemma-9b's shapes (``HYBRID_SPMM``: the MLPs'
+             4096 x 12288 and 12288 x 4096, 4096 x 4096, the MQA 4096 x
+             256 and the 4096 x 256000 untied head) griffin_spmm is
+             checked, dual and not, held batch invariant and timed at M 4
+             and 32 (bf16), and dense_gemm's wide route and sparse_a with
+             its metadata at the rec blocks' dense 4096 x 4096 leaves in
+             bf16 (w_x, w_out) and fp32 (the gates w_rg, w_ig).
              The metadata kernel alone (``META_SHAPES``: 4 x 2048, 4 x
              4096, 32 x 4096, 128 x 8192, bf16, every block live) with its
              cluster
@@ -131,6 +138,33 @@ Phases, in order; any failure exits non-zero before the result line:
              After xlstm_sparse_b, its weights prefill 32 and 256 tokens
              (seconds, memory rise within 3 GiB, the sLSTM blocks' share of
              the 32-token prefill).
+             Then full-width recurrentgemma-9b (38 blocks: 12 groups of
+             (rec, rec, attn) and a tail of 2 rec blocks, each with its
+             GeGLU MLP; d=4096, lru_width 4096, conv 4, 16 heads, MQA,
+             head_dim 256, window 2048, d_ff 12288, vocab 256000, untied
+             head, bf16, seed 0) on the same trace, with the same checks
+             but the gaps to fp32 (its fp32 twin would not fit beside the
+             served and the plain weights), in three paths
+             (``HYBRID_PATHS``):
+               hybrid_sparse_b - pruned 0.8 at 128x128 / unit 32 and
+                          compacted, 4 slots: griffin_spmm 189x and
+                          dense_gemm 104x (w_x, w_out in bf16; w_rg, w_ig
+                          fp32 A against fp32 weights) per model call;
+               hybrid_mode_ab - the same weights, declared activation
+                          sparsity 0.5: griffin_spmm 189x dual, sparse_a
+                          104x and sparse_a_meta 78x (w_x's input, the
+                          gates' shared input and w_out's, per rec block);
+               hybrid_paged - hybrid_sparse_b's weights on sparse_b_paged's
+                          arena: k/v paged (window 2048 >= cache_len), the
+                          recurrent and conv state fixed beside the pools;
+                          its tokens must equal hybrid_sparse_b's.
+             After hybrid_sparse_b, hybrid_long_window: its weights prefill
+             one 4200-token prompt with cache_len 4224 (the K/V cache
+             keeps the last 2048 rows rolled by 4200 % 2048), then decode
+             8 seeded tokens through the wrap; logits within 2% (relative
+             L2) of the plain route at the prefill and at every step, every
+             K/V cache row within 5%, launches exactly 9 model calls' worth,
+             memory rise within 3 GiB, seconds printed.
 4. long_prefill - after sparse_b, its weights prefill one 2048-token and
              one 4096-token prompt (cache_len = prompt length): seconds
              and the rise of torch.cuda.max_memory_allocated() over the
@@ -334,6 +368,36 @@ XLSTM_PATHS = {
     "xlstm_paged_degrades": dict(XLSTM_SB, arena=dict(
         FIXED, page_size=16, num_pages=13)),
 }
+# the hybrid family: full-width recurrentgemma-9b (12 groups of (rec, rec,
+# attn) + a tail of 2 rec blocks, each block with its GeGLU MLP) on TRACE.
+# Per model call griffin_spmm runs its 189 compacted leaves (per group the
+# two rec blocks' w_gate, the attention block's four and the three MLPs'
+# nine, per tail block its w_gate and MLP, and the untied head); the 26
+# rec blocks' dense w_x and w_out (bf16) and the gate leaves w_rg and w_ig
+# (fp32 A against their weights widened to fp32, as in the reference) go
+# through dense_gemm, or in Mode.AB through sparse_a with its metadata
+# built once per distinct input: w_x's, the shared w_rg/w_ig input and
+# w_out's (tests/test_torch_rglru.py counts them on the CPU).  The paged
+# path pages k/v (window 2048 >= cache_len) and keeps the recurrent state
+# fixed; its tokens must equal hybrid_sparse_b's.
+HYBRID = "recurrentgemma-9b"
+HYBRID_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
+                 launches={"dense_gemm": 104, "griffin_spmm": 189,
+                           "sparse_a": 0, "sparse_a_meta": 0,
+                           "batch_eval": 0}, dual=0)
+HYBRID_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
+                 launches={"dense_gemm": 0, "griffin_spmm": 189,
+                           "sparse_a": 104, "sparse_a_meta": 78,
+                           "batch_eval": 0}, dual=189)
+HYBRID_PATHS = {
+    "hybrid_sparse_b": dict(HYBRID_SB, arena=FIXED),
+    "hybrid_mode_ab": dict(HYBRID_AB, arena=FIXED),
+    "hybrid_paged": dict(HYBRID_SB, arena=PAGED),
+}
+# hybrid_long_window, on hybrid_sparse_b's weights: one prompt longer than
+# the window straight through the model's prefill (the keep-the-last-
+# window-and-roll branch), then decode steps that wrap the rolling cache
+HYBRID_LONG = dict(prompt=4200, cache_len=4224, steps=8)
 # the reference benchmark's int8 gate (benchmarks/bench_serve.py
 # PAGED_INT8_TOL), on its teacher-forced recipe: one 24-token prompt, 48
 # decode steps, pages of 16 in a cache of 128
@@ -348,6 +412,16 @@ XLSTM_SPMM = {"w_up": (2048, 8192), "w_down": (4096, 2048),
               "w_ff2": (2730, 2048), "head": (2048, 50304)}
 XLSTM_GATE = (4096, 4)
 XLSTM_ROWS = (4, 32)             # decode slots, the largest prefill bucket
+# recurrentgemma-9b's GEMM shapes (K x N): the compacted leaves griffin_spmm
+# runs (the MLPs' w_gate/w_up and w_down, the attention's wq/wo and the rec
+# blocks' w_gate, the MQA wk/wv and the 256000-column untied head) and the
+# rec blocks' dense leaves, which dense_gemm (Sparse.B) or sparse_a
+# (Mode.AB) runs: w_x and w_out in bf16, the gates w_rg and w_ig in fp32
+HYBRID_SPMM = {"w_gate/w_up": (4096, 12288), "w_down": (12288, 4096),
+               "wq/wo/rec w_gate": (4096, 4096), "wk/wv": (4096, 256),
+               "head": (4096, 256000)}
+HYBRID_DENSE = (4096, 4096)
+HYBRID_DENSE_LEAVES = {"bfloat16": "w_x/w_out", "float32": "w_rg/w_ig"}
 # the metadata kernel alone: a decode step's A at llama's K 2048 and at
 # xlstm's gate K 4096, a 32-row bucket at K 4096 and one full 128-row
 # prefill tile at w_down's K 8192
@@ -751,6 +825,7 @@ def phase_kernels(torch):
                         rows.append(row)
     rows += spmm_granularities(torch, gen, summary)
     rows += kernel_xlstm(torch, gen, summary)
+    rows += kernel_hybrid(torch, gen, summary)
     rows += kernel_sparse_a(torch, gen, summary)
     rows += kernel_meta(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
@@ -942,6 +1017,132 @@ def kernel_xlstm(torch, gen, summary):
     return rows
 
 
+def kernel_hybrid(torch, gen, summary):
+    """The kernels at recurrentgemma-9b's shapes, M 4 and 32 (decode slots,
+    the largest prefill bucket): griffin_spmm at its five compacted shapes
+    (``HYBRID_SPMM``, bf16, pruned 0.8 at 128 x 128 / unit 32, balanced),
+    dual and not, against its plain version, held batch invariant and
+    timed beside its bound and torch.matmul; dense_gemm's wide route and
+    sparse_a (every block live, with its metadata, bit-equal to the plain
+    metadata) at the rec blocks' dense 4096 x 4096 leaves in bf16 (w_x,
+    w_out) and fp32 (the gates w_rg and w_ig, fp32 A against the weight
+    widened to fp32, as the model runs them), each checked, held batch
+    invariant and timed the same way."""
+    from repro_torch.kernels import (compact_activations, dense_matmul,
+                                     griffin_matmul, preprocess_weights,
+                                     sparse_a_matmul)
+    from repro_torch.kernels.dense_gemm.kernel import route as k1_route
+    from repro_torch.kernels.dense_gemm.ref import dense_matmul_ref
+    from repro_torch.kernels.griffin_spmm.kernel import split_plan
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.kernels.sparse_a.kernel import ROUTE_NAMES, route
+    from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
+                                                  sparse_a_ref)
+    from repro_torch.sparsity import block_prune
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    rows = []
+    for leaf, (k, n) in HYBRID_SPMM.items():
+        w = block_prune(torch.randn(k, n, generator=gen, device=dev), 0.8)
+        gw = preprocess_weights(w.to(dt))
+        del w
+        plan = split_plan(k, n, gw.kidx.shape[0], gw.block_k, gw.block_n)
+        print(f"[kernels] hybrid griffin_spmm {leaf} {k}x{n} (max_cnt "
+              f"{gw.kidx.shape[1]}): plan {plan and list(plan)}")
+        spmm_batch_invariance(torch, gen, gw)
+        for m in XLSTM_ROWS:
+            a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+            a[:, :256] = 0              # two all-zero K blocks for dual
+            plain_bits = None
+            for dual in (False, True):
+                out = griffin_matmul(a, gw, dual=dual)
+                ref = griffin_spmm_ref(a, gw)
+                torch.cuda.synchronize()
+                err, ok = within_tol(torch, out, ref, "bfloat16")
+                row = {"kernel": "griffin_spmm", "model": HYBRID,
+                       "leaf": leaf, "dtype": "bfloat16", "m": m, "k": k,
+                       "n": n, "dual": dual, "max_cnt": gw.kidx.shape[1],
+                       "plan": plan and list(plan), "max_abs_err": err,
+                       "ok": ok}
+                if not ok:
+                    fail(f"griffin_spmm disagrees with its plain version: "
+                         f"{row}")
+                if dual and not torch.equal(out, plain_bits):
+                    fail(f"griffin_spmm {leaf}: dual is not bit-equal to "
+                         "the plain walk")
+                plain_bits = out
+                timed_spmm(torch, a, gw, dual, row)
+                rows.append(row)
+                print(f"[kernels] {json.dumps(row)}")
+        del gw
+        torch.cuda.empty_cache()
+    k, n = HYBRID_DENSE
+    for label, leaf in HYBRID_DENSE_LEAVES.items():
+        dtype = getattr(torch, label)
+        w = torch.randn(k, n, generator=gen, device=dev).to(dtype)
+        sparse_a_batch_invariance(torch, gen, w)
+        for m in XLSTM_ROWS:
+            a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+            out = dense_matmul(a, w)
+            ref = dense_matmul_ref(a, w)
+            torch.cuda.synchronize()
+            err, ok = within_tol(torch, out, ref, label)
+            row = {"kernel": "dense_gemm", "model": HYBRID, "leaf": leaf,
+                   "dtype": label, "m": m, "k": k, "n": n,
+                   "route": k1_route(n), "max_abs_err": err, "ok": ok}
+            if not ok:
+                fail(f"dense_gemm disagrees with its plain version: {row}")
+            for part in (1, 4):
+                if not torch.equal(dense_matmul(a[:part].contiguous(), w),
+                                   out[:part]):
+                    fail(f"dense_gemm is not batch invariant at {k}x{n} "
+                         f"{label}: rows 0:{part} differ")
+            b_ms, b_by = bound((a.numel() + m * n) * a.element_size()
+                               + w.numel() * w.element_size(),
+                               2.0 * m * k * n, label)
+            row.update(ms=timed_ms(torch, lambda: dense_matmul(a, w)),
+                       plain_ms=timed_ms(torch,
+                                         lambda: dense_matmul_ref(a, w)),
+                       library_ms=timed_ms(torch,
+                                           lambda: torch.matmul(a, w)),
+                       bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            print(f"[kernels] {json.dumps(row)}")
+            # K3 on the same leaf, every block live (the serving path's
+            # activations), its metadata built on the card
+            meta = compact_activations(a)
+            kidx, cnt = compact_activations_ref(a, block_m=meta.block_m,
+                                                block_k=meta.block_k)
+            if not (torch.equal(meta.kidx, kidx)
+                    and torch.equal(meta.cnt, cnt)):
+                fail(f"sparse_a_meta differs from the plain metadata at "
+                     f"{m} x {k} {label}")
+            rows.append({"kernel": "sparse_a_meta", "model": HYBRID,
+                         "dtype": label, "m": m, "k": k,
+                         "block_m": meta.block_m, "block_k": meta.block_k,
+                         "max_abs_err": 0.0, "ok": True})
+            out = sparse_a_matmul(a, w, meta=meta)
+            ref = sparse_a_ref(a, w, meta.kidx, meta.cnt,
+                               block_m=meta.block_m, block_k=meta.block_k)
+            torch.cuda.synchronize()
+            err, ok = within_tol(torch, out, ref, label)
+            row = {"kernel": "sparse_a", "model": HYBRID, "leaf": leaf,
+                   "dtype": label, "m": m, "k": k, "n": n,
+                   "block_m": meta.block_m,
+                   "route": ROUTE_NAMES[route(a, w, meta.block_k)[0]],
+                   "max_abs_err": err, "ok": ok}
+            if not ok or out.dtype != dtype:
+                fail(f"sparse_a disagrees with its plain version: {row}")
+            timed_sparse_a(torch, a, w, meta, row)
+            rows.append(row)
+        del w
+    print(f"[kernels] recurrentgemma-9b: griffin_spmm at {len(HYBRID_SPMM)} "
+          f"shapes (dual and not), dense_gemm and sparse_a at {k}x{n} in "
+          "bf16 and fp32 agree with their plain versions and are batch "
+          "invariant")
+    return rows
+
+
 def timed_spmm(torch, a, gw, dual: bool, row) -> None:
     """Time griffin_matmul, its plain version and torch.matmul on the
     decompacted weight; bound by the bytes of the live blocks this A
@@ -1007,6 +1208,40 @@ def zero_k_blocks(a, bm: int, every: int):
     return a
 
 
+def timed_sparse_a(torch, a, w, meta, row) -> None:
+    """Time sparse_a (metadata given), the plain GEMM and torch.matmul;
+    bound by the bytes and operations of the visited blocks."""
+    from repro_torch.kernels import sparse_a_matmul
+    from repro_torch.kernels.sparse_a.ref import sparse_a_ref
+
+    m, k = a.shape
+    n = w.shape[1]
+    bm, bk = meta.block_m, meta.block_k
+    cnt = meta.cnt.tolist()
+    listed = torch.zeros(meta.m // bm, meta.k // bk, dtype=torch.bool,
+                         device=a.device)
+    for i, c in enumerate(cnt):
+        listed[i, meta.kidx[i, :c].long()] = True
+    live_rows = min(int(listed.any(0).sum()) * bk, k)
+    tile_rows = [min(bm, m - i * bm) for i in range(len(cnt))]
+    esz = a.element_size()
+    meta_bytes = 4 * (meta.kidx.numel() + meta.cnt.numel())
+    nbytes = (a.numel() + m * n) * esz + live_rows * n * \
+        w.element_size() + meta_bytes
+    w_lib = w.to(a.dtype)           # torch.matmul takes one dtype
+    flops = 2.0 * n * sum(r * min(c * bk, k)
+                          for r, c in zip(tile_rows, cnt))
+    b_ms, b_by = bound(nbytes, flops, row["dtype"])
+    row.update(
+        ms=timed_ms(torch, lambda: sparse_a_matmul(a, w, meta=meta)),
+        plain_ms=timed_ms(torch, lambda: sparse_a_ref(
+            a, w, meta.kidx, meta.cnt, block_m=bm, block_k=bk)),
+        library_ms=timed_ms(torch, lambda: torch.matmul(a, w_lib)),
+        bound_ms=b_ms, bound_by=b_by,
+        live_blocks=f"{sum(cnt)}/{len(cnt) * (meta.k // bk)}")
+    print(f"[kernels] {json.dumps(row)}")
+
+
 def kernel_sparse_a(torch, gen, summary):
     """K3 at every serving shape (the four dense layer shapes with B
     row-major, the unembedding with B = embed.T, xlstm-1.3b's (4096 x 4)
@@ -1056,37 +1291,6 @@ def kernel_sparse_a(torch, gen, summary):
         rows.append(row)
         return row
 
-    def timed(a, w, meta, row):
-        """Time the kernel (metadata given), the plain GEMM and
-        torch.matmul; bound by the bytes and operations of the visited
-        blocks."""
-        m, k = a.shape
-        n = w.shape[1]
-        bm, bk = meta.block_m, meta.block_k
-        cnt = meta.cnt.tolist()
-        listed = torch.zeros(meta.m // bm, meta.k // bk, dtype=torch.bool,
-                             device=dev)
-        for i, c in enumerate(cnt):
-            listed[i, meta.kidx[i, :c].long()] = True
-        live_rows = min(int(listed.any(0).sum()) * bk, k)
-        tile_rows = [min(bm, m - i * bm) for i in range(len(cnt))]
-        esz = a.element_size()
-        meta_bytes = 4 * (meta.kidx.numel() + meta.cnt.numel())
-        nbytes = (a.numel() + m * n) * esz + live_rows * n * \
-            w.element_size() + meta_bytes
-        w_lib = w.to(a.dtype)           # torch.matmul takes one dtype
-        flops = 2.0 * n * sum(r * min(c * bk, k)
-                              for r, c in zip(tile_rows, cnt))
-        b_ms, b_by = bound(nbytes, flops, row["dtype"])
-        row.update(
-            ms=timed_ms(torch, lambda: sparse_a_matmul(a, w, meta=meta)),
-            plain_ms=timed_ms(torch, lambda: sparse_a_ref(
-                a, w, meta.kidx, meta.cnt, block_m=bm, block_k=bk)),
-            library_ms=timed_ms(torch, lambda: torch.matmul(a, w_lib)),
-            bound_ms=b_ms, bound_by=b_by,
-            live_blocks=f"{sum(cnt)}/{len(cnt) * (meta.k // bk)}")
-        print(f"[kernels] {json.dumps(row)}")
-
     for (k, n) in SPMM_SHAPES + (UNEMBED, XLSTM_GATE):
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
@@ -1115,13 +1319,14 @@ def kernel_sparse_a(torch, gen, summary):
                     # the serving path's activations: every block live
                     meta = meta_of(dense_a)
                     row = check(dense_a, w, meta, layout=layout)
-                    timed(dense_a, w, meta, row)
+                    timed_sparse_a(torch, dense_a, w, meta, row)
                     if (k, n) == UNEMBED and m == 4:
                         summary["sparse_a"] = row
                     half = dense_a.clone()
                     half[:, k // 2:] = 0        # half of the blocks dead
                     meta = meta_of(half)
-                    timed(half, w, meta, check(half, w, meta, layout=layout))
+                    timed_sparse_a(torch, half, w, meta,
+                                   check(half, w, meta, layout=layout))
             # several M tiles of different live counts, one with none, then
             # hand-cut metadata that drops a live block
             a = zero_k_blocks(torch.randn(32, k, generator=gen,
@@ -1147,11 +1352,13 @@ def kernel_sparse_a(torch, gen, summary):
     for m in XLSTM_ROWS:
         a = torch.randn(m, k, generator=gen, device=dev)
         meta = meta_of(a)
-        timed(a, w, meta, check(a, w, meta, layout="row-major"))
+        timed_sparse_a(torch, a, w, meta,
+                       check(a, w, meta, layout="row-major"))
         half = a.clone()
         half[:, k // 2:] = 0
         meta = meta_of(half)
-        timed(half, w, meta, check(half, w, meta, layout="row-major"))
+        timed_sparse_a(torch, half, w, meta,
+                       check(half, w, meta, layout="row-major"))
     del w
     # the ragged metadata case: M and K not whole blocks, dead blocks
     # inside and at the ragged K edge
@@ -1246,7 +1453,8 @@ def pruned_twin(torch, api, sparsity: float):
 
 def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
                 launches: dict, dual: int, arena: dict, stats=None,
-                paged_ref=None, states=None, arch: str = "llama3.2-1b"):
+                paged_ref=None, states=None, arch: str = "llama3.2-1b",
+                fp32_gap: bool = True):
     """Serve the trace on one path and check it: ``launches`` maps each
     kernel to its launches per model call, ``dual`` the dual griffin_spmm
     GEMMs per model call, ``mode`` the engine's Mode, ``arena`` the
@@ -1254,7 +1462,9 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     give; an int8 path is held against ``paged_ref``, the same-dtype paged
     path's record.  Given ``states``, the run's end state (:func:`end_state`,
     taken before the checks below reuse the engine) goes in it under
-    ``name``, for a fault cell to equal."""
+    ``name``, for a fault cell to equal.  ``fp32_gap`` off skips the
+    routes' gaps to the model widened to fp32 (recurrentgemma-9b's fp32
+    twin would take 42 GB beside the served weights and the bf16 twin)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launch
     from repro_torch.models.common import sparse_execution
@@ -1357,14 +1567,18 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
              f"{rel:.4f}")
     # how much of that gap each bf16 route owns: both against the same
     # model with every leaf widened to fp32
-    with sparse_execution(use_kernels=False):
-        _, truth = eng.api.prefill(widened(twin), batch, cache_len=64)
+    gaps = {"plain": rel, "fp32_kernel": None, "fp32_plain": None}
+    if fp32_gap:
+        with sparse_execution(use_kernels=False):
+            _, truth = eng.api.prefill(widened(twin), batch, cache_len=64)
+        gaps.update(fp32_kernel=rel_l2(logits, truth),
+                    fp32_plain=rel_l2(ref, truth))
     del twin
-    gaps = {"plain": rel, "fp32_kernel": rel_l2(logits, truth),
-            "fp32_plain": rel_l2(ref, truth)}
+    fp32 = ("not measured" if not fp32_gap else
+            f"kernel route {gaps['fp32_kernel']:.5f}, plain route "
+            f"{gaps['fp32_plain']:.5f}")
     print(f"{tag} prefill logits finite, relative L2 gap to the plain route "
-          f"{rel:.5f}; to fp32: kernel route {gaps['fp32_kernel']:.5f}, "
-          f"plain route {gaps['fp32_plain']:.5f}")
+          f"{rel:.5f}; to fp32: {fp32}")
     return run, got, gaps, extra
 
 
@@ -1603,13 +1817,105 @@ def check_paged_degrades(run, fixed_tokens) -> None:
             "pages" in eng.cache:
         fail(f"xlstm_paged_degrades: page_size {eng.config.arena.page_size}"
              f", paged spec {eng._paged}")
-    tokens = {r: o.tokens for r, o in eng.outputs.items()}
-    if tokens != fixed_tokens:
-        fail("xlstm_paged_degrades: tokens differ from xlstm_sparse_b's")
     print(f"[serve xlstm_paged_degrades] page_size "
           f"{eng.config.arena.page_size} asked, no paged arena built (no "
-          f"cache leaf tracks cache_len); all {len(tokens)} requests' tokens "
-          "equal xlstm_sparse_b's")
+          "cache leaf tracks cache_len)")
+    check_same_tokens("xlstm_paged_degrades", run, fixed_tokens,
+                      "xlstm_sparse_b")
+
+
+def check_same_tokens(name: str, run, want: dict, of: str) -> None:
+    """Every request's tokens on ``run`` equal ``want``, path ``of``'s."""
+    tokens = {r: o.tokens for r, o in run.engine.outputs.items()}
+    if tokens != want:
+        fail(f"{name}: tokens differ from {of}'s")
+    print(f"[serve {name}] all {len(tokens)} requests' tokens equal "
+          f"{of}'s")
+
+
+def phase_hybrid_long_window(torch, run):
+    """recurrentgemma-9b past its window, on ``run``'s weights: one
+    ``HYBRID_LONG["prompt"]``-token prompt straight through the model's
+    prefill with a cache_len above the window, so the K/V cache keeps the
+    last window rolled by S % window, then decode steps fed seeded ids,
+    which write slot pos % window and wrap the rolling cache.  The same
+    calls on the plain-matmul route (the pruned weights uncompacted): the
+    logits within 2 % relative L2 at the prefill and at every step, every
+    K/V cache row within MAX_ROW_GAP; seconds, the memory rise over the
+    level before the calls (within 3 GiB) and the launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.common import sparse_execution
+
+    eng = run.engine
+    api = eng.api
+    S, clen, steps = (HYBRID_LONG[k] for k in ("prompt", "cache_len",
+                                                "steps"))
+    window = api.cfg.window
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"tokens": torch.randint(1, api.cfg.vocab_size, (1, S),
+                                     generator=gen, device="cuda")}
+    feed = torch.randint(1, api.cfg.vocab_size, (1, steps), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with eng._scope():
+        cache, logits = api.prefill(run.params, batch, cache_len=clen)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        outs = [logits]
+        for t in range(steps):
+            logits, cache = api.decode_step(run.params, cache,
+                                            feed[:, t:t + 1])
+            outs.append(logits)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated() - base
+    got = launch_counts()
+    want = {k: v * (1 + steps) for k, v in HYBRID_SB["launches"].items()}
+    twin = pruned_twin(torch, api, HYBRID_SB["sparsity"])
+    with sparse_execution(use_kernels=False):
+        ref_cache, ref = api.prefill(twin, batch, cache_len=clen)
+        gaps = [rel_l2(outs[0], ref)]
+        for t in range(steps):
+            ref, ref_cache = api.decode_step(twin, ref_cache,
+                                             feed[:, t:t + 1])
+            gaps.append(rel_l2(outs[t + 1], ref))
+    del twin
+    row_gap = max(rows_rel_l2(cache[t], ref_cache[t]) for t in "kv")
+    print(f"[hybrid_long_window] {S}-token prompt, cache_len {clen} > "
+          f"window {window}: K/V cache {tuple(cache['k'].shape)} rolled by "
+          f"{S % window}; prefill {prefill_s:.3f}s, with {steps} decode "
+          f"steps (slots {(S) % window}..{(S + steps - 1) % window}) "
+          f"{seconds:.3f}s; memory rise {rise / 2**30:.3f} GiB over "
+          f"{base / 2**30:.3f} GiB; launches {got}; logits relative L2 "
+          f"gap to the plain route: prefill {gaps[0]:.5f}, steps "
+          f"{', '.join(f'{g:.5f}' for g in gaps[1:])}; largest per-row "
+          f"gap of the K/V cache {row_gap:.5f}")
+    if tuple(cache["k"].shape[1:3]) != (1, window) or \
+            int(cache["pos"]) != S - 1 + steps:
+        fail(f"hybrid_long_window: cache {tuple(cache['k'].shape)}, pos "
+             f"{int(cache['pos'])}")
+    if rise > MAX_PREFILL_RISE:
+        fail(f"hybrid_long_window: memory rise {rise} B > "
+             f"{MAX_PREFILL_RISE} B")
+    if got != want:
+        fail(f"hybrid_long_window: launches {got}, expected {want}")
+    if not all(bool(torch.isfinite(o).all()) for o in outs) or \
+            outs[0].shape != (1, api.cfg.vocab_size):
+        fail("hybrid_long_window: logits not finite or of the wrong shape")
+    if max(gaps) > 2e-2:
+        fail(f"hybrid_long_window: kernel-route logits differ from the "
+             f"plain route by {max(gaps):.4f}")
+    if row_gap > MAX_ROW_GAP:
+        fail(f"hybrid_long_window: a K/V cache row of the kernel route "
+             f"differs from the plain route's by {row_gap:.4f}")
+    return {"prompt": S, "cache_len": clen, "prefill_seconds": prefill_s,
+            "seconds": seconds, "memory_rise_bytes": rise,
+            "memory_before_bytes": base, "launches": got,
+            "logits_rel_l2": gaps, "cache_row_rel_l2": row_gap}
 
 
 def phase_xlstm_prefill(torch, run):
@@ -2519,6 +2825,24 @@ def main() -> None:
         del run
         gc.collect()            # an engine's closures hold it in a cycle
         torch.cuda.empty_cache()
+    hybrid_tokens = hybrid_long = None
+    for name, path in HYBRID_PATHS.items():
+        run, launches, gaps, extra = phase_serve(
+            torch, name, arch=HYBRID, fp32_gap=False, **path)
+        if "--profile" in sys.argv[1:]:
+            phase_profile(torch, name, run)
+        serves[name] = serve_record(run, launches, gaps, extra)
+        if name == "hybrid_sparse_b":
+            hybrid_tokens = {r: o.tokens
+                             for r, o in run.engine.outputs.items()}
+            hybrid_long = phase_hybrid_long_window(torch, run)
+            serves["hybrid_long_window"] = {
+                "launches": hybrid_long["launches"]}
+        if name == "hybrid_paged":
+            check_same_tokens(name, run, hybrid_tokens, "hybrid_sparse_b")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
     for name, cell in FAULT_CELLS.items():
         serves[name] = phase_fault(torch, name, card,
                                    unfaulted.get(cell["path"]), **cell)
@@ -2576,6 +2900,7 @@ def main() -> None:
     report = {"card": card, "build_s": build_s, "checks": rows,
               "serve": serves, "long_prefill": long_prefill,
               "xlstm_prefill": xlstm_prefill,
+              "hybrid_long_window": hybrid_long,
               "cycle_model": cycle_model,
               "autotune": autotune_record,
               "spmm_granularity": summary["griffin_spmm_granularity"],

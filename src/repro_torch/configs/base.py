@@ -1,6 +1,7 @@
-"""Model configuration: the dense decoder's and the ssm (xlstm) family's
-fields of ``repro.configs.base.ModelConfig`` and the same ``reduced()``
-rule, so a reduced config here has exactly the reference's dims."""
+"""Model configuration: the dense decoder's, the ssm (xlstm) family's and
+the hybrid (recurrentgemma) family's fields of
+``repro.configs.base.ModelConfig`` and the same ``reduced()`` rule, so a
+reduced config here has exactly the reference's dims."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,7 @@ from typing import Dict, Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # "dense" and "ssm" are served by the port
+    family: str                 # "dense", "ssm" and "hybrid" are ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -24,6 +25,10 @@ class ModelConfig:
     act: str = "silu"
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # hybrid (recurrentgemma): pattern of block kinds, tiled over depth
+    block_pattern: Tuple[str, ...] = ()          # e.g. ("rec","rec","attn")
+    lru_width: int = 0                           # 0 -> d_model
+    conv_width: int = 4
     # ssm (xlstm): blocks per group, e.g. 7 mLSTM + 1 sLSTM
     xlstm_pattern: Tuple[str, ...] = ()
     proj_factor: float = 2.0                     # mLSTM up-projection
@@ -41,9 +46,13 @@ class ModelConfig:
             num_heads=4, num_kv_heads=min(4, max(1, self.num_kv_heads)),
             head_dim=16, d_ff=128 if self.d_ff else 0, vocab_size=128,
             window=min(self.window, 32) if self.window else None,
+            lru_width=64 if self.family == "hybrid" else 0,
             dtype="float32", kv_chunk=16)
         if self.xlstm_pattern:
             r = dataclasses.replace(r, xlstm_pattern=("m", "s"))
+        if self.block_pattern:
+            # one (rec, rec, attn) group and an empty tail
+            r = dataclasses.replace(r, num_layers=3)
         return r
 
 
@@ -62,4 +71,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from . import llama3_2_1b, xlstm_1_3b  # noqa: F401
+    from . import llama3_2_1b, recurrentgemma_9b, xlstm_1_3b  # noqa: F401

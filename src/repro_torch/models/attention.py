@@ -1,6 +1,7 @@
-"""GQA attention for the dense decoder — the counterpart of
-``repro/models/attention.py``'s ``attention`` (causal prefill) and
-``decode_attention``.
+"""GQA attention for the dense decoder and the hybrid family's local
+attention — the counterpart of ``repro/models/attention.py``'s
+``attention`` (causal prefill), ``local_attention`` (banded causal
+prefill) and ``decode_attention``.
 
 Plain torch in fp32 (no Pallas kernel stands behind these in the
 reference).  Scores and weighted sums are broadcast products reduced with
@@ -114,6 +115,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         outs.append(acc / l.clamp(min=1e-30)[..., None])
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, kv_chunk: int = 256) -> torch.Tensor:
+    """Banded causal attention: each query attends to itself and the
+    ``window - 1`` keys before it (recurrentgemma's local-attention
+    layers).  The reference tiles the sequence into window-sized blocks
+    that attend to their own and the previous block; this is the same
+    function as :func:`attention` with ``causal=True`` and ``window``,
+    which skips every KV chunk wholly before a query tile's window, so
+    its work and its transient memory stay linear in the sequence
+    length.  ``kv_chunk``: the KV chunk of the online softmax."""
+    return attention(q, k, v, causal=True, window=window,
+                     kv_chunk=kv_chunk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -2,7 +2,7 @@
 (the per-GEMM entry point of the substrate), norms, rope, the KV-slot and
 paged KV writes, the paged view, the bucketed-prefill helpers and the
 layer-stack helpers — the counterpart of ``repro/models/common.py`` for the
-dense decoder and the xlstm family.
+dense decoder, the xlstm family and the hybrid family.
 
 Batch invariance: the serving engine decodes several rows at once while its
 greedy oracle decodes one, and their tokens must match exactly.  Every
@@ -188,15 +188,38 @@ def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
     return (w * scale).to(dtype)
 
 
+def _stack_trees(layers):
+    """Stack the leaves of equally shaped (nested) dicts of tensors along a
+    new leading axis.  Each leaf is popped from the layers as it is
+    stacked, so at most one leaf is held twice (recurrentgemma-9b's
+    groups are 16 GB of bf16)."""
+    if isinstance(layers[0], dict):
+        return {k: _stack_trees([lp.pop(k) for lp in layers])
+                for k in list(layers[0])}
+    return torch.stack(layers)
+
+
 def stack_layers(init_one: Callable[[torch.Generator], Dict[str, Any]],
                  gen: torch.Generator, n: int) -> Dict[str, Any]:
     """Initialise ``n`` layers from ``gen`` in turn and stack each leaf
     along a new leading axis (the reference's ``stack_layers``; nesting it
-    gives the xlstm family's (groups, blocks) stacks)."""
-    if n < 1:
-        raise ValueError(f"stack_layers needs at least one layer, got {n}")
-    layers = [init_one(gen) for _ in range(n)]
-    return {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}
+    gives the xlstm family's (groups, blocks) stacks; a layer may be a
+    nested dict, as the hybrid family's groups are).  ``n == 0`` gives
+    empty-stacked leaves (the reduced hybrid's empty tail): one layer is
+    drawn from a throwaway generator for its shapes, so ``gen``'s stream
+    is not consumed."""
+    if n < 0:
+        raise ValueError(f"stack_layers needs n >= 0 layers, got {n}")
+    if n == 0:
+        return _empty_stack(init_one(
+            torch.Generator(device=gen.device).manual_seed(0)))
+    return _stack_trees([init_one(gen) for _ in range(n)])
+
+
+def _empty_stack(tree):
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v) for k, v in tree.items()}
+    return tree.new_empty((0,) + tuple(tree.shape))
 
 
 def stack_slice(stack: Dict[str, Any], *idx: int) -> Dict[str, Any]:

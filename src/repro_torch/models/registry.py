@@ -1,6 +1,6 @@
 """Model registry: one uniform API per architecture family — the
-counterpart of ``repro/models/registry.py`` (the dense and ssm families so
-far).
+counterpart of ``repro/models/registry.py`` (the dense, ssm and hybrid
+families so far).
 
 ``build_model(cfg, device)`` binds the family's functions to ``cfg`` and to
 the device the model runs on; the default is the CUDA card.
@@ -15,7 +15,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import transformer, xlstm
+from . import rglru, transformer, xlstm
 
 Params = Dict[str, Any]
 
@@ -63,6 +63,20 @@ def _xlstm_api(cfg: ModelConfig, device: torch.device) -> ModelApi:
     )
 
 
+def _rglru_api(cfg: ModelConfig, device: torch.device) -> ModelApi:
+    def prefill_fn(params, batch, cache_len=None):
+        return rglru.prefill(cfg, params, batch["tokens"], cache_len,
+                             lengths=batch.get("lengths"))
+
+    return ModelApi(
+        cfg=cfg, device=device,
+        init=functools.partial(rglru.init_params, cfg),
+        prefill=prefill_fn,
+        decode_step=functools.partial(rglru.decode_step, cfg),
+        init_cache=functools.partial(rglru.init_cache, cfg, device=device),
+    )
+
+
 def build_model(cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = "cuda"
                 ) -> ModelApi:
@@ -71,5 +85,7 @@ def build_model(cfg: ModelConfig,
         return _transformer_api(cfg, device)
     if cfg.family == "ssm":
         return _xlstm_api(cfg, device)
+    if cfg.family == "hybrid":
+        return _rglru_api(cfg, device)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                               "(ROADMAP 1.12)")

@@ -532,6 +532,46 @@ def test_recovered_engine_state_equals_unfaulted(small, kind, phase):
     assert len(eng.capture_s) == ticks and len(plain.capture_s) == 0
 
 
+@pytest.fixture(scope="module")
+def hybrid_small():
+    """The port's reduced recurrentgemma-9b with its own seed-0 weights."""
+    api = build_model(get_config("recurrentgemma-9b").reduced(),
+                      device="cpu")
+    return api, api.init(api.generator(0))
+
+
+@pytest.mark.parametrize("phase", PHASES)
+@pytest.mark.parametrize("kind", ["fixed", "paged"])
+def test_recovered_hybrid_engine_state_equals_unfaulted(hybrid_small, kind,
+                                                        phase):
+    """The lockstep test above on the hybrid family's mixed arena: after
+    every tick the faulted engine's recurrent state, conv state and K/V
+    (on the paged kind the k/v pools and the page table beside the fixed
+    recurrent leaves) are bit-equal to the unfaulted engine's, and so is
+    its whole host state."""
+    tapi, tparams = hybrid_small
+    conf = _conf(kind)
+    inj = _kill(phase)
+    eng = ServeEngine(tapi, tparams, conf, fault_injector=inj)
+    plain = ServeEngine(tapi, tparams, conf)
+    assert (eng._paged is not None) == (kind == "paged")
+    assert {"rec_h", "rec_conv", "tail_h", "tail_conv", "k", "v"} <= \
+        set(eng.cache)
+    for r in _trace(tapi):
+        eng.add(r)
+        plain.add(r)
+    while plain.sched.has_work():
+        assert eng.step() == plain.step()
+        assert _full_state(eng) == _full_state(plain)
+        a, b = _device_state(eng), _device_state(plain)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), (k, eng.clock)
+    assert not eng.sched.has_work() and eng.recoveries == 1
+    assert eng.stats["emitted"] == sum(r.max_new_tokens
+                                       for r in _trace(tapi))
+
+
 def test_mode_ab_kill_through_kernel_wrappers(small):
     """Compacted weights with a declared activation sparsity of 0.5 (Mode
     AB: every GEMM through the wrappers, their plain versions here): a

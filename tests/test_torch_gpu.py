@@ -1193,3 +1193,162 @@ def test_xlstm_padded_prefill_bit_equal_at_full_width(xlstm_full):
     assert torch.equal(got, want)
     for key in ("mC", "mn", "mm", "sc", "sn", "sh", "sm"):
         assert torch.equal(cache[key], exact[key]), key
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family: recurrentgemma-9b's shapes and a reduced-depth model
+# at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_SPMM = {"w_gate": (4096, 12288), "w_down": (12288, 4096),
+               "wq": (4096, 4096), "wk": (4096, 256),
+               "head": (4096, 256000)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("leaf", list(HYBRID_SPMM))
+def test_griffin_spmm_at_hybrid_shapes(cuda, leaf, m):
+    """griffin_spmm at recurrentgemma-9b's five compacted shapes (pruned
+    0.8 at 128 x 128 / unit 32, bf16): against the plain version, dual
+    bit-equal to the plain walk, rows 0:1 and 0:4 bit-equal alone and in
+    the call."""
+    k, n = HYBRID_SPMM[leaf]
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    gw = preprocess_weights(block_prune(
+        torch.randn(k, n, generator=g, device=cuda), 0.8).bfloat16())
+    a = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    a[:, :256] = 0
+    out = griffin_matmul(a, gw)
+    torch.cuda.synchronize()
+    ref = (a.float() @ decompact_weights(gw)[:k].float()).bfloat16()
+    assert_close(out, ref, "bfloat16")
+    assert torch.equal(griffin_matmul(a, gw, dual=True), out)
+    for rows in (1, 4):
+        assert torch.equal(griffin_matmul(a[:rows].contiguous(), gw),
+                           out[:rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 32])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dense_leaves_at_hybrid_shapes(cuda, dtype, m):
+    """The rec blocks' dense 4096 x 4096 leaves (w_x/w_out in bf16, the
+    gates w_rg/w_ig in fp32): dense_gemm's wide route and sparse_a with
+    its metadata kernel against their plain versions, row slices
+    bit-equal to the full call."""
+    dt = DTYPES[dtype]
+    g = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn(4096, 4096, generator=g, device=cuda).to(dt)
+    a = torch.randn(m, 4096, generator=g, device=cuda).to(dt)
+    a[:, 1024:1280] = 0
+    assert dense_gemm_kernel.route(4096) == "wide"
+    k1 = dense_matmul(a, w)
+    meta = compact_activations(a)
+    kidx, cnt = compact_activations_ref(a, block_m=meta.block_m,
+                                        block_k=meta.block_k)
+    assert torch.equal(meta.kidx, kidx) and torch.equal(meta.cnt, cnt)
+    k3 = sparse_a_matmul(a, w, meta=meta)
+    torch.cuda.synchronize()
+    assert_close(k1, dense_matmul_ref(a, w), dtype)
+    assert_close(k3, sparse_a_ref(a, w, kidx, cnt, block_m=meta.block_m,
+                                  block_k=meta.block_k), dtype)
+    for rows in (1, min(m, 4)):
+        part = a[:rows].contiguous()
+        assert torch.equal(dense_matmul(part, w), k1[:rows])
+        assert torch.equal(sparse_a_matmul(part, w), k3[:rows])
+
+
+@pytest.fixture(scope="module")
+def hybrid_shallow():
+    """recurrentgemma-9b at full width cut to 5 layers (one (rec, rec,
+    attn) group and the tail of 2 rec blocks), seed 0, pruned 0.8 and
+    compacted at 128 x 128 / unit 32 (what launch.serve serves)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=5)
+    api = build_model(cfg, device="cuda")
+    params = sparsify_params(api.init(api.generator(0)), 0.8, compact=True)
+    return api, params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["B", "AB"])
+def test_hybrid_rows_bit_equal_to_batch_one(hybrid_shallow, mode):
+    """Four prompts prefilled alone, their caches stacked into one 4-row
+    batch, then 4 decode steps batched and each row alone: every row's
+    logits bit-equal, in Sparse.B and in Mode.AB."""
+    api, params = hybrid_shallow
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(1, api.cfg.vocab_size, (4, 16), generator=g,
+                        device="cuda")
+    with _scope(mode):
+        solo = [api.prefill(params, {"tokens": ids[i:i + 1]},
+                            cache_len=32)[0] for i in range(4)]
+        # the batch axis: 2 for the groups' (G, 2, B, ...) rec state, 1
+        # for the tail's state and the (G, B, clen, ...) K/V
+        batch = {k: (torch.cat([c[k] for c in solo],
+                               dim=2 if k.startswith("rec_") else 1)
+                     if k != "pos" else torch.stack([c[k] for c in solo]))
+                 for k in solo[0]}
+        feed = ids[:, -1:]
+        for _ in range(4):
+            logits, batch = api.decode_step(params, batch, feed)
+            for i in range(4):
+                one, solo[i] = api.decode_step(params, solo[i],
+                                               feed[i:i + 1])
+                assert torch.equal(one[0], logits[i]), i
+            feed = torch.argmax(logits, dim=-1)[:, None]
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+def test_hybrid_padded_prefill_bit_equal(hybrid_shallow):
+    """A 13-token prompt prefilled in its 16-token bucket carries exactly
+    the exact-length prefill's recurrent and conv state, the same K/V
+    rows and last-token logits."""
+    api, params = hybrid_shallow
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ids = torch.randint(1, api.cfg.vocab_size, (1, 13), generator=g,
+                        device="cuda")
+    with _scope("B"):
+        exact, want = api.prefill(params, {"tokens": ids}, cache_len=32)
+        cache, got = api.prefill(params, {
+            "tokens": torch.nn.functional.pad(ids, (0, 3)),
+            "lengths": torch.tensor([13], dtype=torch.int32,
+                                    device="cuda")}, cache_len=32)
+    assert torch.equal(got, want)
+    for key in ("rec_h", "rec_conv", "tail_h", "tail_conv"):
+        assert torch.equal(cache[key], exact[key]), key
+    for key in ("k", "v"):
+        assert torch.equal(cache[key][:, :, :13], exact[key][:, :, :13])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", ["fixed", "paged"])
+@pytest.mark.parametrize("mode", ["B", "AB"])
+def test_hybrid_engine_matches_oracle_on_card(hybrid_shallow, mode, arena):
+    """The reduced-depth full-width model served by the engine (4 slots,
+    chunks of 4; the paged arena pages k/v beside the fixed recurrent
+    state): every request token-identical to the batch-1 greedy oracle,
+    and the paged run's tokens equal to the fixed run's."""
+    api, params = hybrid_shallow
+    fields = dict(num_slots=4, cache_len=40, decode_chunk=4,
+                  use_kernels=True, a_sparsity=0.5 if mode == "AB" else None)
+    if arena == "paged":
+        fields["page_size"] = 8
+    eng = ServeEngine(api, params, EngineConfig().with_fields(**fields))
+    assert (eng._paged is not None) == (arena == "paged")
+    reqs = synthetic_trace(api.cfg, num_requests=6, seed=5,
+                           prompt_lens=(8, 16), gen_lens=(4, 12))
+    outs = eng.run(reqs)
+    assert eng.mode.value == mode
+    for r in reqs:
+        with eng._scope():
+            want = greedy_generate(api, params, r.as_batch(eng.device),
+                                   steps=r.max_new_tokens,
+                                   cache_len=eng.cache_len,
+                                   prompt_bucket=eng.bucket_for(
+                                       r.prompt_len))
+        assert outs[r.rid].tokens == want[0].tolist(), r.rid

@@ -625,7 +625,7 @@ def test_tuning_workload_families():
     assert (cfg.d_model, api.device.type, cache_len) == (64, "cpu", 27)
     reqs = trace()
     assert len(reqs) == 6 and [r.arrival for r in reqs] == list(range(6))
-    for family in ("moe", "audio", "hybrid", "vlm"):
+    for family in ("moe", "audio", "vlm"):
         with pytest.raises(NotImplementedError, match="1.12"):
             tuning_workload(family, reduced=True, device="cpu")
 
