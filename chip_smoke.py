@@ -59,6 +59,14 @@ Phases, in order; any failure exits non-zero before the result line:
              and 32 (bf16), and dense_gemm's wide route and sparse_a with
              its metadata at the rec blocks' dense 4096 x 4096 leaves in
              bf16 (w_x, w_out) and fp32 (the gates w_rg, w_ig).
+             At mixtral-8x7b's shapes (``MOE_SPMM``: the experts' 4096 x
+             14336 and 14336 x 4096, wq/wo 4096 x 4096, the GQA wk/wv 4096
+             x 1024 and the 4096 x 32000 untied head) griffin_spmm is
+             checked, dual and not, held batch invariant and timed at M 4
+             and 32 (bf16), and timed dual on an all-zero A (an expert no
+             token chose); the fp32 4096 x 8 router through dense_gemm's
+             skinny route and through sparse_a with its metadata, each
+             checked, held batch invariant and timed.
              The metadata kernel alone (``META_SHAPES``: 4 x 2048, 4 x
              4096, 32 x 4096, 128 x 8192, bf16, every block live) with its
              cluster
@@ -165,6 +173,39 @@ Phases, in order; any failure exits non-zero before the result line:
              L2) of the plain route at the prefill and at every step, every
              K/V cache row within 5%, launches exactly 9 model calls' worth,
              memory rise within 3 GiB, seconds printed.
+             Then full-width mixtral-8x7b (32 layers, d=4096, 32 heads, GQA
+             8, head_dim 128, 8 experts top-2 with d_ff 14336, window 4096,
+             vocab 32000, untied head, bf16, seed 0; 46.7 B parameters,
+             93 GB of bf16, which do not fit the card): every earlier model
+             freed first, launch.serve builds its weights compacted one
+             matrix at a time (sparsity.init_sparse_params; the build's
+             seconds, peak allocated bytes and resident bytes printed, the
+             peak gated below the card's memory), on the same trace with the
+             same checks, the plain route being ref.py on the compacted
+             weights (no dense twin fits) and no gap to fp32, in three paths
+             (``MOE_PATHS``):
+               moe_sparse_b - pruned 0.8 at 128x128 / unit 32 and
+                          compacted, 4 slots: griffin_spmm 897x (per layer
+                          wq, wk, wv, wo and 8 experts x 3, then the head)
+                          and dense_gemm 32x (the routers, fp32 A against
+                          the weight upcast, skinny route) per model call;
+               moe_mode_ab - the same weights, declared activation sparsity
+                          0.5: griffin_spmm 897x dual, sparse_a 32x and
+                          sparse_a_meta 32x (the routers);
+               moe_paged - moe_sparse_b's weights on sparse_b_paged's arena
+                          (window 4096 >= cache_len); its tokens must equal
+                          moe_sparse_b's.
+             Each prints the experts no row chose per (layer, decode step)
+             (what dual griffin_spmm skips whole) and, from one fused
+             4-step chunk on the drained arena under torch.profiler
+             (always, not only with ``--profile``), device ops per decode
+             step, the device's busy share and griffin_spmm's device ms
+             per decode step; Mode.AB's against Sparse.B's is printed
+             after the three.  After
+             moe_sparse_b, moe_long_window: as hybrid_long_window, one
+             4200-token prompt with cache_len 4224 > window 4096 (the K/V
+             cache keeps the last 4096 rows rolled by 104), 8 decode steps
+             through the wrap, against the plain route on the same weights.
 4. long_prefill - after sparse_b, its weights prefill one 2048-token and
              one 4096-token prompt (cache_len = prompt length): seconds
              and the rise of torch.cuda.max_memory_allocated() over the
@@ -281,12 +322,15 @@ Phases, in order; any failure exits non-zero before the result line:
              back through load_plan, its rule the winner's.  tok/s and
              the winner are printed with the card line, not gated.
 
-The line before the last is the kernel summary JSON, the one before it the
-card's name and power limit; the last line is the result JSON.  The full
+Every phase prints its wall seconds on a line of its own ("[phase] <name>
+<seconds>s") as it ends.  The line before the last is the kernel summary
+JSON, the one before it the card's name and power limit; the last line is
+the result JSON.  The full
 per-shape report goes to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -398,6 +442,33 @@ HYBRID_PATHS = {
 # the window straight through the model's prefill (the keep-the-last-
 # window-and-roll branch), then decode steps that wrap the rolling cache
 HYBRID_LONG = dict(prompt=4200, cache_len=4224, steps=8)
+# the moe family: full-width mixtral-8x7b (32 layers, 8 experts top-2,
+# d_ff 14336, window 4096) on TRACE, its weights built compacted one
+# matrix at a time (sparsity.init_sparse_params).  Per model call
+# griffin_spmm runs its 897 compacted leaves (per layer wq, wk, wv, wo and
+# the 8 experts' w_gate, w_up and w_down, then the untied head); the 32
+# routers (fp32 A against the weight upcast to fp32, 4096 x 8) go through
+# dense_gemm's skinny route, or in Mode.AB through sparse_a with one
+# metadata build each (tests/test_torch_moe.py counts them on the CPU).
+# The paged path's tokens must equal moe_sparse_b's.
+MOE = "mixtral-8x7b"
+MOE_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
+              launches={"dense_gemm": 32, "griffin_spmm": 897,
+                        "sparse_a": 0, "sparse_a_meta": 0,
+                        "batch_eval": 0}, dual=0)
+MOE_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
+              launches={"dense_gemm": 0, "griffin_spmm": 897,
+                        "sparse_a": 32, "sparse_a_meta": 32,
+                        "batch_eval": 0}, dual=897)
+MOE_PATHS = {
+    "moe_sparse_b": dict(MOE_SB, arena=FIXED),
+    "moe_mode_ab": dict(MOE_AB, arena=FIXED),
+    "moe_paged": dict(MOE_SB, arena=PAGED),
+}
+# moe_long_window, on moe_sparse_b's weights: one prompt longer than the
+# window straight through the model's prefill, then decode steps that
+# wrap the rolling cache
+MOE_LONG = dict(prompt=4200, cache_len=4224, steps=8)
 # the reference benchmark's int8 gate (benchmarks/bench_serve.py
 # PAGED_INT8_TOL), on its teacher-forced recipe: one 24-token prompt, 48
 # decode steps, pages of 16 in a cache of 128
@@ -422,6 +493,15 @@ HYBRID_SPMM = {"w_gate/w_up": (4096, 12288), "w_down": (12288, 4096),
                "head": (4096, 256000)}
 HYBRID_DENSE = (4096, 4096)
 HYBRID_DENSE_LEAVES = {"bfloat16": "w_x/w_out", "float32": "w_rg/w_ig"}
+# mixtral-8x7b's GEMM shapes (K x N): the compacted leaves griffin_spmm runs
+# (the experts' w_gate/w_up and w_down, wq/wo, the GQA wk/wv and the
+# 32000-column untied head) and the router, fp32 A against its weight
+# upcast to fp32, which dense_gemm's skinny route (Sparse.B) or sparse_a
+# (Mode.AB) runs
+MOE_SPMM = {"w_gate/w_up": (4096, 14336), "w_down": (14336, 4096),
+            "wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
+            "head": (4096, 32000)}
+MOE_ROUTER = (4096, 8)
 # the metadata kernel alone: a decode step's A at llama's K 2048 and at
 # xlstm's gate K 4096, a 32-row bucket at K 4096 and one full 128-row
 # prefill tile at w_down's K 8192
@@ -826,6 +906,7 @@ def phase_kernels(torch):
     rows += spmm_granularities(torch, gen, summary)
     rows += kernel_xlstm(torch, gen, summary)
     rows += kernel_hybrid(torch, gen, summary)
+    rows += kernel_moe(torch, gen, summary)
     rows += kernel_sparse_a(torch, gen, summary)
     rows += kernel_meta(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
@@ -1143,6 +1224,138 @@ def kernel_hybrid(torch, gen, summary):
     return rows
 
 
+def kernel_moe(torch, gen, summary):
+    """The kernels at mixtral-8x7b's shapes, M 4 and 32 (decode slots, the
+    largest prefill bucket): griffin_spmm at its five compacted shapes
+    (``MOE_SPMM``, bf16, pruned 0.8 at 128 x 128 / unit 32, balanced),
+    dual and not, against its plain version, held batch invariant and
+    timed beside its bound and torch.matmul; dual also on an all-zero A
+    (an expert no token chose: no weight block is read).  The router's
+    fp32 (4096 x 8) GEMM through dense_gemm's skinny route and through
+    sparse_a with its metadata (every block live, bit-equal to the plain
+    metadata), each checked, held batch invariant and timed the same
+    way."""
+    from repro_torch.kernels import (compact_activations, dense_matmul,
+                                     griffin_matmul, preprocess_weights,
+                                     sparse_a_matmul)
+    from repro_torch.kernels.dense_gemm.kernel import route as k1_route
+    from repro_torch.kernels.dense_gemm.kernel import skinny_slices
+    from repro_torch.kernels.dense_gemm.ref import dense_matmul_ref
+    from repro_torch.kernels.griffin_spmm.kernel import split_plan
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.kernels.sparse_a.kernel import ROUTE_NAMES, route
+    from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
+                                                  sparse_a_ref)
+    from repro_torch.sparsity import block_prune
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    rows = []
+    for leaf, (k, n) in MOE_SPMM.items():
+        w = block_prune(torch.randn(k, n, generator=gen, device=dev), 0.8)
+        gw = preprocess_weights(w.to(dt))
+        del w
+        plan = split_plan(k, n, gw.kidx.shape[0], gw.block_k, gw.block_n)
+        print(f"[kernels] moe griffin_spmm {leaf} {k}x{n} (max_cnt "
+              f"{gw.kidx.shape[1]} of {gw.k // gw.block_k}): plan "
+              f"{plan and list(plan)}")
+        spmm_batch_invariance(torch, gen, gw)
+        for m in XLSTM_ROWS:
+            a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+            a[:, :256] = 0              # two all-zero K blocks for dual
+            plain_bits = None
+            for dual in (False, True):
+                out = griffin_matmul(a, gw, dual=dual)
+                ref = griffin_spmm_ref(a, gw)
+                torch.cuda.synchronize()
+                err, ok = within_tol(torch, out, ref, "bfloat16")
+                row = {"kernel": "griffin_spmm", "model": MOE, "leaf": leaf,
+                       "dtype": "bfloat16", "m": m, "k": k, "n": n,
+                       "dual": dual, "max_cnt": gw.kidx.shape[1],
+                       "plan": plan and list(plan), "max_abs_err": err,
+                       "ok": ok}
+                if not ok:
+                    fail(f"griffin_spmm disagrees with its plain version: "
+                         f"{row}")
+                if dual and not torch.equal(out, plain_bits):
+                    fail(f"griffin_spmm {leaf}: dual is not bit-equal to "
+                         "the plain walk")
+                plain_bits = out
+                timed_spmm(torch, a, gw, dual, row)
+                rows.append(row)
+                print(f"[kernels] {json.dumps(row)}")
+        # an expert that no token chose: an all-zero A, which dual skips
+        a = torch.zeros(XLSTM_ROWS[0], k, dtype=dt, device=dev)
+        out = griffin_matmul(a, gw, dual=True)
+        if not bool((out == 0).all()):
+            fail(f"griffin_spmm {leaf}: dual on an all-zero A is not zero")
+        row = {"kernel": "griffin_spmm", "model": MOE, "leaf": leaf,
+               "dtype": "bfloat16", "m": a.shape[0], "k": k, "n": n,
+               "dual": True, "a": "all-zero", "max_abs_err": 0.0, "ok": True}
+        timed_spmm(torch, a, gw, True, row)
+        rows.append(row)
+        print(f"[kernels] {json.dumps(row)}")
+        del gw
+        torch.cuda.empty_cache()
+    k, n = MOE_ROUTER
+    w = torch.randn(k, n, generator=gen, device=dev)
+    sparse_a_batch_invariance(torch, gen, w)
+    for m in XLSTM_ROWS:
+        a = torch.randn(m, k, generator=gen, device=dev)
+        out = dense_matmul(a, w)
+        ref = dense_matmul_ref(a, w)
+        torch.cuda.synchronize()
+        err, ok = within_tol(torch, out, ref, "float32")
+        row = {"kernel": "dense_gemm", "model": MOE, "leaf": "router",
+               "dtype": "float32", "m": m, "k": k, "n": n,
+               "route": k1_route(n), "slices": skinny_slices(k),
+               "max_abs_err": err, "ok": ok}
+        if not ok or k1_route(n) != "skinny":
+            fail(f"dense_gemm disagrees with its plain version or is off "
+                 f"its skinny route: {row}")
+        for part in (1, 4):
+            if not torch.equal(dense_matmul(a[:part].contiguous(), w),
+                               out[:part]):
+                fail(f"dense_gemm is not batch invariant at the router "
+                     f"{k}x{n}: rows 0:{part} differ")
+        b_ms, b_by = bound((a.numel() + m * n + w.numel()) * 4,
+                           2.0 * m * k * n, "float32")
+        row.update(ms=timed_ms(torch, lambda: dense_matmul(a, w)),
+                   plain_ms=timed_ms(torch, lambda: dense_matmul_ref(a, w)),
+                   library_ms=timed_ms(torch, lambda: torch.matmul(a, w)),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print(f"[kernels] {json.dumps(row)}")
+        meta = compact_activations(a)
+        kidx, cnt = compact_activations_ref(a, block_m=meta.block_m,
+                                            block_k=meta.block_k)
+        if not (torch.equal(meta.kidx, kidx) and torch.equal(meta.cnt, cnt)):
+            fail(f"sparse_a_meta differs from the plain metadata at the "
+                 f"router {m} x {k}")
+        rows.append({"kernel": "sparse_a_meta", "model": MOE,
+                     "dtype": "float32", "m": m, "k": k,
+                     "block_m": meta.block_m, "block_k": meta.block_k,
+                     "max_abs_err": 0.0, "ok": True})
+        out = sparse_a_matmul(a, w, meta=meta)
+        ref = sparse_a_ref(a, w, meta.kidx, meta.cnt, block_m=meta.block_m,
+                           block_k=meta.block_k)
+        torch.cuda.synchronize()
+        err, ok = within_tol(torch, out, ref, "float32")
+        row = {"kernel": "sparse_a", "model": MOE, "leaf": "router",
+               "dtype": "float32", "m": m, "k": k, "n": n,
+               "block_m": meta.block_m,
+               "route": ROUTE_NAMES[route(a, w, meta.block_k)[0]],
+               "max_abs_err": err, "ok": ok}
+        if not ok:
+            fail(f"sparse_a disagrees with its plain version: {row}")
+        timed_sparse_a(torch, a, w, meta, row)
+        rows.append(row)
+    print(f"[kernels] mixtral-8x7b: griffin_spmm at {len(MOE_SPMM)} shapes "
+          f"(dual and not, and dual on an all-zero A), dense_gemm's skinny "
+          f"route and sparse_a at the fp32 {k}x{n} router agree with their "
+          "plain versions and are batch invariant")
+    return rows
+
+
 def timed_spmm(torch, a, gw, dual: bool, row) -> None:
     """Time griffin_matmul, its plain version and torch.matmul on the
     decompacted weight; bound by the bytes of the live blocks this A
@@ -1451,6 +1664,117 @@ def pruned_twin(torch, api, sparsity: float):
                            compact=False, **prune_for(False))
 
 
+@contextlib.contextmanager
+def plain_route(torch):
+    """Every GEMM of the model through its plain PyTorch version on the
+    served weights themselves: compacted leaves through griffin_spmm's
+    ref.py (decompacted per call), dense ones as plain matmuls.  The
+    route for a model whose dense twin does not fit beside its compacted
+    weights (mixtral-8x7b's is 93 GB)."""
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.models import common
+
+    real = common.griffin_matmul
+    common.griffin_matmul = lambda a, gw, dual=False: griffin_spmm_ref(a, gw)
+    try:
+        with common.sparse_execution(use_kernels=False):
+            yield
+    finally:
+        common.griffin_matmul = real
+
+
+@contextlib.contextmanager
+def spied(module, attr: str, wrap):
+    """``module.attr`` replaced by ``wrap(real)`` inside the scope."""
+    real = getattr(module, attr)
+    setattr(module, attr, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def build_spy(torch, record: dict):
+    """A wrapper of ``sparsity.init_sparse_params`` that records the
+    build's seconds, the peak of allocated bytes during it and the bytes
+    resident after it."""
+    def wrap(real):
+        def build(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            record.update(seconds=time.perf_counter() - t0,
+                          before_bytes=base,
+                          peak_bytes=torch.cuda.max_memory_allocated(),
+                          resident_bytes=torch.cuda.memory_allocated())
+            return out
+        return build
+    return wrap
+
+
+def route_spy(routed: list):
+    """A wrapper of ``models.moe.route`` that keeps each drop-free
+    (decode) call's expert ids on the device: a reference, so no device
+    op and no host sync is added to the run."""
+    def wrap(real):
+        def route(p, x, moe, drop_free=False, valid=None):
+            out = real(p, x, moe, drop_free, valid)
+            if drop_free:
+                routed.append(out[2])
+            return out
+        return route
+    return wrap
+
+
+def record_routing(records: list):
+    """A wrapper of ``models.moe.top_k`` that keeps each call's chosen
+    experts (a reference: no device op, no host sync)."""
+    def wrap(real):
+        def top_k(p, k):
+            vals, idx = real(p, k)
+            records.append(idx)
+            return vals, idx
+        return top_k
+    return wrap
+
+
+def replay_routing(torch, records: list, flips: list):
+    """A wrapper of ``models.moe.top_k`` that, call by call, chooses the
+    experts ``record_routing`` kept (their probabilities this route's
+    own), so two routes are compared GEMM for GEMM under one routing:
+    top-k is a step function, and a near tie that the two routes' bf16
+    roundings break apart changes a token's experts (and, at the trained
+    capacity, which tokens are dropped) where no kernel is wrong.  The
+    (token, layer) choices that this route would have made otherwise are
+    counted into ``flips``."""
+    calls = iter(records)
+
+    def wrap(real):
+        def top_k(p, k):
+            idx = next(calls)
+            own = real(p, k)[1]
+            flips.append(int((own != idx).any(-1).sum()))
+            return p.gather(-1, idx), idx
+        return top_k
+    return wrap
+
+
+def empty_experts(torch, routed: list, experts: int) -> dict:
+    """Experts that no row chose, per (layer, decode step), over the
+    decode calls ``route_spy`` kept (every slot of the arena routes, live
+    or not): what Mode.AB's dual griffin_spmm skips whole."""
+    empty = [int((torch.bincount(e, minlength=experts + 1)[:experts] == 0)
+                 .sum()) for e in routed]
+    if not empty:
+        return {"layer_steps": 0}
+    return {"layer_steps": len(empty), "mean": sum(empty) / len(empty),
+            "min": min(empty), "max": max(empty),
+            "share": sum(empty) / (len(empty) * experts)}
+
+
 def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
                 launches: dict, dual: int, arena: dict, stats=None,
                 paged_ref=None, states=None, arch: str = "llama3.2-1b",
@@ -1464,9 +1788,13 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     taken before the checks below reuse the engine) goes in it under
     ``name``, for a fault cell to equal.  ``fp32_gap`` off skips the
     routes' gaps to the model widened to fp32 (recurrentgemma-9b's fp32
-    twin would take 42 GB beside the served weights and the bf16 twin)."""
+    twin would take 42 GB beside the served weights and the bf16 twin).
+    A family with a streamed build (mixtral-8x7b) reports the build's
+    memory and the experts no row chose, and takes its plain route on the
+    served weights (:func:`plain_route`)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launch
+    from repro_torch.models import moe
     from repro_torch.models.common import sparse_execution
     from repro_torch.runtime.config import EngineConfig
 
@@ -1474,11 +1802,32 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     fields = dict(decode_chunk=8, use_kernels=True, a_sparsity=a_sparsity)
     fields.update(arena)
     config = EngineConfig().with_fields(**fields)
-    reset_launch_counts()
-    run = launch.serve(arch, sparsity=sparsity, seed=SEED, device="cuda",
-                       config=config, **TRACE)
-    got = launch_counts()
+    build, routed = {}, []
+    with spied(launch, "init_sparse_params", build_spy(torch, build)), \
+            spied(moe, "route", route_spy(routed)):
+        reset_launch_counts()
+        run = launch.serve(arch, sparsity=sparsity, seed=SEED,
+                           device="cuda", config=config, **TRACE)
+        got = launch_counts()
     eng = run.engine
+    extra = {}
+    if build:
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"{tag} streamed build (sparsity.init_sparse_params) "
+              f"{build['seconds']:.1f}s: peak allocated "
+              f"{build['peak_bytes'] / 2**30:.2f} GiB, resident after it "
+              f"{build['resident_bytes'] / 2**30:.2f} GiB, of the card's "
+              f"{total / 2**30:.2f} GiB")
+        if build["peak_bytes"] >= total:
+            fail(f"{name}: the build's peak {build['peak_bytes']} B reaches "
+                 f"the card's {total} B")
+        extra["build"] = build
+    if routed:
+        extra["empty_experts"] = empty_experts(torch, routed,
+                                               eng.api.cfg.moe.num_experts)
+        print(f"{tag} experts no row chose, per (layer, decode step): "
+              f"{extra['empty_experts']}")
+    del routed
     if states is not None:
         states[name] = end_state(eng)
     st = eng.stats
@@ -1493,7 +1842,6 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
           f"prefills, {run.syncs_per_token:.4f} host syncs/token, peak "
           f"{eng.peak_active} of {eng.num_slots} slots active; launches "
           f"{got}; dispatch {run.dispatch}")
-    extra = {}
     if eng._paged is not None:
         check_paged_arena(eng)
         extra["kv_bytes"] = kv_bytes(eng)
@@ -1552,11 +1900,25 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
 
     # what comes out is right: the kernel route's prefill logits against
     # the same model through plain torch matmuls
-    with eng._scope():
+    routing, flips = [], []
+    with eng._scope(), spied(moe, "top_k", record_routing(routing)):
         _, logits = eng.api.prefill(run.params, batch, cache_len=64)
-    twin = pruned_twin(torch, eng.api, sparsity)
-    with sparse_execution(use_kernels=False):
-        _, ref = eng.api.prefill(twin, batch, cache_len=64)
+    if eng.api.draws is not None:
+        # no dense twin fits: the plain versions on the served weights,
+        # under the kernel route's routing
+        twin = None
+        with plain_route(torch), \
+                spied(moe, "top_k", replay_routing(torch, routing, flips)):
+            _, ref = eng.api.prefill(run.params, batch, cache_len=64)
+        extra["routing_flips"] = sum(flips)
+        print(f"{tag} the plain route under the kernel route's routing; "
+              f"on its own it would choose other experts for "
+              f"{sum(flips)} of {len(flips)} (layer) x "
+              f"{batch['tokens'].numel()} (token) routings")
+    else:
+        twin = pruned_twin(torch, eng.api, sparsity)
+        with sparse_execution(use_kernels=False):
+            _, ref = eng.api.prefill(twin, batch, cache_len=64)
     rel = rel_l2(logits, ref)
     if logits.shape != (1, eng.api.cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -1833,23 +2195,30 @@ def check_same_tokens(name: str, run, want: dict, of: str) -> None:
           f"{of}'s")
 
 
-def phase_hybrid_long_window(torch, run):
-    """recurrentgemma-9b past its window, on ``run``'s weights: one
-    ``HYBRID_LONG["prompt"]``-token prompt straight through the model's
-    prefill with a cache_len above the window, so the K/V cache keeps the
-    last window rolled by S % window, then decode steps fed seeded ids,
-    which write slot pos % window and wrap the rolling cache.  The same
-    calls on the plain-matmul route (the pruned weights uncompacted): the
-    logits within 2 % relative L2 at the prefill and at every step, every
-    K/V cache row within MAX_ROW_GAP; seconds, the memory rise over the
-    level before the calls (within 3 GiB) and the launches."""
+def phase_long_window(torch, run, name: str, long: dict, launches: dict,
+                      sparsity: float, replay: bool = True):
+    """A model past its window, on ``run``'s weights (recurrentgemma-9b's
+    ``HYBRID_LONG``, mixtral-8x7b's ``MOE_LONG``): one ``long["prompt"]``-
+    token prompt straight through the model's prefill with a cache_len
+    above the window, so the K/V cache keeps the last window rolled by S %
+    window, then decode steps fed seeded ids, which write slot pos %
+    window and wrap the rolling cache.  The same calls on the plain route
+    (the pruned weights uncompacted, or where that twin does not fit, the
+    plain versions on the compacted weights): the logits within 2 %
+    relative L2 at the prefill and at every step, every K/V cache row
+    within MAX_ROW_GAP; seconds, the memory rise over the level before
+    the calls (within 3 GiB) and ``launches`` per model call.  A moe
+    model's plain route takes the kernel route's expert choices
+    (:func:`replay_routing`); ``replay=False`` lets it route on its own
+    and reports the gaps without gating them."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.common import sparse_execution
 
     eng = run.engine
     api = eng.api
-    S, clen, steps = (HYBRID_LONG[k] for k in ("prompt", "cache_len",
-                                                "steps"))
+    S, clen, steps = (long[k] for k in ("prompt", "cache_len", "steps"))
+    from repro_torch.models import moe
+
     window = api.cfg.window
     gen = torch.Generator(device="cuda").manual_seed(6)
     batch = {"tokens": torch.randint(1, api.cfg.vocab_size, (1, S),
@@ -1860,8 +2229,9 @@ def phase_hybrid_long_window(torch, run):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_launch_counts()
+    routing, flips = [], []
     t0 = time.perf_counter()
-    with eng._scope():
+    with eng._scope(), spied(moe, "top_k", record_routing(routing)):
         cache, logits = api.prefill(run.params, batch, cache_len=clen)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
@@ -1874,9 +2244,19 @@ def phase_hybrid_long_window(torch, run):
     seconds = time.perf_counter() - t0
     rise = torch.cuda.max_memory_allocated() - base
     got = launch_counts()
-    want = {k: v * (1 + steps) for k, v in HYBRID_SB["launches"].items()}
-    twin = pruned_twin(torch, api, HYBRID_SB["sparsity"])
-    with sparse_execution(use_kernels=False):
+    want = {k: v * (1 + steps) for k, v in launches.items()}
+    if api.draws is not None:
+        # the plain versions on the served weights, under the kernel
+        # route's routing (:func:`replay_routing`)
+        twin, plain = run.params, contextlib.ExitStack()
+        plain.enter_context(plain_route(torch))
+        if replay:
+            plain.enter_context(spied(moe, "top_k", replay_routing(
+                torch, routing, flips)))
+    else:
+        twin = pruned_twin(torch, api, sparsity)
+        plain = sparse_execution(use_kernels=False)
+    with plain:
         ref_cache, ref = api.prefill(twin, batch, cache_len=clen)
         gaps = [rel_l2(outs[0], ref)]
         for t in range(steps):
@@ -1885,7 +2265,7 @@ def phase_hybrid_long_window(torch, run):
             gaps.append(rel_l2(outs[t + 1], ref))
     del twin
     row_gap = max(rows_rel_l2(cache[t], ref_cache[t]) for t in "kv")
-    print(f"[hybrid_long_window] {S}-token prompt, cache_len {clen} > "
+    print(f"[{name}] {S}-token prompt, cache_len {clen} > "
           f"window {window}: K/V cache {tuple(cache['k'].shape)} rolled by "
           f"{S % window}; prefill {prefill_s:.3f}s, with {steps} decode "
           f"steps (slots {(S) % window}..{(S + steps - 1) % window}) "
@@ -1893,29 +2273,37 @@ def phase_hybrid_long_window(torch, run):
           f"{base / 2**30:.3f} GiB; launches {got}; logits relative L2 "
           f"gap to the plain route: prefill {gaps[0]:.5f}, steps "
           f"{', '.join(f'{g:.5f}' for g in gaps[1:])}; largest per-row "
-          f"gap of the K/V cache {row_gap:.5f}")
+          f"gap of the K/V cache {row_gap:.5f}"
+          + (f"; the plain route under the kernel route's routing, which "
+             f"it would have left in {sum(flips)} (token, layer) choices of"
+             f" {S + steps} x {len(flips) // (1 + steps)}" if flips else "")
+          + ("" if replay else "; free routing: reported, not gated"))
+    record = {"prompt": S, "cache_len": clen, "prefill_seconds": prefill_s,
+              "seconds": seconds, "memory_rise_bytes": rise,
+              "memory_before_bytes": base, "launches": got,
+              "logits_rel_l2": gaps, "cache_row_rel_l2": row_gap,
+              "routing_flips": sum(flips) if flips else None}
+    if not replay:
+        return record
     if tuple(cache["k"].shape[1:3]) != (1, window) or \
             int(cache["pos"]) != S - 1 + steps:
-        fail(f"hybrid_long_window: cache {tuple(cache['k'].shape)}, pos "
+        fail(f"{name}: cache {tuple(cache['k'].shape)}, pos "
              f"{int(cache['pos'])}")
     if rise > MAX_PREFILL_RISE:
-        fail(f"hybrid_long_window: memory rise {rise} B > "
+        fail(f"{name}: memory rise {rise} B > "
              f"{MAX_PREFILL_RISE} B")
     if got != want:
-        fail(f"hybrid_long_window: launches {got}, expected {want}")
+        fail(f"{name}: launches {got}, expected {want}")
     if not all(bool(torch.isfinite(o).all()) for o in outs) or \
             outs[0].shape != (1, api.cfg.vocab_size):
-        fail("hybrid_long_window: logits not finite or of the wrong shape")
+        fail(f"{name}: logits not finite or of the wrong shape")
     if max(gaps) > 2e-2:
-        fail(f"hybrid_long_window: kernel-route logits differ from the "
+        fail(f"{name}: kernel-route logits differ from the "
              f"plain route by {max(gaps):.4f}")
     if row_gap > MAX_ROW_GAP:
-        fail(f"hybrid_long_window: a K/V cache row of the kernel route "
+        fail(f"{name}: a K/V cache row of the kernel route "
              f"differs from the plain route's by {row_gap:.4f}")
-    return {"prompt": S, "cache_len": clen, "prefill_seconds": prefill_s,
-            "seconds": seconds, "memory_rise_bytes": rise,
-            "memory_before_bytes": base, "launches": got,
-            "logits_rel_l2": gaps, "cache_row_rel_l2": row_gap}
+    return record
 
 
 def phase_xlstm_prefill(torch, run):
@@ -2344,6 +2732,47 @@ def phase_profile(torch, name: str, run):
     return wall_ms, by_name
 
 
+def moe_profile(torch, name: str, run, steps: int = 4) -> dict:
+    """On every moe path, not only with ``--profile``: one fused chunk of
+    ``steps`` decode steps on the drained arena (every slot decodes) under
+    torch.profiler with device activity only (a mixtral engine run under
+    the full profiler takes minutes to process): device ops per model
+    call, the device's busy share of the wall and griffin_spmm's device
+    ms per model call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = run.engine
+    _, _, chunk_for = eng._fns()
+
+    def chunk():
+        with eng._scope():
+            chunk_for(steps)(run.params, eng.cache, eng._tokens,
+                             eng._remaining)
+
+    chunk()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    spmm = sum(e.device_time_total for e in kernels
+               if "spmm_" in e.name) / 1e3
+    record = {"steps": steps, "wall_ms": wall_ms,
+              "ops_per_call": len(kernels) / steps,
+              "busy_share": busy / wall_ms,
+              "griffin_spmm_ms_per_call": spmm / steps}
+    print(f"[profile {name}] a {steps}-step fused chunk, {eng.num_slots} "
+          f"slots: {wall_ms:.1f} ms wall, {len(kernels) / steps:.1f} "
+          f"device ops a step, device busy {busy:.1f} ms = "
+          f"{busy / wall_ms:.3f} of wall, griffin_spmm "
+          f"{spmm / steps:.3f} ms a step")
+    return record
+
+
 def phase_profile_router(torch, name: str, run) -> None:
     """``--profile``: the cell's trace routed again on the same weights by
     a fresh router (``launch.serve.build_router``) under torch.profiler:
@@ -2769,6 +3198,21 @@ def phase_autotune(torch, card: str):
     return total, record
 
 
+class PhaseClock:
+    """Each phase's wall seconds, printed on a line of its own as the phase
+    ends (a phase runs from the previous one's end)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._last = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self._last
+        self._last = now
+        print(f"[phase] {name} {self.seconds[name]:.1f}s")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail("run from a checkout of the repository (src/repro_torch "
@@ -2785,8 +3229,11 @@ def main() -> None:
     card = card_line()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    clock = PhaseClock()
     build_s = phase_build(build)
+    clock.done("build")
     rows, summary = phase_kernels(torch)
+    clock.done("kernels")
     serves, long_prefill, paged_ref, unfaulted = {}, None, None, {}
     for name, path in PATHS.items():
         keep = any(c["path"] == name and c.get("snapshot_dir") is None
@@ -2809,6 +3256,7 @@ def main() -> None:
                 for k in SB_LAUNCHES}}
         del run
         torch.cuda.empty_cache()
+        clock.done(name)
     xlstm_tokens = xlstm_prefill = None
     for name, path in XLSTM_PATHS.items():
         run, launches, gaps, extra = phase_serve(torch, name, arch=XLSTM,
@@ -2825,6 +3273,7 @@ def main() -> None:
         del run
         gc.collect()            # an engine's closures hold it in a cycle
         torch.cuda.empty_cache()
+        clock.done(name)
     hybrid_tokens = hybrid_long = None
     for name, path in HYBRID_PATHS.items():
         run, launches, gaps, extra = phase_serve(
@@ -2835,7 +3284,9 @@ def main() -> None:
         if name == "hybrid_sparse_b":
             hybrid_tokens = {r: o.tokens
                              for r, o in run.engine.outputs.items()}
-            hybrid_long = phase_hybrid_long_window(torch, run)
+            hybrid_long = phase_long_window(
+                torch, run, "hybrid_long_window", HYBRID_LONG,
+                HYBRID_SB["launches"], HYBRID_SB["sparsity"])
             serves["hybrid_long_window"] = {
                 "launches": hybrid_long["launches"]}
         if name == "hybrid_paged":
@@ -2843,10 +3294,43 @@ def main() -> None:
         del run
         gc.collect()
         torch.cuda.empty_cache()
+        clock.done(name)
+    moe_tokens = moe_long = None
+    moe_profiles = {}
+    for name, path in MOE_PATHS.items():
+        run, launches, gaps, extra = phase_serve(
+            torch, name, arch=MOE, fp32_gap=False, **path)
+        clock.done(name)
+        # always: device ops per model call, the device's busy share and
+        # griffin_spmm's device time, Mode.AB's dual walk against Sparse.B's
+        moe_profiles[name] = extra["profile"] = moe_profile(torch, name,
+                                                            run)
+        if "--profile" in sys.argv[1:]:
+            phase_profile(torch, name, run)
+        serves[name] = serve_record(run, launches, gaps, extra)
+        if name == "moe_sparse_b":
+            moe_tokens = {r: o.tokens for r, o in run.engine.outputs.items()}
+            moe_long = phase_long_window(
+                torch, run, "moe_long_window", MOE_LONG, MOE_SB["launches"],
+                MOE_SB["sparsity"])
+            serves["moe_long_window"] = {"launches": moe_long["launches"]}
+        if name == "moe_paged":
+            check_same_tokens(name, run, moe_tokens, "moe_sparse_b")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.done(f"{name} checks")
+    sb, ab = (moe_profiles[p]["griffin_spmm_ms_per_call"]
+              for p in ("moe_sparse_b", "moe_mode_ab"))
+    print(f"[serve moe] griffin_spmm device ms per decode step (a 4-step "
+          f"chunk): Mode.AB (dual) {ab:.3f}, Sparse.B {sb:.3f}, ratio "
+          f"{ab / sb:.3f}; experts no row chose per (layer, decode step): "
+          f"{serves['moe_mode_ab']['empty_experts']}; {card}")
     for name, cell in FAULT_CELLS.items():
         serves[name] = phase_fault(torch, name, card,
                                    unfaulted.get(cell["path"]), **cell)
         torch.cuda.empty_cache()
+    clock.done("fault")
     for name, cell in ROUTER_CELLS.items():
         run, launches, record = phase_router(torch, name, **cell)
         serves[name] = {"launches": launches, **record}
@@ -2854,13 +3338,16 @@ def main() -> None:
             phase_profile_router(torch, name, run)
         del run
         torch.cuda.empty_cache()
+    clock.done("router")
     launches, cycle_checks, cycle_summary, cycle_model = \
         phase_cycle_model(torch)
     serves["cycle_model"] = {"launches": launches}
     rows += cycle_checks
     summary["batch_eval"] = cycle_summary
+    clock.done("cycle_model")
     launches, autotune_record = phase_autotune(torch, card)
     serves["autotune"] = {"launches": launches}
+    clock.done("autotune")
 
     kernels = []
     sources = {"dense_gemm": ("src/repro_torch/csrc/dense_gemm.cu",
@@ -2901,6 +3388,8 @@ def main() -> None:
               "serve": serves, "long_prefill": long_prefill,
               "xlstm_prefill": xlstm_prefill,
               "hybrid_long_window": hybrid_long,
+              "moe_long_window": moe_long,
+              "phase_s": clock.seconds,
               "cycle_model": cycle_model,
               "autotune": autotune_record,
               "spmm_granularity": summary["griffin_spmm_granularity"],

@@ -1,3 +1,3 @@
-from .base import ModelConfig, get_config, register
+from .base import ModelConfig, MoEConfig, get_config, register
 
-__all__ = ["ModelConfig", "get_config", "register"]
+__all__ = ["ModelConfig", "MoEConfig", "get_config", "register"]

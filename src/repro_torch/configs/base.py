@@ -1,7 +1,8 @@
-"""Model configuration: the dense decoder's, the ssm (xlstm) family's and
-the hybrid (recurrentgemma) family's fields of
-``repro.configs.base.ModelConfig`` and the same ``reduced()`` rule, so a
-reduced config here has exactly the reference's dims."""
+"""Model configuration: the dense decoder's, the mixture-of-experts
+family's, the ssm (xlstm) family's and the hybrid (recurrentgemma)
+family's fields of ``repro.configs.base.ModelConfig`` and the same
+``reduced()`` rule, so a reduced config here has exactly the reference's
+dims."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +10,16 @@ from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # "dense", "ssm" and "hybrid" are ported
+    family: str                 # "dense", "moe", "ssm" and "hybrid" are ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -19,6 +27,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0           # 0 -> d_model // num_heads
+    moe: Optional[MoEConfig] = None
     window: Optional[int] = None        # sliding-window attention
     qk_norm: bool = False
     tie_embeddings: bool = False
@@ -46,6 +55,7 @@ class ModelConfig:
             num_heads=4, num_kv_heads=min(4, max(1, self.num_kv_heads)),
             head_dim=16, d_ff=128 if self.d_ff else 0, vocab_size=128,
             window=min(self.window, 32) if self.window else None,
+            moe=MoEConfig(4, self.moe.top_k) if self.moe else None,
             lru_width=64 if self.family == "hybrid" else 0,
             dtype="float32", kv_chunk=16)
         if self.xlstm_pattern:
@@ -71,4 +81,5 @@ def get_config(name: str) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from . import llama3_2_1b, recurrentgemma_9b, xlstm_1_3b  # noqa: F401
+    from . import (llama3_2_1b, llama4_scout_17b_a16e,  # noqa: F401
+                   mixtral_8x7b, recurrentgemma_9b, xlstm_1_3b)

@@ -1,0 +1,10 @@
+"""mixtral-8x7b [arXiv:2401.04088]: 32L d=4096 32H (GQA kv=8) d_ff=14336,
+MoE 8 experts top-2, sliding-window attention (4096)."""
+from .base import ModelConfig, MoEConfig, register
+
+CONFIG = register(ModelConfig(
+    name="mixtral-8x7b", family="moe",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8,
+    d_ff=14336, vocab_size=32000, window=4096,
+    moe=MoEConfig(num_experts=8, top_k=2), rope_theta=1e6,
+))

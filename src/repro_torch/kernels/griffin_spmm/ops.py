@@ -107,6 +107,37 @@ def balance_columns(w_padded: torch.Tensor, block_k: int, block_n: int,
     return (order[:, None] * unit + unit_cols[None, :]).reshape(-1)
 
 
+def _tiles(w: torch.Tensor, block_k: int, block_n: int, balance: bool,
+           unit: Optional[int]):
+    """(padded and balanced w, perm, inv_perm, live-block map (nb_k,
+    nb_n), live blocks per N tile) of :func:`preprocess_weights`."""
+    k, n = w.shape
+    pk = -(-k // block_k) * block_k
+    pn = -(-n // block_n) * block_n
+    wp = w.new_zeros((pk, pn))
+    wp[:k, :n] = w
+    nb_k, nb_n = pk // block_k, pn // block_n
+    unit = unit or max(8, block_n // 4)
+    perm = inv_perm = None
+    if balance and pn > block_n and pn % unit == 0:
+        full_perm = balance_columns(wp, block_k, block_n, unit)
+        wp = wp[:, full_perm]
+        perm = full_perm.to(torch.int32)
+        inv_perm = torch.argsort(full_perm).to(torch.int32)
+    blocks = wp.reshape(nb_k, block_k, nb_n, block_n)
+    blk_nz = (blocks != 0).any(dim=3).any(dim=1)          # (nb_k, nb_n)
+    cnt = blk_nz.sum(dim=0).to(torch.int32)                # (nb_n,)
+    return wp, perm, inv_perm, blk_nz, cnt
+
+
+def grid_depth(w: torch.Tensor, *, block_k: int = DEFAULT_BLOCK_K,
+               block_n: int = DEFAULT_BLOCK_N, balance: bool = True,
+               unit: Optional[int] = None) -> int:
+    """The grid depth (``max_cnt``) ``preprocess_weights`` gives ``w``,
+    without compacting it.  Reads it back to the host."""
+    return max(int(_tiles(w, block_k, block_n, balance, unit)[4].max()), 1)
+
+
 def preprocess_weights(w: torch.Tensor, *, block_k: int = DEFAULT_BLOCK_K,
                        block_n: int = DEFAULT_BLOCK_N, balance: bool = True,
                        unit: Optional[int] = None) -> GriffinWeights:
@@ -114,25 +145,11 @@ def preprocess_weights(w: torch.Tensor, *, block_k: int = DEFAULT_BLOCK_K,
     per-N-tile metadata, optionally balance unit-columns across tiles.
     ``unit`` is the pruning granularity along N (default block_n / 4, min
     8).  Reads one scalar (the grid depth, a shape) back to the host."""
-    k, n = w.shape
     dev = w.device
-    pk = -(-k // block_k) * block_k
-    pn = -(-n // block_n) * block_n
-    wp = w.new_zeros((pk, pn))
-    wp[:k, :n] = w
-    nb_k, nb_n = pk // block_k, pn // block_n
-    unit = unit or max(8, block_n // 4)
-
-    perm = inv_perm = None
-    if balance and pn > block_n and pn % unit == 0:
-        full_perm = balance_columns(wp, block_k, block_n, unit)
-        wp = wp[:, full_perm]
-        perm = full_perm.to(torch.int32)
-        inv_perm = torch.argsort(full_perm).to(torch.int32)
-
+    wp, perm, inv_perm, blk_nz, cnt = _tiles(w, block_k, block_n, balance,
+                                              unit)
+    (pk, pn), (nb_k, nb_n) = wp.shape, blk_nz.shape
     blocks = wp.reshape(nb_k, block_k, nb_n, block_n)
-    blk_nz = (blocks != 0).any(dim=3).any(dim=1)          # (nb_k, nb_n)
-    cnt = blk_nz.sum(dim=0).to(torch.int32)                # (nb_n,)
     max_cnt = max(int(cnt.max().item()), 1)
     ids = torch.arange(nb_k, device=dev)[:, None]
     live_ids = torch.sort(torch.where(blk_nz, ids, nb_k), dim=0).values
@@ -148,7 +165,7 @@ def preprocess_weights(w: torch.Tensor, *, block_k: int = DEFAULT_BLOCK_K,
     b_comp = gathered.permute(0, 2, 1, 3).reshape(max_cnt * block_k, pn)
     return GriffinWeights(
         b_comp=b_comp.contiguous(), kidx=kidx_t.T.contiguous().to(torch.int32),
-        cnt=cnt, inv_perm=inv_perm, k=pk, n=n, block_k=block_k,
+        cnt=cnt, inv_perm=inv_perm, k=pk, n=w.shape[1], block_k=block_k,
         block_n=block_n, perm=perm)
 
 

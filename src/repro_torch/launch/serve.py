@@ -7,7 +7,9 @@ single-engine path.
     python -m repro_torch.launch.serve --arch llama3.2-1b --sparsity 0.8 \\
         --use-kernels --parity
 
-runs full-width llama3.2-1b on the CUDA card; ``--reduced --device cpu``
+runs full-width llama3.2-1b on the CUDA card (``--arch mixtral-8x7b``
+serves the moe family, its compacted weights built one matrix at a time
+by ``sparsity.init_sparse_params``); ``--reduced --device cpu``
 runs the reduced config on the host (the kernels' plain versions).
 ``--page-size 16`` serves from the paged KV arena (``--num-pages`` sizes
 its pool, ``--kv-dtype int8`` quantizes its pages), ``--policy static``
@@ -64,7 +66,7 @@ from ..runtime.router import RouterEngine
 from ..runtime.serve import greedy_generate
 from ..runtime.slo import DegradationConfig
 from ..runtime.straggler import StragglerConfig, StragglerDetector
-from ..sparsity import prune_for, sparsify_params
+from ..sparsity import init_sparse_params, prune_for, sparsify_params
 from ..tuning import load_plan
 
 
@@ -147,11 +149,17 @@ def _setup(arch: str, reduced: bool, sparsity: float, seed: int,
             print(f"plan {econf.kernels.plan} has no entry for family "
                   f"{cfg.family!r}; serving with defaults")
     api = build_model(cfg, device=device)
-    params = api.init(api.generator(seed))
-    if sparsity > 0:
-        params = sparsify_params(params, sparsity,
-                                 compact=econf.kernels.use_kernels,
-                                 plan=plan, **prune_for(reduced))
+    if sparsity > 0 and econf.kernels.use_kernels and api.draws is not None:
+        # the moe family: compacted one matrix at a time, never holding
+        # the dense tree (mixtral-8x7b's does not fit the card)
+        params = init_sparse_params(api, api.generator(seed), sparsity,
+                                    plan=plan, **prune_for(reduced))
+    else:
+        params = api.init(api.generator(seed))
+        if sparsity > 0:
+            params = sparsify_params(params, sparsity,
+                                     compact=econf.kernels.use_kernels,
+                                     plan=plan, **prune_for(reduced))
     if max_gen is None and length_dist == "heavy":
         max_gen = EngineConfig.heavy_gen_cap(gen_lens)
     reqs = synthetic_trace(cfg, num_requests=requests, seed=trace_seed,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -186,6 +187,58 @@ def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * scale).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """One leaf of a parameter tree drawn slice by slice: ``path`` names it
+    in the tree, ``lead`` its stacked axes (layers, experts) and ``shape``
+    each slice's matrix, a normal draw times ``scale`` (default 1 /
+    sqrt(fan-in), the matrix's first axis), or zeros with ``zeros``.  A
+    list of them is a draw order: :func:`init_from_draws` makes the tree
+    from it, and ``sparsity.init_sparse_params`` makes the same draws in
+    the same order and compacts each slice before it draws the next."""
+
+    path: Tuple[str, ...]
+    lead: Tuple[int, ...]
+    shape: Tuple[int, ...]
+    scale: Optional[float] = None
+    zeros: bool = False
+
+    def slices(self, gen: torch.Generator, dtype: torch.dtype):
+        """(index, slice) over the leading axes in row-major order, each
+        slice drawn from ``gen`` when it is needed."""
+        for idx in itertools.product(*(range(n) for n in self.lead)):
+            if self.zeros:
+                yield idx, torch.zeros(self.shape, dtype=dtype,
+                                       device=gen.device)
+            else:
+                yield idx, dense_init(gen, self.shape, self.shape[0], dtype,
+                                      scale=self.scale)
+
+    def draw(self, gen: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
+        """The whole leaf, allocated once and filled slice by slice, so no
+        more than one slice's fp32 draw is held beside it."""
+        leaf = torch.empty(self.lead + tuple(self.shape), dtype=dtype,
+                           device=gen.device)
+        for idx, w in self.slices(gen, dtype):
+            leaf[idx] = w
+        return leaf
+
+
+def set_path(tree: Dict[str, Any], path: Tuple[str, ...], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def init_from_draws(draws, gen: torch.Generator, dtype: torch.dtype
+                    ) -> Dict[str, Any]:
+    """The parameter tree of a draw order (:meth:`Draw.draw` each leaf)."""
+    tree: Dict[str, Any] = {}
+    for d in draws:
+        set_path(tree, d.path, d.draw(gen, dtype))
+    return tree
 
 
 def _stack_trees(layers):

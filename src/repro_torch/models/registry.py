@@ -1,6 +1,6 @@
 """Model registry: one uniform API per architecture family — the
-counterpart of ``repro/models/registry.py`` (the dense, ssm and hybrid
-families so far).
+counterpart of ``repro/models/registry.py`` (the dense, moe, ssm and
+hybrid families so far).
 
 ``build_model(cfg, device)`` binds the family's functions to ``cfg`` and to
 the device the model runs on; the default is the CUDA card.
@@ -28,6 +28,9 @@ class ModelApi:
     prefill: Callable[..., Any]               # (params, batch) -> (cache, logits)
     decode_step: Callable[..., Any]           # (params, cache, token) -> (logits, cache)
     init_cache: Callable[..., Params]         # (batch, length, device=) -> cache
+    # the family's draw order (``common.Draw``), where ``init`` follows one
+    # (the moe family): ``sparsity.init_sparse_params`` streams it
+    draws: Optional[Callable[[], list]] = None
 
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on the model's device, for ``init``."""
@@ -46,6 +49,8 @@ def _transformer_api(cfg: ModelConfig, device: torch.device) -> ModelApi:
         decode_step=functools.partial(transformer.decode_step, cfg),
         init_cache=functools.partial(transformer.init_cache, cfg,
                                      device=device),
+        draws=(functools.partial(transformer.param_draws, cfg)
+               if cfg.family == "moe" else None),
     )
 
 
@@ -81,7 +86,7 @@ def build_model(cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = "cuda"
                 ) -> ModelApi:
     device = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _transformer_api(cfg, device)
     if cfg.family == "ssm":
         return _xlstm_api(cfg, device)

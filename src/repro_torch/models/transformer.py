@@ -1,10 +1,13 @@
-"""Decoder-only dense transformer (llama-style) — the counterpart of
-``repro/models/transformer.py`` for the dense family.
+"""Decoder-only transformer (llama-style) — the counterpart of
+``repro/models/transformer.py`` for the dense and the mixture-of-experts
+families (mixtral with its sliding window, llama4-scout top-1).
 
 Parameters are a plain dict of tensors with the reference's layout:
 ``embed`` (V, D), ``final_norm`` (D,), ``layers`` holding every per-layer
 leaf stacked along a leading layer axis, and ``head`` (D, V) unless the
-embeddings are tied.  Every weight GEMM goes through
+embeddings are tied; the moe family's layers hold a ``moe`` subtree of
+``router`` (L, D, E), ``w_gate``/``w_up`` (L, E, D, F) and ``w_down`` (L,
+E, F, D) in place of the dense FFN.  Every weight GEMM goes through
 ``common.griffin_linear``, so compacted ``GriffinWeights`` leaves (stacked,
 sliced per layer) run the Sparse.B kernel.  The layer stack is a Python loop.
 
@@ -25,9 +28,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import attention, decode_attention
-from .common import (act_fn, dense_init, griffin_linear, paged_slot,
-                     paged_view, paged_write, rms_norm, rope,
-                     shared_activation_meta, take_last, write_kv_slot)
+from .common import (Draw, act_fn, dense_init, griffin_linear,
+                     init_from_draws, length_mask, paged_slot, paged_view,
+                     paged_write, rms_norm, rope, shared_activation_meta,
+                     take_last, write_kv_slot)
+from .moe import moe_ffn
 
 Params = Dict[str, Any]
 
@@ -36,10 +41,44 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def param_draws(cfg: ModelConfig):
+    """The moe family's draw order (``common.Draw``): the embedding, the
+    norm scales, then leaf by leaf each weight matrix one (layer) or
+    (layer, expert) slice at a time (wq, wk, wv, wo, the router, w_gate,
+    w_up, w_down), then the head.  ``init_params`` and
+    ``sparsity.init_sparse_params`` both follow it, so the second can
+    compact each slice before it draws the next."""
+    L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    E = cfg.moe.num_experts
+    lay = ("layers",)
+    draws = [Draw(("embed",), (), (cfg.vocab_size, D), scale=1.0),
+             Draw(("final_norm",), (), (D,), zeros=True),
+             Draw(lay + ("ln1",), (L,), (D,), zeros=True),
+             Draw(lay + ("ln2",), (L,), (D,), zeros=True)]
+    if cfg.qk_norm:
+        draws += [Draw(lay + ("qn",), (L,), (hd,), zeros=True),
+                  Draw(lay + ("kn",), (L,), (hd,), zeros=True)]
+    draws += [Draw(lay + ("wq",), (L,), (D, H * hd)),
+              Draw(lay + ("wk",), (L,), (D, KVH * hd)),
+              Draw(lay + ("wv",), (L,), (D, KVH * hd)),
+              Draw(lay + ("wo",), (L,), (H * hd, D)),
+              Draw(lay + ("moe", "router"), (L,), (D, E)),
+              Draw(lay + ("moe", "w_gate"), (L, E), (D, F)),
+              Draw(lay + ("moe", "w_up"), (L, E), (D, F)),
+              Draw(lay + ("moe", "w_down"), (L, E), (F, D))]
+    if not cfg.tie_embeddings:
+        draws.append(Draw(("head",), (), (D, cfg.vocab_size)))
+    return draws
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random weights from ``gen`` on ``gen.device``: normal / sqrt(fan_in)
     GEMMs, unit-normal embeddings, zero norm scales (the reference's
-    scheme; the draws themselves differ from ``jax.random``'s)."""
+    scheme; the draws themselves differ from ``jax.random``'s).  The moe
+    family draws in :func:`param_draws`' order, one matrix at a time."""
+    if cfg.family == "moe":
+        return init_from_draws(param_draws(cfg), gen, _dtype(cfg))
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   "(ROADMAP 1.12)")
@@ -79,10 +118,27 @@ def unembed(cfg: ModelConfig, params: Params):
 
 
 def _layer(params: Params, i: int) -> Params:
-    return {name: leaf[i] for name, leaf in params["layers"].items()}
+    """Layer ``i``'s leaves (the moe subtree sliced the same way)."""
+    def pick(tree):
+        if isinstance(tree, dict):
+            return {name: pick(leaf) for name, leaf in tree.items()}
+        return tree[i]
+    return pick(params["layers"])
 
 
-def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, decode: bool = False,
+         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The FFN: the dense SwiGLU, or the moe family's experts (drop-free on
+    decode; ``valid``, the (B, S) right-pad mask of a bucketed prefill,
+    keeps pads out of the experts).  The moe family's aux loss is a
+    training term: serving drops it."""
+    if cfg.moe:
+        B, S, D = x.shape
+        out, _ = moe_ffn(p["moe"], x.reshape(B * S, D), cfg.moe, cfg.act,
+                         drop_free=decode,
+                         valid=None if valid is None
+                         else valid.reshape(B * S))
+        return out.reshape(B, S, D)
     meta = shared_activation_meta(x, p["w_gate"], p["w_up"])
     h = act_fn(cfg.act)(griffin_linear(x, p["w_gate"], meta=meta)) * \
         griffin_linear(x, p["w_up"], meta=meta)
@@ -105,16 +161,20 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def block_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                positions: torch.Tensor):
-    """Full-sequence block (prefill).  Right-padded buckets need no mask:
-    pads sit after every real token, so causal attention keeps them out."""
+                positions: torch.Tensor,
+                valid: Optional[torch.Tensor] = None):
+    """Full-sequence block (prefill).  ``valid``: the optional (B, S)
+    right-pad mask of a bucketed prefill.  Causal attention keeps pads out
+    on its own (they sit after every real token); only the moe dispatch
+    needs it, so pads take no expert capacity."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h, positions)
     o = attention(q, k, v, causal=True, window=cfg.window,
                   kv_chunk=cfg.kv_chunk)
     B, S = q.shape[:2]
     x = x + griffin_linear(o.reshape(B, S, -1), p["wo"]).to(x.dtype)
-    x = (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))).to(x.dtype)
+    x = (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps),
+                  valid=valid)).to(x.dtype)
     return x, k, v
 
 
@@ -132,7 +192,8 @@ def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     o = decode_attention(q, *kv(k, v), attend_pos, window=window)
     B = x.shape[0]
     x = x + griffin_linear(o.reshape(B, 1, -1), p["wo"]).to(x.dtype)
-    return (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))).to(x.dtype)
+    return (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps),
+                     decode=True)).to(x.dtype)
 
 
 def _fixed_kv(slot: torch.Tensor, k_cache: torch.Tensor,
@@ -174,9 +235,10 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device)
+    valid = None if lengths is None else length_mask(lengths, S)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, k, v = block_train(cfg, _layer(params, i), x, positions)
+        x, k, v = block_train(cfg, _layer(params, i), x, positions, valid)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -4,8 +4,11 @@
 ``magnitude_prune`` zeroes elements, ``block_prune`` zeroes (block_k x unit)
 blocks by L2 norm with the reference's ``norms >= thresh`` tie rule, and
 ``sparsify_params`` block-prunes the weight GEMM leaves of a parameter tree
-and compacts them into ``GriffinWeights``.  Everything runs with torch ops on
-the weights' own device.
+and compacts them into ``GriffinWeights``.  ``init_sparse_params`` gives
+``sparsify_params(api.init(gen), ...)`` bit for bit without ever holding
+the dense tree: mixtral-8x7b's 93 GB of bf16 weights do not fit the card,
+its compacted ones do.  Everything runs with torch ops on the weights' own
+device.
 """
 from __future__ import annotations
 
@@ -14,7 +17,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.griffin_spmm.ops import preprocess_weights, stack_weights
+from ..kernels.griffin_spmm.ops import (GriffinWeights, grid_depth,
+                                        preprocess_weights, stack_weights)
+from ..models.common import set_path
 
 
 def magnitude_prune(w: torch.Tensor, sparsity: float) -> torch.Tensor:
@@ -101,34 +106,20 @@ def sparsify_params(params: Any, sparsity: float, *, block_k: int = 128,
     """
 
     def convert(w: torch.Tensor, name: str):
-        bk = min(block_k, w.shape[-2])
-        bn = min(block_n, w.shape[-1])
-        un = min(unit or max(8, bn // 4), w.shape[-1])
-        cbk, cbn, cun, thr = bk, bn, un, None
-        rule = plan.rule_for(name) if plan is not None else None
-        if rule is not None:
-            cbk = min(rule.block_k or cbk, w.shape[-2])
-            cbn = min(rule.block_n or cbn, w.shape[-1])
-            cun = min(rule.unit or cun, cbn, w.shape[-1])
-            thr = rule.a_threshold
-
-        def pre(m):
-            gw = preprocess_weights(m, block_k=cbk, block_n=cbn, unit=cun,
-                                    balance=balance)
-            return gw if thr is None else dataclasses.replace(gw, a_thr=thr)
-
+        g = _Granularity.of(tuple(w.shape[-2:]), name, block_k, block_n,
+                            unit, plan, balance)
         if w.dim() == 2:
-            wp = block_prune(w, sparsity, bk, un)
-            return pre(wp) if compact else wp
+            wp = block_prune(w, sparsity, g.bk, g.un)
+            return g.compact(wp) if compact else wp
         lead = tuple(w.shape[:-2])
         flat = w.reshape((-1,) + tuple(w.shape[-2:]))
         if flat.shape[0] == 0:
             return w
-        slices = [block_prune(flat[i], sparsity, bk, un)
+        slices = [block_prune(flat[i], sparsity, g.bk, g.un)
                   for i in range(flat.shape[0])]
         if not compact:
             return torch.stack(slices).reshape(w.shape)
-        gw = stack_weights([pre(s) for s in slices])
+        gw = stack_weights([g.compact(s) for s in slices])
         if len(lead) == 1:
             return gw
         # e.g. the (groups, blocks) stacks of xlstm
@@ -142,12 +133,150 @@ def sparsify_params(params: Any, sparsity: float, *, block_k: int = 128,
             return {k: walk(v, k, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(v, name, path) for v in tree)
-        blockdiag = name in ("wq", "wk", "wv") and \
-            any(p in _BLOCKDIAG_PARENTS for p in path)
-        if name in names and not blockdiag and \
-                isinstance(tree, torch.Tensor) and tree.dim() >= 2 and \
-                tree.shape[-2] >= min_dim and tree.shape[-1] >= min_dim:
+        if isinstance(tree, torch.Tensor) and \
+                _selected(path, tuple(tree.shape), names, min_dim):
             return convert(tree, name)
         return tree
 
     return walk(params)
+
+
+def _selected(path: Tuple[str, ...], shape: Tuple[int, ...],
+              names: Sequence[str], min_dim: int) -> bool:
+    """Whether the leaf at ``path`` is a weight GEMM that the pruning
+    takes: selected by trailing name and minimum GEMM dims, as in the
+    reference, leaving out per-head block-diagonal mats."""
+    name = path[-1] if path else ""
+    blockdiag = name in ("wq", "wk", "wv") and \
+        any(p in _BLOCKDIAG_PARENTS for p in path)
+    return name in names and not blockdiag and len(shape) >= 2 and \
+        shape[-2] >= min_dim and shape[-1] >= min_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class _Granularity:
+    """A leaf's pruning blocks (``bk`` x ``un``) and its compaction (the
+    call's, or a plan rule's overriding blocks, unit and threshold)."""
+
+    bk: int
+    un: int
+    cbk: int
+    cbn: int
+    cun: int
+    thr: Optional[float]
+    balance: bool
+
+    @classmethod
+    def of(cls, shape: Tuple[int, int], name: str, block_k: int,
+           block_n: int, unit: Optional[int], plan: Any,
+           balance: bool) -> "_Granularity":
+        bk = min(block_k, shape[0])
+        bn = min(block_n, shape[1])
+        un = min(unit or max(8, bn // 4), shape[1])
+        cbk, cbn, cun, thr = bk, bn, un, None
+        rule = plan.rule_for(name) if plan is not None else None
+        if rule is not None:
+            cbk = min(rule.block_k or cbk, shape[0])
+            cbn = min(rule.block_n or cbn, shape[1])
+            cun = min(rule.unit or cun, cbn, shape[1])
+            thr = rule.a_threshold
+        return cls(bk, un, cbk, cbn, cun, thr, balance)
+
+    def compact(self, m: torch.Tensor) -> GriffinWeights:
+        gw = preprocess_weights(m, block_k=self.cbk, block_n=self.cbn,
+                                unit=self.cun, balance=self.balance)
+        return gw if self.thr is None else \
+            dataclasses.replace(gw, a_thr=self.thr)
+
+    def depth(self, m: torch.Tensor) -> int:
+        return grid_depth(m, block_k=self.cbk, block_n=self.cbn,
+                          unit=self.cun, balance=self.balance)
+
+
+def init_sparse_params(api: Any, gen: torch.Generator, sparsity: float, *,
+                       block_k: int = 128, block_n: int = 128,
+                       unit: Optional[int] = None,
+                       names: Sequence[str] = GEMM_WEIGHTS,
+                       min_dim: int = 32, balance: bool = True,
+                       plan: Any = None) -> Any:
+    """``sparsify_params(api.init(gen), sparsity, ...)`` (compacted) bit
+    for bit, built without the dense tree: the family's draw order
+    (``api.draws``) is walked one matrix at a time, each pruned and
+    compacted before the next is drawn.
+
+    A stacked leaf's members share the grid depth of its deepest member,
+    which is known only once every member is drawn, and holding the
+    members until then would hold the leaf twice.  So each stacked leaf is
+    drawn twice from a restarted generator: a first pass that only counts
+    each member's depth (``grid_depth``), then, from the generator state
+    saved before it, a second that compacts each member into the stack,
+    allocated once at that depth, and frees it.  The generator ends where
+    ``api.init`` leaves it.  Peak memory: the compacted tree plus one
+    member's draw and its compaction."""
+    if api.draws is None:
+        raise NotImplementedError(
+            f"family {api.cfg.family!r} has no streamed draw order; use "
+            "sparsify_params(api.init(gen), ...)")
+    dtype = getattr(torch, api.cfg.dtype)
+    tree: Dict[str, Any] = {}
+    for d in api.draws():
+        if d.zeros or 0 in d.lead or not _selected(d.path, tuple(d.shape),
+                                                    names, min_dim):
+            set_path(tree, d.path, d.draw(gen, dtype))
+            continue
+        g = _Granularity.of(tuple(d.shape), d.path[-1], block_k, block_n,
+                            unit, plan, balance)
+
+        def pruned(w):
+            return block_prune(w, sparsity, g.bk, g.un)
+
+        if not d.lead:
+            (_, w), = d.slices(gen, dtype)
+            set_path(tree, d.path, g.compact(pruned(w)))
+            continue
+        state = gen.get_state()
+        depth = max(g.depth(pruned(w)) for _, w in d.slices(gen, dtype))
+        gen.set_state(state)
+        stack = None
+        for idx, w in d.slices(gen, dtype):
+            gw = g.compact(pruned(w))
+            del w
+            if stack is None:
+                stack = _empty_stack(gw, d.lead, depth)
+            _put(stack, idx, gw)
+        set_path(tree, d.path, stack)
+    return tree
+
+
+def _empty_stack(gw: GriffinWeights, lead: Tuple[int, ...],
+                 depth: int) -> GriffinWeights:
+    """A stacked ``GriffinWeights`` of ``lead`` members like ``gw`` at grid
+    depth ``depth``, its tensors allocated and not filled."""
+    nt, pn = gw.kidx.shape[0], gw.b_comp.shape[1]
+
+    def new(shape, like):
+        return None if like is None else like.new_empty(lead + shape)
+
+    return GriffinWeights(
+        b_comp=new((depth * gw.block_k, pn), gw.b_comp),
+        kidx=new((nt, depth), gw.kidx), cnt=new((nt,), gw.cnt),
+        inv_perm=new((pn,), gw.inv_perm), k=gw.k, n=gw.n,
+        block_k=gw.block_k, block_n=gw.block_n, a_thr=gw.a_thr,
+        perm=new((pn,), gw.perm))
+
+
+def _put(stack: GriffinWeights, idx: Tuple[int, ...],
+         gw: GriffinWeights) -> None:
+    """Copy member ``gw`` into ``stack[idx]``, padded to the stack's depth
+    as ``stack_weights`` pads: dead ``kidx`` entries clamp-repeat its last
+    id, their ``b_comp`` rows are zero."""
+    mc = gw.kidx.shape[1]
+    rows = mc * gw.block_k
+    stack.b_comp[idx][:rows] = gw.b_comp
+    stack.b_comp[idx][rows:] = 0
+    stack.kidx[idx][:, :mc] = gw.kidx
+    stack.kidx[idx][:, mc:] = gw.kidx[:, -1:]
+    stack.cnt[idx] = gw.cnt
+    for f in ("inv_perm", "perm"):
+        if getattr(stack, f) is not None:
+            getattr(stack, f)[idx] = getattr(gw, f)

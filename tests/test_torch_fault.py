@@ -61,6 +61,7 @@ from repro_torch.runtime.config import EngineConfig
 from repro_torch.runtime.engine import (Request, Scheduler, ServeEngine,
                                         synthetic_trace)
 from repro_torch.runtime.paging import PageAllocator
+from repro_torch.sparsity import PRUNE, init_sparse_params
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PHASES = ("admission", "prefill", "decode")
@@ -501,18 +502,41 @@ def _device_state(eng):
     return dev
 
 
+@pytest.fixture(scope="module")
+def family_small():
+    """The port's reduced mixtral-8x7b (the moe family, pruned 0.6 and
+    compacted through the streamed build) and reduced xlstm-1.3b (the ssm
+    family) with their own seed-0 weights."""
+    moe = build_model(get_config("mixtral-8x7b").reduced(), device="cpu")
+    ssm = build_model(get_config("xlstm-1.3b").reduced(), device="cpu")
+    return {"moe": (moe, init_sparse_params(moe, moe.generator(0), 0.6,
+                                            **PRUNE)),
+            "ssm": (ssm, ssm.init(ssm.generator(0)))}
+
+
 @pytest.mark.parametrize("phase", PHASES)
 @pytest.mark.parametrize("kind", ["fixed", "stepwise", "paged",
-                                  "paged_int8"])
-def test_recovered_engine_state_equals_unfaulted(small, kind, phase):
+                                  "paged_int8", "moe_fixed", "moe_paged",
+                                  "ssm_fixed", "ssm_paged"])
+def test_recovered_engine_state_equals_unfaulted(small, family_small, kind,
+                                                 phase):
     """A faulted and an unfaulted engine ticked in lockstep: after every
     tick (the faulted one's replay included) the whole state — scheduler,
     outputs, events, clock, Mode, measurement, stats, buckets, peak
     active slots, function sets, paging, and every device tensor bit for
     bit (int8 pages and scales, page table, pinned page rows) — is
-    equal."""
+    equal.  The dense family on every engine kind; the moe family
+    (compacted, through the kernels' plain versions) and the ssm family
+    on the fixed and the paged arena (the ssm's recurrent state does not
+    track cache_len, so its paged arena degrades to the fixed one)."""
     _, _, tapi, tparams = small
+    family, _, arena = kind.rpartition("_")
+    if family in family_small:
+        tapi, tparams = family_small[family]
+        kind = arena
     conf = _conf(kind)
+    if family == "moe":
+        conf = conf.with_fields(use_kernels=True)
     inj = _kill(phase)
     eng = ServeEngine(tapi, tparams, conf, fault_injector=inj)
     plain = ServeEngine(tapi, tparams, conf)

@@ -39,7 +39,8 @@ from repro_torch.runtime.engine import (ServeEngine, int8_logit_gap,
                                         synthetic_trace)
 from repro_torch.runtime.fault import FaultInjector
 from repro_torch.runtime.serve import greedy_generate
-from repro_torch.sparsity import block_prune, sparsify_params
+from repro_torch.sparsity import (block_prune, init_sparse_params,
+                                  sparsify_params)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (A, weight) dtypes the kernels take; "mixed" is the mLSTM block's w_down
@@ -1352,3 +1353,175 @@ def test_hybrid_engine_matches_oracle_on_card(hybrid_shallow, mode, arena):
                                    prompt_bucket=eng.bucket_for(
                                        r.prompt_len))
         assert outs[r.rid].tokens == want[0].tolist(), r.rid
+
+
+# ---------------------------------------------------------------------------
+# the moe family: the kernels at mixtral-8x7b's shapes, a depth-cut
+# full-width mixtral, reduced mixtral against its CPU run
+# ---------------------------------------------------------------------------
+
+MOE_SPMM = {"w_gate": (4096, 14336), "w_down": (14336, 4096),
+            "wq": (4096, 4096), "wk": (4096, 1024), "head": (4096, 32000)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("leaf", list(MOE_SPMM))
+def test_griffin_spmm_at_moe_shapes(cuda, leaf, m):
+    """griffin_spmm at mixtral-8x7b's five compacted shapes (pruned 0.8 at
+    128 x 128 / unit 32, bf16): against the plain version, dual bit-equal
+    to the plain walk, rows 0:1 and 0:4 bit-equal alone and in the call,
+    and dual on an all-zero A (an expert no token chose) exactly zero."""
+    k, n = MOE_SPMM[leaf]
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    gw = preprocess_weights(block_prune(
+        torch.randn(k, n, generator=g, device=cuda), 0.8).bfloat16())
+    a = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    a[:, :256] = 0
+    out = griffin_matmul(a, gw)
+    torch.cuda.synchronize()
+    ref = (a.float() @ decompact_weights(gw)[:k].float()).bfloat16()
+    assert_close(out, ref, "bfloat16")
+    assert torch.equal(griffin_matmul(a, gw, dual=True), out)
+    for rows in (1, 4):
+        assert torch.equal(griffin_matmul(a[:rows].contiguous(), gw),
+                           out[:rows])
+    zero = griffin_matmul(torch.zeros_like(a), gw, dual=True)
+    assert zero.shape == (m, n) and not bool(zero.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 32])
+def test_router_at_moe_shape(cuda, m):
+    """The router's fp32 4096 x 8 GEMM: dense_gemm's skinny route and
+    sparse_a with its metadata kernel against their plain versions, row
+    slices bit-equal to the full call."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn(4096, 8, generator=g, device=cuda)
+    a = torch.randn(m, 4096, generator=g, device=cuda)
+    assert dense_gemm_kernel.route(8) == "skinny"
+    k1 = dense_matmul(a, w)
+    meta = compact_activations(a)
+    kidx, cnt = compact_activations_ref(a, block_m=meta.block_m,
+                                        block_k=meta.block_k)
+    assert torch.equal(meta.kidx, kidx) and torch.equal(meta.cnt, cnt)
+    k3 = sparse_a_matmul(a, w, meta=meta)
+    torch.cuda.synchronize()
+    assert_close(k1, dense_matmul_ref(a, w), "float32")
+    assert_close(k3, sparse_a_ref(a, w, kidx, cnt, block_m=meta.block_m,
+                                  block_k=meta.block_k), "float32")
+    for rows in (1, min(m, 4)):
+        part = a[:rows].contiguous()
+        assert torch.equal(dense_matmul(part, w), k1[:rows])
+        assert torch.equal(sparse_a_matmul(part, w), k3[:rows])
+
+
+@pytest.fixture(scope="module")
+def moe_shallow():
+    """mixtral-8x7b at full width cut to 2 layers, seed 0, pruned 0.8 and
+    compacted at 128 x 128 / unit 32 through the streamed build (what
+    launch.serve serves)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=2)
+    api = build_model(cfg, device="cuda")
+    return api, init_sparse_params(api, api.generator(0), 0.8)
+
+
+@pytest.mark.gpu
+def test_moe_streamed_build_on_card_equals_sparsify_of_init(moe_shallow):
+    """On the card, at full width cut to 2 layers (which fits twice), the
+    streamed build equals ``sparsify_params(init_params(...))`` bit for
+    bit: every leaf, the (L, E) expert stacks included."""
+    api, params = moe_shallow
+    want = sparsify_params(api.init(api.generator(0)), 0.8)
+
+    def walk(got, ref, path=""):
+        if isinstance(ref, dict):
+            assert set(got) == set(ref), path
+            for key in ref:
+                walk(got[key], ref[key], f"{path}/{key}")
+            return
+        if hasattr(ref, "b_comp"):
+            for f in ("b_comp", "kidx", "cnt", "inv_perm", "perm"):
+                assert torch.equal(getattr(got, f), getattr(ref, f)), \
+                    (path, f)
+            return
+        assert torch.equal(got, ref), path
+
+    walk(params, want)
+    assert params["layers"]["moe"]["w_down"].b_comp.shape[:2] == (2, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", ["fixed", "paged"])
+@pytest.mark.parametrize("mode", ["B", "AB"])
+def test_moe_engine_matches_oracle_on_card(moe_shallow, mode, arena):
+    """The depth-cut full-width mixtral served by the engine (4 slots,
+    chunks of 4): every request token-identical to the batch-1 greedy
+    oracle, in Sparse.B and Mode.AB, on the fixed and the paged arena."""
+    api, params = moe_shallow
+    fields = dict(num_slots=4, cache_len=40, decode_chunk=4,
+                  use_kernels=True, a_sparsity=0.5 if mode == "AB" else None)
+    if arena == "paged":
+        fields["page_size"] = 8
+    eng = ServeEngine(api, params, EngineConfig().with_fields(**fields))
+    assert (eng._paged is not None) == (arena == "paged")
+    reqs = synthetic_trace(api.cfg, num_requests=6, seed=5,
+                           prompt_lens=(8, 16), gen_lens=(4, 12))
+    outs = eng.run(reqs)
+    assert eng.mode.value == mode
+    for r in reqs:
+        with eng._scope():
+            want = greedy_generate(api, params, r.as_batch(eng.device),
+                                   steps=r.max_new_tokens,
+                                   cache_len=eng.cache_len,
+                                   prompt_bucket=eng.bucket_for(
+                                       r.prompt_len))
+        assert outs[r.rid].tokens == want[0].tolist(), r.rid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["B", "AB"])
+def test_reduced_moe_on_card_equals_its_cpu_run(cuda, mode):
+    """Reduced mixtral-8x7b (fp32, 4 experts top-2, window 32), pruned 0.8
+    and compacted at 16 x 16 / unit 8: the same weights on the card
+    (kernels) and on the CPU (their plain versions) give prefill and
+    decode logits within relative L2 1e-5 (summation orders differ) and
+    the same greedy tokens, past the window too."""
+    from repro_torch.sparsity import PRUNE
+    cfg = get_config("mixtral-8x7b").reduced()
+    cpu = build_model(cfg, device="cpu")
+    params = init_sparse_params(cpu, cpu.generator(0), 0.8, **PRUNE)
+    card = build_model(cfg, device="cuda")
+    moved = _to(params, cuda)
+    ids = torch.randint(1, cfg.vocab_size, (2, 40),
+                        generator=torch.Generator().manual_seed(9))
+    a = 0.5 if mode == "AB" else None
+    outs = {}
+    for api, p, dev in ((cpu, params, "cpu"), (card, moved, "cuda")):
+        with sparse_execution(use_kernels=True, a_sparsity=a or 0.0):
+            cache, logits = api.prefill(p, {"tokens": ids.to(dev)},
+                                        cache_len=48)
+            seq = [logits.cpu()]
+            for _ in range(4):
+                tok = torch.argmax(logits, -1)[:, None]
+                logits, cache = api.decode_step(p, cache, tok)
+                seq.append(logits.cpu())
+        outs[dev] = seq
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 1e-5, rel
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if hasattr(tree, "b_comp"):
+        return dataclasses.replace(tree, **{
+            f: None if getattr(tree, f) is None
+            else getattr(tree, f).to(device)
+            for f in ("b_comp", "kidx", "cnt", "inv_perm", "perm")})
+    return tree.to(device)

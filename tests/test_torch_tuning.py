@@ -625,9 +625,12 @@ def test_tuning_workload_families():
     assert (cfg.d_model, api.device.type, cache_len) == (64, "cpu", 27)
     reqs = trace()
     assert len(reqs) == 6 and [r.arrival for r in reqs] == list(range(6))
-    for family in ("moe", "audio", "vlm"):
+    for family in ("audio", "vlm"):
         with pytest.raises(NotImplementedError, match="1.12"):
             tuning_workload(family, reduced=True, device="cpu")
+    # the moe family is served since its port (tests/test_torch_moe.py)
+    assert tuning_workload("moe", reduced=True,
+                           device="cpu")[0].family == "moe"
 
 
 def test_autotune_cli_writes_plan_that_reloads(tmp_path, caches, capsys):
