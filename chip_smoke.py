@@ -67,6 +67,16 @@ Phases, in order; any failure exits non-zero before the result line:
              token chose); the fp32 4096 x 8 router through dense_gemm's
              skinny route and through sparse_a with its metadata, each
              checked, held batch invariant and timed.
+             At whisper-large-v3's shapes (``WHISPER_SPMM``: 1280 x 1280,
+             1280 x 5120, 5120 x 1280 and the 1280 x 51866 head, whose last
+             N tile holds 26 columns) griffin_spmm is checked, dual and
+             not, and timed at M 4 and 32 (bf16), and on the encoder's
+             three shapes at M 1500 with fp32 A against the bf16 weight
+             (the CUDA-core route; torch.matmul on the weight widened to
+             fp32); held batch invariant at 1280 x 5120 (bf16 and fp32 A);
+             and at the head, on integer-valued A and weight whose sums
+             are exact in any order, bit-equal to its plain version in
+             every column (bf16 M 4 and 32, dual and not; fp32 A M 4).
              The metadata kernel alone (``META_SHAPES``: 4 x 2048, 4 x
              4096, 32 x 4096, 128 x 8192, bf16, every block live) with its
              cluster
@@ -146,6 +156,36 @@ Phases, in order; any failure exits non-zero before the result line:
              After xlstm_sparse_b, its weights prefill 32 and 256 tokens
              (seconds, memory rise within 3 GiB, the sLSTM blocks' share of
              the 32-token prefill).
+             Then full-width whisper-large-v3 (32 encoder + 32 decoder
+             layers, d=1280, 20 heads, d_ff 5120, GeLU, an untied
+             51866-token head, bf16, seed 0; every request carries its
+             1500 x 1280 fp32 frames) on the same trace, in three paths
+             (``WHISPER_PATHS``), gated per (prefill, decode step):
+               whisper_sparse_b - pruned 0.8 at 128x128 / unit 32 and
+                          compacted, 4 slots: griffin_spmm 513 a prefill
+                          (the encoder's 32 x 6, the decoder's 32 x 10, the
+                          head), 256 of them on fp32 A (the encoder's GEMMs
+                          and the cross wk/wv take the fp32 encoder stream
+                          against the bf16 weights, as in the reference),
+                          and 257 a decode step (32 x 8, the head), no
+                          other kernel;
+               whisper_mode_ab - the same weights, declared activation
+                          sparsity 0.5: every griffin_spmm launch dual;
+               whisper_paged - whisper_sparse_b's weights on
+                          sparse_b_paged's arena: the decoder's k/v paged,
+                          the cross K/V (1500 rows a slot) fixed beside the
+                          pools; its tokens must equal whisper_sparse_b's.
+             Their parity oracle is the engine's own computation: each
+             request's bucketed prefill cache cast to init_cache's dtypes
+             (the fp32 cross K/V rounded to bf16, as the admission writes
+             them), then batch-1 greedy decoding; the uncast
+             greedy_generate loop (the reference's oracle, fp32 cross K/V)
+             is printed beside it, not gated: its differing tokens and the
+             first step's largest logit gap.  Each path also checks the
+             prefill's cross K/V fp32 and the arena's bf16, and one
+             admission's memory rise (the encoder's attention over 1500
+             frames included) within 3 GiB; the other checks are the llama
+             paths', the gap to the fp32 twin included.
              Then full-width recurrentgemma-9b (38 blocks: 12 groups of
              (rec, rec, attn) and a tail of 2 rec blocks, each with its
              GeGLU MLP; d=4096, lru_width 4096, conv 4, 16 heads, MQA,
@@ -469,6 +509,35 @@ MOE_PATHS = {
 # window straight through the model's prefill, then decode steps that
 # wrap the rolling cache
 MOE_LONG = dict(prompt=4200, cache_len=4224, steps=8)
+# the audio family: full-width whisper-large-v3 (32 encoder + 32 decoder
+# layers, d 1280, 20 heads, d_ff 5120, 1500 frames a request, vocab 51866,
+# untied head) on TRACE, every request carrying its fp32 frames.  Every
+# GEMM leaf is compacted, so griffin_spmm alone runs: a prefill launches
+# 513 (the encoder's 32 x 6, the decoder's 32 x 10, the head), 256 of them
+# on fp32 A (the encoder's six and the cross wk/wv take the fp32 encoder
+# stream against the bf16 weights), a decode step 257 (32 x 8 and the
+# head), all bf16 (tests/test_torch_whisper.py counts them on the CPU).
+# Launches and dual GEMMs are (prefill, decode step) pairs.  The paged
+# path pages the decoder's k/v and keeps the cross K/V fixed; its tokens
+# must equal whisper_sparse_b's.  The engines measure no activation
+# sparsity on this short trace (measure_every 64): the compacted head's K
+# of 1280 is 10 blocks, so 0.8^10 = 10.7 % of its 32-column units lose
+# every block and their logits are exact zeros, above the 0.05 category
+# threshold, and a measurement would flip Sparse.B to Mode.AB mid-run, as
+# the reference's engine does.
+WHISPER = "whisper-large-v3"
+WHISPER_K2 = (513, 257)
+WHISPER_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
+                  launches={"dense_gemm": 0, "griffin_spmm": WHISPER_K2,
+                            "sparse_a": 0, "sparse_a_meta": 0,
+                            "batch_eval": 0}, dual=0, fp32_a=(256, 0))
+WHISPER_AB = dict(WHISPER_SB, a_sparsity=A_SPARSITY, mode="AB",
+                  dual=WHISPER_K2)
+WHISPER_PATHS = {
+    "whisper_sparse_b": dict(WHISPER_SB, arena=dict(FIXED, measure_every=64)),
+    "whisper_mode_ab": dict(WHISPER_AB, arena=dict(FIXED, measure_every=64)),
+    "whisper_paged": dict(WHISPER_SB, arena=dict(PAGED, measure_every=64)),
+}
 # the reference benchmark's int8 gate (benchmarks/bench_serve.py
 # PAGED_INT8_TOL), on its teacher-forced recipe: one 24-token prompt, 48
 # decode steps, pages of 16 in a cache of 128
@@ -502,6 +571,14 @@ MOE_SPMM = {"w_gate/w_up": (4096, 14336), "w_down": (14336, 4096),
             "wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
             "head": (4096, 32000)}
 MOE_ROUTER = (4096, 8)
+# whisper-large-v3's GEMM shapes (K x N): every leaf compacted, at M 4 and
+# 32 in bf16 (decode slots, the largest prefill bucket) and, on the
+# encoder's three shapes, fp32 A at the encoder's M of 1500 frames; the
+# head's N 51866 = 405 x 128 + 26 ends in a partial tile
+WHISPER_SPMM = {"wq/wk/wv/wo": (1280, 1280), "w_up": (1280, 5120),
+                "w_down": (5120, 1280), "head": (1280, 51866)}
+WHISPER_ENC_ROWS = 1500
+MAX_ADMIT_RISE = 3 << 30
 # the metadata kernel alone: a decode step's A at llama's K 2048 and at
 # xlstm's gate K 4096, a 32-row bucket at K 4096 and one full 128-row
 # prefill tile at w_down's K 8192
@@ -907,6 +984,7 @@ def phase_kernels(torch):
     rows += kernel_xlstm(torch, gen, summary)
     rows += kernel_hybrid(torch, gen, summary)
     rows += kernel_moe(torch, gen, summary)
+    rows += kernel_whisper(torch, gen, summary)
     rows += kernel_sparse_a(torch, gen, summary)
     rows += kernel_meta(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
@@ -1356,6 +1434,98 @@ def kernel_moe(torch, gen, summary):
     return rows
 
 
+def kernel_whisper(torch, gen, summary):
+    """griffin_spmm at whisper-large-v3's compacted shapes
+    (``WHISPER_SPMM``, pruned 0.8 at 128 x 128 / unit 32, balanced): in
+    bf16 at M 4 and 32, dual and not, against its plain version, dual
+    bit-equal to the plain walk, timed beside its bound, its plain version
+    and torch.matmul; on the encoder's three shapes also fp32 A against the
+    bf16 weight at M 1500 (the CUDA-core route), checked and timed the
+    same way (torch.matmul on the decompacted weight widened to fp32).
+    Batch invariance at 1280 x 5120, bf16 and fp32 A.  At the head (N
+    51866, a 26-column partial last tile) an integer-valued A and weight,
+    whose products and sums are exact in any order, give the plain
+    version's bits in every column, the tail's included: bf16 at M 4 and
+    32, dual and not, and fp32 A at M 4."""
+    from repro_torch.kernels import griffin_matmul, preprocess_weights
+    from repro_torch.kernels.griffin_spmm.kernel import split_plan
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.sparsity import block_prune
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    rows = []
+    for leaf, (k, n) in WHISPER_SPMM.items():
+        w = block_prune(torch.randn(k, n, generator=gen, device=dev), 0.8)
+        gw = preprocess_weights(w.to(dt))
+        del w
+        plan = split_plan(k, n, gw.kidx.shape[0], gw.block_k, gw.block_n)
+        print(f"[kernels] whisper griffin_spmm {leaf} {k}x{n} (max_cnt "
+              f"{gw.kidx.shape[1]} of {gw.k // gw.block_k}): plan "
+              f"{plan and list(plan)}")
+        if (k, n) == (1280, 5120):
+            spmm_batch_invariance(torch, gen, gw)
+            spmm_batch_invariance(torch, gen, gw, dtype=torch.float32)
+        cases = [(m, "bfloat16") for m in XLSTM_ROWS]
+        if leaf != "head":
+            cases.append((WHISPER_ENC_ROWS, "mixed"))
+        for m, label in cases:
+            a = torch.randn(m, k, generator=gen, device=dev).to(
+                getattr(torch, PAIRS[label][0]))
+            a[:, :256] = 0              # two all-zero K blocks for dual
+            plain_bits = None
+            for dual in (False, True):
+                out = griffin_matmul(a, gw, dual=dual)
+                ref = griffin_spmm_ref(a, gw)
+                torch.cuda.synchronize()
+                err, ok = within_tol(torch, out, ref, label)
+                row = {"kernel": "griffin_spmm", "model": WHISPER,
+                       "leaf": leaf, "dtype": label, "m": m, "k": k, "n": n,
+                       "dual": dual, "max_cnt": gw.kidx.shape[1],
+                       "plan": (plan and list(plan)) if label == "bfloat16"
+                       else None, "max_abs_err": err, "ok": ok}
+                if not ok:
+                    fail(f"griffin_spmm disagrees with its plain version: "
+                         f"{row}")
+                if dual and not torch.equal(out, plain_bits):
+                    fail(f"griffin_spmm {leaf} {label} M {m}: dual is not "
+                         "bit-equal to the plain walk")
+                plain_bits = out
+                timed_spmm(torch, a, gw, dual, row)
+                rows.append(row)
+                print(f"[kernels] {json.dumps(row)}")
+        del gw
+        torch.cuda.empty_cache()
+    # the head's partial last tile, bit for bit on exact integer products
+    k, n = WHISPER_SPMM["head"]
+    w = block_prune(torch.randint(-3, 4, (k, n), generator=gen,
+                                  device=dev).float(), 0.8)
+    for wdt, adt, ms in ((dt, dt, XLSTM_ROWS), (dt, torch.float32, (4,))):
+        gw = preprocess_weights(w.to(wdt))
+        for m in ms:
+            a = torch.randint(-2, 3, (m, k), generator=gen,
+                              device=dev).to(adt)
+            a[:, :256] = 0
+            ref = griffin_spmm_ref(a, gw)
+            for dual in ((False, True) if adt == dt else (False,)):
+                out = griffin_matmul(a, gw, dual=dual)
+                if not torch.equal(out, ref):
+                    bad = (out != ref).any(0).nonzero().flatten()
+                    fail(f"griffin_spmm at the head {k}x{n}, A {adt}, M {m}, "
+                         f"dual {dual}: columns {bad[:8].tolist()} differ "
+                         "from the plain version on exact products")
+            rows.append({"kernel": "griffin_spmm", "model": WHISPER,
+                         "leaf": "head exact", "dtype": str(adt)[6:],
+                         "m": m, "k": k, "n": n, "max_abs_err": 0.0,
+                         "ok": True})
+        del gw
+    print(f"[kernels] whisper-large-v3: griffin_spmm at {len(WHISPER_SPMM)} "
+          f"shapes (bf16 M 4 and 32, dual and not; fp32 A at M "
+          f"{WHISPER_ENC_ROWS} on the encoder's three) agrees with its plain "
+          f"version; the head's {n % 128}-column tail tile bit-equal to it "
+          "on exact products")
+    return rows
+
+
 def timed_spmm(torch, a, gw, dual: bool, row) -> None:
     """Time griffin_matmul, its plain version and torch.matmul on the
     decompacted weight; bound by the bytes of the live blocks this A
@@ -1775,13 +1945,34 @@ def empty_experts(torch, routed: list, experts: int) -> dict:
             "share": sum(empty) / (len(empty) * experts)}
 
 
+def per_calls(count, st) -> int:
+    """A gate's total over a run: ``count`` per model call, or a
+    (per prefill, per decode step) pair."""
+    if isinstance(count, tuple):
+        return count[0] * st["prefill_calls"] + count[1] * st["decode_steps"]
+    return count * (st["prefill_calls"] + st["decode_steps"])
+
+
+def fp32_a_spy(counter: list):
+    """A wrapper of griffin_spmm's launch (``kernel.griffin_spmm``) that
+    counts the launches whose A is fp32 (no device op, no host sync)."""
+    def wrap(real):
+        def launch(a, *args, **kw):
+            counter[0] += a.element_size() == 4
+            return real(a, *args, **kw)
+        return launch
+    return wrap
+
+
 def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
-                launches: dict, dual: int, arena: dict, stats=None,
+                launches: dict, dual, arena: dict, stats=None,
                 paged_ref=None, states=None, arch: str = "llama3.2-1b",
-                fp32_gap: bool = True):
+                fp32_gap: bool = True, fp32_a=None):
     """Serve the trace on one path and check it: ``launches`` maps each
-    kernel to its launches per model call, ``dual`` the dual griffin_spmm
-    GEMMs per model call, ``mode`` the engine's Mode, ``arena`` the
+    kernel to its launches per model call (or per (prefill, decode step)
+    pair, :func:`per_calls`), ``dual`` the dual griffin_spmm GEMMs per
+    model call, ``fp32_a`` the griffin_spmm launches on fp32 A per
+    (prefill, decode step) where given, ``mode`` the engine's Mode, ``arena`` the
     engine's arena and scheduler fields, ``stats`` the counters it must
     give; an int8 path is held against ``paged_ref``, the same-dtype paged
     path's record.  Given ``states``, the run's end state (:func:`end_state`,
@@ -1791,8 +1982,11 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     twin would take 42 GB beside the served weights and the bf16 twin).
     A family with a streamed build (mixtral-8x7b) reports the build's
     memory and the experts no row chose, and takes its plain route on the
-    served weights (:func:`plain_route`)."""
+    served weights (:func:`plain_route`).  An encoder-decoder (whisper)
+    is held against the cast oracle and its own checks
+    (:func:`check_encdec`)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.griffin_spmm import kernel as k2
     from repro_torch.launch import serve as launch
     from repro_torch.models import moe
     from repro_torch.models.common import sparse_execution
@@ -1802,9 +1996,10 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     fields = dict(decode_chunk=8, use_kernels=True, a_sparsity=a_sparsity)
     fields.update(arena)
     config = EngineConfig().with_fields(**fields)
-    build, routed = {}, []
+    build, routed, f32 = {}, [], [0]
     with spied(launch, "init_sparse_params", build_spy(torch, build)), \
-            spied(moe, "route", route_spy(routed)):
+            spied(moe, "route", route_spy(routed)), \
+            spied(k2, "griffin_spmm", fp32_a_spy(f32)):
         reset_launch_counts()
         run = launch.serve(arch, sparsity=sparsity, seed=SEED,
                            device="cuda", config=config, **TRACE)
@@ -1849,13 +2044,21 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
         fail(f"{name}: mode {eng.mode_history}, expected {mode} throughout")
     if run.dispatch.get("plain", 0) != 0:
         fail(f"{name}: plain GEMMs on the main path: {run.dispatch}")
-    want = {k: v * calls for k, v in launches.items()}
+    want = {k: per_calls(v, st) for k, v in launches.items()}
     if got != want:
         fail(f"{name}: launches {got}, expected {want} ({calls} model "
-             "calls)")
-    if run.dispatch.get("dual", 0) != dual * calls:
+             f"calls, {st['prefill_calls']} of them prefills)")
+    if run.dispatch.get("dual", 0) != per_calls(dual, st):
         fail(f"{name}: {run.dispatch.get('dual', 0)} dual GEMMs, expected "
-             f"{dual} x {calls}")
+             f"{dual} per call over {calls} calls")
+    if fp32_a is not None:
+        if f32[0] != per_calls(fp32_a, st):
+            fail(f"{name}: {f32[0]} griffin_spmm launches on fp32 A, "
+                 f"expected {fp32_a} per (prefill, decode step)")
+        extra["fp32_a_launches"] = f32[0]
+        print(f"{tag} griffin_spmm launches on fp32 A: {f32[0]} = "
+              f"{fp32_a[0]} x {st['prefill_calls']} prefills + {fp32_a[1]} "
+              f"x {st['decode_steps']} decode steps")
     if eng.fused and run.syncs_per_token > 0.25:
         fail(f"{name}: {run.syncs_per_token:.3f} host syncs per token > "
              "0.25")
@@ -1865,6 +2068,8 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
         print(f"{tag} stats {stats} as on the CPU")
     if eng._paged is not None and eng._paged.kv_dtype == "int8":
         extra.update(check_int8(torch, run, paged_ref))
+    elif eng.api.cfg.is_encdec:
+        extra.update(check_encdec(torch, run))
     else:
         n = launch.check_parity(run)
         print(f"{tag} parity OK: all {n} requests token-identical to the "
@@ -1942,6 +2147,104 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     print(f"{tag} prefill logits finite, relative L2 gap to the plain route "
           f"{rel:.5f}; to fp32: {fp32}")
     return run, got, gaps, extra
+
+
+def greedy_from(api, params, cache, first, steps: int):
+    """``steps`` greedy tokens from a prefilled batch-1 ``cache`` whose
+    prefill logits gave ``first`` (1, 1): the tokens and the first decode
+    step's logits (None for one token).  Decoding writes ``cache``'s K/V
+    in place."""
+    toks, logits1 = [first], None
+    for _ in range(steps - 1):
+        logits, cache = api.decode_step(params, cache, toks[-1])
+        if logits1 is None:
+            logits1 = logits.float()
+        toks.append(logits.argmax(-1)[:, None])
+    return [int(t) for t in toks], logits1
+
+
+def check_encdec(torch, run) -> dict:
+    """An encoder-decoder path's checks.  Every request's tokens equal a
+    batch-1 greedy oracle that decodes from its bucketed prefill's cache
+    cast leaf by leaf to ``init_cache``'s dtypes, as the engine's
+    admission writes it into the arena (the encoder's fp32 cross K/V
+    rounded to bf16): the engine's own computation.  Beside it, from the
+    same prefill, the uncast loop of ``greedy_generate`` (the reference's
+    oracle, which decodes the fp32 cross K/V) is printed, not gated: its
+    tokens that differ and the first decode step's largest logit gap.
+    Then the dtype flow (the prefill's cross K/V fp32, the arena's bf16)
+    and one admission's memory rise over the allocated level before it,
+    the encoder's attention over the frames included, within
+    ``MAX_ADMIT_RISE``."""
+    eng = run.engine
+    api, params = eng.api, run.params
+    tag = f"[serve {api.cfg.name}]"
+    dts = {k: v.dtype for k, v in api.init_cache(
+        1, eng.cache_len, device=torch.device("meta")).items()}
+    differ, gaps, t0 = 0, [], time.perf_counter()
+    for r in run.requests:
+        batch = r.as_batch(eng.device, eng.bucket_for(r.prompt_len))
+        with eng._scope():
+            cache, logits = api.prefill(params, batch,
+                                        cache_len=eng.cache_len)
+            if cache["xk"].dtype != torch.float32:
+                fail(f"{api.cfg.name}: the prefill's cross K/V are "
+                     f"{cache['xk'].dtype}, not the encoder's fp32")
+            first = logits.argmax(-1)[:, None]
+            cast = {k: v.to(dts[k], copy=True) for k, v in cache.items()}
+            want, cast1 = greedy_from(api, params, cast, first,
+                                      r.max_new_tokens)
+            del cast
+            plain, plain1 = greedy_from(api, params, cache, first,
+                                        r.max_new_tokens)
+            del cache
+        got = eng.outputs[r.rid].tokens
+        if got != want:
+            fail(f"{api.cfg.name}: request {r.rid} diverged from the cast "
+                 f"oracle: {got} vs {want}")
+        differ += sum(a != b for a, b in zip(plain, want))
+        if cast1 is not None:
+            gaps.append(float((cast1 - plain1).abs().max()))
+    oracle_s = time.perf_counter() - t0
+    n = sum(r.max_new_tokens for r in run.requests)
+    print(f"{tag} parity OK: all {len(run.requests)} requests "
+          f"token-identical to the batch-1 oracle on the cast cache "
+          f"({oracle_s:.1f}s); the uncast greedy_generate loop (fp32 cross "
+          f"K/V) gives {differ} of {n} tokens differently, first decode "
+          f"step's largest logit gap {max(gaps, default=0.0):.5f}")
+    if eng.cache["xk"].dtype != dts["xk"] or dts["xk"] != torch.bfloat16:
+        fail(f"{api.cfg.name}: the arena's cross K/V are "
+             f"{eng.cache['xk'].dtype}, init_cache's {dts['xk']}")
+    # one admission: the prefill (the encoder over every frame) and the
+    # insert into a free slot
+    req = run.requests[0]
+    ids = ()
+    if eng._paged is not None:
+        eng._flush_dirty()
+        ids = eng._page_alloc.reserve(eng._paged.pages_needed(
+            req.prompt_len + req.max_new_tokens))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    cache1, logits = eng._prefill(req)
+    eng._insert(0, cache1, logits, 1, ids)
+    del cache1, logits
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t1
+    rise = torch.cuda.max_memory_allocated() - base
+    if ids:
+        eng._page_alloc.free(ids)
+    if rise > MAX_ADMIT_RISE:
+        fail(f"{api.cfg.name}: one admission raised allocated memory by "
+             f"{rise} B > {MAX_ADMIT_RISE}")
+    print(f"{tag} dtype flow as the reference's: encoder GEMM inputs fp32, "
+          f"the prefill's cross K/V fp32, the arena's {dts['xk']}; one "
+          f"admission ({api.cfg.enc_frames} frames) {admit_s:.3f}s, memory "
+          f"rise {rise / 2**30:.3f} GiB")
+    return {"uncast_tokens_differ": differ, "uncast_first_step_gap":
+            max(gaps, default=0.0), "oracle_s": oracle_s,
+            "admission_s": admit_s, "admission_rise_bytes": rise}
 
 
 def serve_record(run, launches, gaps, extra) -> dict:
@@ -3272,6 +3575,22 @@ def main() -> None:
             check_paged_degrades(run, xlstm_tokens)
         del run
         gc.collect()            # an engine's closures hold it in a cycle
+        torch.cuda.empty_cache()
+        clock.done(name)
+    whisper_tokens = None
+    for name, path in WHISPER_PATHS.items():
+        run, launches, gaps, extra = phase_serve(torch, name, arch=WHISPER,
+                                                 **path)
+        if "--profile" in sys.argv[1:]:
+            phase_profile(torch, name, run)
+        serves[name] = serve_record(run, launches, gaps, extra)
+        if name == "whisper_sparse_b":
+            whisper_tokens = {r: o.tokens
+                              for r, o in run.engine.outputs.items()}
+        if name == "whisper_paged":
+            check_same_tokens(name, run, whisper_tokens, "whisper_sparse_b")
+        del run
+        gc.collect()
         torch.cuda.empty_cache()
         clock.done(name)
     hybrid_tokens = hybrid_long = None

@@ -1,8 +1,8 @@
 """Model configuration: the dense decoder's, the mixture-of-experts
-family's, the ssm (xlstm) family's and the hybrid (recurrentgemma)
-family's fields of ``repro.configs.base.ModelConfig`` and the same
-``reduced()`` rule, so a reduced config here has exactly the reference's
-dims."""
+family's, the ssm (xlstm) family's, the hybrid (recurrentgemma) family's
+and the audio (whisper) family's fields of
+``repro.configs.base.ModelConfig`` and the same ``reduced()`` rule, so a
+reduced config here has exactly the reference's dims."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,7 +19,7 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # "dense", "moe", "ssm" and "hybrid" are ported
+    family: str                 # dense | moe | ssm | hybrid | audio ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -41,12 +41,19 @@ class ModelConfig:
     # ssm (xlstm): blocks per group, e.g. 7 mLSTM + 1 sLSTM
     xlstm_pattern: Tuple[str, ...] = ()
     proj_factor: float = 2.0                     # mLSTM up-projection
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    enc_frames: int = 1500
     dtype: str = "bfloat16"
     kv_chunk: int = 512         # prefill attention's KV chunk (online softmax)
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's dims)."""
@@ -56,6 +63,8 @@ class ModelConfig:
             head_dim=16, d_ff=128 if self.d_ff else 0, vocab_size=128,
             window=min(self.window, 32) if self.window else None,
             moe=MoEConfig(4, self.moe.top_k) if self.moe else None,
+            encoder_layers=2 if self.encoder_layers else 0,
+            enc_frames=8 if self.is_encdec else self.enc_frames,
             lru_width=64 if self.family == "hybrid" else 0,
             dtype="float32", kv_chunk=16)
         if self.xlstm_pattern:
@@ -82,4 +91,5 @@ def get_config(name: str) -> ModelConfig:
 
 def _load_all() -> None:
     from . import (llama3_2_1b, llama4_scout_17b_a16e,  # noqa: F401
-                   mixtral_8x7b, recurrentgemma_9b, xlstm_1_3b)
+                   mixtral_8x7b, recurrentgemma_9b, whisper_large_v3,
+                   xlstm_1_3b)

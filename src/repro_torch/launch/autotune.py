@@ -149,7 +149,7 @@ def main(argv=None) -> None:
     ap.add_argument("--families", default="dense",
                     help="comma-separated model families "
                          f"(known: {','.join(sorted(FAMILY_ARCHS))}; "
-                         "the port serves dense, moe, ssm and hybrid)")
+                         "the port serves all but vlm)")
     ap.add_argument("--sparsity", type=float, default=0.8)
     ap.add_argument("--budget", type=int, default=16,
                     help="candidate points enumerated per family")

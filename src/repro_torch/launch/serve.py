@@ -9,8 +9,9 @@ single-engine path.
 
 runs full-width llama3.2-1b on the CUDA card (``--arch mixtral-8x7b``
 serves the moe family, its compacted weights built one matrix at a time
-by ``sparsity.init_sparse_params``); ``--reduced --device cpu``
-runs the reduced config on the host (the kernels' plain versions).
+by ``sparsity.init_sparse_params``; ``--arch whisper-large-v3`` the audio
+family, each request carrying its encoder frames); ``--reduced --device
+cpu`` runs the reduced config on the host (the kernels' plain versions).
 ``--page-size 16`` serves from the paged KV arena (``--num-pages`` sizes
 its pool, ``--kv-dtype int8`` quantizes its pages), ``--policy static``
 admits only into a drained pool, and ``--length-dist heavy`` draws

@@ -1,6 +1,6 @@
 """Model registry: one uniform API per architecture family — the
-counterpart of ``repro/models/registry.py`` (the dense, moe, ssm and
-hybrid families so far).
+counterpart of ``repro/models/registry.py`` (the dense, moe, ssm, hybrid
+and audio families; vlm is not ported yet).
 
 ``build_model(cfg, device)`` binds the family's functions to ``cfg`` and to
 the device the model runs on; the default is the CUDA card.
@@ -15,7 +15,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import rglru, transformer, xlstm
+from . import rglru, transformer, whisper, xlstm
 
 Params = Dict[str, Any]
 
@@ -82,6 +82,20 @@ def _rglru_api(cfg: ModelConfig, device: torch.device) -> ModelApi:
     )
 
 
+def _whisper_api(cfg: ModelConfig, device: torch.device) -> ModelApi:
+    def prefill_fn(params, batch, cache_len=None):
+        return whisper.prefill(cfg, params, batch["tokens"], batch["frames"],
+                               cache_len, lengths=batch.get("lengths"))
+
+    return ModelApi(
+        cfg=cfg, device=device,
+        init=functools.partial(whisper.init_params, cfg),
+        prefill=prefill_fn,
+        decode_step=functools.partial(whisper.decode_step, cfg),
+        init_cache=functools.partial(whisper.init_cache, cfg, device=device),
+    )
+
+
 def build_model(cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = "cuda"
                 ) -> ModelApi:
@@ -92,5 +106,7 @@ def build_model(cfg: ModelConfig,
         return _xlstm_api(cfg, device)
     if cfg.family == "hybrid":
         return _rglru_api(cfg, device)
+    if cfg.family == "audio":
+        return _whisper_api(cfg, device)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                               "(ROADMAP 1.12)")

@@ -79,6 +79,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     family draws in :func:`param_draws`' order, one matrix at a time."""
     if cfg.family == "moe":
         return init_from_draws(param_draws(cfg), gen, _dtype(cfg))
+    if cfg.family == "audio":
+        raise ValueError("the audio family is an encoder-decoder: "
+                         "models.whisper.init_params draws it")
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   "(ROADMAP 1.12)")

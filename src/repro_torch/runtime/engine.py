@@ -75,7 +75,8 @@ TIMING_WINDOW = 1024
 @dataclasses.dataclass
 class Request:
     """One generation request; ``arrival`` is the earliest engine step at
-    which the scheduler may admit it.
+    which the scheduler may admit it; ``extras`` carries the model inputs
+    that are not tokens (an encoder-decoder's ``"frames"``).
 
     ``priority``/``deadline_ms``/``ttft_deadline_ms`` are the SLO fields
     the multi-replica router's admission control consumes
@@ -87,6 +88,7 @@ class Request:
     tokens: np.ndarray
     max_new_tokens: int
     arrival: int = 0
+    extras: Optional[Dict[str, np.ndarray]] = None
     priority: int = 0
     deadline_ms: Optional[int] = None
     ttft_deadline_ms: Optional[int] = None
@@ -98,10 +100,14 @@ class Request:
     def as_batch(self, device: torch.device,
                  bucket: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """The batch-1 model input this request prefills with — also what
-        oracle replays must feed.  ``bucket`` right-pads the prompt."""
+        oracle replays must feed.  ``bucket`` right-pads the prompt; each
+        extra goes on the device in its own dtype with a leading 1."""
         toks = torch.as_tensor(np.asarray(self.tokens, np.int64).reshape(1, -1),
                                device=device)
-        return pad_prompt_batch({"tokens": toks}, bucket)
+        batch = {"tokens": toks}
+        for k, v in (self.extras or {}).items():
+            batch[k] = torch.as_tensor(np.asarray(v), device=device)[None]
+        return pad_prompt_batch(batch, bucket)
 
 
 class Attribution(str, enum.Enum):
@@ -260,13 +266,19 @@ class Scheduler:
         """JSON-serialisable snapshot of every queue, equal to the
         reference's for the same calls: it rides a disk snapshot's
         manifest (``checkpoint.read_manifest``), so a fresh process can
-        rebuild the host side of an engine and resume the trace."""
+        rebuild the host side of an engine and resume the trace.  Token
+        arrays become int lists, each extra ``[dtype, nested list]``
+        (fp32 -> Python float -> fp32 is exact)."""
         def req(r: Request) -> Dict:
-            return {"rid": r.rid, "tokens": np.asarray(r.tokens).tolist(),
-                    "max_new_tokens": r.max_new_tokens,
-                    "arrival": r.arrival, "priority": r.priority,
-                    "deadline_ms": r.deadline_ms,
-                    "ttft_deadline_ms": r.ttft_deadline_ms}
+            d = {"rid": r.rid, "tokens": np.asarray(r.tokens).tolist(),
+                 "max_new_tokens": r.max_new_tokens, "arrival": r.arrival,
+                 "priority": r.priority, "deadline_ms": r.deadline_ms,
+                 "ttft_deadline_ms": r.ttft_deadline_ms}
+            if r.extras:
+                d["extras"] = {k: [str(np.asarray(v).dtype),
+                                   np.asarray(v).tolist()]
+                               for k, v in r.extras.items()}
+            return d
         return {"num_slots": self.num_slots, "policy": self.policy,
                 "max_admissions": self.max_admissions, "seq": self._seq,
                 "by_arrival": [[a, s, req(r)]
@@ -283,16 +295,14 @@ class Scheduler:
     def from_state_dict(cls, d: Dict) -> "Scheduler":
         """Inverse of ``state_dict``: the exact queue state (heap entries,
         submission counter, free-slot stack), so admission order after a
-        restore equals the uninterrupted run's.  Requests with ``extras``
-        (an encoder-decoder's frames) have no counterpart in the port."""
+        restore equals the uninterrupted run's."""
         def req(rd: Dict) -> Request:
-            if rd.get("extras"):
-                raise ValueError(f"request {rd['rid']} carries extras, "
-                                 "which no family the port serves has")
+            extras = {k: np.asarray(v, np.dtype(dt))
+                      for k, (dt, v) in rd.get("extras", {}).items()} or None
             return Request(rid=rd["rid"],
                            tokens=np.asarray(rd["tokens"], np.int32),
                            max_new_tokens=rd["max_new_tokens"],
-                           arrival=rd["arrival"],
+                           arrival=rd["arrival"], extras=extras,
                            priority=rd.get("priority", 0),
                            deadline_ms=rd.get("deadline_ms"),
                            ttft_deadline_ms=rd.get("ttft_deadline_ms"))
@@ -700,6 +710,9 @@ class ServeEngine:
             raise ValueError(
                 f"request {req.rid}: prompt {req.prompt_len} + gen "
                 f"{req.max_new_tokens} exceeds cache_len {self.cache_len}")
+        if self.api.cfg.is_encdec and (req.extras or {}).get("frames") is None:
+            raise ValueError(f"request {req.rid}: enc-dec model needs "
+                             "extras['frames']")
         self.sched.add(req)
 
     def bucket_for(self, prompt_len: int) -> Optional[int]:
@@ -1193,9 +1206,10 @@ def synthetic_trace(cfg, *, num_requests: int, seed: int = 0,
     """Deterministic mixed prompt/gen-length request trace: the same
     ``np.random.default_rng`` draws, in the same order, as the reference's
     ``synthetic_trace``, so the traces are equal field by field.  Per
-    request: the prompt length, the generation length, the tokens, then
-    (bursty only) the state flip and the exponential gap, then (only with
-    more than one class) the priority.
+    request: the prompt length, the generation length, the tokens, an
+    encoder-decoder's (enc_frames, d_model) fp32 frames, then (bursty
+    only) the state flip and the exponential gap, then (only with more
+    than one class) the priority.
 
     ``arrival_process="fixed"`` staggers arrivals (request i at step
     ``i * arrival_every``); ``"bursty"`` is a two-state Markov-modulated
@@ -1229,6 +1243,10 @@ def synthetic_trace(cfg, *, num_requests: int, seed: int = 0,
         else:
             glen = int(rng.choice(np.asarray(gen_lens)))
         toks = rng.integers(1, cfg.vocab_size, (plen,), dtype=np.int32)
+        extras = None
+        if cfg.is_encdec:
+            extras = {"frames": rng.standard_normal(
+                (cfg.enc_frames, cfg.d_model)).astype(np.float32)}
         if arrival_process == "bursty":
             if rng.random() < burst_switch:
                 burst = not burst
@@ -1244,7 +1262,7 @@ def synthetic_trace(cfg, *, num_requests: int, seed: int = 0,
             deadline = int(np.ceil(deadline_slack
                                    * (glen + max(1, plen // 8))))
         reqs.append(Request(rid=i, tokens=toks, max_new_tokens=glen,
-                            arrival=arrival, priority=priority,
-                            deadline_ms=deadline,
+                            arrival=arrival, extras=extras,
+                            priority=priority, deadline_ms=deadline,
                             ttft_deadline_ms=ttft_deadline))
     return reqs

@@ -15,7 +15,9 @@ def pad_prompt_batch(batch: Dict[str, torch.Tensor],
                      bucket: Optional[int]) -> Dict[str, torch.Tensor]:
     """Right-pad ``batch["tokens"]`` to ``bucket`` and record the true
     prompt lengths under ``"lengths"``; ``bucket=None`` is the identity
-    (exact-length prefill)."""
+    (exact-length prefill).  Other inputs (an encoder-decoder's
+    ``"frames"``) pass through, so ``greedy_generate`` and the engine
+    prefill with them alike."""
     if bucket is None:
         return batch
     toks = batch["tokens"]

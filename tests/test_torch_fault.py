@@ -302,12 +302,46 @@ def test_scheduler_state_dict_as_reference(policy, budget):
 
 
 def test_scheduler_state_rejects_extras():
-    want = JaxScheduler(2)
-    want.add(JaxRequest(rid=0, tokens=np.arange(3, dtype=np.int32),
-                        max_new_tokens=2,
-                        extras={"frames": np.zeros((2, 2), np.float32)}))
-    with pytest.raises(ValueError, match="extras"):
-        Scheduler.from_state_dict(_json(want.state_dict()))
+    """Requests with extras (an encoder-decoder's frames) were refused
+    before the audio family was ported; now a scheduler holding them
+    round-trips as the reference's does (tests/test_fault_tolerance.py
+    ``test_scheduler_state_dict_roundtrip``): the same state-dict JSON,
+    extras as ``[dtype, nested list]``, fp32 frames back bit for bit, and
+    a clone of either side's JSON admits what both admit."""
+    got = Scheduler(3, "continuous", max_admissions_per_step=2)
+    want = JaxScheduler(3, "continuous", max_admissions_per_step=2)
+    rng = np.random.default_rng(3)
+    for rid in range(6):
+        extras = ({"frames": rng.standard_normal((2, 4)).astype(np.float32)}
+                  if rid % 2 else None)
+        kw = dict(rid=rid, tokens=np.arange(4 + rid, dtype=np.int32),
+                  max_new_tokens=2 + rid % 3, arrival=rid // 2,
+                  extras=extras)
+        got.add(Request(**kw))
+        want.add(JaxRequest(**kw))
+    for sched in (got, want):
+        sched.admissions(0)
+        sched.emit(sched.active[0])
+    assert _json(got.state_dict()) == _json(want.state_dict())
+    assert _json(got.state_dict())["running"]["1"]["extras"]["frames"][0] \
+        == "float32"
+    clone = Scheduler.from_state_dict(_json(want.state_dict()))
+    jclone = JaxScheduler.from_state_dict(_json(got.state_dict()))
+    assert _json(clone.state_dict()) == _json(got.state_dict()) == \
+        _json(jclone.state_dict())
+    for slot, req in clone.running.items():
+        if req.rid % 2 == 0:
+            assert req.extras is None
+            continue
+        frames = got.running[slot].extras["frames"]
+        assert req.extras["frames"].dtype == np.float32
+        np.testing.assert_array_equal(req.extras["frames"], frames)
+    for step in range(1, 5):
+        a = [(s, r.rid) for s, r in clone.admissions(step)]
+        assert a == [(s, r.rid) for s, r in got.admissions(step)] == \
+            [(s, r.rid) for s, r in jclone.admissions(step)]
+    assert clone.finished == got.finished
+    assert clone.waiting_count == got.waiting_count
 
 
 def test_page_allocator_state_dict_as_reference():
@@ -505,19 +539,24 @@ def _device_state(eng):
 @pytest.fixture(scope="module")
 def family_small():
     """The port's reduced mixtral-8x7b (the moe family, pruned 0.6 and
-    compacted through the streamed build) and reduced xlstm-1.3b (the ssm
-    family) with their own seed-0 weights."""
+    compacted through the streamed build), reduced xlstm-1.3b (the ssm
+    family) and reduced whisper-large-v3 (the audio family) with their
+    own seed-0 weights."""
     moe = build_model(get_config("mixtral-8x7b").reduced(), device="cpu")
     ssm = build_model(get_config("xlstm-1.3b").reduced(), device="cpu")
+    audio = build_model(get_config("whisper-large-v3").reduced(),
+                        device="cpu")
     return {"moe": (moe, init_sparse_params(moe, moe.generator(0), 0.6,
                                             **PRUNE)),
-            "ssm": (ssm, ssm.init(ssm.generator(0)))}
+            "ssm": (ssm, ssm.init(ssm.generator(0))),
+            "audio": (audio, audio.init(audio.generator(0)))}
 
 
 @pytest.mark.parametrize("phase", PHASES)
 @pytest.mark.parametrize("kind", ["fixed", "stepwise", "paged",
                                   "paged_int8", "moe_fixed", "moe_paged",
-                                  "ssm_fixed", "ssm_paged"])
+                                  "ssm_fixed", "ssm_paged", "audio_fixed",
+                                  "audio_paged"])
 def test_recovered_engine_state_equals_unfaulted(small, family_small, kind,
                                                  phase):
     """A faulted and an unfaulted engine ticked in lockstep: after every
@@ -528,7 +567,9 @@ def test_recovered_engine_state_equals_unfaulted(small, family_small, kind,
     equal.  The dense family on every engine kind; the moe family
     (compacted, through the kernels' plain versions) and the ssm family
     on the fixed and the paged arena (the ssm's recurrent state does not
-    track cache_len, so its paged arena degrades to the fixed one)."""
+    track cache_len, so its paged arena degrades to the fixed one); the
+    audio family, whose requests carry frames and whose cross K/V stay
+    fixed beside the paged k/v, on both too."""
     _, _, tapi, tparams = small
     family, _, arena = kind.rpartition("_")
     if family in family_small:

@@ -1525,3 +1525,120 @@ def _to(tree, device):
             else getattr(tree, f).to(device)
             for f in ("b_comp", "kidx", "cnt", "inv_perm", "perm")})
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# whisper-large-v3: its K2 shapes, a depth-cut full-width engine
+# ---------------------------------------------------------------------------
+
+WHISPER_SPMM = {"wq": (1280, 1280), "w_up": (1280, 5120),
+                "w_down": (5120, 1280), "head": (1280, 51866)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf,m,label", [
+    (leaf, m, "bfloat16") for leaf in WHISPER_SPMM for m in (4, 32)] + [
+    (leaf, 1500, "mixed") for leaf in WHISPER_SPMM if leaf != "head"])
+def test_griffin_spmm_at_whisper_shapes(cuda, leaf, m, label):
+    """griffin_spmm at whisper-large-v3's compacted shapes (pruned 0.8 at
+    128 x 128 / unit 32, bf16 weights): bf16 A at M 4 and 32 and, on the
+    encoder's three shapes, its fp32 A at M 1500 (the head multiplies the
+    decoder's bf16 stream only) against the plain version, dual bit-equal
+    to the plain walk, and the head's 26-column partial last tile
+    bit-equal to the plain version on exact integer products."""
+    k, n = WHISPER_SPMM[leaf]
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    gw = preprocess_weights(block_prune(
+        torch.randn(k, n, generator=g, device=cuda), 0.8).bfloat16())
+    a = torch.randn(m, k, generator=g, device=cuda).to(PAIRS[label][0])
+    a[:, :256] = 0
+    out = griffin_matmul(a, gw)
+    torch.cuda.synchronize()
+    ref = (a.float() @ decompact_weights(gw)[:k].float()).to(a.dtype)
+    assert out.dtype == a.dtype and out.shape == (m, n)
+    assert_close(out, ref, label)
+    assert torch.equal(griffin_matmul(a, gw, dual=True), out)
+    if leaf == "head":
+        w = block_prune(torch.randint(-3, 4, (k, n), generator=g,
+                                      device=cuda).float(), 0.8)
+        gw = preprocess_weights(w.bfloat16())
+        ai = torch.randint(-2, 3, (m, k), generator=g,
+                           device=cuda).bfloat16()
+        exact = (ai.float() @ w).bfloat16()
+        assert torch.equal(griffin_matmul(ai, gw), exact)
+        assert torch.equal(griffin_matmul(ai, gw)[:, -26:], exact[:, -26:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_griffin_spmm_batch_invariant_at_whisper_w_up(cuda, dtype):
+    """Rows 0:1, 0:4 and 0:32 of a 1500-row A through w_up (1280 x 5120)
+    bit-equal alone and in the full call, dual and not: the encoder's
+    fp32 stream and the decoder's bf16 one."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    gw = preprocess_weights(block_prune(
+        torch.randn(1280, 5120, generator=g, device=cuda), 0.8).bfloat16())
+    a = torch.randn(1500, 1280, generator=g, device=cuda).to(dtype)
+    a[:16, :256] = 0
+    for dual in (False, True):
+        full = griffin_matmul(a, gw, dual=dual)
+        for rows in (1, 4, 32):
+            assert torch.equal(griffin_matmul(a[:rows].contiguous(), gw,
+                                              dual=dual), full[:rows])
+
+
+@pytest.fixture(scope="module")
+def whisper_shallow():
+    """whisper-large-v3 at full width (1500 frames) cut to 2 encoder and 2
+    decoder layers, seed 0, pruned 0.8 and compacted at 128 x 128 / unit
+    32 (what launch.serve serves)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), num_layers=2,
+                              encoder_layers=2)
+    api = build_model(cfg, device="cuda")
+    return api, sparsify_params(api.init(api.generator(0)), 0.8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", ["fixed", "paged"])
+@pytest.mark.parametrize("mode", ["B", "AB"])
+def test_whisper_engine_matches_cast_oracle_on_card(whisper_shallow, mode,
+                                                    arena):
+    """The depth-cut full-width whisper served by the engine (4 slots,
+    chunks of 4, each request with its 1500 fp32 frames): every request
+    token-identical to the batch-1 greedy loop decoding from its
+    prefill's cache cast to ``init_cache``'s dtypes (bf16 cross K/V, as
+    the engine's admission writes them), in Sparse.B and Mode.AB, on the
+    fixed and the paged arena.  No activation sparsity is measured
+    (``measure_every`` 64): the compacted head's exact-zero logits (10.7 %
+    of its columns lose all 10 K blocks) would flip Sparse.B to Mode.AB,
+    as in ``chip_smoke.WHISPER_PATHS``."""
+    api, params = whisper_shallow
+    fields = dict(num_slots=4, cache_len=40, decode_chunk=4,
+                  use_kernels=True, measure_every=64,
+                  a_sparsity=0.5 if mode == "AB" else None)
+    if arena == "paged":
+        fields["page_size"] = 8
+    eng = ServeEngine(api, params, EngineConfig().with_fields(**fields))
+    assert (eng._paged is not None) == (arena == "paged")
+    assert eng.cache["xk"].dtype == torch.bfloat16
+    reqs = synthetic_trace(api.cfg, num_requests=5, seed=5,
+                           prompt_lens=(8, 16), gen_lens=(4, 12))
+    outs = eng.run(reqs)
+    assert eng.mode.value == mode
+    dts = {k: v.dtype for k, v in api.init_cache(
+        1, eng.cache_len, device=torch.device("meta")).items()}
+    for r in reqs:
+        batch = r.as_batch(eng.device, eng.bucket_for(r.prompt_len))
+        with eng._scope():
+            cache, logits = api.prefill(params, batch,
+                                        cache_len=eng.cache_len)
+            assert cache["xk"].dtype == torch.float32
+            cache = {k: v.to(dts[k]) for k, v in cache.items()}
+            toks = [logits.argmax(-1)[:, None]]
+            for _ in range(r.max_new_tokens - 1):
+                logits, cache = api.decode_step(params, cache, toks[-1])
+                toks.append(logits.argmax(-1)[:, None])
+        assert outs[r.rid].tokens == [int(t) for t in toks], r.rid

@@ -625,12 +625,17 @@ def test_tuning_workload_families():
     assert (cfg.d_model, api.device.type, cache_len) == (64, "cpu", 27)
     reqs = trace()
     assert len(reqs) == 6 and [r.arrival for r in reqs] == list(range(6))
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="1.12"):
-            tuning_workload(family, reduced=True, device="cpu")
-    # the moe family is served since its port (tests/test_torch_moe.py)
+    with pytest.raises(NotImplementedError, match="1.12"):
+        tuning_workload("vlm", reduced=True, device="cpu")
+    # the moe and audio families are served since their ports
+    # (tests/test_torch_moe.py, tests/test_torch_whisper.py)
     assert tuning_workload("moe", reduced=True,
                            device="cpu")[0].family == "moe"
+    cfg, api, params, cache_len, trace = tuning_workload(
+        "audio", reduced=True, device="cpu")
+    assert (cfg.family, api.device.type, cache_len) == ("audio", "cpu", 27)
+    assert all(r.extras["frames"].shape == (8, 64) for r in trace())
+    assert params["dec_layers"]["cross"]["wk"].shape == (2, 64, 64)
 
 
 def test_autotune_cli_writes_plan_that_reloads(tmp_path, caches, capsys):
