@@ -255,6 +255,33 @@ Phases, in order; any failure exits non-zero before the result line:
              112x and dense_gemm 1x per call; last-token logits finite
              and within 2% (relative L2) of the plain-matmul route, and
              every (layer, position) row of the K/V cache within 5%.
+4b. train  - after the serve families, the training path at full width
+             through repro_torch.launch.train's CLI (``TRAIN``:
+             llama3.2-1b, batch 8, seq 128, lr 3e-3, --prune-sparsity
+             0.5, a checkpoint every 20 steps), one process.  Gates:
+             (1) the flash backward at the model's head shapes (H 32, KVH
+             8, hd 64, B 1; S 512 and 2048 causal, 2048 windowed, a
+             ragged 2000) in fp32 within relative L2 1e-4 of autograd
+             through the materialised attention, and at S 2048 its peak
+             allocation rise below one B*H*S*S fp32 score matrix;
+             (2) one train step in bf16 against the same step on the
+             weights widened to fp32: loss within 1 %, grad norm within
+             5 %; (3) 30 steps: every loss and grad norm finite, the mean
+             loss of the last five below the first five's by 30 %
+             (``TRAIN_DESCENT``; step ms, tokens/s and the peak
+             allocation printed, not gated); (4) right after the step-25
+             prune milestone every pruned leaf's layers hold exactly the
+             share of all-zero 128 x 32 blocks block_prune leaves at the
+             schedule's sparsity; (5) the step-20 checkpoint (bytes and
+             seconds printed, in a temporary directory under build/
+             removed after) restored by a second CLI run, whose steps
+             20-29 give the uninterrupted run's losses and grad norms bit
+             for bit; (6) the final state pruned and compacted by
+             sparsify_params at 0.5 (128 x 128 / unit 32) with every
+             decompacted layer equal to the pruned leaf, and one 4-row
+             prefill through the kernels launching exactly griffin_spmm
+             112 + dense_gemm 1 (its row in the kernels line's
+             launches_by_path) within 2 % of the plain route.
 5. fault   - after the serve paths, seven engine-level fault cells
              (FAULT_CELLS) through repro_torch.launch.serve with
              ``fault.inject = "kill:0@<at>:<phase>"``, each on one serve
@@ -374,9 +401,12 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -661,6 +691,24 @@ ROUTER_CELLS = {
                             replicas=3, hedge_after=1, shed_policy="none"),
         trace=dict(SMALL, requests=5), parity=None),
 }
+
+# the train phase: launch.train's CLI at full width (llama3.2-1b, the CLI's
+# defaults batch 8, seq 128, lr 3e-3, the prune schedule at 0.5), a
+# checkpoint at step 20 and a restart from it; the flash backward at the
+# full-width head shapes (B, S, window) against materialised attention
+TRAIN = dict(arch="llama3.2-1b", steps=30, batch=8, seq=128, prune=0.5,
+             ckpt_every=20)
+TRAIN_FLASH = (("causal_512", 512, None), ("causal_2048", 2048, None),
+               ("window_2048", 2048, 1000), ("ragged_2000", 2000, None))
+TRAIN_FLASH_TOL = 1e-4            # relative L2 of dq, dk, dv in fp32
+# bf16 step against the same step on the widened fp32 params
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 1e-2, 5e-2
+# the mean loss of the last five steps must sit below the first five's by
+# this fraction: the CPU run of the CLI's config, reduced, drops it by
+# 39.2 % (tests/test_torch_train.py::test_cli_descends_and_prunes holds
+# 30 %)
+TRAIN_DESCENT = 0.30
+TRAIN_PREFILL = dict(rows=4, prompt=32, seed=11)
 
 # the fault phase: engine-level kills through launch.serve
 # (fault.inject), each on one serve path's engine and trace and held
@@ -3501,6 +3549,289 @@ def phase_autotune(torch, card: str):
     return total, record
 
 
+def materialised_attention(torch, q, k, v, window):
+    """Causal softmax attention with the (S x S) scores formed (optionally
+    windowed; GQA by repeating the KV heads), the plain reference of the
+    flash backward."""
+    S, hd = q.shape[1], q.shape[-1]
+    G = q.shape[2] // k.shape[2]
+    kk, vv = (x.repeat_interleave(G, dim=2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(hd)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    s = s.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vv)
+
+
+def train_flash(torch) -> list:
+    """Gate 1: the flash backward at llama3.2-1b's head shapes (H 32, KVH
+    8, hd 64, B 1, kv_chunk 512) against autograd through the materialised
+    attention, fp32; at S 2048 the backward's peak allocation rise stays
+    below one B*H*S*S fp32 tensor, the score matrix it must not store."""
+    from repro_torch.models.attention import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for name, S, window in TRAIN_FLASH:
+        q = torch.randn(1, S, 32, 64, generator=gen, device="cuda")
+        k, v = (torch.randn(1, S, 8, 64, generator=gen, device="cuda")
+                for _ in range(2))
+        do = torch.randn(1, S, 32, 64, generator=gen, device="cuda")
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        out = attention(*leaves, causal=True, window=window, kv_chunk=512)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rise = torch.cuda.max_memory_allocated() - base
+        ref = torch.autograd.grad(
+            materialised_attention(torch, *leaves, window), leaves, do)
+        errs = [rel_l2(g, r) for g, r in zip(grads, ref)]
+        quad = 32 * S * S * 4
+        print(f"[train flash] {name}: dq/dk/dv relative L2 "
+              f"{', '.join(f'{e:.2e}' for e in errs)} to the materialised "
+              f"attention; backward {seconds * 1e3:.1f} ms, peak allocation "
+              f"rise {rise / 2**20:.1f} MiB (one score matrix "
+              f"{quad / 2**20:.0f} MiB)")
+        if max(errs) > TRAIN_FLASH_TOL:
+            fail(f"train flash {name}: gradients differ from the "
+                 f"materialised attention by {max(errs):.3e}")
+        if S == 2048 and rise >= quad:
+            fail(f"train flash {name}: backward allocated {rise} B, not "
+                 f"below one score matrix ({quad} B)")
+        rows.append({"case": name, "S": S, "window": window,
+                     "rel_l2": errs, "backward_ms": seconds * 1e3,
+                     "peak_rise_bytes": rise})
+        del q, k, v, do, leaves, out, grads, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_widened_step(torch, opt_cfg, shape) -> dict:
+    """Gate 2: one full-width train step in bf16 against the same step on
+    the same weights widened to fp32: loss and grad norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import (TrainState, make_train_step,
+                                           to_device)
+
+    api = build_model(get_config(TRAIN["arch"]))
+    batch = to_device(synth_batch(api.cfg, shape, DataConfig(seed=0), 0),
+                      "cuda")
+    step = make_train_step(api, opt_cfg)
+    got = {}
+    for label in ("bf16", "fp32"):
+        params = api.init(api.generator(0))
+        if label == "fp32":
+            params = widened(params)
+        state = TrainState(params, adamw.init(params),
+                           torch.zeros((), dtype=torch.int32))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        got[label] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "step_s": time.perf_counter() - t0}
+        del params, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    b, f = got["bf16"], got["fp32"]
+    dl = abs(b["loss"] - f["loss"]) / abs(f["loss"])
+    dg = abs(b["grad_norm"] - f["grad_norm"]) / abs(f["grad_norm"])
+    print(f"[train] bf16 step against fp32 on the widened weights: loss "
+          f"{b['loss']:.6f} / {f['loss']:.6f} ({dl:.2e} relative), grad "
+          f"norm {b['grad_norm']:.6f} / {f['grad_norm']:.6f} ({dg:.2e}); "
+          f"fp32 step {f['step_s']:.2f}s")
+    if not dl <= TRAIN_LOSS_TOL or not dg <= TRAIN_GNORM_TOL:
+        fail(f"train: the bf16 step's loss ({dl:.3e}) or grad norm "
+             f"({dg:.3e}) is off the fp32 step's")
+    return dict(got, loss_rel=dl, grad_norm_rel=dg)
+
+
+def zero_block_shares(torch, state, schedule, match) -> dict:
+    """Per pruned leaf, each layer's share of all-zero (block_k x unit)
+    blocks, and the share the schedule's block_prune leaves at the
+    state's step (``nkeep = max(1, round(blocks * (1 - s)))`` kept)."""
+    from repro_torch.checkpoint import keyed_leaves
+
+    s = schedule.sparsity_at(int(state.step))
+    out = {}
+    for path, leaf in keyed_leaves(state.params):
+        if leaf.dim() < 2 or not match(path):
+            continue
+        k, n = leaf.shape[-2:]
+        bk, un = min(schedule.block_k, k), min(schedule.unit, n)
+        blocks = leaf.reshape(-1, k // bk, bk, n // un, un) == 0
+        shares = blocks.all(dim=4).all(dim=2).float().mean(dim=(1, 2))
+        nb = (k // bk) * (n // un)
+        want = 1 - max(1, int(round(nb * (1 - s)))) / nb
+        out[path] = {"shares": shares.tolist(), "expected": want}
+    return out
+
+
+def train_kernels(torch, state, schedule, match) -> tuple:
+    """Gate 6: the trained weights on the kernels.  The final state pruned
+    at the schedule's milestone, then compacted by sparsify_params at its
+    sparsity and granularity: every decompacted layer equals the pruned
+    leaf bit for bit; one 4-row prefill through the kernels (counters
+    zeroed just before, read just after) launches exactly griffin_spmm 112
+    + dense_gemm 1 and its logits stay within 2 % of the plain route on
+    the pruned weights."""
+    from repro_torch.kernels import (decompact_weights, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.kernels.griffin_spmm.ops import GriffinWeights
+    from repro_torch.models import build_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import sparse_execution
+    from repro_torch.runtime.train import apply_prune
+    from repro_torch.sparsity import sparsify_params
+
+    state = apply_prune(state, schedule, match)
+    params = state.params
+    compacted = sparsify_params(params, schedule.final_sparsity,
+                                block_k=schedule.block_k, block_n=128,
+                                unit=schedule.unit)
+    checked = 0
+    for name, gw in compacted["layers"].items():
+        if not isinstance(gw, GriffinWeights):
+            continue
+        for i in range(gw.b_comp.shape[0]):
+            w = params["layers"][name][i]
+            if not torch.equal(decompact_weights(gw[i])[:w.shape[0]], w):
+                fail(f"train: compacting the trained {name}[{i}] changed "
+                     "a weight")
+            checked += 1
+    api = build_model(get_config(TRAIN["arch"]))
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_PREFILL["seed"])
+    toks = torch.randint(1, api.cfg.vocab_size, (TRAIN_PREFILL["rows"],
+                                                 TRAIN_PREFILL["prompt"]),
+                         generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with sparse_execution(use_kernels=True):
+        _, logits = api.prefill(compacted, {"tokens": toks})
+    torch.cuda.synchronize()
+    got = launch_counts()
+    with sparse_execution(use_kernels=False):
+        _, ref = api.prefill(params, {"tokens": toks})
+    rel = rel_l2(logits, ref)
+    print(f"[train] trained weights: {checked} layer slices compacted "
+          f"without a changed weight; a {TRAIN_PREFILL['rows']}-row "
+          f"prefill launched {got}, logits relative L2 {rel:.5f} to the "
+          "plain route")
+    if got != SB_LAUNCHES:
+        fail(f"train: the prefill launched {got}, expected {SB_LAUNCHES}")
+    if not bool(torch.isfinite(logits).all()) or rel > 2e-2:
+        fail(f"train: kernel-route logits differ from the plain route by "
+             f"{rel:.4f}")
+    return got, {"slices_checked": checked, "logits_rel_l2": rel}
+
+
+def phase_train(torch, card: str) -> tuple:
+    """The training path at full width, through the CLI a user calls
+    (repro_torch.launch.train.main): six gates, see the module docstring.
+    Returns (the prefill's launches, the phase's record)."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.sparsity import PruneSchedule
+
+    t_phase = time.perf_counter()
+    record = {"flash": train_flash(torch)}
+    steps = TRAIN["steps"]
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=min(20, steps // 5),
+                          total_steps=steps)
+    shape = ShapeConfig("cli", TRAIN["seq"], TRAIN["batch"], "train")
+    record["widened"] = train_widened_step(torch, opt_cfg, shape)
+    schedule = PruneSchedule(TRAIN["prune"], begin_step=steps // 4,
+                             ramp_steps=steps // 2, block_k=128, unit=32)
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build_dir).free
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=build_dir)
+    argv = ["--arch", TRAIN["arch"], "--steps", str(steps), "--batch",
+            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--prune-sparsity", str(TRAIN["prune"]), "--ckpt-dir", tmp,
+            "--ckpt-every", str(TRAIN["ckpt_every"]), "--log-every", "5"]
+    shares = {}
+
+    def at_milestone(step, state, metrics):
+        if step == 25:
+            shares.update(zero_block_shares(torch, state, schedule,
+                                            train_cli.prune_match))
+
+    try:
+        print(f"[train] checkpoints under {tmp} ({free / 2**30:.1f} GiB "
+              "free)")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first = train_cli.main(argv, on_step=at_milestone)
+        peak = torch.cuda.max_memory_allocated() - base
+        losses, gnorms = first["losses"], first["grad_norms"]
+        step_ms = sorted(first["step_ms"][1:])[len(first["step_ms"]) // 2]
+        tok_s = TRAIN["batch"] * TRAIN["seq"] / (step_ms / 1e3)
+        head, tail = (sum(x) / 5 for x in (losses[:5], losses[-5:]))
+        print(f"[train] {steps} steps: losses {[round(x, 4) for x in losses]}"
+              f"; median step {step_ms:.1f} ms (first {first['step_ms'][0]:.0f}"
+              f" ms), {tok_s:.0f} tokens/s, peak allocation "
+              f"{peak / 2**30:.2f} GiB over {base / 2**30:.2f} GiB (not "
+              f"gated); mean loss first five {head:.4f}, last five "
+              f"{tail:.4f}; {card}")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            fail("train: a loss or grad norm is not finite")
+        if not tail <= (1 - TRAIN_DESCENT) * head:
+            fail(f"train: the mean loss fell from {head:.4f} to {tail:.4f}, "
+                 f"less than {TRAIN_DESCENT:.0%}")
+        want = {p: v["expected"] for p, v in shares.items()}
+        bad = [p for p, v in shares.items()
+               if any(x != v["expected"] for x in v["shares"])]
+        print(f"[train] after the step-25 milestone (sparsity_at(25) = "
+              f"{schedule.sparsity_at(25)}): all-zero 128 x 32 block share "
+              f"per leaf {want}, every layer equal: {not bad}")
+        if sorted(p.split("'")[-2] for p in shares) != \
+                sorted(train_cli.PRUNED) or bad:
+            fail(f"train: pruned leaves {sorted(shares)}, off the schedule "
+                 f"at {bad}")
+        (save_step, save_s, save_bytes), = first["saves"]
+        print(f"[train] checkpoint at step {save_step}: {save_bytes} bytes "
+              f"in {save_s:.2f}s")
+        del first["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        second = train_cli.main(argv)
+        print(f"[train] restart: restored step {second['start']} in "
+              f"{second['restore_s']:.2f}s; losses "
+              f"{[round(x, 4) for x in second['losses']]}")
+        if second["start"] != save_step or \
+                second["losses"] != losses[save_step:] or \
+                second["grad_norms"] != gnorms[save_step:]:
+            fail(f"train: the restarted run's losses "
+                 f"{second['losses']} differ from the uninterrupted run's "
+                 f"{losses[save_step:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches, kernel_record = train_kernels(
+        torch, second["state"], schedule, train_cli.prune_match)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[train] phase {phase_s:.1f}s")
+    record.update(
+        losses=losses, grad_norms=gnorms, step_ms=first["step_ms"],
+        median_step_ms=step_ms, tokens_per_s=tok_s, peak_rise_bytes=peak,
+        prune_shares=shares, save_step=save_step, save_s=save_s,
+        save_bytes=save_bytes, restore_s=second["restore_s"],
+        restart_losses=second["losses"], disk_free_bytes=free,
+        phase_s=phase_s, **kernel_record)
+    return launches, record
+
+
 class PhaseClock:
     """Each phase's wall seconds, printed on a line of its own as the phase
     ends (a phase runs from the previous one's end)."""
@@ -3645,6 +3976,11 @@ def main() -> None:
           f"chunk): Mode.AB (dual) {ab:.3f}, Sparse.B {sb:.3f}, ratio "
           f"{ab / sb:.3f}; experts no row chose per (layer, decode step): "
           f"{serves['moe_mode_ab']['empty_experts']}; {card}")
+    launches, train_record = phase_train(torch, card)
+    serves["train"] = {"launches": launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.done("train")
     for name, cell in FAULT_CELLS.items():
         serves[name] = phase_fault(torch, name, card,
                                    unfaulted.get(cell["path"]), **cell)
@@ -3708,6 +4044,7 @@ def main() -> None:
               "xlstm_prefill": xlstm_prefill,
               "hybrid_long_window": hybrid_long,
               "moe_long_window": moe_long,
+              "train": train_record,
               "phase_s": clock.seconds,
               "cycle_model": cycle_model,
               "autotune": autotune_record,

@@ -15,6 +15,11 @@ and gives one back.
   so the reference's ``GriffinWeights`` with numpy leaves converts without
   importing its class, and :class:`NumpyGriffin` carries them back.
   Stacked leaves keep their leading axis.
+* A training state is matched by its fields too: the reference's
+  ``TrainState`` (``params``, ``opt``, ``step``) with its AdamW
+  ``OptState`` (``mu``, ``nu``, ``count``) becomes the port's
+  ``runtime.train.TrainState``, its counters 0-dim int32 tensors on the
+  CPU, and the way back gives the port's classes with numpy leaves.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import numpy as np
 import torch
 
 from .kernels.griffin_spmm.ops import GriffinWeights
+from .optim.adamw import OptState
+from .runtime.train import TrainState
 
 _GW_ARRAYS = ("b_comp", "kidx", "cnt", "inv_perm")
 _GW_META = ("k", "n", "block_k", "block_n", "a_thr")
@@ -48,6 +55,14 @@ class NumpyGriffin:
 
 def _is_griffin(x: Any) -> bool:
     return all(hasattr(x, f) for f in _GW_ARRAYS + _GW_META)
+
+
+def _is_state(x: Any) -> bool:
+    return all(hasattr(x, f) for f in ("params", "opt", "step"))
+
+
+def _is_opt(x: Any) -> bool:
+    return all(hasattr(x, f) for f in ("mu", "nu", "count"))
 
 
 def array_to_tensor(a: Any, device: Any = "cpu") -> torch.Tensor:
@@ -75,6 +90,13 @@ def to_torch(tree: Any, device: Any = "cpu") -> Any:
                   for f in _GW_ARRAYS}
         return GriffinWeights(**arrays, **{f: getattr(tree, f)
                                            for f in _GW_META})
+    if _is_state(tree):
+        return TrainState(to_torch(tree.params, device),
+                          to_torch(tree.opt, device),
+                          array_to_tensor(tree.step))
+    if _is_opt(tree):
+        return OptState(to_torch(tree.mu, device), to_torch(tree.nu, device),
+                        array_to_tensor(tree.count))
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -94,6 +116,11 @@ def to_numpy(tree: Any) -> Any:
                   for f in _GW_ARRAYS}
         return NumpyGriffin(**arrays, **{f: getattr(tree, f)
                                          for f in _GW_META})
+    if isinstance(tree, TrainState):
+        return TrainState(to_numpy(tree.params), to_numpy(tree.opt),
+                          to_numpy(tree.step))
+    if isinstance(tree, OptState):
+        return OptState(*(to_numpy(x) for x in tree))
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -1,3 +1,5 @@
-from .checkpoint import latest_step, read_manifest, restore, save
+from .checkpoint import (PreemptionGuard, keyed_leaves, latest_step,
+                         read_manifest, restore, save)
 
-__all__ = ["latest_step", "read_manifest", "restore", "save"]
+__all__ = ["PreemptionGuard", "keyed_leaves", "latest_step", "read_manifest",
+           "restore", "save"]

@@ -11,9 +11,13 @@ of ``repro/checkpoint/checkpoint.py``, with the same on-disk layout:
   caller's ``extra`` dict;
 - retention: ``save`` keeps the newest ``keep`` checkpoints.
 
-Trees are dicts, lists and tuples of ``torch.Tensor`` (or numpy) leaves,
-with compacted ``GriffinWeights`` leaves stored field by field; ``None``
-is an empty subtree.  numpy has no bfloat16 (nor float8), so those
+Trees are dicts, lists, tuples, named tuples and dataclasses of
+``torch.Tensor`` (or numpy) leaves, with compacted ``GriffinWeights``
+leaves stored field by field; ``None`` is an empty subtree.  A named
+tuple's fields are keyed by name (``.mu``) and another dataclass's by
+position (``[<flat index 0>]``), as ``jax.tree_util.keystr`` keys the
+reference's ``OptState`` and ``TrainState``, so a trainer's checkpoint has
+the reference's keys.  numpy has no bfloat16 (nor float8), so those
 tensors round-trip through a same-width unsigned integer view, their true
 dtype in the manifest.  ``restore`` rebuilds the structure of a template
 tree and places every leaf on an explicit ``device`` (default: the
@@ -22,8 +26,9 @@ template leaf's own, the CPU for a ``meta`` template).
 The serving engine writes its tick-start snapshots through ``save`` (its
 scheduler and paging state in ``extra``, which ``read_manifest`` returns)
 and recovers through ``restore`` (``runtime.engine.ServeEngine``,
-``FaultConfig.snapshot_dir``).  The trainer's SIGTERM preemption flag is
-not part of this module.
+``FaultConfig.snapshot_dir``); the trainer saves its whole ``TrainState``
+(parameters, AdamW moments and counters) and polls
+:class:`PreemptionGuard`, which SIGTERM flips, to save and exit.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import dataclasses
 import json
 import os
 import shutil
+import signal
+import threading
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -48,21 +55,38 @@ _EXOTIC = {torch.bfloat16: (np.uint16, torch.int16, np.int16),
 _GW_ARRAYS = ("b_comp", "kidx", "cnt", "inv_perm")
 
 
-def _leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
-    """(path, leaf) pairs in the reference's order and key syntax."""
+def _children(tree: Any) -> Iterator[Tuple[str, Any]]:
+    """(key suffix, child) pairs of an inner node, in the reference's
+    order and key syntax; nothing for a leaf."""
+    if isinstance(tree, GriffinWeights):
+        return ((f".{f}", getattr(tree, f)) for f in _GW_ARRAYS)
+    if isinstance(tree, dict):
+        return ((f"[{k!r}]", tree[k]) for k in sorted(tree))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return ((f".{f}", getattr(tree, f)) for f in tree._fields)
+    if isinstance(tree, (list, tuple)):
+        return ((f"[{i}]", v) for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree):
+        return ((f"[<flat index {i}>]", getattr(tree, f.name))
+                for i, f in enumerate(dataclasses.fields(tree)))
+    return iter(())
+
+
+def _is_leaf(tree: Any) -> bool:
+    return not (isinstance(tree, (dict, list, tuple, GriffinWeights))
+                or dataclasses.is_dataclass(tree))
+
+
+def keyed_leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) pairs in the reference's order and key syntax
+    (``jax.tree_util.keystr`` of its pytree paths)."""
     if tree is None:
         return
-    if isinstance(tree, GriffinWeights):
-        for f in _GW_ARRAYS:
-            yield from _leaves(getattr(tree, f), f"{path}.{f}")
-    elif isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], f"{path}[{k!r}]")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, f"{path}[{i}]")
-    else:
+    if _is_leaf(tree):
         yield path, tree
+        return
+    for key, child in _children(tree):
+        yield from keyed_leaves(child, path + key)
 
 
 def _dtype_name(leaf: Any) -> str:
@@ -89,7 +113,7 @@ def save(ckpt_dir: str, step: int, state: Any, keep: int = 3,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = list(_leaves(state))
+    flat = list(keyed_leaves(state))
     arrs = {k: _to_numpy(v) for k, v in flat}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrs)
     manifest = {
@@ -153,16 +177,18 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
 def _rebuild(tmpl: Any, path: str, data, device: Any) -> Any:
     if tmpl is None:
         return None
-    if isinstance(tmpl, GriffinWeights):
-        arrays = {f: _rebuild(getattr(tmpl, f), f"{path}.{f}", data, device)
-                  for f in _GW_ARRAYS}
-        return dataclasses.replace(tmpl, **arrays, perm=None)
     if isinstance(tmpl, dict):
         return {k: _rebuild(v, f"{path}[{k!r}]", data, device)
                 for k, v in tmpl.items()}
-    if isinstance(tmpl, (list, tuple)):
-        return type(tmpl)(_rebuild(v, f"{path}[{i}]", data, device)
-                          for i, v in enumerate(tmpl))
+    if not _is_leaf(tmpl):
+        kids = [_rebuild(child, path + key, data, device)
+                for key, child in _children(tmpl)]
+        if isinstance(tmpl, GriffinWeights):
+            return dataclasses.replace(tmpl, **dict(zip(_GW_ARRAYS, kids)),
+                                       perm=None)
+        if isinstance(tmpl, list) or type(tmpl) is tuple:
+            return type(tmpl)(kids)
+        return type(tmpl)(*kids)      # a named tuple or a dataclass
     arr = data[path]
     if tuple(arr.shape) != tuple(tmpl.shape):
         raise ValueError(f"shape mismatch for {path}: {arr.shape} vs "
@@ -171,7 +197,32 @@ def _rebuild(tmpl: Any, path: str, data, device: Any) -> Any:
     if dtype in _EXOTIC and arr.dtype == _EXOTIC[dtype][0]:
         t = torch.from_numpy(arr.view(_EXOTIC[dtype][2])).view(dtype)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
+        t = torch.from_numpy(np.asarray(arr, order="C")).to(dtype)
     if device is None:
         device = tmpl.device if tmpl.device.type != "meta" else "cpu"
     return t.to(device)
+
+
+class PreemptionGuard:
+    """SIGTERM-aware flag for checkpoint-on-preemption: :meth:`install`
+    makes SIGTERM set it, the train loop polls :attr:`should_stop`, and
+    :meth:`uninstall` gives SIGTERM back its previous handler."""
+
+    def __init__(self) -> None:
+        self.requested = threading.Event()
+        self._previous = None
+
+    def install(self) -> None:
+        self._previous = signal.signal(signal.SIGTERM, self._handler)
+
+    def uninstall(self) -> None:
+        if self._previous is not None:
+            signal.signal(signal.SIGTERM, self._previous)
+            self._previous = None
+
+    def _handler(self, signum, frame) -> None:
+        self.requested.set()
+
+    @property
+    def should_stop(self) -> bool:
+        return self.requested.is_set()

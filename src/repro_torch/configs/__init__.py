@@ -1,3 +1,5 @@
-from .base import ModelConfig, MoEConfig, get_config, register
+from .base import (SHAPES, ModelConfig, MoEConfig, ShapeConfig,
+                   applicable_shapes, get_config, register)
 
-__all__ = ["ModelConfig", "MoEConfig", "get_config", "register"]
+__all__ = ["SHAPES", "ModelConfig", "MoEConfig", "ShapeConfig",
+           "applicable_shapes", "get_config", "register"]

@@ -1,12 +1,18 @@
-"""Model configuration: the dense decoder's, the mixture-of-experts
+"""Model / shape configuration: the dense decoder's, the mixture-of-experts
 family's, the ssm (xlstm) family's, the hybrid (recurrentgemma) family's
 and the audio (whisper) family's fields of
 ``repro.configs.base.ModelConfig`` and the same ``reduced()`` rule, so a
-reduced config here has exactly the reference's dims."""
+reduced config here has exactly the reference's dims; ``SHAPES`` is the
+reference's input-shape set and ``applicable_shapes(cfg)`` its assignment
+rules.
+
+The reference's ``scan_layers`` knob (``lax.scan`` over the layer stack,
+or unrolled for its roofline cost pass) has no counterpart: the port's
+layer stacks are always Python loops."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +51,13 @@ class ModelConfig:
     encoder_layers: int = 0
     enc_frames: int = 1500
     dtype: str = "bfloat16"
-    kv_chunk: int = 512         # prefill attention's KV chunk (online softmax)
+    # training knobs: rematerialise each layer (group) in the backward pass
+    # (policy "none" saves nothing, "dots" saves the weight GEMMs' outputs)
+    # and the sequence chunk of the cross entropy
+    remat: bool = True
+    remat_policy: str = "none"
+    loss_chunk: int = 512
+    kv_chunk: int = 512         # attention's KV chunk (online softmax)
 
     @property
     def hd(self) -> int:
@@ -54,6 +66,14 @@ class ModelConfig:
     @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can decode at 500k context: recurrent state and/or
+        bounded-window attention only."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.window is not None
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's dims)."""
@@ -66,13 +86,39 @@ class ModelConfig:
             encoder_layers=2 if self.encoder_layers else 0,
             enc_frames=8 if self.is_encdec else self.enc_frames,
             lru_width=64 if self.family == "hybrid" else 0,
-            dtype="float32", kv_chunk=16)
+            dtype="float32", remat=False, loss_chunk=32, kv_chunk=16)
         if self.xlstm_pattern:
             r = dataclasses.replace(r, xlstm_pattern=("m", "s"))
         if self.block_pattern:
             # one (rec, rec, attn) group and an empty tail
             r = dataclasses.replace(r, num_layers=3)
         return r
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> List[str]:
+    """The reference's assignment rules: long_500k needs sub-quadratic
+    attention; every ported arch has a decoder, so the decode shapes
+    apply."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        shapes.append("long_500k")
+    return shapes
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}

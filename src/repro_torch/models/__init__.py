@@ -1,3 +1,3 @@
-from .registry import ModelApi, build_model
+from .registry import ModelApi, build_model, input_specs
 
-__all__ = ["ModelApi", "build_model"]
+__all__ = ["ModelApi", "build_model", "input_specs"]

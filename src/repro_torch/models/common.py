@@ -132,9 +132,14 @@ def griffin_linear(x: torch.Tensor, w,
     Leading batch/sequence axes are flattened into the GEMM M axis.
     ``meta``: the Sparse.A metadata of ``x`` from
     :func:`shared_activation_meta`, used only where the leaf takes
-    Sparse.A (None: built here).
+    Sparse.A (None: built here).  The kernels have no backward, as in the
+    reference: a kernel route raises where a gradient is wanted (grad
+    mode on and ``x`` or the weight requiring grad), so a training step
+    can never drop one; training takes the plain route.
     """
     ctx = _EXEC_STACK[-1]
+    if isinstance(w, GriffinWeights) or ctx.use_kernels:
+        _no_grad_wanted(x, w)
     lead = x.shape[:-1]
     x2 = _rows(x)
     if isinstance(w, GriffinWeights):
@@ -156,6 +161,71 @@ def griffin_linear(x: torch.Tensor, w,
     else:
         out = dense_matmul(x2, w)
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+
+def _no_grad_wanted(x: torch.Tensor, w) -> None:
+    ws = [w.b_comp] if isinstance(w, GriffinWeights) else [w]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [x] + ws):
+        raise RuntimeError(
+            "griffin_linear: the kernels have no backward (as in the "
+            "reference); a gradient is wanted here, so run the GEMM outside "
+            "a kernel scope on dense weights")
+
+
+# ---------------------------------------------------------------------------
+# training: rematerialisation and per-layer views
+# ---------------------------------------------------------------------------
+
+# the weight GEMMs the "dots" policy saves: the reference's
+# dots_with_no_batch_dims_saveable (attention's products are not matmuls
+# here, and the experts' batched einsum is a batched dot, which it does not
+# save either)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_fn(cfg, body: Callable) -> Callable:
+    """``body`` under the configured rematerialisation (the reference's
+    ``remat_fn``): with ``cfg.remat`` its activations are recomputed in
+    the backward pass (``torch.utils.checkpoint``, non-reentrant), policy
+    ``"dots"`` keeping the weight GEMMs' outputs.  The policy changes what
+    is saved, never a value.  Only where a gradient can be wanted (grad
+    mode on); else ``body`` runs as it is."""
+    if not cfg.remat:
+        return body
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        from torch.utils.checkpoint import (
+            checkpoint, create_selective_checkpoint_contexts)
+        kw = {}
+        if cfg.remat_policy == "dots":
+            kw["context_fn"] = lambda: \
+                create_selective_checkpoint_contexts(_dots_policy)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def unstack(stack: Any) -> list:
+    """The per-layer views of a stacked (nested) parameter dict: one dict
+    per index of the leading axis.  Each tensor leaf is split by one
+    ``unbind``, so a gradient reaches the stacked leaf through a single
+    node (indexing per layer would make one full-size gradient a layer);
+    compacted leaves are indexed."""
+    if isinstance(stack, dict):
+        parts = {k: unstack(v) for k, v in stack.items()}
+        n = len(next(iter(parts.values()))) if parts else 0
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(stack, GriffinWeights):
+        return [stack[i] for i in range(stack.b_comp.shape[0])]
+    return list(stack.unbind(0))
 
 
 # ---------------------------------------------------------------------------

@@ -52,14 +52,15 @@ def top_k(p: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     descending order, ties to the lower index (``jax.lax.top_k``'s rule):
     ``k`` passes of ``argmax``, which returns the first maximal index, each
     masking what it took.  Row-wise, so a row's choice never depends on
-    the others."""
-    p = p.clone()
+    the others.  The values are gathered from ``p`` itself (never from
+    the masked copy), so a gradient reaches the chosen entries."""
+    masked = p.detach().clone()
     vals, idxs = [], []
     for _ in range(k):
-        i = torch.argmax(p, dim=-1, keepdim=True)
+        i = torch.argmax(masked, dim=-1, keepdim=True)
         vals.append(p.gather(-1, i))
         idxs.append(i)
-        p.scatter_(-1, i, float("-inf"))
+        masked.scatter_(-1, i, float("-inf"))
     return torch.cat(vals, -1), torch.cat(idxs, -1)
 
 

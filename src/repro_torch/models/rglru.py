@@ -45,9 +45,9 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from .attention import decode_attention, local_attention
 from .common import (act_fn, dense_init, griffin_linear, length_mask,
-                     paged_slot, paged_view, paged_write, rms_norm, rope,
-                     shared_activation_meta, stack_layers, stack_slice,
-                     take_last, write_kv_slot)
+                     paged_slot, paged_view, paged_write, remat_fn, rms_norm,
+                     rope, shared_activation_meta, stack_layers, stack_slice,
+                     take_last, unstack, write_kv_slot)
 
 Params = Dict[str, Any]
 LRU_C = 8.0
@@ -379,6 +379,33 @@ def _store(cache: Params, h_key: str, conv_key: str, idx: tuple,
     """Write a rec block's (h, conv) state into the cache in place."""
     cache[h_key][idx].copy_(state[0])
     cache[conv_key][idx].copy_(state[1])
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
+    """Every block over ``tokens`` from the zero state, the states and K/V
+    thrown away: (final-normed hidden, aux 0), the loss side of the
+    reference's ``forward_hidden``.  Each (rec, rec, attn) group runs
+    under ``common.remat_fn``, as the reference checkpoints each group;
+    the tail does not."""
+    x = params["embed"][tokens]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def group(gp, x):
+        x, _ = rec_mix(cfg, gp["rec1"], x)
+        x = mlp(cfg, gp["mlp1"], x)
+        x, _ = rec_mix(cfg, gp["rec2"], x)
+        x = mlp(cfg, gp["mlp2"], x)
+        x, _ = attn_mix(cfg, gp["attn"], x, positions)
+        return mlp(cfg, gp["mlp3"], x)
+
+    group = remat_fn(cfg, group)
+    for gp in unstack(params["groups"]):
+        x = group(gp, x)
+    for tp in unstack(params["tail"]):
+        x, _ = rec_mix(cfg, tp["rec"], x)
+        x = mlp(cfg, tp["mlp"], x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), device=x.device)
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

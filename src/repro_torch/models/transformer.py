@@ -30,8 +30,9 @@ from ..configs.base import ModelConfig
 from .attention import attention, decode_attention
 from .common import (Draw, act_fn, dense_init, griffin_linear,
                      init_from_draws, length_mask, paged_slot, paged_view,
-                     paged_write, rms_norm, rope, shared_activation_meta,
-                     take_last, write_kv_slot)
+                     paged_write, remat_fn, rms_norm, rope,
+                     shared_activation_meta, take_last, unstack,
+                     write_kv_slot)
 from .moe import moe_ffn
 
 Params = Dict[str, Any]
@@ -130,22 +131,24 @@ def _layer(params: Params, i: int) -> Params:
 
 
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, decode: bool = False,
-         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The FFN: the dense SwiGLU, or the moe family's experts (drop-free on
-    decode; ``valid``, the (B, S) right-pad mask of a bucketed prefill,
-    keeps pads out of the experts).  The moe family's aux loss is a
-    training term: serving drops it."""
+         valid: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN and its aux loss: the dense SwiGLU (aux None), or the moe
+    family's experts (drop-free on decode; ``valid``, the (B, S) right-pad
+    mask of a bucketed prefill, keeps pads out of the experts) and their
+    load-balance term.  The aux loss is a training term: serving drops
+    it."""
     if cfg.moe:
         B, S, D = x.shape
-        out, _ = moe_ffn(p["moe"], x.reshape(B * S, D), cfg.moe, cfg.act,
-                         drop_free=decode,
-                         valid=None if valid is None
-                         else valid.reshape(B * S))
-        return out.reshape(B, S, D)
+        out, aux = moe_ffn(p["moe"], x.reshape(B * S, D), cfg.moe, cfg.act,
+                           drop_free=decode,
+                           valid=None if valid is None
+                           else valid.reshape(B * S))
+        return out.reshape(B, S, D), aux
     meta = shared_activation_meta(x, p["w_gate"], p["w_up"])
     h = act_fn(cfg.act)(griffin_linear(x, p["w_gate"], meta=meta)) * \
         griffin_linear(x, p["w_up"], meta=meta)
-    return griffin_linear(h, p["w_down"]).to(x.dtype)
+    return griffin_linear(h, p["w_down"]).to(x.dtype), None
 
 
 def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -166,19 +169,20 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def block_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor,
                 valid: Optional[torch.Tensor] = None):
-    """Full-sequence block (prefill).  ``valid``: the optional (B, S)
-    right-pad mask of a bucketed prefill.  Causal attention keeps pads out
-    on its own (they sit after every real token); only the moe dispatch
-    needs it, so pads take no expert capacity."""
+    """Full-sequence block (train / prefill): returns (x, aux, k, v), aux
+    the moe load-balance term (None for the dense FFN; the serve paths
+    ignore it).  ``valid``: the optional (B, S) right-pad mask of a
+    bucketed prefill.  Causal attention keeps pads out on its own (they
+    sit after every real token); only the moe dispatch needs it, so pads
+    take no expert capacity."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h, positions)
     o = attention(q, k, v, causal=True, window=cfg.window,
                   kv_chunk=cfg.kv_chunk)
     B, S = q.shape[:2]
     x = x + griffin_linear(o.reshape(B, S, -1), p["wo"]).to(x.dtype)
-    x = (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps),
-                  valid=valid)).to(x.dtype)
-    return x, k, v
+    f, aux = _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps), valid=valid)
+    return (x + f).to(x.dtype), aux, k, v
 
 
 def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -195,8 +199,8 @@ def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     o = decode_attention(q, *kv(k, v), attend_pos, window=window)
     B = x.shape[0]
     x = x + griffin_linear(o.reshape(B, 1, -1), p["wo"]).to(x.dtype)
-    return (x + _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps),
-                     decode=True)).to(x.dtype)
+    f, _ = _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps), decode=True)
+    return (x + f).to(x.dtype)
 
 
 def _fixed_kv(slot: torch.Tensor, k_cache: torch.Tensor,
@@ -215,6 +219,42 @@ def _paged_kv(pages: torch.Tensor, slot, dtype: torch.dtype,
     paged_write(v_pool, v_scale, slot, v)
     return (paged_view(k_pool, k_scale, pages, dtype),
             paged_view(v_pool, v_scale, pages, dtype))
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   return_kv: bool = False,
+                   lengths: Optional[torch.Tensor] = None):
+    """Embed and run every layer.  Returns (final-normed hidden, aux
+    summed over the layers) and, with ``return_kv``, the per-layer K and
+    V stacked over the layers (L, B, S, KVH, hd).  ``lengths``: optional
+    (B,) true prompt lengths of a right-padded batch (bucketed prefill).
+    Without ``return_kv`` (the loss) each layer runs under
+    ``common.remat_fn``; the serve paths never remat."""
+    S = tokens.shape[1]
+    x = params["embed"][tokens]
+    positions = torch.arange(S, device=tokens.device)
+    valid = None if lengths is None else length_mask(lengths, S)
+    aux = torch.zeros((), device=x.device)
+    ks, vs = [], []
+
+    def body(lp, x):
+        x, a, _, _ = block_train(cfg, lp, x, positions, valid)
+        return x, a
+
+    layer = remat_fn(cfg, body)
+    for lp in unstack(params["layers"]):
+        if return_kv:
+            x, a, k, v = block_train(cfg, lp, x, positions, valid)
+            ks.append(k)
+            vs.append(v)
+        else:
+            x, a = layer(lp, x)
+        if a is not None:
+            aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if return_kv:
+        return x, aux, (torch.stack(ks), torch.stack(vs))
+    return x, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, length: int,
@@ -236,18 +276,10 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (bucketed prefill); pad K/V rows land in slots the decode loop
     overwrites before its position mask admits them."""
     B, S = tokens.shape
-    x = params["embed"][tokens]
-    positions = torch.arange(S, device=tokens.device)
-    valid = None if lengths is None else length_mask(lengths, S)
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, k, v = block_train(cfg, _layer(params, i), x, positions, valid)
-        ks.append(k)
-        vs.append(v)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x, _, kv = forward_hidden(cfg, params, tokens, return_kv=True,
+                              lengths=lengths)
     clen = cache_len or S
     clen = min(clen, cfg.window) if cfg.window else clen
-    kv = torch.stack(ks), torch.stack(vs)
     if clen >= S:
         cache_k, cache_v = (t.new_zeros(t.shape[:2] + (clen,) + t.shape[3:])
                             for t in kv)

@@ -41,8 +41,9 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import attention, decode_attention
 from .common import (Draw, act_fn, griffin_linear, init_from_draws,
-                     paged_slot, paged_view, paged_write, rms_norm, rope,
-                     shared_activation_meta, take_last, write_kv_slot)
+                     paged_slot, paged_view, paged_write, remat_fn, rms_norm,
+                     rope, shared_activation_meta, take_last, unstack,
+                     write_kv_slot)
 
 Params = Dict[str, Any]
 
@@ -140,41 +141,61 @@ def _mha(cfg: ModelConfig, p: Params, xq: torch.Tensor, xkv: torch.Tensor,
 def encode(cfg: ModelConfig, params: Params,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, F, d) precomputed post-conv embeddings (the frontend
-    stub), in their own dtype, which the whole encoder keeps."""
+    stub), in their own dtype, which the whole encoder keeps.  Each layer
+    runs under ``common.remat_fn`` (where a gradient is wanted)."""
     x = frames + _sinusoid(frames.shape[1], cfg.d_model,
                            frames.device).to(frames.dtype)
-    for i in range(cfg.encoder_layers):
-        lp = _layer(params["enc_layers"], i)
+
+    def layer(lp, x):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = _mha(cfg, lp["attn"], h, h, causal=False)
         x = (x + a).to(x.dtype)
         f = _mlp(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
-        x = (x + f).to(x.dtype)
+        return (x + f).to(x.dtype)
+
+    layer = remat_fn(cfg, layer)
+    for lp in unstack(params["enc_layers"]):
+        x = layer(lp, x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
+def _dec_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+               enc: torch.Tensor, positions: torch.Tensor):
+    """One decoder layer: (x, self K/V, cross K/V)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, kv = _mha(cfg, lp["self"], h, h, causal=True, positions=positions)
+    x = (x + a).to(x.dtype)
+    ax, xkv = _mha(cfg, lp["cross"], rms_norm(x, lp["ln_x"], cfg.norm_eps),
+                   enc, causal=False)
+    x = (x + ax).to(x.dtype)
+    f = _mlp(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return (x + f).to(x.dtype), kv, xkv
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                   frames: torch.Tensor):
+                   frames: torch.Tensor, return_kv: bool = False):
     """The decoder over ``tokens`` with cross-attention to the encoded
-    ``frames``.  Returns (final-normed hidden (B, S, D), the stacked
-    self-attention K and V (L, B, S, H, hd) and the cross K and V (L, B,
-    F, H, hd), the latter in the encoder's dtype)."""
+    ``frames``.  Returns (final-normed hidden (B, S, D), aux 0), each
+    decoder layer under ``common.remat_fn`` (the loss); with
+    ``return_kv`` (prefill, no remat) (hidden, the stacked self-attention
+    K and V (L, B, S, H, hd) and the cross K and V (L, B, F, H, hd), the
+    latter in the encoder's dtype)."""
     enc = encode(cfg, params, frames)
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    layers = unstack(params["dec_layers"])
+    if not return_kv:
+        def layer(lp, x):
+            return _dec_layer(cfg, lp, x, enc, positions)[0]
+
+        layer = remat_fn(cfg, layer)
+        for lp in layers:
+            x = layer(lp, x)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, torch.zeros((), device=x.device)
     ks, vs, xks, xvs = [], [], [], []
-    for i in range(cfg.num_layers):
-        lp = _layer(params["dec_layers"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, (k, v) = _mha(cfg, lp["self"], h, h, causal=True,
-                         positions=positions)
-        x = (x + a).to(x.dtype)
-        ax, (xk, xv) = _mha(cfg, lp["cross"],
-                            rms_norm(x, lp["ln_x"], cfg.norm_eps), enc,
-                            causal=False)
-        x = (x + ax).to(x.dtype)
-        f = _mlp(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
-        x = (x + f).to(x.dtype)
+    for lp in layers:
+        x, (k, v), (xk, xv) = _dec_layer(cfg, lp, x, enc, positions)
         ks.append(k)
         vs.append(v)
         xks.append(xk)
@@ -211,7 +232,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     loop overwrites before its position mask admits them.  The cross K/V
     come back in the encoder's dtype (fp32 for fp32 frames)."""
     B, S = tokens.shape
-    x, ks, vs, xks, xvs = forward_hidden(cfg, params, tokens, frames)
+    x, ks, vs, xks, xvs = forward_hidden(cfg, params, tokens, frames,
+                                         return_kv=True)
     clen = cache_len or S
     if clen > S:
         pad = (0, 0, 0, 0, 0, clen - S)

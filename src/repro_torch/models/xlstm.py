@@ -37,9 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import (dense_init, griffin_linear, length_mask, rms_norm,
-                     shared_activation_meta, stack_layers, stack_slice,
-                     take_last, tree_sum)
+from .common import (dense_init, griffin_linear, length_mask, remat_fn,
+                     rms_norm, shared_activation_meta, stack_layers,
+                     stack_slice, take_last, tree_sum, unstack)
 
 Params = Dict[str, Any]
 MIN_NORM = 1e-6
@@ -420,6 +420,30 @@ def _scan_groups_with_state(cfg: ModelConfig, params: Params, cache: Params,
             for key, t in zip(SLSTM_STATE, st):
                 cache[key][g, j].copy_(t)
     return x
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   chunk: int = 64):
+    """Every block over ``tokens`` from the zero state, the states thrown
+    away (nothing is written in place): (final-normed hidden, aux 0), the
+    loss side of the reference's ``forward_hidden``.  Each (mLSTM...,
+    sLSTM...) group runs under ``common.remat_fn``, as the reference
+    checkpoints each group."""
+    x = params["embed"][tokens]
+
+    def group(mp, sp, x):
+        for lp in unstack(mp):
+            x, _ = mlstm_seq(cfg, lp, x, chunk=chunk)
+        for lp in unstack(sp):
+            x, _ = slstm_seq(cfg, lp, x)
+        return x
+
+    group = remat_fn(cfg, group)
+    for mp, sp in zip(unstack(params["m_blocks"]),
+                      unstack(params["s_blocks"])):
+        x = group(mp, sp, x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), device=x.device)
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -1,7 +1,7 @@
-from .pruning import (GEMM_WEIGHTS, PRUNE, PRUNE_FULL, block_prune,
-                      init_sparse_params, magnitude_prune, prune_for,
-                      sparsify_params, sparsity_of)
+from .pruning import (GEMM_WEIGHTS, PRUNE, PRUNE_FULL, PruneSchedule,
+                      block_prune, init_sparse_params, magnitude_prune,
+                      prune_for, sparsify_params, sparsity_of)
 
-__all__ = ["GEMM_WEIGHTS", "PRUNE", "PRUNE_FULL", "block_prune",
-           "init_sparse_params", "magnitude_prune", "prune_for",
-           "sparsify_params", "sparsity_of"]
+__all__ = ["GEMM_WEIGHTS", "PRUNE", "PRUNE_FULL", "PruneSchedule",
+           "block_prune", "init_sparse_params", "magnitude_prune",
+           "prune_for", "sparsify_params", "sparsity_of"]

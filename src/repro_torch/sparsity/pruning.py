@@ -2,8 +2,10 @@
 ``repro/sparsity/pruning.py``.
 
 ``magnitude_prune`` zeroes elements, ``block_prune`` zeroes (block_k x unit)
-blocks by L2 norm with the reference's ``norms >= thresh`` tie rule, and
-``sparsify_params`` block-prunes the weight GEMM leaves of a parameter tree
+blocks by L2 norm with the reference's ``norms >= thresh`` tie rule,
+``PruneSchedule`` ramps the sparsity during training (the cubic schedule of
+Zhu & Gupta, the paper's pruning reference), and ``sparsify_params``
+block-prunes the weight GEMM leaves of a parameter tree
 and compacts them into ``GriffinWeights``.  ``init_sparse_params`` gives
 ``sparsify_params(api.init(gen), ...)`` bit for bit without ever holding
 the dense tree: mixtral-8x7b's 93 GB of bf16 weights do not fit the card,
@@ -15,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels.griffin_spmm.ops import (GriffinWeights, grid_depth,
@@ -56,6 +59,45 @@ def block_prune(w: torch.Tensor, sparsity: float, block_k: int = 128,
 def sparsity_of(x: torch.Tensor) -> torch.Tensor:
     """Fraction of exact zeros (the quantity Table IV reports)."""
     return (x == 0).float().mean()
+
+
+@dataclasses.dataclass(frozen=True)
+class PruneSchedule:
+    """Cubic sparsity ramp s(t) = s_f * (1 - (1 - t/T)^3) on [t0, t0+T]."""
+
+    final_sparsity: float
+    begin_step: int = 0
+    ramp_steps: int = 1000
+    block_k: int = 0          # 0 => unstructured magnitude pruning
+    unit: int = 32
+
+    def sparsity_at(self, step: int) -> float:
+        """The ramp at ``step``, in float32 as the reference computes it
+        (the cube as ``u * (u * u)``, its ``integer_pow``), so a
+        milestone prunes exactly the reference's number of blocks."""
+        one = np.float32(1.0)
+        t = np.float32(step - self.begin_step) / \
+            np.float32(max(self.ramp_steps, 1))
+        t = min(max(t, np.float32(0.0)), one)
+        u = one - t
+        return float(np.float32(self.final_sparsity) * (one - u * (u * u)))
+
+    def apply(self, w: torch.Tensor, step: int) -> torch.Tensor:
+        """Prune ``w`` to the ramp's sparsity at ``step`` (host side,
+        between train steps, at ramp milestones).  Stacked layer weights
+        (L, ..., in, out) are pruned per layer."""
+        s = self.sparsity_at(step)
+
+        def fn(x):
+            if not self.block_k:
+                return magnitude_prune(x, s)
+            return block_prune(x, s, min(self.block_k, x.shape[0]),
+                               min(self.unit, x.shape[1]))
+
+        if w.dim() == 2:
+            return fn(w)
+        flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+        return torch.stack([fn(x) for x in flat]).reshape(w.shape)
 
 
 # Trailing param names of the weight GEMMs griffin_linear executes (the

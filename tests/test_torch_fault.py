@@ -48,7 +48,7 @@ from repro.runtime.paging import PageAllocator as JaxPageAllocator
 from repro.sparsity import sparsify_params as jax_sparsify
 from repro_torch import bridge
 from repro_torch.checkpoint import latest_step, read_manifest, restore, save
-from repro_torch.checkpoint.checkpoint import _leaves
+from repro_torch.checkpoint.checkpoint import keyed_leaves
 from repro_torch.configs import get_config
 from repro_torch.kernels import GriffinWeights
 from repro_torch.launch import serve as launch_serve
@@ -393,7 +393,7 @@ def _serving_state(small, dtype=None):
 
 
 def _assert_leaves_equal(a, b):
-    fa, fb = list(_leaves(a)), list(_leaves(b))
+    fa, fb = list(keyed_leaves(a)), list(keyed_leaves(b))
     assert [k for k, _ in fa] == [k for k, _ in fb]
     for (k, x), (_, y) in zip(fa, fb):
         assert x.dtype == y.dtype, k

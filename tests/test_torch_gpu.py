@@ -1642,3 +1642,111 @@ def test_whisper_engine_matches_cast_oracle_on_card(whisper_shallow, mode,
                 logits, cache = api.decode_step(params, cache, toks[-1])
                 toks.append(logits.argmax(-1)[:, None])
         assert outs[r.rid].tokens == [int(t) for t in toks], r.rid
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward, one reduced train step per family
+# ---------------------------------------------------------------------------
+
+def _materialised_attention(q, k, v, window):
+    S, hd = q.shape[1], q.shape[-1]
+    G = q.shape[2] // k.shape[2]
+    kk, vv = (x.repeat_interleave(G, dim=2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / hd ** 0.5
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    s = s.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", [(512, None), (1024, 300), (700, None)])
+def test_flash_backward_on_card_matches_materialised(cuda, S, window):
+    """llama3.2-1b's head shapes (H 32, KVH 8, hd 64), kv_chunk 512, fp32:
+    dq, dk and dv within relative L2 1e-4 of autograd through the
+    materialised causal attention (windowed; 700 leaves a ragged
+    chunk)."""
+    from repro_torch.models.attention import attention
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn(2, S, 32, 64, generator=g, device=cuda)
+    k, v = (torch.randn(2, S, 8, 64, generator=g, device=cuda)
+            for _ in range(2))
+    do = torch.randn(2, S, 32, 64, generator=g, device=cuda)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(attention(*leaves, causal=True, window=window,
+                                        kv_chunk=512), leaves, do)
+    want = torch.autograd.grad(_materialised_attention(*leaves, window),
+                               leaves, do)
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm()) <= 1e-4
+
+
+TRAIN_FAMILIES = ("llama3.2-1b", "mixtral-8x7b", "xlstm-1.3b",
+                  "recurrentgemma-9b", "whisper-large-v3")
+
+
+def _train_batch(cfg, device):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.runtime.train import to_device
+    return to_device(synth_batch(cfg, ShapeConfig("t", 16, 2, "train"),
+                                 DataConfig(seed=1), 0), device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_reduced_train_step_on_card_equals_its_cpu_run(cuda, arch):
+    """One reduced() train step (fp32, remat on) of each family on the
+    card against the same step on the CPU from the same weights: the loss
+    within 1e-5 relative, every gradient leaf within relative L2 1e-4,
+    the grad norm within 1e-5 (summation orders differ)."""
+    from repro_torch.checkpoint import keyed_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import (TrainState, make_train_step,
+                                           value_and_grad)
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg,
+                                                             device="cuda")
+    params = cpu.init(cpu.generator(0))
+    on_card = _to(params, cuda)
+    results = {}
+    for api, p, dev in ((cpu, params, "cpu"), (card, on_card, "cuda")):
+        loss, grads = value_and_grad(api.loss, p, _train_batch(cfg, dev))
+        results[dev] = (float(loss), grads)
+    (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for (path, a), (_, b) in zip(keyed_leaves(g_card), keyed_leaves(g_cpu)):
+        assert a.device.type == "cuda", path
+        rel = float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
+        assert rel <= 1e-4, (path, rel)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    metrics = {}
+    for api, p, dev in ((cpu, params, "cpu"), (card, on_card, "cuda")):
+        state = TrainState(p, adamw.init(p),
+                           torch.zeros((), dtype=torch.int32))
+        _, m = make_train_step(api, opt)(state, _train_batch(cfg, dev))
+        metrics[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    assert metrics["cuda"][0] == pytest.approx(metrics["cpu"][0], rel=1e-5)
+    assert metrics["cuda"][1] == pytest.approx(metrics["cpu"][1], rel=1e-5)
+
+
+@pytest.mark.gpu
+def test_train_step_is_deterministic_on_card(cuda):
+    """Two value_and_grad calls of reduced llama3.2-1b (bf16) on the same
+    inputs give bit-equal losses and gradients on the card: the
+    embedding gather's backward and every reduction run in a fixed order,
+    which the restart's bit-equality needs."""
+    from repro_torch.checkpoint import keyed_leaves
+    from repro_torch.runtime.train import value_and_grad
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="bfloat16")
+    api = build_model(cfg, device="cuda")
+    params = api.init(api.generator(0))
+    batch = _train_batch(cfg, "cuda")
+    l1, g1 = value_and_grad(api.loss, params, batch)
+    l2, g2 = value_and_grad(api.loss, params, batch)
+    assert torch.equal(l1, l2)
+    for (path, a), (_, b) in zip(keyed_leaves(g1), keyed_leaves(g2)):
+        assert torch.equal(a, b), path
