@@ -56,17 +56,19 @@ Phases, in order; any failure exits non-zero before the result line:
              4096 x 12288 and 12288 x 4096, 4096 x 4096, the MQA 4096 x
              256 and the 4096 x 256000 untied head) griffin_spmm is
              checked, dual and not, held batch invariant and timed at M 4
-             and 32 (bf16), and dense_gemm's wide route and sparse_a with
-             its metadata at the rec blocks' dense 4096 x 4096 leaves in
-             bf16 (w_x, w_out) and fp32 (the gates w_rg, w_ig).
+             and 32 (bf16), with its route (below), and dense_gemm's wide
+             route and sparse_a with its metadata at the rec blocks'
+             dense 4096 x 4096 leaves in bf16 (w_x, w_out) and fp32 (the
+             gates w_rg, w_ig).
              At mixtral-8x7b's shapes (``MOE_SPMM``: the experts' 4096 x
              14336 and 14336 x 4096, wq/wo 4096 x 4096, the GQA wk/wv 4096
              x 1024 and the 4096 x 32000 untied head) griffin_spmm is
              checked, dual and not, held batch invariant and timed at M 4
-             and 32 (bf16), and timed dual on an all-zero A (an expert no
-             token chose); the fp32 4096 x 8 router through dense_gemm's
-             skinny route and through sparse_a with its metadata, each
-             checked, held batch invariant and timed.
+             and 32 (bf16), with its route (below), and timed dual on an
+             all-zero A (an expert no token chose); the fp32 4096 x 8
+             router through dense_gemm's skinny route and through sparse_a
+             with its metadata, each checked, held batch invariant and
+             timed.
              At whisper-large-v3's shapes (``WHISPER_SPMM``: 1280 x 1280,
              1280 x 5120, 5120 x 1280 and the 1280 x 51866 head, whose last
              N tile holds 26 columns) griffin_spmm is checked, dual and
@@ -77,6 +79,22 @@ Phases, in order; any failure exits non-zero before the result line:
              and at the head, on integer-valued A and weight whose sums
              are exact in any order, bit-equal to its plain version in
              every column (bf16 M 4 and 32, dual and not; fp32 A M 4).
+             At the K2 leaf shapes of stablelm-1.6b, minitron-8b and
+             command-r-plus-104b (``DENSE_SPMM``, 14 shapes up to the
+             12288 x 256000 head) griffin_spmm is checked at M 4 and 32
+             (bf16), timed beside its bound and torch.matmul, held batch
+             invariant at each config's w_down, and the route its Python
+             mirror predicts (griffin_spmm.kernel.route: the tensor-core
+             route's shared memory from the weight's grid depth against
+             the card's 232,448 B) must be the route the launch took
+             (griffin_spmm's launches per route, counted in its C++ entry:
+             spmm_tc_kernel or spmm_core_kernel), as at the hybrid's and
+             mixtral's shapes (non-dual).  sparse_a with its metadata at
+             stablelm-1.6b's Mode.A shapes beyond llama's
+             (``STABLELM_K3``): its FFN (2048 x 5632, 5632 x 2048, B
+             row-major) at M 4/8/16/32 with two all-zero K blocks and
+             with every block live, its dense 2048 x 100352 head at M 4
+             and 32; the metadata bit-equal to the plain metadata.
              The metadata kernel alone (``META_SHAPES``: 4 x 2048, 4 x
              4096, 32 x 4096, 128 x 8192, bf16, every block live) with its
              cluster
@@ -133,7 +151,8 @@ Phases, in order; any failure exits non-zero before the result line:
              within 2% (relative L2) of the same model served through
              plain torch matmuls (the dense weights, or the compacted ones
              decompacted); both routes' gaps to the model widened to fp32
-             are reported beside it.  ``--profile``
+             are reported beside it, the kernel route's at most 1.25x the
+             plain route's (``FP32_GAP_RATIO``).  ``--profile``
              adds a profiled engine run and one profiled decode step (a
              1-step chunk, the arena's cost apart from admission policy)
              after each path, and a profiled 4096-token prefill after
@@ -174,7 +193,8 @@ Phases, in order; any failure exits non-zero before the result line:
                whisper_paged - whisper_sparse_b's weights on
                           sparse_b_paged's arena: the decoder's k/v paged,
                           the cross K/V (1500 rows a slot) fixed beside the
-                          pools; its tokens must equal whisper_sparse_b's.
+                          pools; its tokens must equal whisper_sparse_b's
+                          (it runs no oracle of its own).
              Their parity oracle is the engine's own computation: each
              request's bucketed prefill cache cast to init_cache's dtypes
              (the fp32 cross K/V rounded to bf16, as the admission writes
@@ -246,6 +266,38 @@ Phases, in order; any failure exits non-zero before the result line:
              4200-token prompt with cache_len 4224 > window 4096 (the K/V
              cache keeps the last 4096 rows rolled by 104), 8 decode steps
              through the wrap, against the plain route on the same weights.
+             After the llama paths, the dense family's other configs on
+             the same trace and checks (``DENSE_PATHS``; bf16, seed 0,
+             pruned 0.8 at 128x128 / unit 32):
+               stablelm_sparse_b - full-width stablelm-1.6b (24 layers,
+                          d 2048, 32 heads MHA, d_ff 5632, an untied
+                          100352-token head), compacted, 4 slots:
+                          griffin_spmm 169x per model call, no other kernel;
+               stablelm_mode_a - its dense weights, declared activation
+                          sparsity 0.5: sparse_a 169x and sparse_a_meta 97x
+                          (4 builds a layer and the head);
+               stablelm_paged - stablelm_sparse_b on sparse_b_paged's arena;
+               minitron_sparse_b - full-width minitron-8b (32 layers, d 4096,
+                          32 heads / 8 KV, head_dim 128, d_ff 16384, an
+                          untied 256000-token head; ~9.9 B parameters built
+                          by api.init then sparsify_params, its build's
+                          seconds and memory printed and the peak gated
+                          below the card's): griffin_spmm 225x;
+               minitron_paged - minitron_sparse_b on the paged arena;
+               command_r_cut - command-r-plus-104b at full width (d 12288,
+                          96 heads / 8 KV, d_ff 33792, an untied 256000-token
+                          head, rope_theta 75000) with num_layers cut 64 ->
+                          2 (printed as a cut; 208 GB of bf16 fit no card):
+                          griffin_spmm 15x, its build printed as minitron's.
+             The paged paths' tokens must equal their _sparse_b path's
+             (no oracle of their own); minitron's and command-r's plain
+             route is ref.py on the served weights (no fp32 gap).  Each
+             path prints every compacted leaf's K2 route by the Python
+             mirror, counted by leaf, shape and route, with its grid depth,
+             and griffin_spmm's launches per route over the run must be
+             those slices times the model calls.  minitron_sparse_b also
+             checks, route-gates and times layer 0's w_gate as served (at
+             the stack's grid depth, its deepest layer's) at M 4 and 32.
 4. long_prefill - after sparse_b, its weights prefill one 2048-token and
              one 4096-token prompt (cache_len = prompt length): seconds
              and the rise of torch.cuda.max_memory_allocated() over the
@@ -566,8 +618,72 @@ WHISPER_AB = dict(WHISPER_SB, a_sparsity=A_SPARSITY, mode="AB",
 WHISPER_PATHS = {
     "whisper_sparse_b": dict(WHISPER_SB, arena=dict(FIXED, measure_every=64)),
     "whisper_mode_ab": dict(WHISPER_AB, arena=dict(FIXED, measure_every=64)),
-    "whisper_paged": dict(WHISPER_SB, arena=dict(PAGED, measure_every=64)),
+    "whisper_paged": dict(WHISPER_SB, arena=dict(PAGED, measure_every=64),
+                          tokens_of="whisper_sparse_b"),
 }
+# the dense family's other configs on TRACE: full-width stablelm-1.6b (24
+# layers, MHA, d_ff 5632, an untied 100352-token head) and minitron-8b (32
+# layers, GQA 4:1, head_dim 128, d_ff 16384, an untied 256000-token head),
+# and command-r-plus-104b at full width with its 64 layers cut to 2 (208 GB
+# of bf16 fit no card).  Per model call griffin_spmm runs the 7 x L + 1
+# compacted leaves (wq, wk, wv, wo, w_gate, w_up, w_down, then the head):
+# 169, 225 and 15; dense_gemm never runs (the head is untied and compacted).
+# stablelm's Mode.A runs the 169 through sparse_a with 4 x 24 + 1 = 97
+# metadata builds (wq/wk/wv, wo, w_gate/w_up, w_down, the head).  The paged
+# paths' tokens must equal their _sparse_b path's, which holds the oracle
+# (tests/test_torch_dense_configs.py counts them on the CPU).
+STABLELM, MINITRON = "stablelm-1.6b", "minitron-8b"
+COMMAND_R, COMMAND_R_LAYERS = "command-r-plus-104b", 2
+
+
+def dense_sb(k2: int) -> dict:
+    return dict(sparsity=0.8, a_sparsity=None, mode="B",
+                launches={"dense_gemm": 0, "griffin_spmm": k2,
+                          "sparse_a": 0, "sparse_a_meta": 0,
+                          "batch_eval": 0}, dual=0)
+
+
+# no dense twin fits beside minitron-8b's or command-r's served weights:
+# the plain route runs on the served weights, no fp32 gap is taken, and
+# the build (api.init, then sparsify_params) is measured
+SERVED_REF = dict(fp32_gap=False, served_ref=True)
+
+DENSE_PATHS = {
+    "stablelm_sparse_b": dict(dense_sb(169), arch=STABLELM, arena=FIXED),
+    "stablelm_mode_a": dict(
+        sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
+        launches={"dense_gemm": 0, "griffin_spmm": 0, "sparse_a": 169,
+                  "sparse_a_meta": 97, "batch_eval": 0}, dual=0,
+        arch=STABLELM, arena=FIXED),
+    "stablelm_paged": dict(dense_sb(169), arch=STABLELM, arena=PAGED,
+                           tokens_of="stablelm_sparse_b"),
+    "minitron_sparse_b": dict(dense_sb(225), arch=MINITRON, arena=FIXED,
+                              **SERVED_REF, as_served="w_gate"),
+    "minitron_paged": dict(dense_sb(225), arch=MINITRON, arena=PAGED,
+                           **SERVED_REF, tokens_of="minitron_sparse_b"),
+    "command_r_cut": dict(dense_sb(15), arch=COMMAND_R, arena=FIXED,
+                          **SERVED_REF, layers=COMMAND_R_LAYERS),
+}
+# the K2 leaf shapes (K x N) of the three configs, each at M 4 and 32: the
+# kernel phase times them beside torch.matmul and gates the route the
+# Python mirror (griffin_spmm.kernel.route) predicts against the route the
+# launch took
+DENSE_SPMM = {
+    STABLELM: {"wq/wk/wv/wo": (2048, 2048), "w_gate/w_up": (2048, 5632),
+               "w_down": (5632, 2048), "head": (2048, 100352)},
+    MINITRON: {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
+               "w_gate/w_up": (4096, 16384), "w_down": (16384, 4096),
+               "head": (4096, 256000)},
+    COMMAND_R: {"wq/wo": (12288, 12288), "wk/wv": (12288, 1024),
+                "w_gate/w_up": (12288, 33792), "w_down": (33792, 12288),
+                "head": (12288, 256000)},
+}
+# K3's shapes on stablelm-1.6b's Mode.A path beyond llama's SPMM_SHAPES
+# (its 2048 x 2048 attention is one of them): the FFN and the dense untied
+# head, B row-major
+STABLELM_K3 = {"w_gate/w_up": (2048, 5632), "w_down": (5632, 2048),
+               "head": (2048, 100352)}
+K2_ROUTES = ("tc", "core")      # spmm_tc_kernel, spmm_core_kernel
 # the reference benchmark's int8 gate (benchmarks/bench_serve.py
 # PAGED_INT8_TOL), on its teacher-forced recipe: one 24-token prompt, 48
 # decode steps, pages of 16 in a cache of 128
@@ -619,6 +735,12 @@ MAX_PREFILL_RISE = 3 << 30
 # the plain route: bf16 rounding drift through 16 layers stays well under
 # this, a wrong 32-row pass of griffin_spmm does not
 MAX_ROW_GAP = 5e-2
+# the kernel route's relative L2 gap to the model widened to fp32, at most
+# this many times the plain route's: both routes round the same model to
+# bf16, so a kernel that is right is about as far from fp32 as the plain
+# version (0.97-1.04 x on every path with the fp32 twin on an H100), while
+# the 2 % gap between the two routes grows with depth and width
+FP32_GAP_RATIO = 1.25
 # the router phase (launch.serve.route): the reference benchmark's
 # overload trace (benchmarks/bench_serve.py overload_trace: bursty,
 # heavy-tailed, 48 requests, seed 11) and the smaller trace of the
@@ -1033,6 +1155,7 @@ def phase_kernels(torch):
     rows += kernel_hybrid(torch, gen, summary)
     rows += kernel_moe(torch, gen, summary)
     rows += kernel_whisper(torch, gen, summary)
+    rows += kernel_dense_configs(torch, gen)
     rows += kernel_sparse_a(torch, gen, summary)
     rows += kernel_meta(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
@@ -1271,6 +1394,8 @@ def kernel_hybrid(torch, gen, summary):
                        "n": n, "dual": dual, "max_cnt": gw.kidx.shape[1],
                        "plan": plan and list(plan), "max_abs_err": err,
                        "ok": ok}
+                if not dual:
+                    row.update(k2_route(torch, a, gw, f"{HYBRID} {leaf}"))
                 if not ok:
                     fail(f"griffin_spmm disagrees with its plain version: "
                          f"{row}")
@@ -1399,6 +1524,8 @@ def kernel_moe(torch, gen, summary):
                        "dual": dual, "max_cnt": gw.kidx.shape[1],
                        "plan": plan and list(plan), "max_abs_err": err,
                        "ok": ok}
+                if not dual:
+                    row.update(k2_route(torch, a, gw, f"{MOE} {leaf}"))
                 if not ok:
                     fail(f"griffin_spmm disagrees with its plain version: "
                          f"{row}")
@@ -1574,10 +1701,175 @@ def kernel_whisper(torch, gen, summary):
     return rows
 
 
-def timed_spmm(torch, a, gw, dual: bool, row) -> None:
-    """Time griffin_matmul, its plain version and torch.matmul on the
-    decompacted weight; bound by the bytes of the live blocks this A
-    needs (with dual, those whose A block is not all zero)."""
+def k2_route(torch, a, gw, what: str) -> dict:
+    """The route the Python mirror (``griffin_spmm.kernel.route``)
+    predicts for griffin_matmul(a, gw) and the route the launch took, as
+    the C++ entry counts its launches per route
+    (``griffin_spmm.kernel.route_launches``); fails unless they are the
+    same.  (torch.profiler's kernel names say the same in a fresh
+    process, ``tests/test_torch_gpu.py``, but after the earlier kernel
+    checks the profiler drops the device records of every other session
+    or more.)"""
+    from repro_torch.kernels import griffin_matmul
+    from repro_torch.kernels.griffin_spmm.kernel import route, route_launches
+
+    want = route(a, gw.b_comp, gw.kidx, n=gw.n, block_k=gw.block_k,
+                 block_n=gw.block_n)
+    before = route_launches()
+    griffin_matmul(a, gw)
+    after = route_launches()
+    taken = [r for r in K2_ROUTES for _ in range(after[r] - before[r])]
+    if taken != [want.name]:
+        fail(f"griffin_spmm {what} {gw.k}x{gw.n} M {a.shape[0]}: the mirror "
+             f"predicts the {want.name} route ({want.smem} B of shared "
+             f"memory at grid depth {gw.kidx.shape[-1]}), the launch took "
+             f"{taken}")
+    return {"route": want.name, "smem": want.smem, "route_taken": taken[0]}
+
+
+def served_rows(torch, name: str, arch: str, leaf: str, gw) -> list:
+    """griffin_matmul on ``gw``, layer 0's slice of a served stacked leaf:
+    at the stack's grid depth (its deepest member's; the slice's extra
+    ``kidx`` entries repeat its last live id over zero ``b_comp`` rows),
+    against its plain version, its route gated (:func:`k2_route`) and
+    timed at M 4 and 32."""
+    from repro_torch.kernels import griffin_matmul
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for m in XLSTM_ROWS:
+        a = torch.randn(m, gw.k, generator=gen, device="cuda").to(
+            gw.b_comp.dtype)
+        out = griffin_matmul(a, gw)
+        err, ok = within_tol(torch, out, griffin_spmm_ref(a, gw), "bfloat16")
+        row = {"kernel": "griffin_spmm", "model": arch,
+               "leaf": f"{leaf} as served", "dtype": "bfloat16", "m": m,
+               "k": gw.k, "n": gw.n, "max_cnt": gw.kidx.shape[-1],
+               "live_max": int(gw.cnt.max()),
+               **k2_route(torch, a, gw, f"{arch} {leaf} as served"),
+               "max_abs_err": err, "ok": ok}
+        if not ok:
+            fail(f"griffin_spmm disagrees with its plain version: {row}")
+        timed_spmm(torch, a, gw, False, row, plain=False)
+        rows.append(row)
+        print(f"[serve {name}] {json.dumps(row)}")
+    return rows
+
+
+def kernel_dense_configs(torch, gen):
+    """griffin_spmm at every K2 leaf shape of stablelm-1.6b, minitron-8b
+    and command-r-plus-104b (``DENSE_SPMM``, bf16, pruned 0.8 at 128 x 128
+    / unit 32, balanced), at M 4 and 32: against its plain version, timed
+    beside its bound and torch.matmul on the decompacted weight (not its
+    plain version: at command-r's head that decompacts 6.3 GB a call),
+    with the route the Python mirror predicts (``griffin_spmm.kernel.
+    route``, from the weight's grid depth) equal to the route the launch
+    took (:func:`k2_route`).  Batch invariance at each config's w_down.
+    Then sparse_a at stablelm-1.6b's Mode.A shapes that llama's do not
+    cover (``STABLELM_K3``, B row-major): the FFN at every bucket's M
+    (``M_ROWS``) with two all-zero K blocks and with every block live, the
+    dense 2048 x 100352 head at M 4 and 32 with every block live; each
+    A's metadata bit-equal to the plain metadata, each output within
+    tolerance of the plain version, every block live timed at M 4 and
+    32."""
+    from repro_torch.kernels import (compact_activations, griffin_matmul,
+                                     preprocess_weights, sparse_a_matmul)
+    from repro_torch.kernels.griffin_spmm.kernel import split_plan
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.kernels.sparse_a.kernel import ROUTE_NAMES
+    from repro_torch.kernels.sparse_a.kernel import route as k3_route
+    from repro_torch.kernels.sparse_a.ref import (compact_activations_ref,
+                                                  sparse_a_ref)
+    from repro_torch.sparsity import block_prune
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    rows = []
+    for arch, leaves in DENSE_SPMM.items():
+        for leaf, (k, n) in leaves.items():
+            w = block_prune(torch.randn(k, n, generator=gen, device=dev),
+                            0.8).to(dt)
+            gw = preprocess_weights(w)
+            del w
+            torch.cuda.empty_cache()
+            nt, depth = gw.kidx.shape
+            plan = split_plan(k, n, nt, gw.block_k, gw.block_n)
+            if leaf == "w_down":
+                spmm_batch_invariance(torch, gen, gw)
+            for m in XLSTM_ROWS:
+                a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+                out = griffin_matmul(a, gw)
+                ref = griffin_spmm_ref(a, gw)
+                torch.cuda.synchronize()
+                err, ok = within_tol(torch, out, ref, "bfloat16")
+                del out, ref
+                row = {"kernel": "griffin_spmm", "model": arch, "leaf": leaf,
+                       "dtype": "bfloat16", "m": m, "k": k, "n": n,
+                       "max_cnt": depth, "of": gw.k // gw.block_k,
+                       "plan": plan and list(plan),
+                       **k2_route(torch, a, gw, f"{arch} {leaf}"),
+                       "max_abs_err": err, "ok": ok}
+                if not ok:
+                    fail(f"griffin_spmm disagrees with its plain version: "
+                         f"{row}")
+                timed_spmm(torch, a, gw, False, row, plain=False)
+                rows.append(row)
+                print(f"[kernels] {json.dumps(row)}")
+            del gw
+            torch.cuda.empty_cache()
+    print(f"[kernels] the dense configs: griffin_spmm at "
+          f"{sum(map(len, DENSE_SPMM.values()))} shapes, M 4 and 32, agrees "
+          "with its plain version and takes the route its Python mirror "
+          "predicts")
+    for leaf, (k, n) in STABLELM_K3.items():
+        w = (torch.randn(k, n, generator=gen, device=dev) /
+             math.sqrt(k)).to(dt)
+        for m in XLSTM_ROWS if leaf == "head" else M_ROWS:
+            a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+            cases = [("every block live", a)]
+            if leaf != "head":
+                dead = a.clone()
+                dead[:, 128:384] = 0            # two all-zero K blocks
+                cases.append(("two K blocks zero", dead))
+            for live, x in cases:
+                meta = compact_activations(x)
+                kidx, cnt = compact_activations_ref(
+                    x, block_m=meta.block_m, block_k=meta.block_k)
+                if not (torch.equal(meta.kidx, kidx)
+                        and torch.equal(meta.cnt, cnt)):
+                    fail(f"sparse_a_meta differs from the plain metadata at "
+                         f"{STABLELM}'s {leaf}, {m} x {k}, {live}: cnt "
+                         f"{meta.cnt.tolist()} vs {cnt.tolist()}")
+                out = sparse_a_matmul(x, w, meta=meta)
+                ref = sparse_a_ref(x, w, meta.kidx, meta.cnt,
+                                   block_m=meta.block_m, block_k=meta.block_k)
+                torch.cuda.synchronize()
+                err, ok = within_tol(torch, out, ref, "bfloat16")
+                row = {"kernel": "sparse_a", "model": STABLELM, "leaf": leaf,
+                       "a": live, "dtype": "bfloat16", "m": m, "k": k,
+                       "n": n, "block_m": meta.block_m,
+                       "cnt": meta.cnt.tolist(),
+                       "route": ROUTE_NAMES[k3_route(x, w, meta.block_k)[0]],
+                       "max_abs_err": err, "ok": ok}
+                if not ok:
+                    fail(f"sparse_a disagrees with its plain version: {row}")
+                if m in XLSTM_ROWS and x is a:
+                    timed_sparse_a(torch, x, w, meta, row)
+                rows.append(row)
+        del w
+        torch.cuda.empty_cache()
+    print(f"[kernels] the dense configs: sparse_a and its metadata at "
+          f"{STABLELM}'s {', '.join(STABLELM_K3)} agree with their plain "
+          "versions (FFN at M " + "/".join(map(str, M_ROWS)) + " with two "
+          "all-zero K blocks and with every block live)")
+    return rows
+
+
+def timed_spmm(torch, a, gw, dual: bool, row, plain: bool = True) -> None:
+    """Time griffin_matmul, its plain version (unless ``plain`` is off)
+    and torch.matmul on the decompacted weight; bound by the bytes of the
+    live blocks this A needs (with dual, those whose A block is not all
+    zero)."""
     from repro_torch.kernels import decompact_weights, griffin_matmul
     from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
 
@@ -1600,7 +1892,8 @@ def timed_spmm(torch, a, gw, dual: bool, row) -> None:
     w_dense = decompact_weights(gw)[:k].to(a.dtype)
     row.update(
         ms=timed_ms(torch, lambda: griffin_matmul(a, gw, dual=dual)),
-        plain_ms=timed_ms(torch, lambda: griffin_spmm_ref(a, gw)),
+        plain_ms=timed_ms(torch, lambda: griffin_spmm_ref(a, gw))
+        if plain else None,
         library_ms=timed_ms(torch, lambda: torch.matmul(a, w_dense)),
         bound_ms=b_ms, bound_by=b_by, needed_blocks=blocks)
 
@@ -2015,7 +2308,8 @@ def fp32_a_spy(counter: list):
 def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
                 launches: dict, dual, arena: dict, stats=None,
                 paged_ref=None, states=None, arch: str = "llama3.2-1b",
-                fp32_gap: bool = True, fp32_a=None):
+                fp32_gap: bool = True, fp32_a=None, layers=None,
+                tokens_of=None, served_ref: bool = False, as_served=None):
     """Serve the trace on one path and check it: ``launches`` maps each
     kernel to its launches per model call (or per (prefill, decode step)
     pair, :func:`per_calls`), ``dual`` the dual griffin_spmm GEMMs per
@@ -2030,9 +2324,17 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     twin would take 42 GB beside the served weights and the bf16 twin).
     A family with a streamed build (mixtral-8x7b) reports the build's
     memory and the experts no row chose, and takes its plain route on the
-    served weights (:func:`plain_route`).  An encoder-decoder (whisper)
-    is held against the cast oracle and its own checks
-    (:func:`check_encdec`)."""
+    served weights (:func:`plain_route`); so does a path with
+    ``served_ref`` (no dense twin fits beside its served weights), whose
+    build (``api.init`` then ``sparsify_params``) is reported the same
+    way.  An encoder-decoder (whisper) is held against the cast oracle and
+    its own checks (:func:`check_encdec`).  ``layers`` cuts the config's
+    depth (printed as a cut; the widths stay the source's).  A path with
+    ``tokens_of`` runs no oracle: its caller holds its tokens equal to
+    that path's (:func:`check_same_tokens`).  A dense config's compacted
+    leaves' K2 routes are printed and gated (:func:`check_routes`), and
+    the leaf ``as_served`` names is checked and timed as served
+    (:func:`served_rows`)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.griffin_spmm import kernel as k2
     from repro_torch.launch import serve as launch
@@ -2045,18 +2347,49 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     fields.update(arena)
     config = EngineConfig().with_fields(**fields)
     build, routed, f32 = {}, [], [0]
-    with spied(launch, "init_sparse_params", build_spy(torch, build)), \
+    real_config = launch.get_config
+
+    def config_of(name):
+        cfg = real_config(name)
+        return cfg if layers is None else \
+            dataclasses.replace(cfg, num_layers=layers)
+    if layers is not None:
+        print(f"{tag} {arch} at full width, num_layers cut "
+              f"{real_config(arch).num_layers} -> {layers}")
+    # a served_ref path's build (init then sparsify_params, not streamed)
+    # is measured around the whole set-up
+    build_fn = (launch, "_setup") if served_ref else \
+        (launch, "init_sparse_params")
+    with spied(*build_fn, build_spy(torch, build)), \
+            spied(launch, "get_config", lambda real: config_of), \
             spied(moe, "route", route_spy(routed)), \
             spied(k2, "griffin_spmm", fp32_a_spy(f32)):
         reset_launch_counts()
+        routes0 = k2.route_launches()
         run = launch.serve(arch, sparsity=sparsity, seed=SEED,
                            device="cuda", config=config, **TRACE)
         got = launch_counts()
+        routes1 = k2.route_launches()
     eng = run.engine
     extra = {}
+    if arch in DENSE_SPMM:
+        extra["k2_routes"] = check_routes(
+            torch, name, tag, arch, run.params, eng.stats,
+            {r: routes1[r] - routes0[r] for r in K2_ROUTES})
+    if as_served is not None:
+        extra["as_served"] = served_rows(
+            torch, name, arch, as_served, run.params["layers"][as_served][0])
+    if layers is not None:
+        extra["num_layers"] = eng.api.cfg.num_layers
+        if eng.api.cfg.num_layers != layers:
+            fail(f"{name}: served {eng.api.cfg.num_layers} layers, not the "
+                 f"cut's {layers}")
     if build:
         total = torch.cuda.get_device_properties(0).total_memory
-        print(f"{tag} streamed build (sparsity.init_sparse_params) "
+        what = ("streamed build (sparsity.init_sparse_params)"
+                if build_fn[1] == "init_sparse_params" else
+                "build (api.init, then sparsity.sparsify_params)")
+        print(f"{tag} {what} "
               f"{build['seconds']:.1f}s: peak allocated "
               f"{build['peak_bytes'] / 2**30:.2f} GiB, resident after it "
               f"{build['resident_bytes'] / 2**30:.2f} GiB, of the card's "
@@ -2117,8 +2450,8 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     if eng._paged is not None and eng._paged.kv_dtype == "int8":
         extra.update(check_int8(torch, run, paged_ref))
     elif eng.api.cfg.is_encdec:
-        extra.update(check_encdec(torch, run))
-    else:
+        extra.update(check_encdec(torch, run, oracle=tokens_of is None))
+    elif tokens_of is None:
         n = launch.check_parity(run)
         print(f"{tag} parity OK: all {n} requests token-identical to the "
               "batch-1 greedy oracle")
@@ -2156,18 +2489,20 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     routing, flips = [], []
     with eng._scope(), spied(moe, "top_k", record_routing(routing)):
         _, logits = eng.api.prefill(run.params, batch, cache_len=64)
-    if eng.api.draws is not None:
-        # no dense twin fits: the plain versions on the served weights,
-        # under the kernel route's routing
+    if eng.api.draws is not None or served_ref:
+        # no dense twin fits beside the served weights, or it would crowd
+        # the card: the plain versions on the served weights (under the
+        # kernel route's routing, where experts route)
         twin = None
         with plain_route(torch), \
                 spied(moe, "top_k", replay_routing(torch, routing, flips)):
             _, ref = eng.api.prefill(run.params, batch, cache_len=64)
-        extra["routing_flips"] = sum(flips)
-        print(f"{tag} the plain route under the kernel route's routing; "
-              f"on its own it would choose other experts for "
-              f"{sum(flips)} of {len(flips)} (layer) x "
-              f"{batch['tokens'].numel()} (token) routings")
+        if routing:
+            extra["routing_flips"] = sum(flips)
+            print(f"{tag} the plain route under the kernel route's "
+                  f"routing; on its own it would choose other experts for "
+                  f"{sum(flips)} of {len(flips)} (layer) x "
+                  f"{batch['tokens'].numel()} (token) routings")
     else:
         twin = pruned_twin(torch, eng.api, sparsity)
         with sparse_execution(use_kernels=False):
@@ -2188,6 +2523,10 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
             _, truth = eng.api.prefill(widened(twin), batch, cache_len=64)
         gaps.update(fp32_kernel=rel_l2(logits, truth),
                     fp32_plain=rel_l2(ref, truth))
+        if gaps["fp32_kernel"] > FP32_GAP_RATIO * gaps["fp32_plain"]:
+            fail(f"{name}: the kernel route is {gaps['fp32_kernel']:.5f} "
+                 f"from the fp32 model, more than {FP32_GAP_RATIO} x the "
+                 f"plain route's {gaps['fp32_plain']:.5f}")
     del twin
     fp32 = ("not measured" if not fp32_gap else
             f"kernel route {gaps['fp32_kernel']:.5f}, plain route "
@@ -2195,6 +2534,78 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     print(f"{tag} prefill logits finite, relative L2 gap to the plain route "
           f"{rel:.5f}; to fp32: {fp32}")
     return run, got, gaps, extra
+
+
+def check_routes(torch, name: str, tag: str, arch: str, params, st,
+                 taken: dict) -> dict:
+    """The K2 route of every compacted leaf ``params`` serves, by the
+    Python mirror (``griffin_spmm.kernel.route``) on a bf16 A as wide as
+    the leaf's K: each layer slice of a stacked leaf shares the stack's
+    grid depth (the deepest member's), so its route.  Counted by leaf,
+    shape and route and printed; every leaf's shape is one the kernel
+    phase holds the mirror against (``DENSE_SPMM``).  Each slice runs once
+    a model call, so ``taken``, the run's launches per route as the C++
+    entry counts them, must be the slices on each route times the calls."""
+    from repro_torch.kernels import GriffinWeights
+    from repro_torch.kernels.griffin_spmm.kernel import MAX_SMEM, route
+
+    shapes = set(DENSE_SPMM[arch].values())
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                walk(sub, path + (key,))
+            return
+        if not isinstance(tree, GriffinWeights):
+            return
+        if (tree.k, tree.n) not in shapes:
+            fail(f"{tag} leaf {'/'.join(path)} {tree.k}x{tree.n} is not a "
+                 f"shape of the kernel phase's {sorted(shapes)}")
+        lead = tree.b_comp.shape[:-2]
+        members = [tree] if not lead else [tree[i] for i in range(lead[0])]
+        a = torch.empty(1, tree.k, dtype=torch.bfloat16, device="cuda")
+        for gw in members:
+            r = route(a, gw.b_comp, gw.kidx, n=gw.n, block_k=gw.block_k,
+                      block_n=gw.block_n)
+            key = f"{path[-1]} {gw.k}x{gw.n}"
+            row = out.setdefault(key, {"tc": 0, "core": 0,
+                                       "depth": gw.kidx.shape[-1],
+                                       "smem": r.smem})
+            row[r.name] += 1
+
+    walk(params, ())
+    calls = st["prefill_calls"] + st["decode_steps"]
+    want = {r: calls * sum(row[r] for row in out.values())
+            for r in K2_ROUTES}
+    print(f"{tag} K2 routes by leaf (layer slices on the tensor-core and "
+          f"the CUDA-core route; grid depth; tensor-core shared memory of "
+          f"{MAX_SMEM} B at most): {json.dumps(out)}; launches by route "
+          f"{taken}, as predicted")
+    if taken != want:
+        fail(f"{name}: griffin_spmm launched {taken} by route, the mirror "
+             f"predicts {want} over {calls} model calls")
+    return {"leaves": out, "launches": taken}
+
+
+def phase_dense_configs(torch, clock, serves: dict) -> None:
+    """Serve ``DENSE_PATHS`` in order, each path's record into ``serves``
+    and its seconds on the clock; a path with ``tokens_of`` runs no oracle
+    of its own and must give that earlier path's tokens."""
+    tokens = {}
+    for name, path in DENSE_PATHS.items():
+        tokens_of = path.get("tokens_of")
+        run, launches, gaps, extra = phase_serve(torch, name, **path)
+        if "--profile" in sys.argv[1:]:
+            phase_profile(torch, name, run)
+        serves[name] = serve_record(run, launches, gaps, extra)
+        tokens[name] = {r: o.tokens for r, o in run.engine.outputs.items()}
+        if tokens_of is not None:
+            check_same_tokens(name, run, tokens[tokens_of], tokens_of)
+        del run
+        gc.collect()            # an engine's closures hold it in a cycle
+        torch.cuda.empty_cache()
+        clock.done(name)
 
 
 def greedy_from(api, params, cache, first, steps: int):
@@ -2211,24 +2622,69 @@ def greedy_from(api, params, cache, first, steps: int):
     return [int(t) for t in toks], logits1
 
 
-def check_encdec(torch, run) -> dict:
-    """An encoder-decoder path's checks.  Every request's tokens equal a
-    batch-1 greedy oracle that decodes from its bucketed prefill's cache
-    cast leaf by leaf to ``init_cache``'s dtypes, as the engine's
-    admission writes it into the arena (the encoder's fp32 cross K/V
-    rounded to bf16): the engine's own computation.  Beside it, from the
-    same prefill, the uncast loop of ``greedy_generate`` (the reference's
-    oracle, which decodes the fp32 cross K/V) is printed, not gated: its
-    tokens that differ and the first decode step's largest logit gap.
-    Then the dtype flow (the prefill's cross K/V fp32, the arena's bf16)
-    and one admission's memory rise over the allocated level before it,
-    the encoder's attention over the frames included, within
-    ``MAX_ADMIT_RISE``."""
+def check_encdec(torch, run, oracle: bool = True) -> dict:
+    """An encoder-decoder path's checks.  With ``oracle``, every
+    request's tokens equal a batch-1 greedy oracle that decodes from its
+    bucketed prefill's cache cast leaf by leaf to ``init_cache``'s dtypes,
+    as the engine's admission writes it into the arena (the encoder's fp32
+    cross K/V rounded to bf16): the engine's own computation.  Beside it,
+    from the same prefill, the uncast loop of ``greedy_generate`` (the
+    reference's oracle, which decodes the fp32 cross K/V) is printed, not
+    gated: its tokens that differ and the first decode step's largest
+    logit gap (:func:`encdec_oracle`; without ``oracle`` the caller holds
+    the tokens equal to another path's).  Then the dtype flow (the
+    prefill's cross K/V fp32, the arena's bf16) and one admission's memory
+    rise over the allocated level before it, the encoder's attention over
+    the frames included, within ``MAX_ADMIT_RISE``."""
     eng = run.engine
-    api, params = eng.api, run.params
+    api = eng.api
     tag = f"[serve {api.cfg.name}]"
     dts = {k: v.dtype for k, v in api.init_cache(
         1, eng.cache_len, device=torch.device("meta")).items()}
+    record = encdec_oracle(torch, run, dts) if oracle else {}
+    if eng.cache["xk"].dtype != dts["xk"] or dts["xk"] != torch.bfloat16:
+        fail(f"{api.cfg.name}: the arena's cross K/V are "
+             f"{eng.cache['xk'].dtype}, init_cache's {dts['xk']}")
+    # one admission: the prefill (the encoder over every frame) and the
+    # insert into a free slot
+    req = run.requests[0]
+    ids = ()
+    if eng._paged is not None:
+        eng._flush_dirty()
+        ids = eng._page_alloc.reserve(eng._paged.pages_needed(
+            req.prompt_len + req.max_new_tokens))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    cache1, logits = eng._prefill(req)
+    if cache1["xk"].dtype != torch.float32:
+        fail(f"{api.cfg.name}: the prefill's cross K/V are "
+             f"{cache1['xk'].dtype}, not the encoder's fp32")
+    eng._insert(0, cache1, logits, 1, ids)
+    del cache1, logits
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t1
+    rise = torch.cuda.max_memory_allocated() - base
+    if ids:
+        eng._page_alloc.free(ids)
+    if rise > MAX_ADMIT_RISE:
+        fail(f"{api.cfg.name}: one admission raised allocated memory by "
+             f"{rise} B > {MAX_ADMIT_RISE}")
+    print(f"{tag} dtype flow as the reference's: encoder GEMM inputs fp32, "
+          f"the prefill's cross K/V fp32, the arena's {dts['xk']}; one "
+          f"admission ({api.cfg.enc_frames} frames) {admit_s:.3f}s, memory "
+          f"rise {rise / 2**30:.3f} GiB")
+    return {**record, "admission_s": admit_s, "admission_rise_bytes": rise}
+
+
+def encdec_oracle(torch, run, dts: dict) -> dict:
+    """:func:`check_encdec`'s oracle: every request's tokens against the
+    batch-1 greedy decode of its prefill's cache cast to ``dts`` (gated)
+    and of the uncast cache (printed)."""
+    eng = run.engine
+    api, params = eng.api, run.params
+    tag = f"[serve {api.cfg.name}]"
     differ, gaps, t0 = 0, [], time.perf_counter()
     for r in run.requests:
         batch = r.as_batch(eng.device, eng.bucket_for(r.prompt_len))
@@ -2260,39 +2716,8 @@ def check_encdec(torch, run) -> dict:
           f"({oracle_s:.1f}s); the uncast greedy_generate loop (fp32 cross "
           f"K/V) gives {differ} of {n} tokens differently, first decode "
           f"step's largest logit gap {max(gaps, default=0.0):.5f}")
-    if eng.cache["xk"].dtype != dts["xk"] or dts["xk"] != torch.bfloat16:
-        fail(f"{api.cfg.name}: the arena's cross K/V are "
-             f"{eng.cache['xk'].dtype}, init_cache's {dts['xk']}")
-    # one admission: the prefill (the encoder over every frame) and the
-    # insert into a free slot
-    req = run.requests[0]
-    ids = ()
-    if eng._paged is not None:
-        eng._flush_dirty()
-        ids = eng._page_alloc.reserve(eng._paged.pages_needed(
-            req.prompt_len + req.max_new_tokens))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t1 = time.perf_counter()
-    cache1, logits = eng._prefill(req)
-    eng._insert(0, cache1, logits, 1, ids)
-    del cache1, logits
-    torch.cuda.synchronize()
-    admit_s = time.perf_counter() - t1
-    rise = torch.cuda.max_memory_allocated() - base
-    if ids:
-        eng._page_alloc.free(ids)
-    if rise > MAX_ADMIT_RISE:
-        fail(f"{api.cfg.name}: one admission raised allocated memory by "
-             f"{rise} B > {MAX_ADMIT_RISE}")
-    print(f"{tag} dtype flow as the reference's: encoder GEMM inputs fp32, "
-          f"the prefill's cross K/V fp32, the arena's {dts['xk']}; one "
-          f"admission ({api.cfg.enc_frames} frames) {admit_s:.3f}s, memory "
-          f"rise {rise / 2**30:.3f} GiB")
     return {"uncast_tokens_differ": differ, "uncast_first_step_gap":
-            max(gaps, default=0.0), "oracle_s": oracle_s,
-            "admission_s": admit_s, "admission_rise_bytes": rise}
+            max(gaps, default=0.0), "oracle_s": oracle_s}
 
 
 def serve_record(run, launches, gaps, extra) -> dict:
@@ -3891,6 +4316,7 @@ def main() -> None:
         del run
         torch.cuda.empty_cache()
         clock.done(name)
+    phase_dense_configs(torch, clock, serves)
     xlstm_tokens = xlstm_prefill = None
     for name, path in XLSTM_PATHS.items():
         run, launches, gaps, extra = phase_serve(torch, name, arch=XLSTM,
@@ -3918,8 +4344,8 @@ def main() -> None:
         if name == "whisper_sparse_b":
             whisper_tokens = {r: o.tokens
                               for r, o in run.engine.outputs.items()}
-        if name == "whisper_paged":
-            check_same_tokens(name, run, whisper_tokens, "whisper_sparse_b")
+        if path.get("tokens_of"):
+            check_same_tokens(name, run, whisper_tokens, path["tokens_of"])
         del run
         gc.collect()
         torch.cuda.empty_cache()

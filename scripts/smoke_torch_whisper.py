@@ -51,8 +51,8 @@ def main() -> None:
         out[name] = cs.serve_record(run, launches, gaps, extra)
         if name == "whisper_sparse_b":
             tokens = {r: o.tokens for r, o in run.engine.outputs.items()}
-        if name == "whisper_paged":
-            cs.check_same_tokens(name, run, tokens, "whisper_sparse_b")
+        if path.get("tokens_of"):
+            cs.check_same_tokens(name, run, tokens, path["tokens_of"])
         del run
         gc.collect()
         torch.cuda.empty_cache()

@@ -25,7 +25,8 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid | audio ported
+    family: str                 # dense (all four configs) | moe | ssm | hybrid
+                                # | audio ported; vlm not yet
     num_layers: int
     d_model: int
     num_heads: int
@@ -136,6 +137,7 @@ def get_config(name: str) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from . import (llama3_2_1b, llama4_scout_17b_a16e,  # noqa: F401
-                   mixtral_8x7b, recurrentgemma_9b, whisper_large_v3,
+    from . import (command_r_plus_104b, llama3_2_1b,  # noqa: F401
+                   llama4_scout_17b_a16e, minitron_8b, mixtral_8x7b,
+                   recurrentgemma_9b, stablelm_1_6b, whisper_large_v3,
                    xlstm_1_3b)

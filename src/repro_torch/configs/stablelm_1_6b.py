@@ -1,0 +1,9 @@
+"""stablelm-1.6b [hf:stabilityai/stablelm-2-1_6b]: 24L d=2048 32H (MHA,
+kv=32) d_ff=5632 vocab=100352."""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="stablelm-1.6b", family="dense",
+    num_layers=24, d_model=2048, num_heads=32, num_kv_heads=32,
+    d_ff=5632, vocab_size=100352, rope_theta=10000.0,
+))

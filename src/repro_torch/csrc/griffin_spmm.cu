@@ -423,7 +423,9 @@ __global__ void __launch_bounds__(kTcThreads)
 }
 
 // Shared memory the bf16 route needs for this shape at its largest pass:
-// what decides whether the route fits, so never M.
+// what decides whether the route fits, so never M.  kernel.py's tc_smem and
+// route mirror this, chunk_cap, TcLayout and the choice in griffin_spmm
+// below, so that Python knows each launch's route: change them together.
 static int tc_smem(const SpmmArgs& p, int cw) {
   return TcLayout(cw, 2, p.chunk, p.max_cnt, chunk_cap(p)).total;
 }
@@ -575,6 +577,10 @@ static cudaError_t dispatch_core(const SpmmArgs& p, int dual, int n_tiles,
 
 }  // namespace griffin
 
+// Launches per route since the library was loaded: [0] the tensor-core
+// route, [1] the CUDA-core route (griffin_spmm_route_launches reads them).
+static long long g_route_launches[2] = {0, 0};
+
 // A (M, K) with row stride lda and unit column stride (K = the real,
 // unpadded contraction length); C (M, n) row-major, every column written;
 // perm (Npad,) or null.  splits / cols / chunk_rows: the bf16 route's plan
@@ -597,6 +603,7 @@ extern "C" int griffin_spmm(int dtype, int dual, const void* A,
                       max_cnt, lda, splits, chunk_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  bool tc = false;
   if (dtype == griffin::kBFloat16 && splits > 0) {
     const bool plan_ok = splits <= griffin::kMaxSplits &&
                          (splits & (splits - 1)) == 0 &&
@@ -604,9 +611,9 @@ extern "C" int griffin_spmm(int dtype, int dual, const void* A,
                          bn % cols == 0 && chunk_rows % 16 == 0 &&
                          chunk_rows <= 64 && bk % chunk_rows == 0;
     if (!plan_ok) return (int)cudaErrorInvalidValue;
-    const bool tc = griffin::aligned16(A) && griffin::aligned16(Bc) &&
-                    lda % 8 == 0 && K % 8 == 0 &&
-                    griffin::tc_smem(p, cols) <= griffin::kMaxSmem;
+    // the route kernel.py::route predicts (keep the two equal)
+    tc = griffin::aligned16(A) && griffin::aligned16(Bc) && lda % 8 == 0 &&
+         K % 8 == 0 && griffin::tc_smem(p, cols) <= griffin::kMaxSmem;
     err = tc ? griffin::dispatch_tc(p, dual, n_tiles, cols, s)
              : griffin::dispatch_core<__nv_bfloat16>(p, dual, n_tiles, s);
   } else if (dtype == griffin::kBFloat16) {
@@ -619,5 +626,13 @@ extern "C" int griffin_spmm(int dtype, int dual, const void* A,
     return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
+  ++g_route_launches[tc ? 0 : 1];
   return (int)cudaGetLastError();
+}
+
+// out[0], out[1]: the launches of the tensor-core and of the CUDA-core
+// route so far (kernel.py::route_launches)
+extern "C" void griffin_spmm_route_launches(long long* out) {
+  out[0] = g_route_launches[0];
+  out[1] = g_route_launches[1];
 }

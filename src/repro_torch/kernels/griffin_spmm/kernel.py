@@ -19,6 +19,12 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
 MAX_SPLITS = 8      # the portable cluster size
 MIN_BLOCKS = 256    # about two blocks per SM of an H100 SXM (132 SMs)
 SPLIT_ROWS = 64     # rank r owns the groups of 64 K rows = r mod splits
+# the tensor-core route's shared-memory layout (csrc/griffin_spmm.cu
+# TcLayout, chunk_cap, tc_smem; gemm_tile.cuh kTcWarps, kMaxSmem): what
+# route() mirrors, so a change there changes these too
+TC_WARPS = 4
+TC_PASS_TILES = 2   # tc_smem sizes the 32-row pass: two m16 tiles
+MAX_SMEM = 232_448  # a block's shared memory on sm_90
 
 
 class SplitPlan(NamedTuple):
@@ -66,6 +72,73 @@ def split_plan(k: int, n: int, n_tiles: int, block_k: int,
                 n_tiles * (block_n // cols) * splits >= MIN_BLOCKS:
             return SplitPlan(splits, cols, chunk)
     return SplitPlan(splits, 16, chunk)
+
+
+class Route(NamedTuple):
+    """Which of K2's routes a launch takes (``"tc"``: the bf16 tensor-core
+    route, ``spmm_tc_kernel``; ``"core"``: the CUDA-core route,
+    ``spmm_core_kernel``) and the shared memory in bytes that the
+    tensor-core route's block would need for it (0 where no plan
+    applies)."""
+    name: str
+    smem: int
+
+
+def chunk_cap(k: int, max_cnt: int, block_k: int, plan: SplitPlan) -> int:
+    """Most compacted chunks one rank stages (``chunk_cap`` in
+    ``csrc/griffin_spmm.cu``): its ceil(G / S) of the G SPLIT_ROWS-row
+    groups of K in chunks, no more than the tile holds."""
+    groups = -(-k // SPLIT_ROWS)
+    span = -(-groups // plan.splits) * (SPLIT_ROWS // plan.chunk_rows)
+    return min(span, max_cnt * (block_k // plan.chunk_rows))
+
+
+def tc_smem(k: int, max_cnt: int, block_k: int, plan: SplitPlan) -> int:
+    """Bytes of shared memory a tensor-core block takes at its largest
+    pass (``tc_smem`` and ``TcLayout`` in ``csrc/griffin_spmm.cu``, which
+    name this function): the B ring (3 stages of chunk x cols bf16) and
+    the staged A (``chunk_cap`` chunks of 32 x chunk bf16), or the warps'
+    and the block's fp32 partial tiles where larger, then the int lists
+    (the slice's columns, the tile's kidx row, three lists of ``cap``)
+    and two counts.  A function of the weight's (K, N), its grid depth
+    ``max_cnt`` and the compaction, never of M."""
+    cw, kc, mp = plan.cols, plan.chunk_rows, 16 * TC_PASS_TILES
+    cap = chunk_cap(k, max_cnt, block_k, plan)
+    staged = 3 * kc * cw * 2 + cap * mp * kc * 2
+    body = TC_WARPS * mp * (cw + 8) * 4 + mp * cw * 4
+    return max(staged, body) + cw * 4 + max_cnt * 4 + 3 * cap * 4 + 2 * 4
+
+
+def route(a: torch.Tensor, b_comp: torch.Tensor, kidx: torch.Tensor, *,
+          n: int, block_k: int, block_n: int) -> Route:
+    """The route the launch of :func:`griffin_spmm` on these operands
+    takes, as ``griffin_spmm`` in ``csrc/griffin_spmm.cu`` chooses it
+    (the C++ decides; this mirror only says it, and the two change
+    together): the tensor-core route for bf16 A and weight with a plan,
+    16-byte aligned A and ``b_comp``, A's row stride and K multiples of
+    8, and :func:`tc_smem` within ``MAX_SMEM``; else the CUDA-core
+    route."""
+    k = a.shape[1]
+    n_tiles, max_cnt = kidx.shape[-2:]
+    plan = split_plan(k, n, n_tiles, block_k, block_n) \
+        if a.dtype == b_comp.dtype == torch.bfloat16 else None
+    if plan is None:
+        return Route("core", 0)
+    smem = tc_smem(k, max_cnt, block_k, plan)
+    tc = a.data_ptr() % 16 == 0 and b_comp.data_ptr() % 16 == 0 and \
+        a.stride(0) % 8 == 0 and k % 8 == 0 and smem <= MAX_SMEM
+    return Route("tc" if tc else "core", smem)
+
+
+def route_launches() -> dict:
+    """Launches of each route (``"tc"``, ``"core"``) the loaded library
+    has made so far, counted in ``csrc/griffin_spmm.cu`` where it chooses
+    the route: what :func:`route` is held against on the card."""
+    fn = build.library(NAME).griffin_spmm_route_launches
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    out = (ctypes.c_longlong * 2)()
+    fn(out)
+    return {"tc": out[0], "core": out[1]}
 
 
 def _fn():

@@ -1,6 +1,8 @@
 """Model registry: one uniform API per architecture family — the
-counterpart of ``repro/models/registry.py`` (the dense, moe, ssm, hybrid
-and audio families; vlm is not ported yet).
+counterpart of ``repro/models/registry.py`` (the dense family with all
+four of its configs, llama3.2-1b, stablelm-1.6b, minitron-8b and
+command-r-plus-104b; the moe, ssm, hybrid and audio families; vlm is not
+ported yet).
 
 ``build_model(cfg, device)`` binds the family's functions to ``cfg`` and to
 the device the model runs on; the default is the CUDA card.  Analytic

@@ -976,6 +976,128 @@ def test_batch_eval_v2_routes_match_engine_and_plain(cuda, T, d1, route, kg):
 
 
 # ---------------------------------------------------------------------------
+# the dense family's other configs: K2's route known in Python, and the
+# configs served at full width (depth cut) on the card
+# ---------------------------------------------------------------------------
+
+# K x N of every K2 leaf of stablelm-1.6b, minitron-8b and
+# command-r-plus-104b (as chip_smoke.DENSE_SPMM), and mixtral-8x7b's w_down
+# and head
+ROUTE_SHAPES = {
+    "stablelm wq/wk/wv/wo": (2048, 2048), "stablelm w_gate/w_up": (2048, 5632),
+    "stablelm w_down": (5632, 2048), "stablelm head": (2048, 100352),
+    "minitron wq/wo": (4096, 4096), "minitron wk/wv": (4096, 1024),
+    "minitron w_gate/w_up": (4096, 16384), "minitron w_down": (16384, 4096),
+    "minitron head": (4096, 256000), "command-r wq/wo": (12288, 12288),
+    "command-r wk/wv": (12288, 1024), "command-r w_gate/w_up": (12288, 33792),
+    "command-r w_down": (33792, 12288), "command-r head": (12288, 256000),
+    "mixtral w_down": (14336, 4096), "mixtral head": (4096, 32000)}
+K2_KERNELS = {"tc": "spmm_tc_kernel", "core": "spmm_core_kernel"}
+
+
+def _k2_kernels_run(fn):
+    """The names of the griffin_spmm kernels the profiler sees ``fn``
+    launch on the card (a session that records no device kernel at all,
+    which the profiler now and then gives, is tried again)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    return {name for name in names if "spmm_" in name}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf", list(ROUTE_SHAPES))
+def test_k2_route_mirror_names_the_kernel_the_card_runs(cuda, leaf):
+    """At each K2 leaf shape of the three dense configs and at mixtral's
+    w_down and head (pruned 0.8 at 128 x 128 / unit 32, bf16), the route
+    ``griffin_spmm.kernel.route`` predicts from the weight's grid depth is
+    the kernel the profiler sees run and the route the C++ entry counts
+    (``route_launches``), at M 4 and 32, dual and not; the
+    output agrees with the plain version; an fp32 A takes the CUDA-core
+    route, as the mirror says."""
+    from repro_torch.kernels.griffin_spmm.kernel import route, route_launches
+    k, n = ROUTE_SHAPES[leaf]
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    gw = preprocess_weights(block_prune(
+        torch.randn(k, n, generator=g, device=cuda), 0.8).bfloat16())
+    torch.cuda.empty_cache()
+    kw = dict(n=n, block_k=gw.block_k, block_n=gw.block_n)
+    for m in (4, 32):
+        a = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+        want = route(a, gw.b_comp, gw.kidx, **kw)
+        for dual in (False, True):
+            before = route_launches()
+            seen = _k2_kernels_run(lambda: griffin_matmul(a, gw, dual=dual))
+            assert len(seen) == 1 and K2_KERNELS[want.name] in \
+                next(iter(seen)), (want, gw.kidx.shape, seen)
+            after = route_launches()
+            assert after[want.name] > before[want.name] and \
+                sum(after.values()) - sum(before.values()) == \
+                after[want.name] - before[want.name]
+        if m == 4:
+            out = griffin_matmul(a, gw)
+            ref = (a.float() @ decompact_weights(gw)[:k].float()).bfloat16()
+            assert_close(out, ref, "bfloat16")
+    a = torch.randn(4, k, generator=g, device=cuda)
+    assert route(a, gw.b_comp, gw.kidx, **kw).name == "core"
+    seen = _k2_kernels_run(lambda: griffin_matmul(a, gw))
+    assert len(seen) == 1 and "spmm_core_kernel" in next(iter(seen))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "minitron-8b",
+                                  "command-r-plus-104b"])
+def test_dense_config_at_full_width_matches_oracle_on_card(cuda, arch):
+    """Each dense config at full width, cut to 2 layers, pruned 0.8 and
+    compacted: the engine (4 slots, chunks of 4) launches griffin_spmm 7 x
+    2 + 1 = 15 times and dense_gemm never per model call, and every
+    request equals the batch-1 greedy oracle; the prefill logits are
+    within 2 % (relative L2) of the plain route on the same weights."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.models import common
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    api = build_model(cfg, device=cuda)
+    params = sparsify_params(api.init(api.generator(0)), 0.8)
+    eng = ServeEngine(api, params, EngineConfig().with_fields(
+        num_slots=4, cache_len=40, decode_chunk=4, use_kernels=True))
+    reqs = synthetic_trace(cfg, num_requests=6, seed=5, prompt_lens=(8, 16),
+                           gen_lens=(4, 12))
+    reset_launch_counts()
+    outs = eng.run(reqs)
+    calls = eng.stats["prefill_calls"] + eng.stats["decode_steps"]
+    got = launch_counts()
+    assert eng.mode.value == "B"
+    assert (got["griffin_spmm"], got["dense_gemm"]) == (15 * calls, 0)
+    for r in reqs:
+        with eng._scope():
+            want = greedy_generate(api, params, r.as_batch(eng.device),
+                                   steps=r.max_new_tokens,
+                                   cache_len=eng.cache_len,
+                                   prompt_bucket=eng.bucket_for(
+                                       r.prompt_len))
+        assert outs[r.rid].tokens == want[0].tolist(), r.rid
+    batch = reqs[0].as_batch(eng.device)
+    with sparse_execution(use_kernels=True):
+        _, logits = api.prefill(params, batch, cache_len=40)
+    real = common.griffin_matmul
+    common.griffin_matmul = lambda a, gw, dual=False: griffin_spmm_ref(a, gw)
+    try:
+        with sparse_execution(use_kernels=False):
+            _, ref = api.prefill(params, batch, cache_len=40)
+    finally:
+        common.griffin_matmul = real
+    rel = float((logits.float() - ref.float()).norm() / ref.float().norm())
+    assert bool(torch.isfinite(logits).all()) and rel <= 2e-2, rel
+
+
+# ---------------------------------------------------------------------------
 # the ssm family: xlstm-1.3b's shapes and its full-width serving rows
 # ---------------------------------------------------------------------------
 

@@ -27,7 +27,9 @@ from repro_torch.kernels import (decompact_weights, dense_matmul,
                                  griffin_matmul, launch_counts,
                                  preprocess_weights, stack_weights)
 from repro_torch.kernels.dense_gemm import kernel as k1
-from repro_torch.kernels.griffin_spmm.kernel import SplitPlan, split_plan
+from repro_torch.kernels.griffin_spmm.kernel import (MAX_SMEM, Route,
+                                                     SplitPlan, route,
+                                                     split_plan, tc_smem)
 from repro_torch.kernels.sparse_a.ops import sparse_a_matmul
 from repro_torch.models.common import griffin_linear, sparse_execution
 
@@ -316,6 +318,69 @@ def test_split_plan_depends_only_on_the_weight_shape():
             assert s == 1 or -(-k // 64) >= s
             splits.add(s)
         assert len(splits) == 1, (k, n, splits)
+
+
+def _meta_operands(m, k, n, depth, dtype=torch.bfloat16):
+    """A (m, k) and a compacted weight's b_comp and kidx at grid depth
+    ``depth`` (128 x 128 blocks) on the meta device: shapes, no bytes."""
+    nt = -(-n // 128)
+    return (torch.empty(m, k, dtype=dtype, device="meta"),
+            torch.empty(depth * 128, nt * 128, dtype=torch.bfloat16,
+                        device="meta"),
+            torch.empty(nt, depth, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("k,n,depth,smem,name", [
+    (4096, 256000, 25, 230_340, "tc"),      # minitron-8b's head, S 1
+    (4096, 256000, 26, 238_560, "core"),
+    (4096, 16384, 25, 230_340, "tc"),       # its w_gate/w_up, S 1
+    (4096, 16384, 26, 238_560, "core"),
+    (14336, 4096, 76, 255_192, "core"),     # mixtral-8x7b's w_down, S 4
+    (16384, 4096, 90, 288_112, "core"),     # minitron-8b's w_down, S 4
+    (2048, 100352, 15, 148_140, "tc"),      # stablelm-1.6b's head, S 1
+    (5632, 2048, 36, 70_172, "tc"),         # stablelm-1.6b's w_down, S 8
+    (33792, 12288, 176, 1_110_056, "core"),  # command-r-plus's w_down, S 2
+], ids=lambda v: str(v))
+def test_route_mirror_bytes_equal_the_tclayout_arithmetic(k, n, depth, smem,
+                                                          name):
+    """``route`` and ``tc_smem`` mirror csrc/griffin_spmm.cu: the bytes of
+    ``TcLayout(cols, 2, chunk, max_cnt, chunk_cap)`` (the B ring of 3
+    stages, the staged A of ``chunk_cap`` 32 x 64 chunks, the int lists)
+    against ``kMaxSmem`` = 232,448 B, at the figures worked out by hand
+    from the C++ (K 4096 at S 1: depth 25 fits by 2,108 B, depth 26 does
+    not); the route is the same at every M."""
+    plan = split_plan(k, n, -(-n // 128), 128, 128)
+    assert tc_smem(k, depth, 128, plan) == smem
+    assert MAX_SMEM == 232_448
+    for m in (1, 4, 32, 4096):
+        assert route(*_meta_operands(m, k, n, depth), n=n, block_k=128,
+                     block_n=128) == Route(name, smem)
+
+
+def test_route_takes_the_cuda_cores_off_the_tensor_core_terms():
+    """The CUDA-core route wherever griffin_spmm's C++ entry leaves the
+    tensor cores: fp32 A (no plan), a block no multiple of 16 (no plan),
+    A or b_comp not 16-byte aligned, A's row stride or K no multiple of
+    8; a fitting bf16 launch takes the tensor cores."""
+    rng = np.random.RandomState(3)
+    w = torch.from_numpy(_toy(9, k=64, n=96)).to(torch.bfloat16)
+    gw = preprocess_weights(w, block_k=16, block_n=32, unit=8)
+    kw = dict(n=gw.n, block_k=16, block_n=32)
+    a = torch.from_numpy(rng.randn(4, 68).astype(np.float32)).to(
+        torch.bfloat16)
+    assert route(a[:, :64], gw.b_comp, gw.kidx, **kw).name == "core"  # lda
+    a = a[:, :64].contiguous()
+    fits = route(a, gw.b_comp, gw.kidx, **kw)
+    assert fits.name == "tc" and 0 < fits.smem <= MAX_SMEM
+    assert route(a.float(), gw.b_comp, gw.kidx, **kw) == Route("core", 0)
+    odd = torch.empty(4 * 64 + 1, dtype=torch.bfloat16)[1:].view(4, 64)
+    assert odd.data_ptr() % 16 and \
+        route(odd, gw.b_comp, gw.kidx, **kw).name == "core"
+    assert route(a[:, :60].contiguous(), gw.b_comp, gw.kidx,
+                 **kw).name == "core"                             # K % 8
+    gw48 = preprocess_weights(w, block_k=16, block_n=24, unit=8)
+    assert route(a, gw48.b_comp, gw48.kidx, n=gw48.n, block_k=16,
+                 block_n=24) == Route("core", 0)
 
 
 # ---------------------------------------------------------------------------
