@@ -6,7 +6,8 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. build   - compile every kernel under src/repro_torch/csrc/ with nvcc for
              sm_90a (one nvcc per source, in parallel) and print the time
-             and ptxas' register/spill report.
+             and ptxas' register/spill report; the cycle model's Figure 8
+             sweep (phase 7, host only) runs on a thread meanwhile.
 2. kernels - call each kernel's wrapper on the card at the shapes the
              serving paths give it, fp32 and bf16, and hold it against its
              plain PyTorch version: dense_gemm at the unembedding;
@@ -27,8 +28,10 @@ Phases, in order; any failure exits non-zero before the result line:
              (summation orders differ); bf16 |err| <= one bf16 ulp of the
              output plus the same fp32 term.  Times kernel, plain version
              and one library call (torch.matmul, a yardstick the port
-             never calls), each with a 64 MB L2 flush before every launch,
-             and the bound: the larger of bytes / 3.35 TB/s and operations
+             never calls), each with a 64 MB L2 flush before every launch
+             and every launch queued behind a device-side sleep (twice the
+             warm-up's host time, retaken at ~0.1 s where the device woke
+             before the last launch was queued), and the bound: the larger of bytes / 3.35 TB/s and operations
              / the card's peak for the type (989 TFLOP/s bf16, 67 TFLOP/s
              fp32), counting only the blocks a sparse kernel must read for
              these inputs.  griffin_spmm is timed at M 4 and 32, bf16 dual
@@ -81,7 +84,9 @@ Phases, in order; any failure exits non-zero before the result line:
              every column (bf16 M 4 and 32, dual and not; fp32 A M 4).
              At the K2 leaf shapes of stablelm-1.6b, minitron-8b and
              command-r-plus-104b (``DENSE_SPMM``, 14 shapes up to the
-             12288 x 256000 head) griffin_spmm is checked at M 4 and 32
+             12288 x 256000 head) and of chameleon-34b (``VLM_SPMM``: 8192
+             x 8192, 8192 x 1024, 8192 x 22016, 22016 x 8192 and the 8192 x
+             65536 head) griffin_spmm is checked at M 4 and 32
              (bf16), timed beside its bound and torch.matmul, held batch
              invariant at each config's w_down, and the route its Python
              mirror predicts (griffin_spmm.kernel.route: the tensor-core
@@ -94,7 +99,8 @@ Phases, in order; any failure exits non-zero before the result line:
              (``STABLELM_K3``): its FFN (2048 x 5632, 5632 x 2048, B
              row-major) at M 4/8/16/32 with two all-zero K blocks and
              with every block live, its dense 2048 x 100352 head at M 4
-             and 32; the metadata bit-equal to the plain metadata.
+             and 32; and at every chameleon-34b leaf (``CHAMELEON_K3``) the
+             same way; the metadata bit-equal to the plain metadata.
              The metadata kernel alone (``META_SHAPES``: 4 x 2048, 4 x
              4096, 32 x 4096, 128 x 8192, bf16, every block live) with its
              cluster
@@ -142,8 +148,13 @@ Phases, in order; any failure exits non-zero before the result line:
                           which tests/test_torch_stepwise.py holds on the
                           CPU for the same trace.
              Launch counters are zeroed just before and read just after
-             each engine run.  Each path checks: every request
-             token-identical to the batch-1 greedy oracle (not int8); no
+             each engine run.  A later path of a family on the same seeded
+             draw serves the first's weights (built once; a second build
+             gives the same bits).  Each path checks: every request
+             token-identical to the batch-1 greedy oracle (not int8; the
+             oracle depends on the weights and the Mode alone, so the
+             paged and stepwise paths' tokens must equal those of sparse_b,
+             mode_a or mode_ab, which run it); no
              plain GEMM; its exact launch counts; at most 0.25 host syncs
              per token on the fused paths; a prefill (and on the paged
              paths an admission) and, on the fused paths, a fused chunk
@@ -171,7 +182,8 @@ Phases, in order; any failure exits non-zero before the result line:
                xlstm_paged_degrades - xlstm_sparse_b with 16-token pages
                           asked for: the recurrent state does not track
                           cache_len, so no paged arena is built (as in the
-                          reference) and the tokens equal xlstm_sparse_b's.
+                          reference) and the tokens equal xlstm_sparse_b's
+                          (no oracle of its own).
              After xlstm_sparse_b, its weights prefill 32 and 256 tokens
              (seconds, memory rise within 3 GiB, the sLSTM blocks' share of
              the 32-token prefill).
@@ -189,7 +201,10 @@ Phases, in order; any failure exits non-zero before the result line:
                           and 257 a decode step (32 x 8, the head), no
                           other kernel;
                whisper_mode_ab - the same weights, declared activation
-                          sparsity 0.5: every griffin_spmm launch dual;
+                          sparsity 0.5: every griffin_spmm launch dual (held
+                          bit-equal to the plain walk in phase 2), so its
+                          tokens must equal whisper_sparse_b's (no oracle of
+                          its own);
                whisper_paged - whisper_sparse_b's weights on
                           sparse_b_paged's arena: the decoder's k/v paged,
                           the cross K/V (1500 rows a slot) fixed beside the
@@ -225,7 +240,8 @@ Phases, in order; any failure exits non-zero before the result line:
                hybrid_paged - hybrid_sparse_b's weights on sparse_b_paged's
                           arena: k/v paged (window 2048 >= cache_len), the
                           recurrent and conv state fixed beside the pools;
-                          its tokens must equal hybrid_sparse_b's.
+                          its tokens must equal hybrid_sparse_b's (no oracle
+                          of its own).
              After hybrid_sparse_b, hybrid_long_window: its weights prefill
              one 4200-token prompt with cache_len 4224 (the K/V cache
              keeps the last 2048 rows rolled by 4200 % 2048), then decode
@@ -237,7 +253,8 @@ Phases, in order; any failure exits non-zero before the result line:
              8, head_dim 128, 8 experts top-2 with d_ff 14336, window 4096,
              vocab 32000, untied head, bf16, seed 0; 46.7 B parameters,
              93 GB of bf16, which do not fit the card): every earlier model
-             freed first, launch.serve builds its weights compacted one
+             freed first, launch.serve builds its weights once for the
+             three paths, compacted one
              matrix at a time (sparsity.init_sparse_params; the build's
              seconds, peak allocated bytes and resident bytes printed, the
              peak gated below the card's memory), on the same trace with the
@@ -254,7 +271,7 @@ Phases, in order; any failure exits non-zero before the result line:
                           sparse_a_meta 32x (the routers);
                moe_paged - moe_sparse_b's weights on sparse_b_paged's arena
                           (window 4096 >= cache_len); its tokens must equal
-                          moe_sparse_b's.
+                          moe_sparse_b's (no oracle of its own).
              Each prints the experts no row chose per (layer, decode step)
              (what dual griffin_spmm skips whole) and, from one fused
              4-step chunk on the drained arena under torch.profiler
@@ -298,6 +315,29 @@ Phases, in order; any failure exits non-zero before the result line:
              those slices times the model calls.  minitron_sparse_b also
              checks, route-gates and times layer 0's w_gate as served (at
              the stack's grid depth, its deepest layer's) at M 4 and 32.
+             Then the vlm family (``VLM_PATHS``): full-width chameleon-34b
+             (48 layers, d 8192, 64 heads / 8 KV at head_dim 128 with
+             QK-norm, d_ff 22016, an untied 65536-token head; 34.3 B
+             parameters, 68.6 GB of bf16), with these checks and a profiled
+             one-step fused chunk (device ops a step, busy share, griffin_spmm,
+             sparse_a and metadata device ms):
+               chameleon_sparse_b - pruned 0.8 at 128x128 / unit 32 by the
+                          streamed build (the dense tree and its compaction
+                          do not fit together; its seconds, peak and
+                          resident bytes printed, the peak gated below the
+                          card's memory): griffin_spmm 337x a model call, no
+                          other kernel; every stacked leaf whose served grid
+                          depth differs from the kernel phase's draw checked,
+                          route-gated and timed as served (layer 0);
+               chameleon_mode_a - its dense weights (63.9 GiB, drawn in the
+                          same order after the compacted tree is freed),
+                          declared activation sparsity 0.5: sparse_a 337x
+                          and sparse_a_meta 193x.
+             Both take the plain route on the served weights and the fp32
+             model a layer at a time (fp32_prefill), the kernel route at
+             most 1.25x the plain route's gap to it; chameleon_mode_a's gap
+             to the plain route is gated at 3 % (CHAMELEON_MODE_A_GAP: every
+             bf16 route of that model is ~2.1 % from fp32).
 4. long_prefill - after sparse_b, its weights prefill one 2048-token and
              one 4096-token prompt (cache_len = prompt length): seconds
              and the rise of torch.cuda.max_memory_allocated() over the
@@ -414,7 +454,7 @@ Phases, in order; any failure exits non-zero before the result line:
              chain) on its largest stream (ties: the deepest window): the
              kernel (median of 20 after a 64 MB L2 flush, and its device
              duration under torch.profiler), the plain version (median of
-             5) and the numpy engine (host wall time, median of 5), beside
+             5, one warm-up call) and the numpy engine (host wall time, median of 5), beside
              the bound (mask bytes / 3.35 TB/s) and the launch floor (a
              one-element fill); no PyTorch call computes the schedule, so
              no library time.
@@ -459,12 +499,17 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 # "mixed": fp32 A against a bf16 weight, fp32 FMAs on the CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "mixed": 67e12}
+# timed_ms's device-side sleep: cycles a second at the H100's 1.98 GHz
+# boost clock (a sleep at a lower clock lasts longer), and its longest
+SLEEP_CYCLES_PER_S = 1.98e9
+MAX_SLEEP_CYCLES = 200_000_000
 # (A, weight) dtypes of a kernel row, by its "dtype" label
 PAIRS = {"bfloat16": ("bfloat16", "bfloat16"),
          "float32": ("float32", "float32"),
@@ -497,19 +542,23 @@ MODE_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
 SB_LAUNCHES = SB["launches"]
 # per serve path: kernel -> launches per model call (a prefill or a decode
 # step), dual griffin_spmm GEMMs per model call, the engine's arena and
-# scheduler fields, and the stats a path must give exactly
+# scheduler fields, and the stats a path must give exactly.  The oracle
+# depends on the weights and the Mode alone, so a path on the weights and
+# Mode of an earlier path (a paged arena in the cache's own dtype, a
+# stepwise policy) runs none: its tokens must equal that path's, which
+# holds them against the oracle.
 PATHS = {
     "sparse_b": dict(SB, arena=FIXED),
     "mode_a": dict(MODE_A, arena=FIXED),
     "mode_ab": dict(MODE_AB, arena=FIXED),
-    "sparse_b_paged": dict(SB, arena=PAGED),
+    "sparse_b_paged": dict(SB, arena=PAGED, tokens_of="sparse_b"),
     "sparse_b_paged_int8": dict(SB, arena=dict(PAGED, kv_dtype="int8")),
-    "mode_a_paged": dict(MODE_A, arena=PAGED),
-    "mode_ab_paged": dict(MODE_AB, arena=PAGED),
+    "mode_a_paged": dict(MODE_A, arena=PAGED, tokens_of="mode_a"),
+    "mode_ab_paged": dict(MODE_AB, arena=PAGED, tokens_of="mode_ab"),
     "sparse_b_stepwise": dict(SB, arena=dict(STEPWISE, policy="continuous"),
-                              stats=STEPWISE_STATS),
+                              stats=STEPWISE_STATS, tokens_of="sparse_b"),
     "sparse_b_static": dict(SB, arena=dict(STEPWISE, policy="static"),
-                            stats=STEPWISE_STATS),
+                            stats=STEPWISE_STATS, tokens_of="sparse_b"),
 }
 TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
 # the ssm family: full-width xlstm-1.3b (6 groups of 7 mLSTM + 1 sLSTM) on
@@ -517,8 +566,10 @@ TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
 # and w_down x 42, the sLSTM's six x 6, the untied head) and its 84 plain
 # (4096 x 4) mLSTM gate leaves go through dense_gemm, or in Mode.AB through
 # sparse_a and its metadata, built once per mLSTM block for wi and wf
-# (tests/test_torch_xlstm.py counts them on the CPU).  The paged config must degrade to the fixed arena: the recurrent
-# state does not grow with the sequence.
+# (tests/test_torch_xlstm.py counts them on the CPU).  The paged config
+# must degrade to the fixed arena (the recurrent state does not grow with
+# the sequence), so its tokens must equal xlstm_sparse_b's, which holds
+# the oracle.
 XLSTM = "xlstm-1.3b"
 XLSTM_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
                 launches={"dense_gemm": 84, "griffin_spmm": 121,
@@ -532,7 +583,7 @@ XLSTM_PATHS = {
     "xlstm_sparse_b": dict(XLSTM_SB, arena=FIXED),
     "xlstm_mode_ab": dict(XLSTM_AB, arena=FIXED),
     "xlstm_paged_degrades": dict(XLSTM_SB, arena=dict(
-        FIXED, page_size=16, num_pages=13)),
+        FIXED, page_size=16, num_pages=13), tokens_of="xlstm_sparse_b"),
 }
 # the hybrid family: full-width recurrentgemma-9b (12 groups of (rec, rec,
 # attn) + a tail of 2 rec blocks, each block with its GeGLU MLP) on TRACE.
@@ -545,7 +596,7 @@ XLSTM_PATHS = {
 # built once per distinct input: w_x's, the shared w_rg/w_ig input and
 # w_out's (tests/test_torch_rglru.py counts them on the CPU).  The paged
 # path pages k/v (window 2048 >= cache_len) and keeps the recurrent state
-# fixed; its tokens must equal hybrid_sparse_b's.
+# fixed; its tokens must equal hybrid_sparse_b's, which holds the oracle.
 HYBRID = "recurrentgemma-9b"
 HYBRID_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
                  launches={"dense_gemm": 104, "griffin_spmm": 189,
@@ -558,7 +609,8 @@ HYBRID_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
 HYBRID_PATHS = {
     "hybrid_sparse_b": dict(HYBRID_SB, arena=FIXED),
     "hybrid_mode_ab": dict(HYBRID_AB, arena=FIXED),
-    "hybrid_paged": dict(HYBRID_SB, arena=PAGED),
+    "hybrid_paged": dict(HYBRID_SB, arena=PAGED,
+                         tokens_of="hybrid_sparse_b"),
 }
 # hybrid_long_window, on hybrid_sparse_b's weights: one prompt longer than
 # the window straight through the model's prefill (the keep-the-last-
@@ -572,7 +624,8 @@ HYBRID_LONG = dict(prompt=4200, cache_len=4224, steps=8)
 # routers (fp32 A against the weight upcast to fp32, 4096 x 8) go through
 # dense_gemm's skinny route, or in Mode.AB through sparse_a with one
 # metadata build each (tests/test_torch_moe.py counts them on the CPU).
-# The paged path's tokens must equal moe_sparse_b's.
+# The paged path's tokens must equal moe_sparse_b's, which holds the
+# oracle; the three paths serve one build.
 MOE = "mixtral-8x7b"
 MOE_SB = dict(sparsity=0.8, a_sparsity=None, mode="B",
               launches={"dense_gemm": 32, "griffin_spmm": 897,
@@ -585,7 +638,7 @@ MOE_AB = dict(sparsity=0.8, a_sparsity=A_SPARSITY, mode="AB",
 MOE_PATHS = {
     "moe_sparse_b": dict(MOE_SB, arena=FIXED),
     "moe_mode_ab": dict(MOE_AB, arena=FIXED),
-    "moe_paged": dict(MOE_SB, arena=PAGED),
+    "moe_paged": dict(MOE_SB, arena=PAGED, tokens_of="moe_sparse_b"),
 }
 # moe_long_window, on moe_sparse_b's weights: one prompt longer than the
 # window straight through the model's prefill, then decode steps that
@@ -601,7 +654,9 @@ MOE_LONG = dict(prompt=4200, cache_len=4224, steps=8)
 # head), all bf16 (tests/test_torch_whisper.py counts them on the CPU).
 # Launches and dual GEMMs are (prefill, decode step) pairs.  The paged
 # path pages the decoder's k/v and keeps the cross K/V fixed; its tokens
-# must equal whisper_sparse_b's.  The engines measure no activation
+# must equal whisper_sparse_b's, which holds the oracle.  So must Mode.AB's:
+# every GEMM there is griffin_spmm's dual walk, which the kernel phase
+# holds bit-equal to the plain walk.  The engines measure no activation
 # sparsity on this short trace (measure_every 64): the compacted head's K
 # of 1280 is 10 blocks, so 0.8^10 = 10.7 % of its 32-column units lose
 # every block and their logits are exact zeros, above the 0.05 category
@@ -617,7 +672,8 @@ WHISPER_AB = dict(WHISPER_SB, a_sparsity=A_SPARSITY, mode="AB",
                   dual=WHISPER_K2)
 WHISPER_PATHS = {
     "whisper_sparse_b": dict(WHISPER_SB, arena=dict(FIXED, measure_every=64)),
-    "whisper_mode_ab": dict(WHISPER_AB, arena=dict(FIXED, measure_every=64)),
+    "whisper_mode_ab": dict(WHISPER_AB, arena=dict(FIXED, measure_every=64),
+                            tokens_of="whisper_sparse_b"),
     "whisper_paged": dict(WHISPER_SB, arena=dict(PAGED, measure_every=64),
                           tokens_of="whisper_sparse_b"),
 }
@@ -647,6 +703,11 @@ def dense_sb(k2: int) -> dict:
 # the plain route runs on the served weights, no fp32 gap is taken, and
 # the build (api.init, then sparsify_params) is measured
 SERVED_REF = dict(fp32_gap=False, served_ref=True)
+# the served weights by (arch, sparsity, layers), with the pruned twin's
+# logits by prompt: a later path of the family on the same seeded draw
+# serves the same tensors (a second build would give the same bits)
+WEIGHTS = {}
+KEEP_BYTES = 16 << 30            # a larger tree is dropped before a build
 
 DENSE_PATHS = {
     "stablelm_sparse_b": dict(dense_sb(169), arch=STABLELM, arena=FIXED),
@@ -683,6 +744,55 @@ DENSE_SPMM = {
 # head, B row-major
 STABLELM_K3 = {"w_gate/w_up": (2048, 5632), "w_down": (5632, 2048),
                "head": (2048, 100352)}
+# the vlm family: full-width chameleon-34b (48 layers, d 8192, 64 heads /
+# 8 KV at head_dim 128 with QK-norm, d_ff 22016, an untied 65536-token
+# head; 34.3 B parameters, 68.6 GB of bf16) on TRACE.  Its compacted
+# weights come from the streamed build (sparsity.init_sparse_params: the
+# dense tree and its compaction do not fit the card together); Mode.A
+# serves the dense tree (63.9 GiB of layers) drawn in the same order, after
+# the compacted one is freed.  Per model call griffin_spmm runs the 7 x 48
+# + 1 = 337 compacted leaves, or in Mode.A sparse_a the same 337 GEMMs with
+# 4 x 48 + 1 = 193 metadata builds (wq/wk/wv, wo, w_gate/w_up, w_down, the
+# head); dense_gemm never runs (tests/test_torch_chameleon.py counts them
+# on the CPU).  No fp32 twin fits beside either tree: the plain route runs
+# on the served weights, and the fp32 model is computed one layer at a
+# time (fp32_prefill).  Each stacked leaf whose served grid depth differs
+# from the kernel phase's one draw at its shape is checked, route-gated and
+# timed as served (layer 0).
+# The kernel route's prefill logit gap to the plain route is gated at 3 %
+# on chameleon_mode_a, not MAX_PLAIN_GAP's 2 %: its dense 48-layer,
+# 8192-wide bf16 model rounds further from fp32 than 2 % lets any two bf16
+# routes stay apart.  On an H100 every bf16 route (the kernels, the plain
+# route through torch.matmul, sparse_a's own plain version in fp32 rounded
+# once a GEMM) is 2.05-2.17 % from the fp32 model and any two are 2.59-2.70
+# % apart on the trace's first three prompts; the fp32 gate (FP32_GAP_RATIO,
+# on the layer-streamed fp32 model) is what tells a wrong kernel there.
+CHAMELEON_MODE_A_GAP = 3e-2
+CHAMELEON = "chameleon-34b"
+STREAMED_REF = dict(SERVED_REF, fp32_gap="streamed")
+VLM_PATHS = {
+    "chameleon_sparse_b": dict(dense_sb(337), arch=CHAMELEON, arena=FIXED,
+                               **STREAMED_REF, as_served=True),
+    "chameleon_mode_a": dict(
+        sparsity=0.0, a_sparsity=A_SPARSITY, mode="A",
+        launches={"dense_gemm": 0, "griffin_spmm": 0, "sparse_a": 337,
+                  "sparse_a_meta": 193, "batch_eval": 0}, dual=0,
+        arch=CHAMELEON, arena=FIXED, **STREAMED_REF,
+        max_gap=CHAMELEON_MODE_A_GAP),
+}
+VLM_SPMM = {
+    CHAMELEON: {"wq/wo": (8192, 8192), "wk/wv": (8192, 1024),
+                "w_gate/w_up": (8192, 22016), "w_down": (22016, 8192),
+                "head": (8192, 65536)},
+}
+# K3's shapes on chameleon-34b's Mode.A path: every GEMM leaf, B row-major
+CHAMELEON_K3 = VLM_SPMM[CHAMELEON]
+# every served config's K2 leaf shapes (check_routes holds each served
+# compacted leaf to one of them), and the grid depth of the kernel phase's
+# one draw at each (arch, K, N), which a served stack's depth is held
+# against
+K2_LEAVES = {**DENSE_SPMM, **VLM_SPMM}
+DRAW_DEPTH = {}
 K2_ROUTES = ("tc", "core")      # spmm_tc_kernel, spmm_core_kernel
 # the reference benchmark's int8 gate (benchmarks/bench_serve.py
 # PAGED_INT8_TOL), on its teacher-forced recipe: one 24-token prompt, 48
@@ -741,6 +851,8 @@ MAX_ROW_GAP = 5e-2
 # version (0.97-1.04 x on every path with the fp32 twin on an H100), while
 # the 2 % gap between the two routes grows with depth and width
 FP32_GAP_RATIO = 1.25
+# the kernel route's relative L2 gap to the plain route at the prefill
+MAX_PLAIN_GAP = 2e-2
 # the router phase (launch.serve.route): the reference benchmark's
 # overload trace (benchmarks/bench_serve.py overload_trace: bursty,
 # heavy-tailed, 48 requests, seed 11) and the smaller trace of the
@@ -969,22 +1081,39 @@ def timed_ms(torch, fn, iters: int = 20) -> float:
     64 MB write that evicts the 50 MB L2 (the serving path reads each
     weight once per step, cold).  A device-side sleep is queued first so
     the host enqueues every launch before the device reaches it: the events
-    then bracket device work only, not the wrapper's host time."""
+    then bracket device work only, not the wrapper's host time.  The sleep
+    lasts twice the host time the launches took in the warm-up (three
+    calls, one for a call of 50 ms or more), and the run is taken again
+    under the longest sleep (~0.1 s) where the device woke before the host
+    had queued the last launch."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)          # ~0.1 s of device cycles
-    times = []
-    for _ in range(iters):
+    host = []
+    while len(host) < 3 and sum(host) < 0.05:
+        t0 = time.perf_counter()
         flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        times.append((start, end))
+        host.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
+    cycles = int(min(MAX_SLEEP_CYCLES, SLEEP_CYCLES_PER_S * (
+        2 * iters * sorted(host)[len(host) // 2] + 1e-3)))
+    while True:
+        torch.cuda._sleep(cycles)
+        slept = torch.cuda.Event()
+        slept.record()
+        times = []
+        for _ in range(iters):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            times.append((start, end))
+        queued = not slept.query()      # still asleep: all launches queued
+        torch.cuda.synchronize()
+        if queued or cycles >= MAX_SLEEP_CYCLES:
+            break
+        cycles = MAX_SLEEP_CYCLES
     ms = sorted(s.elapsed_time(e) for s, e in times)
     return ms[len(ms) // 2]
 
@@ -1156,6 +1285,8 @@ def phase_kernels(torch):
     rows += kernel_moe(torch, gen, summary)
     rows += kernel_whisper(torch, gen, summary)
     rows += kernel_dense_configs(torch, gen)
+    rows += kernel_dense_configs(torch, gen, VLM_SPMM,
+                                 ((CHAMELEON, CHAMELEON_K3),))
     rows += kernel_sparse_a(torch, gen, summary)
     rows += kernel_meta(torch, gen, summary)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
@@ -1757,19 +1888,43 @@ def served_rows(torch, name: str, arch: str, leaf: str, gw) -> list:
     return rows
 
 
-def kernel_dense_configs(torch, gen):
+def served_deeper(tag: str, arch: str, params) -> list:
+    """The stacked compacted leaves of ``params["layers"]`` whose grid
+    depth (their deepest layer's) differs from that of the kernel phase's
+    one draw at their shape (``DRAW_DEPTH``; every leaf where the kernel
+    phase did not run), each depth printed."""
+    from repro_torch.kernels import GriffinWeights
+
+    out, depths = [], {}
+    for leaf, gw in params["layers"].items():
+        if not isinstance(gw, GriffinWeights):
+            continue
+        drawn = DRAW_DEPTH.get((arch, gw.k, gw.n))
+        depths[leaf] = [gw.kidx.shape[-1], drawn]
+        if gw.kidx.shape[-1] != drawn:
+            out.append(leaf)
+    print(f"{tag} grid depth by leaf, [served stack, the kernel phase's "
+          f"draw]: {json.dumps(depths)}; checked as served: {out}")
+    return out
+
+
+def kernel_dense_configs(torch, gen, spmm=DENSE_SPMM,
+                         k3=((STABLELM, STABLELM_K3),)):
     """griffin_spmm at every K2 leaf shape of stablelm-1.6b, minitron-8b
-    and command-r-plus-104b (``DENSE_SPMM``, bf16, pruned 0.8 at 128 x 128
-    / unit 32, balanced), at M 4 and 32: against its plain version, timed
+    and command-r-plus-104b (``DENSE_SPMM``; chameleon-34b's with
+    ``VLM_SPMM``, bf16, pruned 0.8 at 128 x 128 / unit 32, balanced), at
+    M 4 and 32, each draw's grid depth kept in ``DRAW_DEPTH``: against
+    its plain version, timed
     beside its bound and torch.matmul on the decompacted weight (not its
     plain version: at command-r's head that decompacts 6.3 GB a call),
     with the route the Python mirror predicts (``griffin_spmm.kernel.
     route``, from the weight's grid depth) equal to the route the launch
     took (:func:`k2_route`).  Batch invariance at each config's w_down.
-    Then sparse_a at stablelm-1.6b's Mode.A shapes that llama's do not
-    cover (``STABLELM_K3``, B row-major): the FFN at every bucket's M
-    (``M_ROWS``) with two all-zero K blocks and with every block live, the
-    dense 2048 x 100352 head at M 4 and 32 with every block live; each
+    Then sparse_a at each ``k3`` (arch, shapes) pair's Mode.A shapes
+    (stablelm-1.6b's beyond llama's, ``STABLELM_K3``; chameleon-34b's
+    every leaf, ``CHAMELEON_K3``; B row-major): each layer leaf at every
+    bucket's M (``M_ROWS``) with two all-zero K blocks and with every
+    block live, the dense head at M 4 and 32 with every block live; each
     A's metadata bit-equal to the plain metadata, each output within
     tolerance of the plain version, every block live timed at M 4 and
     32."""
@@ -1785,7 +1940,7 @@ def kernel_dense_configs(torch, gen):
 
     dev, dt = torch.device("cuda"), torch.bfloat16
     rows = []
-    for arch, leaves in DENSE_SPMM.items():
+    for arch, leaves in spmm.items():
         for leaf, (k, n) in leaves.items():
             w = block_prune(torch.randn(k, n, generator=gen, device=dev),
                             0.8).to(dt)
@@ -1793,6 +1948,7 @@ def kernel_dense_configs(torch, gen):
             del w
             torch.cuda.empty_cache()
             nt, depth = gw.kidx.shape
+            DRAW_DEPTH[(arch, k, n)] = depth
             plan = split_plan(k, n, nt, gw.block_k, gw.block_n)
             if leaf == "w_down":
                 spmm_batch_invariance(torch, gen, gw)
@@ -1817,11 +1973,12 @@ def kernel_dense_configs(torch, gen):
                 print(f"[kernels] {json.dumps(row)}")
             del gw
             torch.cuda.empty_cache()
-    print(f"[kernels] the dense configs: griffin_spmm at "
-          f"{sum(map(len, DENSE_SPMM.values()))} shapes, M 4 and 32, agrees "
+    print(f"[kernels] {', '.join(spmm)}: griffin_spmm at "
+          f"{sum(map(len, spmm.values()))} shapes, M 4 and 32, agrees "
           "with its plain version and takes the route its Python mirror "
           "predicts")
-    for leaf, (k, n) in STABLELM_K3.items():
+    for arch, leaf, (k, n) in ((a, leaf, kn) for a, shapes in k3
+                               for leaf, kn in shapes.items()):
         w = (torch.randn(k, n, generator=gen, device=dev) /
              math.sqrt(k)).to(dt)
         for m in XLSTM_ROWS if leaf == "head" else M_ROWS:
@@ -1838,14 +1995,14 @@ def kernel_dense_configs(torch, gen):
                 if not (torch.equal(meta.kidx, kidx)
                         and torch.equal(meta.cnt, cnt)):
                     fail(f"sparse_a_meta differs from the plain metadata at "
-                         f"{STABLELM}'s {leaf}, {m} x {k}, {live}: cnt "
+                         f"{arch}'s {leaf}, {m} x {k}, {live}: cnt "
                          f"{meta.cnt.tolist()} vs {cnt.tolist()}")
                 out = sparse_a_matmul(x, w, meta=meta)
                 ref = sparse_a_ref(x, w, meta.kidx, meta.cnt,
                                    block_m=meta.block_m, block_k=meta.block_k)
                 torch.cuda.synchronize()
                 err, ok = within_tol(torch, out, ref, "bfloat16")
-                row = {"kernel": "sparse_a", "model": STABLELM, "leaf": leaf,
+                row = {"kernel": "sparse_a", "model": arch, "leaf": leaf,
                        "a": live, "dtype": "bfloat16", "m": m, "k": k,
                        "n": n, "block_m": meta.block_m,
                        "cnt": meta.cnt.tolist(),
@@ -1858,10 +2015,11 @@ def kernel_dense_configs(torch, gen):
                 rows.append(row)
         del w
         torch.cuda.empty_cache()
-    print(f"[kernels] the dense configs: sparse_a and its metadata at "
-          f"{STABLELM}'s {', '.join(STABLELM_K3)} agree with their plain "
-          "versions (FFN at M " + "/".join(map(str, M_ROWS)) + " with two "
-          "all-zero K blocks and with every block live)")
+    for arch, shapes in k3:
+        print(f"[kernels] sparse_a and its metadata at {arch}'s "
+              f"{', '.join(shapes)} agree with their plain versions (layer "
+              "leaves at M " + "/".join(map(str, M_ROWS)) + " with two "
+              "all-zero K blocks and with every block live)")
     return rows
 
 
@@ -2194,6 +2352,39 @@ def plain_route(torch):
         common.griffin_matmul = real
 
 
+def fp32_prefill(torch, api, params, batch):
+    """The last-token prefill logits of the transformer ``params`` with
+    every leaf widened to fp32 (compacted ones decompacted) one layer at a
+    time, through plain fp32 matmuls: the fp32 model's answer where no
+    fp32 twin fits beside the served weights (chameleon-34b's would take
+    137 GB); a layer's fp32 leaves are the only copy held."""
+    from repro_torch.kernels import GriffinWeights, decompact_weights
+    from repro_torch.models import transformer
+    from repro_torch.models.common import (griffin_linear, length_mask,
+                                           rms_norm, take_last)
+
+    cfg = dataclasses.replace(api.cfg, dtype="float32")
+
+    def wide(t):
+        if isinstance(t, GriffinWeights):
+            return decompact_weights(t)[:t.k].float()
+        return t.float()
+
+    tokens, lengths = batch["tokens"], batch.get("lengths")
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)
+    valid = None if lengths is None else length_mask(lengths, S)
+    x = params["embed"][tokens].float()
+    with plain_route(torch):
+        for i in range(cfg.num_layers):
+            lp = {k: wide(v) for k, v in transformer._layer(params, i).items()}
+            x = transformer.block_train(cfg, lp, x, positions, valid)[0]
+            del lp
+        x = rms_norm(x, params["final_norm"].float(), cfg.norm_eps)
+        last = x[:, -1] if lengths is None else take_last(x, lengths)
+        return griffin_linear(last, wide(transformer.unembed(cfg, params)))
+
+
 @contextlib.contextmanager
 def spied(module, attr: str, wrap):
     """``module.attr`` replaced by ``wrap(real)`` inside the scope."""
@@ -2309,7 +2500,8 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
                 launches: dict, dual, arena: dict, stats=None,
                 paged_ref=None, states=None, arch: str = "llama3.2-1b",
                 fp32_gap: bool = True, fp32_a=None, layers=None,
-                tokens_of=None, served_ref: bool = False, as_served=None):
+                tokens_of=None, served_ref: bool = False, as_served=None,
+                max_gap: float = MAX_PLAIN_GAP):
     """Serve the trace on one path and check it: ``launches`` maps each
     kernel to its launches per model call (or per (prefill, decode step)
     pair, :func:`per_calls`), ``dual`` the dual griffin_spmm GEMMs per
@@ -2321,20 +2513,24 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     taken before the checks below reuse the engine) goes in it under
     ``name``, for a fault cell to equal.  ``fp32_gap`` off skips the
     routes' gaps to the model widened to fp32 (recurrentgemma-9b's fp32
-    twin would take 42 GB beside the served weights and the bf16 twin).
+    twin would take 42 GB beside the served weights and the bf16 twin);
+    ``fp32_gap="streamed"`` takes them against the fp32 model computed a
+    layer at a time (:func:`fp32_prefill`).  ``max_gap`` bounds the kernel
+    route's prefill logit gap to the plain route.
     A family with a streamed build (mixtral-8x7b) reports the build's
     memory and the experts no row chose, and takes its plain route on the
     served weights (:func:`plain_route`); so does a path with
     ``served_ref`` (no dense twin fits beside its served weights), whose
-    build (``api.init`` then ``sparsify_params``) is reported the same
-    way.  An encoder-decoder (whisper) is held against the cast oracle and
-    its own checks (:func:`check_encdec`).  ``layers`` cuts the config's
+    whole set-up (the build and the trace) is reported the same way.  An
+    encoder-decoder (whisper) is held against the cast oracle and its own
+    checks (:func:`check_encdec`).  ``layers`` cuts the config's
     depth (printed as a cut; the widths stay the source's).  A path with
     ``tokens_of`` runs no oracle: its caller holds its tokens equal to
     that path's (:func:`check_same_tokens`).  A dense config's compacted
     leaves' K2 routes are printed and gated (:func:`check_routes`), and
-    the leaf ``as_served`` names is checked and timed as served
-    (:func:`served_rows`)."""
+    the leaf ``as_served`` names (with True: each stacked leaf whose served
+    grid depth differs from the kernel phase's draw, :func:`served_deeper`)
+    is checked and timed as served (:func:`served_rows`)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.griffin_spmm import kernel as k2
     from repro_torch.launch import serve as launch
@@ -2360,25 +2556,35 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     # is measured around the whole set-up
     build_fn = (launch, "_setup") if served_ref else \
         (launch, "init_sparse_params")
-    with spied(*build_fn, build_spy(torch, build)), \
+    key = (arch, sparsity, layers)
+    kept = kept_weights(torch, key)
+    t0 = time.perf_counter()
+    with (spied(*build_fn, build_spy(torch, build)) if kept is None else
+          contextlib.nullcontext()), \
             spied(launch, "get_config", lambda real: config_of), \
             spied(moe, "route", route_spy(routed)), \
             spied(k2, "griffin_spmm", fp32_a_spy(f32)):
         reset_launch_counts()
         routes0 = k2.route_launches()
         run = launch.serve(arch, sparsity=sparsity, seed=SEED,
-                           device="cuda", config=config, **TRACE)
+                           device="cuda", config=config,
+                           params=kept and kept["params"], **TRACE)
         got = launch_counts()
         routes1 = k2.route_launches()
+    seconds = {"build and serve": time.perf_counter() - t0}
+    kept = keep_weights(tag, key, name, run.params)
     eng = run.engine
     extra = {}
-    if arch in DENSE_SPMM:
+    if arch in K2_LEAVES:
         extra["k2_routes"] = check_routes(
             torch, name, tag, arch, run.params, eng.stats,
             {r: routes1[r] - routes0[r] for r in K2_ROUTES})
     if as_served is not None:
-        extra["as_served"] = served_rows(
-            torch, name, arch, as_served, run.params["layers"][as_served][0])
+        extra["as_served"] = [
+            row for leaf in ([as_served] if isinstance(as_served, str) else
+                             served_deeper(tag, arch, run.params))
+            for row in served_rows(torch, name, arch, leaf,
+                                   run.params["layers"][leaf][0])]
     if layers is not None:
         extra["num_layers"] = eng.api.cfg.num_layers
         if eng.api.cfg.num_layers != layers:
@@ -2387,8 +2593,9 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     if build:
         total = torch.cuda.get_device_properties(0).total_memory
         what = ("streamed build (sparsity.init_sparse_params)"
-                if build_fn[1] == "init_sparse_params" else
-                "build (api.init, then sparsity.sparsify_params)")
+                if sparsity > 0 and eng.api.draws is not None else
+                "build (api.init, then sparsity.sparsify_params)"
+                if sparsity > 0 else "build (api.init)")
         print(f"{tag} {what} "
               f"{build['seconds']:.1f}s: peak allocated "
               f"{build['peak_bytes'] / 2**30:.2f} GiB, resident after it "
@@ -2455,6 +2662,8 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
         n = launch.check_parity(run)
         print(f"{tag} parity OK: all {n} requests token-identical to the "
               "batch-1 greedy oracle")
+    seconds["checks and oracle"] = time.perf_counter() - t0 - \
+        sum(seconds.values())
 
     # no hidden host sync on the hot path: a bucketed prefill (and on a
     # paged arena its admission) and on the fused path a chunk, under
@@ -2483,6 +2692,7 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
     print(f"{tag} a prefill{', its admission' if ids else ''}"
           f"{' and a fused chunk' if eng.fused else ''} ran with no host "
           "sync")
+    seconds["sync check"] = time.perf_counter() - t0 - sum(seconds.values())
 
     # what comes out is right: the kernel route's prefill logits against
     # the same model through plain torch matmuls
@@ -2493,7 +2703,7 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
         # no dense twin fits beside the served weights, or it would crowd
         # the card: the plain versions on the served weights (under the
         # kernel route's routing, where experts route)
-        twin = None
+        truth = None
         with plain_route(torch), \
                 spied(moe, "top_k", replay_routing(torch, routing, flips)):
             _, ref = eng.api.prefill(run.params, batch, cache_len=64)
@@ -2504,36 +2714,89 @@ def phase_serve(torch, name: str, sparsity: float, a_sparsity, mode: str,
                   f"{sum(flips)} of {len(flips)} (layer) x "
                   f"{batch['tokens'].numel()} (token) routings")
     else:
-        twin = pruned_twin(torch, eng.api, sparsity)
-        with sparse_execution(use_kernels=False):
-            _, ref = eng.api.prefill(twin, batch, cache_len=64)
+        # the pruned twin's plain and fp32 logits: a later path on the
+        # same weights and prompt reuses them
+        rkey = (bool(fp32_gap), batch_key(torch, batch))
+        if rkey not in kept["refs"]:
+            twin = pruned_twin(torch, eng.api, sparsity)
+            with sparse_execution(use_kernels=False):
+                _, ref = eng.api.prefill(twin, batch, cache_len=64)
+                truth = eng.api.prefill(widened(twin), batch,
+                                        cache_len=64)[1] if fp32_gap else None
+            del twin
+            kept["refs"][rkey] = ref, truth
+        ref, truth = kept["refs"][rkey]
     rel = rel_l2(logits, ref)
     if logits.shape != (1, eng.api.cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         fail(f"{name}: prefill logits shape {tuple(logits.shape)} or not "
              "finite")
-    if rel > 2e-2:
+    if rel > max_gap:
         fail(f"{name}: kernel-route logits differ from the plain route by "
-             f"{rel:.4f}")
+             f"{rel:.4f} > {max_gap}")
     # how much of that gap each bf16 route owns: both against the same
     # model with every leaf widened to fp32
     gaps = {"plain": rel, "fp32_kernel": None, "fp32_plain": None}
+    if fp32_gap == "streamed":
+        truth = fp32_prefill(torch, eng.api, run.params, batch)
     if fp32_gap:
-        with sparse_execution(use_kernels=False):
-            _, truth = eng.api.prefill(widened(twin), batch, cache_len=64)
         gaps.update(fp32_kernel=rel_l2(logits, truth),
                     fp32_plain=rel_l2(ref, truth))
         if gaps["fp32_kernel"] > FP32_GAP_RATIO * gaps["fp32_plain"]:
             fail(f"{name}: the kernel route is {gaps['fp32_kernel']:.5f} "
                  f"from the fp32 model, more than {FP32_GAP_RATIO} x the "
                  f"plain route's {gaps['fp32_plain']:.5f}")
-    del twin
     fp32 = ("not measured" if not fp32_gap else
             f"kernel route {gaps['fp32_kernel']:.5f}, plain route "
             f"{gaps['fp32_plain']:.5f}")
     print(f"{tag} prefill logits finite, relative L2 gap to the plain route "
           f"{rel:.5f}; to fp32: {fp32}")
+    seconds["logit gaps"] = time.perf_counter() - t0 - sum(seconds.values())
+    extra["seconds"] = seconds
+    print(f"{tag} seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in seconds.items()))
     return run, got, gaps, extra
+
+
+def batch_key(torch, batch: dict) -> tuple:
+    """A prefill batch's tensors as bytes, to key what it gave."""
+    return tuple((k, str(v.dtype), tuple(v.shape), v.cpu().contiguous()
+                  .reshape(-1).view(torch.uint8).numpy().tobytes())
+                 if isinstance(v, torch.Tensor) else (k, repr(v))
+                 for k, v in sorted(batch.items()))
+
+
+def kept_weights(torch, key: tuple):
+    """``WEIGHTS``' entry for ``key`` (arch, sparsity, layers), or None
+    once :func:`drop_weights` has made room for its build."""
+    kept = WEIGHTS.get(key)
+    if kept is None:
+        drop_weights(torch, key[0])
+    return kept
+
+
+def keep_weights(tag: str, key: tuple, name: str, params) -> dict:
+    """Keep path ``name``'s weights under ``key`` if none are kept yet;
+    a later path serving the kept ones says whose they are."""
+    kept = WEIGHTS.get(key)
+    if kept is None:
+        kept = WEIGHTS[key] = {"params": params, "path": name, "refs": {}}
+    elif kept["params"] is params:
+        print(f"{tag} serves {kept['path']}'s weights (the same seeded "
+              "draw), built once")
+    return kept
+
+
+def drop_weights(torch, arch=None) -> None:
+    """Before a build for ``arch``: drop the kept weights of every other
+    arch, and every tree above ``KEEP_BYTES`` (two trees of a large
+    model never share the card); with no ``arch``, all of them."""
+    for key in list(WEIGHTS):
+        if key[0] != arch or \
+                param_bytes(torch, WEIGHTS[key]["params"]) > KEEP_BYTES:
+            del WEIGHTS[key]
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check_routes(torch, name: str, tag: str, arch: str, params, st,
@@ -2543,13 +2806,13 @@ def check_routes(torch, name: str, tag: str, arch: str, params, st,
     the leaf's K: each layer slice of a stacked leaf shares the stack's
     grid depth (the deepest member's), so its route.  Counted by leaf,
     shape and route and printed; every leaf's shape is one the kernel
-    phase holds the mirror against (``DENSE_SPMM``).  Each slice runs once
+    phase holds the mirror against (``K2_LEAVES``).  Each slice runs once
     a model call, so ``taken``, the run's launches per route as the C++
     entry counts them, must be the slices on each route times the calls."""
     from repro_torch.kernels import GriffinWeights
     from repro_torch.kernels.griffin_spmm.kernel import MAX_SMEM, route
 
-    shapes = set(DENSE_SPMM[arch].values())
+    shapes = set(K2_LEAVES[arch].values())
     out = {}
 
     def walk(tree, path):
@@ -2588,14 +2851,19 @@ def check_routes(torch, name: str, tag: str, arch: str, params, st,
     return {"leaves": out, "launches": taken}
 
 
-def phase_dense_configs(torch, clock, serves: dict) -> None:
-    """Serve ``DENSE_PATHS`` in order, each path's record into ``serves``
-    and its seconds on the clock; a path with ``tokens_of`` runs no oracle
-    of its own and must give that earlier path's tokens."""
+def phase_dense_configs(torch, clock, serves: dict, paths=DENSE_PATHS,
+                        profile_steps=None) -> None:
+    """Serve ``paths`` (the dense configs', or ``VLM_PATHS``) in order,
+    each path's record into ``serves`` and its seconds on the clock; a
+    path with ``tokens_of`` runs no oracle of its own and must give that
+    earlier path's tokens.  With ``profile_steps`` each path also profiles
+    a fused chunk of that many decode steps (:func:`chunk_profile`)."""
     tokens = {}
-    for name, path in DENSE_PATHS.items():
+    for name, path in paths.items():
         tokens_of = path.get("tokens_of")
         run, launches, gaps, extra = phase_serve(torch, name, **path)
+        if profile_steps:
+            extra["profile"] = chunk_profile(torch, name, run, profile_steps)
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, name, run)
         serves[name] = serve_record(run, launches, gaps, extra)
@@ -2783,12 +3051,16 @@ def phase_fault(torch, name: str, card: str, unfaulted: dict, path: str,
     t0 = time.perf_counter()
     if snap is not None:
         shutil.rmtree(snap, ignore_errors=True)
+    key = ("llama3.2-1b", cell["sparsity"], None)
+    kept = kept_weights(torch, key)
     reset_launch_counts()
     try:
         run = launch.serve("llama3.2-1b", sparsity=cell["sparsity"],
                            device="cuda", config=config,
+                           params=kept and kept["params"],
                            **dict(TRACE, requests=requests))
         got = launch_counts()
+        keep_weights(tag, key, name, run.params)
         eng = run.engine
         if snap is not None:
             man = read_manifest(str(snap))
@@ -3032,6 +3304,7 @@ def phase_long_window(torch, run, name: str, long: dict, launches: dict,
     else:
         twin = pruned_twin(torch, api, sparsity)
         plain = sparse_execution(use_kernels=False)
+    t1 = time.perf_counter()
     with plain:
         ref_cache, ref = api.prefill(twin, batch, cache_len=clen)
         gaps = [rel_l2(outs[0], ref)]
@@ -3039,13 +3312,15 @@ def phase_long_window(torch, run, name: str, long: dict, launches: dict,
             ref, ref_cache = api.decode_step(twin, ref_cache,
                                              feed[:, t:t + 1])
             gaps.append(rel_l2(outs[t + 1], ref))
+    plain_s = time.perf_counter() - t1
     del twin
     row_gap = max(rows_rel_l2(cache[t], ref_cache[t]) for t in "kv")
     print(f"[{name}] {S}-token prompt, cache_len {clen} > "
           f"window {window}: K/V cache {tuple(cache['k'].shape)} rolled by "
           f"{S % window}; prefill {prefill_s:.3f}s, with {steps} decode "
           f"steps (slots {(S) % window}..{(S + steps - 1) % window}) "
-          f"{seconds:.3f}s; memory rise {rise / 2**30:.3f} GiB over "
+          f"{seconds:.3f}s (the plain route's {plain_s:.3f}s); memory rise "
+          f"{rise / 2**30:.3f} GiB over "
           f"{base / 2**30:.3f} GiB; launches {got}; logits relative L2 "
           f"gap to the plain route: prefill {gaps[0]:.5f}, steps "
           f"{', '.join(f'{g:.5f}' for g in gaps[1:])}; largest per-row "
@@ -3055,7 +3330,8 @@ def phase_long_window(torch, run, name: str, long: dict, launches: dict,
              f" {S + steps} x {len(flips) // (1 + steps)}" if flips else "")
           + ("" if replay else "; free routing: reported, not gated"))
     record = {"prompt": S, "cache_len": clen, "prefill_seconds": prefill_s,
-              "seconds": seconds, "memory_rise_bytes": rise,
+              "seconds": seconds, "plain_seconds": plain_s,
+              "memory_rise_bytes": rise,
               "memory_before_bytes": base, "launches": got,
               "logits_rel_l2": gaps, "cache_row_rel_l2": row_gap,
               "routing_flips": sum(flips) if flips else None}
@@ -3248,17 +3524,21 @@ def phase_router(torch, name: str, sparsity: float, a_sparsity, mode: str,
                         "waiting" if hit else "none"))
         return hit
 
+    key = ("llama3.2-1b", sparsity, None)
+    kept = kept_weights(torch, key)
     t0 = time.perf_counter()
     ServeEngine.cancel = guarded
     reset_launch_counts()
     try:
         run = launch.route("llama3.2-1b", sparsity=sparsity, device="cuda",
-                           config=config, **trace)
+                           config=config, params=kept and kept["params"],
+                           **trace)
     except Exception as e:                  # noqa: BLE001 - any is a failure
         fail(f"{name}: the routed run raised {e!r}")
     finally:
         ServeEngine.cancel = cancel
     got = launch_counts()
+    keep_weights(tag, key, name, run.params)
     router = run.router
     calls = run.model_calls
     summary = run.summary()
@@ -3508,13 +3788,14 @@ def phase_profile(torch, name: str, run):
     return wall_ms, by_name
 
 
-def moe_profile(torch, name: str, run, steps: int = 4) -> dict:
-    """On every moe path, not only with ``--profile``: one fused chunk of
-    ``steps`` decode steps on the drained arena (every slot decodes) under
-    torch.profiler with device activity only (a mixtral engine run under
-    the full profiler takes minutes to process): device ops per model
-    call, the device's busy share of the wall and griffin_spmm's device
-    ms per model call."""
+def chunk_profile(torch, name: str, run, steps: int = 4) -> dict:
+    """On every moe and vlm path, not only with ``--profile``: one fused
+    chunk of ``steps`` decode steps on the drained arena (every slot
+    decodes) under torch.profiler with device activity only (a mixtral
+    engine run under the full profiler takes minutes to process): device
+    ops per model call, the device's busy share of the wall and the
+    device ms per model call of griffin_spmm, sparse_a and its
+    metadata kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = run.engine
@@ -3535,17 +3816,25 @@ def moe_profile(torch, name: str, run, steps: int = 4) -> dict:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in kernels) / 1e3
-    spmm = sum(e.device_time_total for e in kernels
-               if "spmm_" in e.name) / 1e3
+
+    def ms(*match, but="\0"):
+        return sum(e.device_time_total for e in kernels
+                   if any(m in e.name for m in match)
+                   and but not in e.name) / 1e3 / steps
+
     record = {"steps": steps, "wall_ms": wall_ms,
               "ops_per_call": len(kernels) / steps,
               "busy_share": busy / wall_ms,
-              "griffin_spmm_ms_per_call": spmm / steps}
+              "griffin_spmm_ms_per_call": ms("spmm_"),
+              "sparse_a_ms_per_call": ms("sparse_a_", but="meta"),
+              "sparse_a_meta_ms_per_call": ms("sparse_a_meta")}
     print(f"[profile {name}] a {steps}-step fused chunk, {eng.num_slots} "
           f"slots: {wall_ms:.1f} ms wall, {len(kernels) / steps:.1f} "
           f"device ops a step, device busy {busy:.1f} ms = "
-          f"{busy / wall_ms:.3f} of wall, griffin_spmm "
-          f"{spmm / steps:.3f} ms a step")
+          f"{busy / wall_ms:.3f} of wall; a step: griffin_spmm "
+          f"{record['griffin_spmm_ms_per_call']:.3f} ms, sparse_a "
+          f"{record['sparse_a_ms_per_call']:.3f} ms, sparse_a_meta "
+          f"{record['sparse_a_meta_ms_per_call']:.3f} ms")
     return record
 
 
@@ -3699,12 +3988,13 @@ def kernel_cases(streams):
     return cases
 
 
-def phase_cycle_model(torch):
+def phase_cycle_model(torch, sweep=fig8_sweep):
     """The paper's cycle model: the Figure 8 sweep through the port's DSE
-    engine on the host, then every cycles-only stream it scheduled through
-    the batch_eval kernel on the card, its cycles held equal to the numpy
-    engine's; the kernel against its plain version; times on the largest
-    stream."""
+    engine on the host (``sweep()``: :func:`fig8_sweep`'s result, or the
+    waiting end of :func:`in_background`'s run of it), then every
+    cycles-only stream it scheduled through the batch_eval kernel on the
+    card, its cycles held equal to the numpy engine's; the kernel against
+    its plain version; times on the largest stream."""
     import numpy as np
     from repro_torch.core.scheduler import (schedule, schedule_batched,
                                             shuffle_lanes)
@@ -3713,9 +4003,11 @@ def phase_cycle_model(torch):
     from repro_torch.kernels.batch_eval.ref import schedule_cycles_ref
 
     t_phase = time.perf_counter()
-    rows, groups, sweep_s = fig8_sweep()
-    print(f"[cycle_model] Figure 8 sweep (numpy engine, host): {sweep_s:.1f}"
-          f"s, {len(groups)} cycles-only full-length groups captured")
+    rows, groups, sweep_s = sweep()
+    print(f"[cycle_model] Figure 8 sweep (numpy engine, host"
+          f"{'' if sweep is fig8_sweep else ', beside the kernel build'}): "
+          f"{sweep_s:.1f}s, {len(groups)} cycles-only full-length groups "
+          "captured")
     check_fig8(rows)
 
     streams = split_by_config(groups)
@@ -4257,6 +4549,29 @@ def phase_train(torch, card: str) -> tuple:
     return launches, record
 
 
+def in_background(fn):
+    """Start ``fn()`` on a daemon thread; the returned callable waits for
+    it and returns its result (or raises what it raised).  The host-only
+    Figure 8 sweep runs so while the main thread waits on nvcc."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:          # noqa: BLE001 - re-raised
+            out["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+    return result
+
+
 class PhaseClock:
     """Each phase's wall seconds, printed on a line of its own as the phase
     ends (a phase runs from the previous one's end)."""
@@ -4289,11 +4604,13 @@ def main() -> None:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     clock = PhaseClock()
+    sweep = in_background(fig8_sweep)
     build_s = phase_build(build)
     clock.done("build")
     rows, summary = phase_kernels(torch)
     clock.done("kernels")
     serves, long_prefill, paged_ref, unfaulted = {}, None, None, {}
+    tokens = {}
     for name, path in PATHS.items():
         keep = any(c["path"] == name and c.get("snapshot_dir") is None
                    for c in FAULT_CELLS.values())
@@ -4303,6 +4620,10 @@ def main() -> None:
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, name, run)
         serves[name] = serve_record(run, launches, gaps, extra)
+        tokens[name] = {r: o.tokens for r, o in run.engine.outputs.items()}
+        if path.get("tokens_of"):
+            check_same_tokens(name, run, tokens[path["tokens_of"]],
+                              path["tokens_of"])
         if name == "sparse_b_paged":
             paged_ref = {"kv_bytes": extra["kv_bytes"], "tokens": {
                 r: o.tokens for r, o in run.engine.outputs.items()}}
@@ -4317,6 +4638,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         clock.done(name)
     phase_dense_configs(torch, clock, serves)
+    phase_dense_configs(torch, clock, serves, VLM_PATHS, profile_steps=1)
     xlstm_tokens = xlstm_prefill = None
     for name, path in XLSTM_PATHS.items():
         run, launches, gaps, extra = phase_serve(torch, name, arch=XLSTM,
@@ -4379,8 +4701,8 @@ def main() -> None:
         clock.done(name)
         # always: device ops per model call, the device's busy share and
         # griffin_spmm's device time, Mode.AB's dual walk against Sparse.B's
-        moe_profiles[name] = extra["profile"] = moe_profile(torch, name,
-                                                            run)
+        moe_profiles[name] = extra["profile"] = chunk_profile(torch, name,
+                                                              run)
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, name, run)
         serves[name] = serve_record(run, launches, gaps, extra)
@@ -4402,6 +4724,7 @@ def main() -> None:
           f"chunk): Mode.AB (dual) {ab:.3f}, Sparse.B {sb:.3f}, ratio "
           f"{ab / sb:.3f}; experts no row chose per (layer, decode step): "
           f"{serves['moe_mode_ab']['empty_experts']}; {card}")
+    drop_weights(torch)
     launches, train_record = phase_train(torch, card)
     serves["train"] = {"launches": launches}
     gc.collect()
@@ -4419,9 +4742,10 @@ def main() -> None:
             phase_profile_router(torch, name, run)
         del run
         torch.cuda.empty_cache()
+    drop_weights(torch)
     clock.done("router")
     launches, cycle_checks, cycle_summary, cycle_model = \
-        phase_cycle_model(torch)
+        phase_cycle_model(torch, sweep)
     serves["cycle_model"] = {"launches": launches}
     rows += cycle_checks
     summary["batch_eval"] = cycle_summary

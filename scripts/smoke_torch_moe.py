@@ -49,7 +49,7 @@ def main() -> None:
     for name, path in cs.MOE_PATHS.items():
         run, launches, gaps, extra = cs.phase_serve(
             torch, name, arch=cs.MOE, fp32_gap=False, **path)
-        extra["profile"] = cs.moe_profile(torch, name, run)
+        extra["profile"] = cs.chunk_profile(torch, name, run)
         out[name] = cs.serve_record(run, launches, gaps, extra)
         clock.done(name)
         if name == "moe_sparse_b":

@@ -1,6 +1,6 @@
-"""Model / shape configuration: the dense decoder's, the mixture-of-experts
-family's, the ssm (xlstm) family's, the hybrid (recurrentgemma) family's
-and the audio (whisper) family's fields of
+"""Model / shape configuration: the dense decoder's, the vlm backbone's, the
+mixture-of-experts family's, the ssm (xlstm) family's, the hybrid
+(recurrentgemma) family's and the audio (whisper) family's fields of
 ``repro.configs.base.ModelConfig`` and the same ``reduced()`` rule, so a
 reduced config here has exactly the reference's dims; ``SHAPES`` is the
 reference's input-shape set and ``applicable_shapes(cfg)`` its assignment
@@ -25,8 +25,7 @@ class MoEConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (all four configs) | moe | ssm | hybrid
-                                # | audio ported; vlm not yet
+    family: str                 # dense | vlm | moe | ssm | hybrid | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -137,7 +136,7 @@ def get_config(name: str) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from . import (command_r_plus_104b, llama3_2_1b,  # noqa: F401
-                   llama4_scout_17b_a16e, minitron_8b, mixtral_8x7b,
-                   recurrentgemma_9b, stablelm_1_6b, whisper_large_v3,
-                   xlstm_1_3b)
+    from . import (chameleon_34b, command_r_plus_104b,  # noqa: F401
+                   llama3_2_1b, llama4_scout_17b_a16e, minitron_8b,
+                   mixtral_8x7b, recurrentgemma_9b, stablelm_1_6b,
+                   whisper_large_v3, xlstm_1_3b)

@@ -148,8 +148,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--families", default="dense",
                     help="comma-separated model families "
-                         f"(known: {','.join(sorted(FAMILY_ARCHS))}; "
-                         "the port serves all but vlm)")
+                         f"(known: {','.join(sorted(FAMILY_ARCHS))})")
     ap.add_argument("--sparsity", type=float, default=0.8)
     ap.add_argument("--budget", type=int, default=16,
                     help="candidate points enumerated per family")

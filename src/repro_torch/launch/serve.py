@@ -7,11 +7,15 @@ single-engine path.
     python -m repro_torch.launch.serve --arch llama3.2-1b --sparsity 0.8 \\
         --use-kernels --parity
 
-runs full-width llama3.2-1b on the CUDA card (``--arch mixtral-8x7b``
-serves the moe family, its compacted weights built one matrix at a time
-by ``sparsity.init_sparse_params``; ``--arch whisper-large-v3`` the audio
-family, each request carrying its encoder frames); ``--reduced --device
-cpu`` runs the reduced config on the host (the kernels' plain versions).
+runs full-width llama3.2-1b on the CUDA card (``--arch stablelm-1.6b``,
+``minitron-8b`` and ``command-r-plus-104b`` the dense family's other
+configs; ``--arch chameleon-34b`` the vlm family and ``--arch
+mixtral-8x7b`` the moe family, their compacted weights built one matrix
+at a time by ``sparsity.init_sparse_params``; ``--arch
+whisper-large-v3`` the audio family, each request carrying its encoder
+frames; ``xlstm-1.3b`` and ``recurrentgemma-9b`` the ssm and hybrid
+families); ``--reduced --device cpu`` runs the reduced config on the host
+(the kernels' plain versions).
 ``--page-size 16`` serves from the paged KV arena (``--num-pages`` sizes
 its pool, ``--kv-dtype int8`` quantizes its pages), ``--policy static``
 admits only into a drained pool, and ``--length-dist heavy`` draws
@@ -127,16 +131,18 @@ def _setup(arch: str, reduced: bool, sparsity: float, seed: int,
            device: Optional[str], econf: EngineConfig, requests: int,
            prompt_lens: Sequence[int], gen_lens: Sequence[int],
            arrival_every: int, length_dist: str, max_gen: Optional[int],
-           trace_seed: int, trace_kw: Dict):
+           trace_seed: int, trace_kw: Dict, params: Optional[Dict] = None):
     """(api, params, trace, config, plan): the model with seeded random
     weights on ``device``, pruned (and compacted with
     ``kernels.use_kernels``) to ``sparsity`` — full-width blocks
     128/128/32, the reduced config's 16/16/8, as in the reference — and
     the synthetic trace; the config's ``cache_len`` defaults to the
-    trace's bound.  ``plan`` is the family's entry of the plan file
-    ``kernels.plan`` names (None without one, or when the file has no
-    entry for the family: then the defaults serve, as in the reference),
-    applied to the compaction here and to every engine by the caller."""
+    trace's bound.  Given ``params`` (an earlier call's, same arguments),
+    they are served as they are and nothing is drawn.  ``plan`` is the
+    family's entry of the plan file ``kernels.plan`` names (None without
+    one, or when the file has no entry for the family: then the defaults
+    serve, as in the reference), applied to the compaction here and to
+    every engine by the caller."""
     if econf.arena.cache_len is None:
         econf = econf.with_fields(cache_len=EngineConfig.derive_cache_len(
             prompt_lens, gen_lens, length_dist))
@@ -150,17 +156,9 @@ def _setup(arch: str, reduced: bool, sparsity: float, seed: int,
             print(f"plan {econf.kernels.plan} has no entry for family "
                   f"{cfg.family!r}; serving with defaults")
     api = build_model(cfg, device=device)
-    if sparsity > 0 and econf.kernels.use_kernels and api.draws is not None:
-        # the moe family: compacted one matrix at a time, never holding
-        # the dense tree (mixtral-8x7b's does not fit the card)
-        params = init_sparse_params(api, api.generator(seed), sparsity,
-                                    plan=plan, **prune_for(reduced))
-    else:
-        params = api.init(api.generator(seed))
-        if sparsity > 0:
-            params = sparsify_params(params, sparsity,
-                                     compact=econf.kernels.use_kernels,
-                                     plan=plan, **prune_for(reduced))
+    if params is None:
+        params = _draw(api, sparsity, seed, econf.kernels.use_kernels, plan,
+                       reduced)
     if max_gen is None and length_dist == "heavy":
         max_gen = EngineConfig.heavy_gen_cap(gen_lens)
     reqs = synthetic_trace(cfg, num_requests=requests, seed=trace_seed,
@@ -169,6 +167,23 @@ def _setup(arch: str, reduced: bool, sparsity: float, seed: int,
                            length_dist=length_dist, max_gen=max_gen,
                            **trace_kw)
     return api, params, reqs, econf, plan
+
+
+def _draw(api, sparsity: float, seed: int, use_kernels: bool, plan,
+          reduced: bool) -> Dict:
+    """The seeded weights :func:`_setup` serves."""
+    if sparsity > 0 and use_kernels and api.draws is not None:
+        # the vlm and moe families: compacted one matrix at a time, never
+        # holding the dense tree (chameleon-34b's 68.6 GB and its
+        # compaction do not fit the card together; mixtral-8x7b's 93 GB
+        # alone do not)
+        return init_sparse_params(api, api.generator(seed), sparsity,
+                                  plan=plan, **prune_for(reduced))
+    params = api.init(api.generator(seed))
+    if sparsity > 0:
+        params = sparsify_params(params, sparsity, compact=use_kernels,
+                                 plan=plan, **prune_for(reduced))
+    return params
 
 
 def _sync(api) -> None:
@@ -204,7 +219,7 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
           sparsity: float = 0.8, seed: int = 0, trace_seed: int = 1,
           device: Optional[str] = "cuda",
           config: Optional[EngineConfig] = None, evict_after: int = 3,
-          **trace_kw) -> ServeRun:
+          params: Optional[Dict] = None, **trace_kw) -> ServeRun:
     """Build the model with seeded random weights on ``device``, prune
     (compact with ``config.kernels.use_kernels``), and serve a synthetic
     trace through one engine.  ``config`` (default ``EngineConfig()``)
@@ -215,7 +230,10 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
     streak of a delay spec).  ``length_dist="heavy"`` draws Pareto
     generation lengths capped at ``max_gen`` (default
     ``EngineConfig.heavy_gen_cap(gen_lens)``); ``trace_kw`` passes the
-    arrival process and SLO fields on to ``synthetic_trace``."""
+    arrival process and SLO fields on to ``synthetic_trace``.  ``params``,
+    an earlier run's weights for the same ``arch``, ``reduced``,
+    ``sparsity``, ``seed`` and kernels, are served instead of a new draw
+    (which would give the same bits)."""
     econf = config or EngineConfig()
     if econf.fault.inject is not None and \
             parse_fault_spec(econf.fault.inject).kind == "replica":
@@ -223,7 +241,8 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
                          "(router.replicas > 0)")
     api, params, reqs, econf, plan = _setup(
         arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
-        gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw)
+        gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw,
+        params)
     engine = ServeEngine(api, params, econf, plan=plan,
                          **fault_hooks(econf, api.device, evict_after))
     before = kernel_dispatch_counts()
@@ -337,14 +356,16 @@ def route(arch: str = "llama3.2-1b", *, reduced: bool = False,
           length_dist: str = "choice", max_gen: Optional[int] = None,
           sparsity: float = 0.8, seed: int = 0, trace_seed: int = 1,
           device: Optional[str] = "cuda",
-          config: Optional[EngineConfig] = None, **trace_kw) -> RouteRun:
-    """:func:`serve`'s model and trace served by ``config.router.replicas``
-    engines behind the SLO-aware router, as the reference's ``serve.py
-    --replicas N`` does (:func:`build_router`)."""
+          config: Optional[EngineConfig] = None,
+          params: Optional[Dict] = None, **trace_kw) -> RouteRun:
+    """:func:`serve`'s model and trace (``params`` as there) served by
+    ``config.router.replicas`` engines behind the SLO-aware router, as the
+    reference's ``serve.py --replicas N`` does (:func:`build_router`)."""
     econf = config or EngineConfig()
     api, params, reqs, econf, plan = _setup(
         arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
-        gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw)
+        gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw,
+        params)
     on_card = api.device.type == "cuda"
     _sync(api)
     mem0 = torch.cuda.memory_allocated(api.device) if on_card else 0

@@ -1,8 +1,8 @@
 """Model registry: one uniform API per architecture family — the
 counterpart of ``repro/models/registry.py`` (the dense family with all
 four of its configs, llama3.2-1b, stablelm-1.6b, minitron-8b and
-command-r-plus-104b; the moe, ssm, hybrid and audio families; vlm is not
-ported yet).
+command-r-plus-104b; the vlm backbone, chameleon-34b, through the same
+transformer API; the moe, ssm, hybrid and audio families).
 
 ``build_model(cfg, device)`` binds the family's functions to ``cfg`` and to
 the device the model runs on; the default is the CUDA card.  Analytic
@@ -37,7 +37,7 @@ class ModelApi:
     param_count: Callable[[], int]            # analytic, excludes embeddings
     param_count_total: Callable[[], int]
     # the family's draw order (``common.Draw``), where ``init`` follows one
-    # (the moe family): ``sparsity.init_sparse_params`` streams it
+    # (the vlm and moe families): ``sparsity.init_sparse_params`` streams it
     draws: Optional[Callable[[], list]] = None
 
     def generator(self, seed: int) -> torch.Generator:
@@ -67,7 +67,7 @@ def _transformer_api(cfg: ModelConfig, device: torch.device) -> ModelApi:
         param_count=lambda: _tf_param_count(cfg, active=True),
         param_count_total=lambda: _tf_param_count(cfg, active=False),
         draws=(functools.partial(transformer.param_draws, cfg)
-               if cfg.family == "moe" else None),
+               if cfg.family in ("vlm", "moe") else None),
     )
 
 
@@ -177,7 +177,7 @@ def build_model(cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = "cuda"
                 ) -> ModelApi:
     device = resolve_device(device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         return _transformer_api(cfg, device)
     if cfg.family == "ssm":
         return _xlstm_api(cfg, device)
@@ -185,8 +185,7 @@ def build_model(cfg: ModelConfig,
         return _rglru_api(cfg, device)
     if cfg.family == "audio":
         return _whisper_api(cfg, device)
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                              "(ROADMAP 1.12)")
+    raise ValueError(f"unknown family {cfg.family}")
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:

@@ -1,6 +1,7 @@
 """Decoder-only transformer (llama-style) — the counterpart of
-``repro/models/transformer.py`` for the dense and the mixture-of-experts
-families (mixtral with its sliding window, llama4-scout top-1).
+``repro/models/transformer.py`` for the dense family, the vlm backbone
+(chameleon: early-fusion token ids, QK-norm) and the mixture-of-experts
+family (mixtral with its sliding window, llama4-scout top-1).
 
 Parameters are a plain dict of tensors with the reference's layout:
 ``embed`` (V, D), ``final_norm`` (D,), ``layers`` holding every per-layer
@@ -43,15 +44,15 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def param_draws(cfg: ModelConfig):
-    """The moe family's draw order (``common.Draw``): the embedding, the
-    norm scales, then leaf by leaf each weight matrix one (layer) or
-    (layer, expert) slice at a time (wq, wk, wv, wo, the router, w_gate,
-    w_up, w_down), then the head.  ``init_params`` and
-    ``sparsity.init_sparse_params`` both follow it, so the second can
-    compact each slice before it draws the next."""
+    """The vlm and moe families' draw order (``common.Draw``): the
+    embedding, the norm scales (``qn``/``kn`` with QK-norm), then leaf by
+    leaf each weight matrix one (layer) or (layer, expert) slice at a time
+    (wq, wk, wv, wo, then the dense FFN's w_gate, w_up, w_down, or the
+    router and the experts' w_gate, w_up, w_down), then the head.
+    ``init_params`` and ``sparsity.init_sparse_params`` both follow it, so
+    the second can compact each slice before it draws the next."""
     L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    E = cfg.moe.num_experts
     lay = ("layers",)
     draws = [Draw(("embed",), (), (cfg.vocab_size, D), scale=1.0),
              Draw(("final_norm",), (), (D,), zeros=True),
@@ -63,11 +64,17 @@ def param_draws(cfg: ModelConfig):
     draws += [Draw(lay + ("wq",), (L,), (D, H * hd)),
               Draw(lay + ("wk",), (L,), (D, KVH * hd)),
               Draw(lay + ("wv",), (L,), (D, KVH * hd)),
-              Draw(lay + ("wo",), (L,), (H * hd, D)),
-              Draw(lay + ("moe", "router"), (L,), (D, E)),
-              Draw(lay + ("moe", "w_gate"), (L, E), (D, F)),
-              Draw(lay + ("moe", "w_up"), (L, E), (D, F)),
-              Draw(lay + ("moe", "w_down"), (L, E), (F, D))]
+              Draw(lay + ("wo",), (L,), (H * hd, D))]
+    if cfg.moe:
+        E = cfg.moe.num_experts
+        draws += [Draw(lay + ("moe", "router"), (L,), (D, E)),
+                  Draw(lay + ("moe", "w_gate"), (L, E), (D, F)),
+                  Draw(lay + ("moe", "w_up"), (L, E), (D, F)),
+                  Draw(lay + ("moe", "w_down"), (L, E), (F, D))]
+    else:
+        draws += [Draw(lay + ("w_gate",), (L,), (D, F)),
+                  Draw(lay + ("w_up",), (L,), (D, F)),
+                  Draw(lay + ("w_down",), (L,), (F, D))]
     if not cfg.tie_embeddings:
         draws.append(Draw(("head",), (), (D, cfg.vocab_size)))
     return draws
@@ -76,16 +83,17 @@ def param_draws(cfg: ModelConfig):
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random weights from ``gen`` on ``gen.device``: normal / sqrt(fan_in)
     GEMMs, unit-normal embeddings, zero norm scales (the reference's
-    scheme; the draws themselves differ from ``jax.random``'s).  The moe
-    family draws in :func:`param_draws`' order, one matrix at a time."""
-    if cfg.family == "moe":
+    scheme; the draws themselves differ from ``jax.random``'s).  The vlm
+    and moe families draw in :func:`param_draws`' order, one matrix at a
+    time; the dense family draws each stacked leaf whole."""
+    if cfg.family in ("vlm", "moe"):
         return init_from_draws(param_draws(cfg), gen, _dtype(cfg))
     if cfg.family == "audio":
         raise ValueError("the audio family is an encoder-decoder: "
                          "models.whisper.init_params draws it")
     if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP 1.12)")
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only "
+                         "transformer")
     dt = _dtype(cfg)
     dev = gen.device
     L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff

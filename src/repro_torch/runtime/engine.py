@@ -353,9 +353,9 @@ def _batch_axes(api: ModelApi) -> Dict[str, int]:
 def weight_sparsity(params: Any,
                     names: Sequence[str] = GEMM_WEIGHTS) -> float:
     """Mean sparsity of the weight GEMM leaves: ``GriffinWeights`` report
-    ``1 - density``, plain leaves their exact zero fraction — the B-side
-    input to ``select_mode``.  Reads values back to the host; called at
-    engine construction only."""
+    ``1 - density``, plain leaves their exact zero fraction
+    (:func:`zero_fraction`) — the B-side input to ``select_mode``.  Reads
+    values back to the host; called at engine construction only."""
     vals: List[float] = []
 
     def walk(t, name=""):
@@ -369,10 +369,22 @@ def weight_sparsity(params: Any,
                 walk(v, name)
         elif name in names and isinstance(t, torch.Tensor) and \
                 t.dim() >= 2 and t.numel() and t.is_floating_point():
-            vals.append(float(sparsity_of(t)))
+            vals.append(zero_fraction(t))
 
     walk(params)
     return float(np.mean(vals)) if vals else 0.0
+
+
+def zero_fraction(t: torch.Tensor) -> float:
+    """The exact fraction of zeros in ``t``, counted one (K, N) matrix of a
+    stacked leaf at a time: comparing the whole stack at once would hold a
+    mask and a float copy of it beside the weights (chameleon-34b's 17.3
+    GB w_gate stack beside its 63.9 GiB of dense weights does not fit the
+    card).  One host read a leaf."""
+    zeros = torch.zeros((), dtype=torch.int64, device=t.device)
+    for m in t.reshape(-1, *t.shape[-2:]):
+        zeros += (m == 0).sum()
+    return int(zeros) / t.numel()
 
 
 # ---------------------------------------------------------------------------

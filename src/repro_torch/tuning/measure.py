@@ -20,8 +20,7 @@ from ..models import build_model
 from ..runtime.config import EngineConfig
 from ..runtime.engine import ServeEngine, synthetic_trace
 
-# Representative arch per model family (the reference's mapping).  The
-# port serves every family but vlm.
+# Representative arch per model family (the reference's mapping).
 FAMILY_ARCHS: Dict[str, str] = {
     "dense": "llama3.2-1b", "moe": "mixtral-8x7b", "audio":
     "whisper-large-v3", "ssm": "xlstm-1.3b", "hybrid": "recurrentgemma-9b",
@@ -45,10 +44,6 @@ def tuning_workload(family: str, *, requests: int = 6, seed: int = 7,
     ``device="cpu"``), on a deterministic mixed prompt/gen trace."""
     if family not in FAMILY_ARCHS:
         raise ValueError(f"unknown family {family!r}")
-    if family == "vlm":
-        raise NotImplementedError(
-            f"family {family!r} ({FAMILY_ARCHS[family]}) is not ported yet "
-            "(ROADMAP 1.12)")
     cfg = get_config(FAMILY_ARCHS[family])
     if reduced:
         cfg = cfg.reduced()

@@ -538,15 +538,18 @@ def _device_state(eng):
 
 @pytest.fixture(scope="module")
 def family_small():
-    """The port's reduced mixtral-8x7b (the moe family, pruned 0.6 and
-    compacted through the streamed build), reduced xlstm-1.3b (the ssm
-    family) and reduced whisper-large-v3 (the audio family) with their
-    own seed-0 weights."""
+    """The port's reduced mixtral-8x7b (the moe family) and reduced
+    chameleon-34b (the vlm family), both pruned 0.6 and compacted through
+    the streamed build, reduced xlstm-1.3b (the ssm family) and reduced
+    whisper-large-v3 (the audio family) with their own seed-0 weights."""
     moe = build_model(get_config("mixtral-8x7b").reduced(), device="cpu")
+    vlm = build_model(get_config("chameleon-34b").reduced(), device="cpu")
     ssm = build_model(get_config("xlstm-1.3b").reduced(), device="cpu")
     audio = build_model(get_config("whisper-large-v3").reduced(),
                         device="cpu")
     return {"moe": (moe, init_sparse_params(moe, moe.generator(0), 0.6,
+                                            **PRUNE)),
+            "vlm": (vlm, init_sparse_params(vlm, vlm.generator(0), 0.6,
                                             **PRUNE)),
             "ssm": (ssm, ssm.init(ssm.generator(0))),
             "audio": (audio, audio.init(audio.generator(0)))}
@@ -556,7 +559,7 @@ def family_small():
 @pytest.mark.parametrize("kind", ["fixed", "stepwise", "paged",
                                   "paged_int8", "moe_fixed", "moe_paged",
                                   "ssm_fixed", "ssm_paged", "audio_fixed",
-                                  "audio_paged"])
+                                  "audio_paged", "vlm_fixed", "vlm_paged"])
 def test_recovered_engine_state_equals_unfaulted(small, family_small, kind,
                                                  phase):
     """A faulted and an unfaulted engine ticked in lockstep: after every
@@ -564,8 +567,9 @@ def test_recovered_engine_state_equals_unfaulted(small, family_small, kind,
     outputs, events, clock, Mode, measurement, stats, buckets, peak
     active slots, function sets, paging, and every device tensor bit for
     bit (int8 pages and scales, page table, pinned page rows) — is
-    equal.  The dense family on every engine kind; the moe family
-    (compacted, through the kernels' plain versions) and the ssm family
+    equal.  The dense family on every engine kind; the moe and the vlm
+    family (compacted, through the kernels' plain versions; the vlm's
+    QK-norm in every layer) and the ssm family
     on the fixed and the paged arena (the ssm's recurrent state does not
     track cache_len, so its paged arena degrades to the fixed one); the
     audio family, whose requests carry frames and whose cross K/V stay
@@ -576,7 +580,7 @@ def test_recovered_engine_state_equals_unfaulted(small, family_small, kind,
         tapi, tparams = family_small[family]
         kind = arena
     conf = _conf(kind)
-    if family == "moe":
+    if family in ("moe", "vlm"):
         conf = conf.with_fields(use_kernels=True)
     inj = _kill(phase)
     eng = ServeEngine(tapi, tparams, conf, fault_injector=inj)

@@ -980,9 +980,9 @@ def test_batch_eval_v2_routes_match_engine_and_plain(cuda, T, d1, route, kg):
 # configs served at full width (depth cut) on the card
 # ---------------------------------------------------------------------------
 
-# K x N of every K2 leaf of stablelm-1.6b, minitron-8b and
-# command-r-plus-104b (as chip_smoke.DENSE_SPMM), and mixtral-8x7b's w_down
-# and head
+# K x N of every K2 leaf of stablelm-1.6b, minitron-8b,
+# command-r-plus-104b and chameleon-34b (as chip_smoke.K2_LEAVES), and
+# mixtral-8x7b's w_down and head
 ROUTE_SHAPES = {
     "stablelm wq/wk/wv/wo": (2048, 2048), "stablelm w_gate/w_up": (2048, 5632),
     "stablelm w_down": (5632, 2048), "stablelm head": (2048, 100352),
@@ -991,7 +991,10 @@ ROUTE_SHAPES = {
     "minitron head": (4096, 256000), "command-r wq/wo": (12288, 12288),
     "command-r wk/wv": (12288, 1024), "command-r w_gate/w_up": (12288, 33792),
     "command-r w_down": (33792, 12288), "command-r head": (12288, 256000),
-    "mixtral w_down": (14336, 4096), "mixtral head": (4096, 32000)}
+    "mixtral w_down": (14336, 4096), "mixtral head": (4096, 32000),
+    "chameleon wq/wo": (8192, 8192), "chameleon wk/wv": (8192, 1024),
+    "chameleon w_gate/w_up": (8192, 22016),
+    "chameleon w_down": (22016, 8192), "chameleon head": (8192, 65536)}
 K2_KERNELS = {"tc": "spmm_tc_kernel", "core": "spmm_core_kernel"}
 
 
@@ -1014,8 +1017,9 @@ def _k2_kernels_run(fn):
 @pytest.mark.gpu
 @pytest.mark.parametrize("leaf", list(ROUTE_SHAPES))
 def test_k2_route_mirror_names_the_kernel_the_card_runs(cuda, leaf):
-    """At each K2 leaf shape of the three dense configs and at mixtral's
-    w_down and head (pruned 0.8 at 128 x 128 / unit 32, bf16), the route
+    """At each K2 leaf shape of the three dense configs and chameleon-34b,
+    and at mixtral's w_down and head (pruned 0.8 at 128 x 128 / unit 32,
+    bf16), the route
     ``griffin_spmm.kernel.route`` predicts from the weight's grid depth is
     the kernel the profiler sees run and the route the C++ entry counts
     (``route_launches``), at M 4 and 32, dual and not; the
@@ -1052,9 +1056,10 @@ def test_k2_route_mirror_names_the_kernel_the_card_runs(cuda, leaf):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "minitron-8b",
-                                  "command-r-plus-104b"])
+                                  "command-r-plus-104b", "chameleon-34b"])
 def test_dense_config_at_full_width_matches_oracle_on_card(cuda, arch):
-    """Each dense config at full width, cut to 2 layers, pruned 0.8 and
+    """Each dense config and chameleon-34b (QK-norm, its weights in the
+    vlm draw order) at full width, cut to 2 layers, pruned 0.8 and
     compacted: the engine (4 slots, chunks of 4) launches griffin_spmm 7 x
     2 + 1 = 15 times and dense_gemm never per model call, and every
     request equals the batch-1 greedy oracle; the prefill logits are
@@ -1095,6 +1100,74 @@ def test_dense_config_at_full_width_matches_oracle_on_card(cuda, arch):
         common.griffin_matmul = real
     rel = float((logits.float() - ref.float()).norm() / ref.float().norm())
     assert bool(torch.isfinite(logits).all()) and rel <= 2e-2, rel
+
+
+def _assert_trees_equal(got, ref, path=""):
+    if isinstance(ref, dict):
+        assert set(got) == set(ref), path
+        for key in ref:
+            _assert_trees_equal(got[key], ref[key], f"{path}/{key}")
+        return
+    if hasattr(ref, "b_comp"):
+        for f in ("b_comp", "kidx", "cnt", "inv_perm", "perm"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), (path, f)
+        return
+    assert torch.equal(got, ref), path
+
+
+@pytest.mark.gpu
+def test_chameleon_streamed_build_on_card_equals_sparsify_of_init(cuda):
+    """On the card, chameleon-34b at full width cut to 2 layers (which
+    fits twice): the streamed build equals ``sparsify_params(init_params(
+    ...))`` bit for bit, every leaf (``qn``/``kn`` included), and leaves
+    the generator where ``init`` leaves it."""
+    cfg = dataclasses.replace(get_config("chameleon-34b"), num_layers=2)
+    api = build_model(cfg, device=cuda)
+    g1, g2 = api.generator(0), api.generator(0)
+    got = init_sparse_params(api, g1, 0.8)
+    _assert_trees_equal(got, sparsify_params(api.init(g2), 0.8))
+    assert torch.equal(g1.get_state(), g2.get_state())
+    assert got["layers"]["qn"].shape == (2, 128)
+
+
+# every chameleon-34b GEMM leaf (K x N), B row-major, as Mode.A serves it
+CHAMELEON_K3 = {"wq/wo": (8192, 8192), "wk/wv": (8192, 1024),
+                "w_gate/w_up": (8192, 22016), "w_down": (22016, 8192),
+                "head": (8192, 65536)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("leaf", list(CHAMELEON_K3))
+def test_sparse_a_and_meta_at_chameleon_shapes(cuda, leaf, m):
+    """sparse_a and its metadata kernel at each chameleon-34b leaf (bf16,
+    B row-major), with two all-zero K blocks and with every block live:
+    one metadata launch bit-equal to the plain metadata, one sparse_a
+    launch within tolerance of its plain version and of the dense
+    product."""
+    k, n = CHAMELEON_K3[leaf]
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    w = (torch.randn(k, n, generator=g, device=cuda) / k ** 0.5).bfloat16()
+    a = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    dead = a.clone()
+    dead[:, 128:384] = 0
+    for x in (a, dead):
+        before = launch_counts()
+        meta = compact_activations(x)
+        out = sparse_a_matmul(x, w, meta=meta)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert (after["sparse_a_meta"] - before["sparse_a_meta"],
+                after["sparse_a"] - before["sparse_a"]) == (1, 1)
+        kidx, cnt = compact_activations_ref(x, block_m=meta.block_m,
+                                            block_k=meta.block_k)
+        assert torch.equal(meta.kidx, kidx) and torch.equal(meta.cnt, cnt)
+        live = k // meta.block_k - (2 if x is dead else 0)
+        assert int(meta.cnt.max()) == live
+        ref = sparse_a_ref(x, w, meta.kidx, meta.cnt, block_m=meta.block_m,
+                           block_k=meta.block_k)
+        assert_close(out, ref, "bfloat16")
+        assert_close(out, (x.float() @ w.float()).bfloat16(), "bfloat16")
 
 
 # ---------------------------------------------------------------------------

@@ -625,10 +625,14 @@ def test_tuning_workload_families():
     assert (cfg.d_model, api.device.type, cache_len) == (64, "cpu", 27)
     reqs = trace()
     assert len(reqs) == 6 and [r.arrival for r in reqs] == list(range(6))
-    with pytest.raises(NotImplementedError, match="1.12"):
-        tuning_workload("vlm", reduced=True, device="cpu")
-    # the moe and audio families are served since their ports
-    # (tests/test_torch_moe.py, tests/test_torch_whisper.py)
+    cfg, api, params, cache_len, trace = tuning_workload(
+        "vlm", reduced=True, device="cpu")
+    assert (cfg.family, cfg.qk_norm, api.device.type) == ("vlm", True, "cpu")
+    assert params["layers"]["qn"].shape == params["layers"]["kn"].shape == \
+        (2, 16)
+    # the moe, audio and vlm families are served since their ports
+    # (tests/test_torch_moe.py, tests/test_torch_whisper.py,
+    # tests/test_torch_chameleon.py)
     assert tuning_workload("moe", reduced=True,
                            device="cpu")[0].family == "moe"
     cfg, api, params, cache_len, trace = tuning_workload(

@@ -752,8 +752,11 @@ def test_tuning_workload_serves_audio():
     assert cache_len == 27 and len(trace()) == 6
     assert trace()[0].extras["frames"].shape == (8, 64)
     assert params["enc_layers"]["attn"]["wq"].shape == (2, 64, 64)
-    with pytest.raises(NotImplementedError, match="1.12"):
-        tuning_workload("vlm", reduced=True, device="cpu")
+    cfg, api, params, cache_len, trace = tuning_workload(
+        "vlm", reduced=True, device="cpu")
+    assert (cfg.family, cfg.qk_norm, api.device.type) == ("vlm", True, "cpu")
+    assert params["layers"]["qn"].shape == params["layers"]["kn"].shape == \
+        (2, 16)
 
 
 def test_autotune_cli_tunes_audio_and_serve_reads_its_plan(tmp_path,
