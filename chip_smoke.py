@@ -107,6 +107,14 @@ Phases, in order; any failure exits non-zero before the result line:
              split, timed (events, as above) beside its device duration
              under torch.profiler (20 back-to-back launches, warm L2) and
              the launch floor: a one-element fill timed both ways.
+             The shard entries (``kernel_shards``): at llama's four
+             SPMM_SHAPES (griffin_spmm, dual off and on, sparse_a and
+             dense_gemm on the dense weight) and the tied head (dense_gemm
+             and sparse_a on embed.T), at M 4 and 32 over 2 and 4 model
+             ranks, and griffin_spmm at chameleon-34b's 22016 x 8192
+             w_down, whose whole weight takes the CUDA-core route: each
+             rank's columns gathered (K2: the inverse balance shuffle
+             after) bit-equal to the whole kernel.
 3. serve   - full-width llama3.2-1b (bf16, random weights from a seed)
              through repro_torch.launch.serve: 8 requests with prompt
              lengths 8/16/32 and generation lengths 4/8/16, decode_chunk
@@ -146,7 +154,22 @@ Phases, in order; any failure exits non-zero before the result line:
                           per admission) with the continuous and the
                           static policy; their stats equal STEPWISE_STATS,
                           which tests/test_torch_stepwise.py holds on the
-                          CPU for the same trace.
+                          CPU for the same trace;
+               mesh_2x2 - (after the paths above) sparse_b's trace,
+                          weights, slots and chunk on a 2x2 ("data",
+                          "model") mesh of four ranks spawned on the one
+                          card (launch.serve.serve_on_mesh; gloo on CUDA
+                          tensors, the backend line printed), each rank
+                          drawing the seeded tree on the card and keeping
+                          its share: per rank and model call griffin_spmm
+                          112x through its shard entry on half of every
+                          leaf's N tiles and dense_gemm 1x (the tied head's
+                          64128-column shard), no GEMM replicated or
+                          through the oracle; tokens equal sparse_b's (no
+                          oracle pass), every rank's host-state digest
+                          equal, at most 0.25 host syncs per token; each
+                          rank's tok/s beside sparse_b's and its gathers
+                          per model call with their host ms are printed.
              Launch counters are zeroed just before and read just after
              each engine run.  A later path of a family on the same seeded
              draw serves the first's weights (built once; a second build
@@ -249,12 +272,16 @@ Phases, in order; any failure exits non-zero before the result line:
              L2) of the plain route at the prefill and at every step, every
              K/V cache row within 5%, launches exactly 9 model calls' worth,
              memory rise within 3 GiB, seconds printed.
-             Then full-width mixtral-8x7b (32 layers, d=4096, 32 heads, GQA
-             8, head_dim 128, 8 experts top-2 with d_ff 14336, window 4096,
-             vocab 32000, untied head, bf16, seed 0; 46.7 B parameters,
-             93 GB of bf16, which do not fit the card): every earlier model
-             freed first, launch.serve builds its weights once for the
-             three paths, compacted one
+             Then mixtral-8x7b at full width, its depth cut to
+             ``MOE_LAYERS`` = 8 of its 32 layers (d=4096, 32 heads, GQA 8,
+             head_dim 128, 8 experts top-2 with d_ff 14336, window 4096,
+             vocab 32000, untied head, bf16, seed 0; at 32 layers 46.7 B
+             parameters, 93 GB of bf16, built compacted to 71.43 GiB on the
+             card in PR 29's runs; the cut keeps the smoke's wall within
+             its limit, and tests/test_torch_moe.py holds the launch gates
+             per model call on a depth-true 32-layer model on the CPU):
+             every earlier model freed first, launch.serve builds its
+             weights once for the three paths, compacted one
              matrix at a time (sparsity.init_sparse_params; the build's
              seconds, peak allocated bytes and resident bytes printed, the
              peak gated below the card's memory), on the same trace with the
@@ -262,16 +289,25 @@ Phases, in order; any failure exits non-zero before the result line:
              weights (no dense twin fits) and no gap to fp32, in three paths
              (``MOE_PATHS``):
                moe_sparse_b - pruned 0.8 at 128x128 / unit 32 and
-                          compacted, 4 slots: griffin_spmm 897x (per layer
-                          wq, wk, wv, wo and 8 experts x 3, then the head)
-                          and dense_gemm 32x (the routers, fp32 A against
-                          the weight upcast, skinny route) per model call;
+                          compacted, 4 slots: griffin_spmm 28x a layer (wq,
+                          wk, wv, wo and 8 experts x 3) + 1 (the head) and
+                          dense_gemm 1x a layer (the router, fp32 A against
+                          the weight upcast, skinny route) per model call
+                          (``MOE_PATHS`` holds the 32-layer counts, 897 and
+                          32; ``moe_at_depth`` scales them to the cut);
                moe_mode_ab - the same weights, declared activation sparsity
-                          0.5: griffin_spmm 897x dual, sparse_a 32x and
-                          sparse_a_meta 32x (the routers);
+                          0.5: griffin_spmm dual, sparse_a and sparse_a_meta
+                          1x a layer (the routers);
                moe_paged - moe_sparse_b's weights on sparse_b_paged's arena
                           (window 4096 >= cache_len); its tokens must equal
-                          moe_sparse_b's (no oracle of its own).
+                          moe_sparse_b's (no oracle of its own);
+               moe_full_depth - after them, the cut weights freed: the
+                          streamed build at all 32 layers (seconds, peak
+                          and resident bytes, the peak gated below the
+                          card's memory) and one 16-token prefill through
+                          it: 897 griffin_spmm + 32 dense_gemm launches, no
+                          plain GEMM, finite logits within 2 % of the plain
+                          route under the kernel route's routing.
              Each prints the experts no row chose per (layer, decode step)
              (what dual griffin_spmm skips whole) and, from one fused
              4-step chunk on the drained arena under torch.profiler
@@ -561,6 +597,21 @@ PATHS = {
                             stats=STEPWISE_STATS, tokens_of="sparse_b"),
 }
 TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
+# mesh serving: sparse_b's weights, trace, slots and chunk on a 2x2 mesh of
+# four ranks sharing the one card (gloo on CUDA tensors, launch.mesh's
+# backend rule): the slots split over the two data rows, every weight
+# GEMM's output columns over the two model ranks.  Per rank and model call
+# (its data row's prefills and every decode step) griffin_spmm 112x, each
+# through its shard entry on half the N tiles, and dense_gemm 1x (the tied
+# head, a 64128-column shard of embed.T); its tokens must equal sparse_b's.
+MESH = dict(spec="2x2", sparsity=0.8, arena=FIXED, launches=SB_LAUNCHES,
+            shard_gemms=113, tokens_of="sparse_b", max_syncs=0.25)
+# the kernels' shard entries, each rank's columns gathered against the
+# whole kernel (bit-equal): llama's four SPMM_SHAPES and the tied head at
+# M 4 and 32, over 2 and 4 model ranks, and chameleon-34b's w_down (22016 x
+# 8192), whose whole weight at 0.8 takes K2's CUDA-core route
+MESH_SHARDS = (2, 4)
+SHARD_CORE = (22016, 8192)
 # the ssm family: full-width xlstm-1.3b (6 groups of 7 mLSTM + 1 sLSTM) on
 # TRACE.  Per model call griffin_spmm runs its 121 compacted leaves (w_up
 # and w_down x 42, the sLSTM's six x 6, the untied head) and its 84 plain
@@ -644,6 +695,34 @@ MOE_PATHS = {
 # window straight through the model's prefill, then decode steps that
 # wrap the rolling cache
 MOE_LONG = dict(prompt=4200, cache_len=4224, steps=8)
+# the moe paths serve mixtral-8x7b at full width cut to MOE_LAYERS of its
+# MOE_DEPTH layers (the smoke's wall; PR 29's runs served all 32): every
+# count of MOE_PATHS but the head's one K2 launch is per layer
+MOE_DEPTH, MOE_LAYERS = 32, 8
+MOE_HEAD = {"griffin_spmm": 1}
+# moe_full_depth: the 32-layer streamed build (the memory the cut does not
+# show) and one prefill through it, after the cut paths
+MOE_FULL = dict(prompt=16, cache_len=32)
+
+
+def at_depth(count: int, head: int, full: int = MOE_DEPTH,
+             layers: int = MOE_LAYERS) -> int:
+    """A per-model-call ``count`` of a ``full``-layer model, ``head`` of it
+    outside the layers, at ``layers`` layers."""
+    if count == 0:
+        return 0
+    if (count - head) % full:
+        raise ValueError(f"{count} - {head} is not {full} layers' worth")
+    return (count - head) // full * layers + head
+
+
+def moe_at_depth(path: dict) -> dict:
+    """A ``MOE_PATHS`` entry at ``MOE_LAYERS``: its launch and dual gates
+    scaled, its config cut (``phase_serve``'s ``layers``)."""
+    launches = {k: at_depth(v, MOE_HEAD.get(k, 0))
+                for k, v in path["launches"].items()}
+    return dict(path, launches=launches, layers=MOE_LAYERS,
+                dual=at_depth(path["dual"], MOE_HEAD["griffin_spmm"]))
 # the audio family: full-width whisper-large-v3 (32 encoder + 32 decoder
 # layers, d 1280, 20 heads, d_ff 5120, 1500 frames a request, vocab 51866,
 # untied head) on TRACE, every request carrying its fp32 frames.  Every
@@ -1289,6 +1368,7 @@ def phase_kernels(torch):
                                  ((CHAMELEON, CHAMELEON_K3),))
     rows += kernel_sparse_a(torch, gen, summary)
     rows += kernel_meta(torch, gen, summary)
+    rows += kernel_shards(torch, gen)
     print(f"[kernels] {len(rows)} checks against the plain versions passed")
     return rows, summary
 
@@ -2251,6 +2331,172 @@ def kernel_sparse_a(torch, gen, summary):
         a[:4, 96:112] = 0
         meta_of(a, block_m=8, block_k=16, ragged=True)
     return rows
+
+
+def kernel_shards(torch, gen) -> list:
+    """The shard entries of K1, K2 and K3 (``MESH_SHARDS``): each model
+    rank's columns, gathered in rank order (K2: then the whole weight's
+    inverse balance shuffle, then the padding dropped), must equal the
+    whole kernel's output bit for bit, and so sit within the stated
+    tolerance of the plain version; K2's route (its Python mirror) must be
+    the whole weight's, CUDA-core at ``SHARD_CORE``."""
+    from repro_torch.kernels import (dense_matmul, griffin_matmul,
+                                     preprocess_weights, sparse_a_matmul)
+    from repro_torch.kernels.dense_gemm.ops import (DenseShard,
+                                                    dense_matmul_shard)
+    from repro_torch.kernels.dense_gemm.ref import dense_matmul_ref
+    from repro_torch.kernels.griffin_spmm import kernel as k2
+    from repro_torch.kernels.griffin_spmm.ops import griffin_matmul_shard
+    from repro_torch.kernels.griffin_spmm.ref import griffin_spmm_ref
+    from repro_torch.kernels.sparse_a.ops import sparse_a_matmul_shard
+    from repro_torch.runtime.sharding import _griffin_share
+    from repro_torch.sparsity import block_prune
+
+    dev = torch.device("cuda")
+    rows = []
+
+    def check(kernel, parts, whole, plain, **info):
+        out = torch.cat(parts, dim=1) if isinstance(parts, list) else parts
+        torch.cuda.synchronize()
+        err, ok = within_tol(torch, out, plain, "bfloat16")
+        row = dict(kernel=kernel, dtype="bfloat16", max_abs_err=err,
+                   bit_equal=bool(torch.equal(out, whole)), ok=ok, **info)
+        if not (row["ok"] and row["bit_equal"]):
+            fail(f"{kernel} shards differ from the whole kernel: {row}")
+        rows.append(row)
+
+    for k, n in SPMM_SHAPES + (SHARD_CORE,):
+        w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(
+            torch.bfloat16)
+        wp = block_prune(w, 0.8, 128, 32)
+        del w
+        gw = preprocess_weights(wp, block_k=128, block_n=128, unit=32)
+        for m in (4, 32):
+            a = torch.randn(m, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            a[:, 128:256] = 0           # a dead K block for the dual walk
+            route = k2.route(a, gw.b_comp, gw.kidx, n=n, block_k=128,
+                             block_n=128).name
+            if route != ("core" if (k, n) == SHARD_CORE else "tc"):
+                fail(f"griffin_spmm {k}x{n}: route {route}")
+            plain = griffin_spmm_ref(a, gw)
+            for shards in MESH_SHARDS:
+                for dual in (False, True):
+                    parts = [griffin_matmul_shard(a, _griffin_share(
+                        gw, r, shards), dual=dual) for r in range(shards)]
+                    out = torch.cat(parts, 1).index_select(
+                        1, gw.inv_perm.long())[:, :n]
+                    check("griffin_spmm", out,
+                          griffin_matmul(a, gw, dual=dual), plain, m=m, k=k,
+                          n=n, shards=shards, dual=dual, route=route)
+                if (k, n) == SHARD_CORE:
+                    continue
+                per = n // shards
+                cols = [DenseShard(wp[:, r * per:(r + 1) * per].contiguous(),
+                                   n, shards) for r in range(shards)]
+                ref = dense_matmul_ref(a, wp)
+                check("sparse_a", [sparse_a_matmul_shard(a, c) for c in cols],
+                      sparse_a_matmul(a, wp), ref, m=m, k=k, n=n,
+                      shards=shards)
+                check("dense_gemm", [dense_matmul_shard(a, c) for c in cols],
+                      dense_matmul(a, wp), ref, m=m, k=k, n=n, shards=shards)
+        del wp, gw
+    V, D = UNEMBED[1], UNEMBED[0]
+    emb = (torch.randn(V, D, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    for m in (4, 32):
+        a = torch.randn(m, D, generator=gen, device=dev).to(torch.bfloat16)
+        ref = dense_matmul_ref(a, emb.T)
+        for shards in MESH_SHARDS:
+            rows_per = V // shards
+            heads = [DenseShard(emb[r * rows_per:(r + 1) * rows_per].T, V,
+                                shards) for r in range(shards)]
+            check("dense_gemm", [dense_matmul_shard(a, h) for h in heads],
+                  dense_matmul(a, emb.T), ref, m=m, k=D, n=V, shards=shards,
+                  head=True)
+            check("sparse_a", [sparse_a_matmul_shard(a, h) for h in heads],
+                  sparse_a_matmul(a, emb.T), ref, m=m, k=D, n=V,
+                  shards=shards, head=True)
+    del emb
+    by = {}
+    for r in rows:
+        by[r["kernel"]] = by.get(r["kernel"], 0) + 1
+    print(f"[kernels] shard entries: {len(rows)} gathers bit-equal to the "
+          f"whole kernel over {MESH_SHARDS} model ranks ({by}); "
+          f"griffin_spmm {SHARD_CORE[0]}x{SHARD_CORE[1]} on the CUDA-core "
+          "route with its shards")
+    return rows
+
+
+def phase_mesh(torch, card: str, want: dict, sb: dict) -> dict:
+    """``MESH``: serve sparse_b's trace through ``launch.serve.serve_on_mesh``
+    (four ranks spawned, each drawing the seeded weights on the card and
+    keeping its share), then gate every rank: tokens equal to sparse_b's,
+    launches per model call exactly ``MESH["launches"]``, every weight GEMM
+    through a shard entry (none replicated, none through the oracle), at
+    most ``max_syncs`` host syncs per token, and one host-state digest on
+    all ranks.  Prints the backend line, each rank's tok/s beside
+    sparse_b's and its gathers per model call with their host ms."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.mesh import backend_line, serve_mesh
+    from repro_torch.runtime.config import EngineConfig
+
+    tag = "[serve mesh_2x2]"
+    print(f"{tag} {backend_line(serve_mesh(MESH['spec']), 'cuda')}; {card}")
+    config = EngineConfig().with_fields(decode_chunk=8, use_kernels=True,
+                                        **MESH["arena"])
+    t0 = time.perf_counter()
+    recs = launch.serve_on_mesh(MESH["spec"], device="cuda",
+                                arch="llama3.2-1b",
+                                sparsity=MESH["sparsity"], seed=SEED,
+                                config=config, **TRACE)
+    wall = time.perf_counter() - t0
+    if len({r["digest"] for r in recs}) != 1:
+        fail(f"mesh_2x2: the ranks' host states differ: "
+             f"{[r['digest'] for r in recs]}")
+    total = {k: 0 for k in recs[0]["launches"]}
+    for rec in recs:
+        st = rec["stats"]
+        calls = rec["prefills_here"] + st["decode_steps"]
+        want_l = {k: v * calls for k, v in MESH["launches"].items()}
+        got = {k: rec["launches"][k] for k in want_l}
+        d = rec["dispatch"]
+        syncs = st["host_syncs"] / max(st["emitted"], 1)
+        tps = st["emitted"] / max(rec["seconds"], 1e-9)
+        g, gs = rec["gathers"], rec["gather_s"]
+        print(f"{tag} rank {rec['rank']} ({rec['device']}, {rec['backend']}"
+              f"): {st['emitted']} tokens in {rec['seconds']:.3f}s = "
+              f"{tps:.1f} tok/s (sparse_b {sb['tokens_per_second']:.1f}); "
+              f"{calls} model calls ({rec['prefills_here']} of its row's "
+              f"prefills); launches {got}; dispatch {d}; {g['model']} "
+              f"gathers over 'model' = {g['model'] / calls:.1f} a model call"
+              f", {1e3 * gs['model'] / calls:.2f} ms a model call; "
+              f"{g['data']} over 'data' ({1e3 * gs['data']:.1f} ms); "
+              f"{syncs:.4f} host syncs/token; {rec['sharded_leaves']} "
+              "sharded leaves")
+        if rec["tokens"] != want:
+            fail(f"mesh_2x2 rank {rec['rank']}: tokens differ from "
+                 f"{MESH['tokens_of']}'s")
+        if got != want_l:
+            fail(f"mesh_2x2 rank {rec['rank']}: launches {got}, expected "
+                 f"{want_l}")
+        if d.get("shard", 0) != MESH["shard_gemms"] * calls or \
+                any(d.get(b, 0) for b in ("replicated", "spmd_oracle",
+                                          "kernel", "plain")):
+            fail(f"mesh_2x2 rank {rec['rank']}: dispatch {d}")
+        if syncs > MESH["max_syncs"] or rec["mode"] != "B":
+            fail(f"mesh_2x2 rank {rec['rank']}: {syncs} syncs/token, mode "
+                 f"{rec['mode']}")
+        for k, v in rec["launches"].items():
+            total[k] += v
+    print(f"{tag} 4 ranks equal to {MESH['tokens_of']} in tokens, one "
+          f"host-state digest; wall {wall:.1f}s with the spawn and the "
+          "ranks' weight builds")
+    return {"launches": total, "wall_s": wall,
+            "ranks": [{k: r[k] for k in ("rank", "stats", "launches",
+                                         "dispatch", "gathers", "gather_s",
+                                         "seconds", "prefills_here",
+                                         "digest")} for r in recs]}
 
 
 def kernel_meta(torch, gen, summary):
@@ -3706,6 +3952,83 @@ def check_running_cancel(torch, run) -> None:
     del paged
 
 
+def phase_moe_depth(torch, card: str) -> dict:
+    """mixtral-8x7b at its full ``MOE_DEPTH`` layers, which the serve
+    paths cut: every earlier model freed, the streamed build launch.serve
+    runs (``MOE_SB``'s pruning, seed ``SEED``; seconds, peak allocated and
+    resident bytes, the peak gated below the card's memory), then one
+    model call, a ``MOE_FULL["prompt"]``-token prefill of seeded ids,
+    gated on ``MOE_SB``'s 32-layer launches per model call, no plain GEMM
+    and finite logits, and held within 2 % relative L2 of the plain route
+    on the served weights under the kernel route's routing."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.common import (kernel_dispatch_counts,
+                                           sparse_execution)
+
+    tag = "[serve moe_full_depth]"
+    drop_weights(torch)
+    api = build_model(launch.get_config(MOE), device="cuda")
+    if api.cfg.num_layers != MOE_DEPTH:
+        fail(f"{tag} {MOE} has {api.cfg.num_layers} layers, not "
+             f"{MOE_DEPTH}")
+    build = {}
+    with spied(launch, "init_sparse_params", build_spy(torch, build)):
+        params = launch._draw(api, MOE_SB["sparsity"], SEED, True, None,
+                              False)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"{tag} {MOE} at all {MOE_DEPTH} layers: streamed build "
+          f"(sparsity.init_sparse_params) {build['seconds']:.1f}s: peak "
+          f"allocated {build['peak_bytes'] / 2**30:.2f} GiB, resident after "
+          f"it {build['resident_bytes'] / 2**30:.2f} GiB, of the card's "
+          f"{total / 2**30:.2f} GiB; {card}")
+    if build["peak_bytes"] >= total:
+        fail(f"{tag} the build's peak {build['peak_bytes']} B reaches the "
+             f"card's {total} B")
+    S = MOE_FULL["prompt"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(1, api.cfg.vocab_size, (1, S),
+                                     generator=gen, device="cuda")}
+    routing, flips = [], []
+    reset_launch_counts()
+    d0 = kernel_dispatch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sparse_execution(use_kernels=True), \
+            spied(moe, "top_k", record_routing(routing)):
+        _, logits = api.prefill(params, batch, cache_len=MOE_FULL["cache_len"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    d1 = kernel_dispatch_counts()
+    dispatch = {k: d1.get(k, 0) - d0.get(k, 0) for k in d1}
+    with plain_route(torch), \
+            spied(moe, "top_k", replay_routing(torch, routing, flips)):
+        _, ref = api.prefill(params, batch, cache_len=MOE_FULL["cache_len"])
+    gap = rel_l2(logits, ref)
+    print(f"{tag} one {S}-token prefill {seconds:.3f}s: launches {got}; "
+          f"dispatch {dispatch}; logits {tuple(logits.shape)}, relative L2 "
+          f"gap to the plain route {gap:.5f} (under the kernel route's "
+          f"routing, which it would have left in {sum(flips)} choices)")
+    if got != MOE_SB["launches"]:
+        fail(f"{tag} launches {got}, expected {MOE_SB['launches']} a model "
+             "call at 32 layers")
+    if dispatch.get("plain", 0):
+        fail(f"{tag} plain GEMMs on the kernel route: {dispatch}")
+    if tuple(logits.shape) != (1, api.cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{tag} logits {tuple(logits.shape)} not finite of (1, V)")
+    if not gap <= 0.02:
+        fail(f"{tag} prefill logits {gap:.5f} from the plain route")
+    record = {"build": build, "prefill_seconds": seconds, "launches": got,
+              "logits_rel_l2": gap, "routing_flips": sum(flips)}
+    del params, logits, ref, routing
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
 def rel_l2(x, ref) -> float:
     return float((x.float() - ref.float()).norm() / ref.float().norm())
 
@@ -4637,6 +4960,9 @@ def main() -> None:
         del run
         torch.cuda.empty_cache()
         clock.done(name)
+    serves["mesh_2x2"] = phase_mesh(torch, card, tokens[MESH["tokens_of"]],
+                                    serves[MESH["tokens_of"]])
+    clock.done("mesh_2x2")
     phase_dense_configs(torch, clock, serves)
     phase_dense_configs(torch, clock, serves, VLM_PATHS, profile_steps=1)
     xlstm_tokens = xlstm_prefill = None
@@ -4697,7 +5023,7 @@ def main() -> None:
     moe_profiles = {}
     for name, path in MOE_PATHS.items():
         run, launches, gaps, extra = phase_serve(
-            torch, name, arch=MOE, fp32_gap=False, **path)
+            torch, name, arch=MOE, fp32_gap=False, **moe_at_depth(path))
         clock.done(name)
         # always: device ops per model call, the device's busy share and
         # griffin_spmm's device time, Mode.AB's dual walk against Sparse.B's
@@ -4709,8 +5035,8 @@ def main() -> None:
         if name == "moe_sparse_b":
             moe_tokens = {r: o.tokens for r, o in run.engine.outputs.items()}
             moe_long = phase_long_window(
-                torch, run, "moe_long_window", MOE_LONG, MOE_SB["launches"],
-                MOE_SB["sparsity"])
+                torch, run, "moe_long_window", MOE_LONG,
+                moe_at_depth(MOE_SB)["launches"], MOE_SB["sparsity"])
             serves["moe_long_window"] = {"launches": moe_long["launches"]}
         if name == "moe_paged":
             check_same_tokens(name, run, moe_tokens, "moe_sparse_b")
@@ -4724,6 +5050,9 @@ def main() -> None:
           f"chunk): Mode.AB (dual) {ab:.3f}, Sparse.B {sb:.3f}, ratio "
           f"{ab / sb:.3f}; experts no row chose per (layer, decode step): "
           f"{serves['moe_mode_ab']['empty_experts']}; {card}")
+    moe_full = phase_moe_depth(torch, card)
+    serves["moe_full_depth"] = {"launches": moe_full["launches"]}
+    clock.done("moe_full_depth")
     drop_weights(torch)
     launches, train_record = phase_train(torch, card)
     serves["train"] = {"launches": launches}
@@ -4794,6 +5123,7 @@ def main() -> None:
               "xlstm_prefill": xlstm_prefill,
               "hybrid_long_window": hybrid_long,
               "moe_long_window": moe_long,
+              "moe_full_depth": moe_full,
               "train": train_record,
               "phase_s": clock.seconds,
               "cycle_model": cycle_model,

@@ -4,7 +4,7 @@ card's replacement for ``repro/kernels/dense_gemm/kernel.py``'s
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,14 +63,17 @@ def _fn():
     return fn
 
 
-def dense_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dense_gemm(a: torch.Tensor, b: torch.Tensor, *,
+               full_n: Optional[int] = None) -> torch.Tensor:
     """C = A @ B on the current stream, C in ``a.dtype``.  ``a`` is a
     contiguous CUDA (M, K) matrix; ``b`` a (K, N) matrix of a dtype in
     ``PAIR_CODES`` with ``a``'s, any strides (``embed.T`` is read in
-    place).  The caller (``ops.dense_matmul``) has validated both."""
+    place).  ``full_n``: the output width of the whole weight when ``b`` is
+    one shard of its columns, whose route the launch then takes (default
+    N).  The caller (``ops.dense_matmul``) has validated both."""
     m, k = a.shape
     n = b.shape[1]
-    slices = skinny_slices(k) if route(n) == "skinny" else 0
+    slices = skinny_slices(k) if route(full_n or n) == "skinny" else 0
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _fn()(PAIR_CODES[(a.dtype, b.dtype)], a.data_ptr(), b.data_ptr(),

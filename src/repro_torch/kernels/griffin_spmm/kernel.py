@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -125,9 +125,16 @@ def route(a: torch.Tensor, b_comp: torch.Tensor, kidx: torch.Tensor, *,
     if plan is None:
         return Route("core", 0)
     smem = tc_smem(k, max_cnt, block_k, plan)
-    tc = a.data_ptr() % 16 == 0 and b_comp.data_ptr() % 16 == 0 and \
-        a.stride(0) % 8 == 0 and k % 8 == 0 and smem <= MAX_SMEM
+    tc = _tc_aligned(a, b_comp) and smem <= MAX_SMEM
     return Route("tc" if tc else "core", smem)
+
+
+def _tc_aligned(a: torch.Tensor, b_comp: torch.Tensor) -> bool:
+    """The tensor-core route's alignment terms in ``csrc/griffin_spmm.cu``:
+    16-byte aligned A and ``b_comp``, A's row stride and K multiples of
+    8."""
+    return a.data_ptr() % 16 == 0 and b_comp.data_ptr() % 16 == 0 and \
+        a.stride(0) % 8 == 0 and a.shape[1] % 8 == 0
 
 
 def route_launches() -> dict:
@@ -149,23 +156,49 @@ def _fn():
     return fn
 
 
+def full_plan(k: int, max_cnt: int, full_n: int, full_tiles: int,
+              block_k: int, block_n: int, dtype: torch.dtype
+              ) -> Optional[SplitPlan]:
+    """The plan a launch of the whole (k, ``full_n``) weight in
+    ``full_tiles`` N tiles takes, or None where it takes the CUDA-core
+    route: fp32 A, no plan, or a tensor-core block that would not fit
+    (:func:`tc_smem`, which no shard of the weight changes; the launch
+    also checks the alignment terms, :func:`_tc_aligned`).  A shard of
+    the weight's N tiles launches with this plan, so each output's
+    summation order is the whole weight's on every mesh."""
+    if dtype != torch.bfloat16:
+        return None
+    plan = split_plan(k, full_n, full_tiles, block_k, block_n)
+    if plan is None or tc_smem(k, max_cnt, block_k, plan) > MAX_SMEM:
+        return None
+    return plan
+
+
 def griffin_spmm(a: torch.Tensor, b_comp: torch.Tensor, kidx: torch.Tensor,
                  cnt: torch.Tensor, perm: Optional[torch.Tensor], *, n: int,
-                 block_k: int, block_n: int, dual: bool) -> torch.Tensor:
+                 block_k: int, block_n: int, dual: bool,
+                 full: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(M, n) = A @ W_pruned from the compacted operands, on the current
     stream, in ``a.dtype`` (``b_comp`` bf16 against an fp32 ``a``, or
     ``a``'s dtype): the kernel stores each column where ``perm``
     (the balance shuffle, or None) sends it and drops the padding.  ``a``
     (M, K) may be narrower than the padded K the metadata counts; the
-    kernel masks the missing columns.  The caller (``ops.griffin_matmul``)
-    has validated every operand."""
+    kernel masks the missing columns.  ``full``: (N, N tiles) of the whole
+    weight when these operands are a shard of its N tiles; the launch then
+    takes the whole weight's plan and route (:func:`full_plan`).  The
+    caller (``ops.griffin_matmul`` or ``ops.griffin_matmul_shard``) has
+    validated every operand."""
     m, k = a.shape
     n_tiles, max_cnt = kidx.shape
     npad = b_comp.shape[1]
     # the tensor-core route takes bf16 A and weight; fp32 A (against either
     # weight dtype) runs on the CUDA cores
-    plan = split_plan(k, n, n_tiles, block_k, block_n) \
-        if a.dtype == torch.bfloat16 else None
+    if full is not None:
+        plan = full_plan(k, max_cnt, full[0], full[1], block_k, block_n,
+                         a.dtype) if _tc_aligned(a, b_comp) else None
+    else:
+        plan = split_plan(k, n, n_tiles, block_k, block_n) \
+            if a.dtype == torch.bfloat16 else None
     splits, cols, chunk = plan or (0, 0, 0)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream

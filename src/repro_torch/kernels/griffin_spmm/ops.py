@@ -254,6 +254,70 @@ def _check(a: torch.Tensor, gw: GriffinWeights) -> None:
         raise ValueError("griffin_matmul needs a contiguous A")
 
 
+@dataclasses.dataclass
+class GriffinShard(GriffinWeights):
+    """One model rank's share of a compacted weight on a serving mesh
+    (``runtime.sharding.shard_params``): ``b_comp``, ``kidx`` and ``cnt``
+    hold a contiguous run of N tiles, ``n_tiles / shards`` of them, a
+    complete kernel problem of its own (``kidx`` holds global K-block ids
+    and the contraction is never split).  ``k``, ``n`` and ``a_thr`` are
+    the whole weight's; ``inv_perm`` and ``perm`` stay None (the balance
+    shuffle is a global column permutation): ``gather_inv``, the whole
+    weight's inverse shuffle, is applied by the caller after the shards'
+    columns are gathered (``models.common.griffin_linear``)."""
+
+    gather_inv: Optional[torch.Tensor] = None
+    n_tiles: int = 0
+    shards: int = 1
+
+    def __getitem__(self, i) -> "GriffinShard":
+        out = super().__getitem__(i)
+        if self.gather_inv is not None:
+            out.gather_inv = self.gather_inv[i]
+        return out
+
+
+def shardable(gw: GriffinWeights, n_shards: int) -> bool:
+    """True when the compacted operands split into ``n_shards`` groups of
+    whole N tiles (the reference's predicate; the stacked axes, if any,
+    are the layers, each split alike)."""
+    return gw.kidx.dim() >= 2 and n_shards >= 1 and \
+        gw.kidx.shape[-2] % n_shards == 0
+
+
+def shard_specs(axis: str = "model"):
+    """(in specs, out spec) of :func:`griffin_matmul_shard`'s operands
+    (A, ``b_comp``, ``kidx``, ``cnt``) over mesh axis ``axis``, one entry
+    per tensor axis (None: whole): A whole, ``b_comp`` split on its padded
+    N, ``kidx`` and ``cnt`` on their N tiles, the output on N — the
+    reference's ``shard_specs`` as tuples."""
+    return ((), (None, axis), (axis, None), (axis,)), (None, axis)
+
+
+def griffin_matmul_shard(a: torch.Tensor, gw: GriffinShard, *,
+                         dual: bool = False) -> torch.Tensor:
+    """The shard entry: (M, tiles x block_n) = A @ this rank's N tiles, in
+    the shard's own (balanced) column order with its padding; the caller
+    gathers every rank's columns, then applies ``gather_inv`` and drops the
+    padding (the reference's ``_shard_map_run``).  On a CUDA ``a`` the
+    kernel launches with the whole weight's plan and route
+    (``kernel.full_plan``), so no output's summation order depends on the
+    mesh; on a CPU ``a`` the plain version runs."""
+    if not isinstance(gw, GriffinShard):
+        raise TypeError("griffin_matmul_shard takes a GriffinShard")
+    local = dataclasses.replace(gw, n=gw.b_comp.shape[-1])
+    _check(a, local)
+    if a.device.type == "cpu":
+        return griffin_spmm_ref(a, local)
+    if a.device.type != "cuda":
+        raise ValueError(f"griffin_matmul_shard runs on cuda or cpu, not "
+                         f"{a.device}")
+    return kernel.griffin_spmm(a, gw.b_comp, gw.kidx, gw.cnt, None,
+                               n=local.n, block_k=gw.block_k,
+                               block_n=gw.block_n, dual=dual,
+                               full=(gw.n, gw.n_tiles))
+
+
 def griffin_matmul(a: torch.Tensor, gw: GriffinWeights, *,
                    dual: bool = False) -> torch.Tensor:
     """C = A @ W_pruned (M, gw.n) from the compacted representation, in
@@ -262,6 +326,8 @@ def griffin_matmul(a: torch.Tensor, gw: GriffinWeights, *,
     CUDA ``a`` launches the kernel, which stores the balance shuffle's
     columns back in place and drops the padding (no gather follows); a CPU
     ``a`` runs the plain version."""
+    if isinstance(gw, GriffinShard):
+        raise TypeError("a GriffinShard runs through griffin_matmul_shard")
     _check(a, gw)
     if a.device.type == "cpu":
         return griffin_spmm_ref(a, gw)

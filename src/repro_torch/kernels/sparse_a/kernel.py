@@ -109,16 +109,20 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
-def route(a: torch.Tensor, b: torch.Tensor, block_k: int
-          ) -> Tuple[int, Optional[SplitPlan]]:
+def route(a: torch.Tensor, b: torch.Tensor, block_k: int,
+          full_n: Optional[int] = None) -> Tuple[int, Optional[SplitPlan]]:
     """Which body runs ``A @ B``, and its plan: the tensor-core rows route
     for bf16 with row-major B, the tensor-core k-major route for bf16 with
     k-contiguous B (``embed.T``), the CUDA-core route for fp32 A (against
     an fp32 or a bf16 B) and for what
     the tensor cores cannot take (bk not a multiple of 16; K, a row stride
     or a pointer not 16-byte aligned).  Depends on the dtype, the shapes,
-    strides and alignment, never on M or the data."""
+    strides and alignment, never on M or the data.  ``full_n``: the whole
+    weight's N when ``b`` is a shard of its columns; the route and plan
+    are then the whole weight's (a shard that cannot take them is refused
+    by the launch)."""
     k, n = b.shape
+    n = full_n or n
     if a.dtype != torch.bfloat16 or k % 8 or a.stride(0) % 8 or \
             not (_aligned(a) and _aligned(b)):
         return CORE, None
@@ -143,17 +147,18 @@ def _fn(symbol: str, argtypes):
 
 
 def sparse_a_gemm(a: torch.Tensor, b: torch.Tensor, kidx: torch.Tensor,
-                  cnt: torch.Tensor, *, block_m: int, block_k: int
-                  ) -> torch.Tensor:
+                  cnt: torch.Tensor, *, block_m: int, block_k: int,
+                  full_n: Optional[int] = None) -> torch.Tensor:
     """(M, N) = A @ B over the K blocks ``kidx[i, :cnt[i]]`` of each M tile
     i, on the current stream, in ``a.dtype`` (``b`` bf16 against an fp32
     ``a``, or ``a``'s dtype).  ``b`` may have any strides
-    (``embed.T`` is read in place).  The caller (``ops.sparse_a_matmul``)
-    has validated every operand."""
+    (``embed.T`` is read in place).  ``full_n``: as in :func:`route`.  The
+    caller (``ops.sparse_a_matmul`` or ``ops.sparse_a_matmul_shard``) has
+    validated every operand."""
     m, k = a.shape
     n = b.shape[1]
     m_tiles, max_cnt = kidx.shape
-    path, plan = route(a, b, block_k)
+    path, plan = route(a, b, block_k, full_n)
     splits, cols, chunk = plan or (0, 0, 0)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream

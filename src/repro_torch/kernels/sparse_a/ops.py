@@ -18,7 +18,7 @@ import torch
 
 from . import kernel
 from ..dense_gemm.kernel import DTYPE_CODES
-from ..dense_gemm.ops import check_dtypes
+from ..dense_gemm.ops import DenseShard, check_dtypes
 from .ref import compact_activations_ref, sparse_a_ref
 
 DEFAULT_BLOCK_M = 128
@@ -130,6 +130,15 @@ def sparse_a_matmul(a: torch.Tensor, w: torch.Tensor, *,
     positive.  A CUDA ``a`` launches the
     kernel; a CPU ``a`` runs the plain version.
     """
+    _check(a, w, block_m, block_k, block_n)
+    if meta is None:
+        meta = compact_activations(a, block_m=block_m, block_k=block_k)
+    _check_meta(a, w, meta)
+    return _run(a, w, meta)
+
+
+def _check(a: torch.Tensor, w: torch.Tensor, block_m: int, block_k: int,
+           block_n: int = DEFAULT_BLOCK_N) -> None:
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"sparse_a_matmul shapes {tuple(a.shape)} x "
                          f"{tuple(w.shape)}")
@@ -143,11 +152,50 @@ def sparse_a_matmul(a: torch.Tensor, w: torch.Tensor, *,
     if a.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sparse_a_matmul runs on cuda or cpu, not "
                          f"{a.device}")
-    if meta is None:
-        meta = compact_activations(a, block_m=block_m, block_k=block_k)
-    _check_meta(a, w, meta)
+
+
+def _run(a: torch.Tensor, w: torch.Tensor, meta: ActivationMeta,
+         full_n: Optional[int] = None) -> torch.Tensor:
     if a.device.type == "cpu":
         return sparse_a_ref(a, w, meta.kidx, meta.cnt, block_m=meta.block_m,
                             block_k=meta.block_k)
     return kernel.sparse_a_gemm(a, w, meta.kidx, meta.cnt,
-                                block_m=meta.block_m, block_k=meta.block_k)
+                                block_m=meta.block_m, block_k=meta.block_k,
+                                full_n=full_n)
+
+
+def shardable(w, n_shards: int) -> bool:
+    """True when the dense weight's output axis splits evenly (the
+    reference's predicate)."""
+    return w.dim() == 2 and n_shards >= 1 and w.shape[1] % n_shards == 0
+
+
+def shard_specs(axis: str = "model"):
+    """(in specs, out spec) of :func:`sparse_a_matmul_shard`'s operands
+    (A, W, kidx, cnt): only the weight and the output split, on N; A and
+    its per-M-tile metadata stay whole (the reference's ``shard_specs``
+    as tuples)."""
+    return ((), (None, axis), (), ()), (None, axis)
+
+
+def sparse_a_matmul_shard(a: torch.Tensor, w: DenseShard, *,
+                          block_m: int = DEFAULT_BLOCK_M,
+                          block_k: int = DEFAULT_BLOCK_K,
+                          meta: Optional[ActivationMeta] = None
+                          ) -> torch.Tensor:
+    """The shard entry: (M, N / shards) = A @ this rank's columns of the
+    dense weight, visiting only A's live blocks.  A and its metadata are
+    the whole A on every rank (the metadata is per M tile, which an N split
+    never touches, so every rank skips the same blocks).  On a CUDA ``a``
+    the kernel takes the whole (K, N) weight's route and split
+    (``kernel.route`` with ``full_n``), so no output's summation order
+    depends on the mesh; on a CPU ``a`` the plain version runs."""
+    b = w.local
+    if b.dim() != 2 or w.n != b.shape[1] * w.shards:
+        raise ValueError(f"sparse_a_matmul_shard takes one matrix's shard, "
+                         f"got {tuple(b.shape)} of N {w.n} / {w.shards}")
+    _check(a, b, block_m, block_k)
+    if meta is None:
+        meta = compact_activations(a, block_m=block_m, block_k=block_k)
+    _check_meta(a, b, meta)
+    return _run(a, b, meta, w.n)

@@ -49,6 +49,21 @@ Mode-selection thresholds of every engine.  It changes how the GEMMs run,
 not what they compute: griffin_spmm sums every output in an order fixed by
 the weight's (K, N) alone, so every compaction gives the default's bits
 (``chip_smoke.py`` holds this on the card).
+
+``--mesh DxM`` serves on a ("data", "model") mesh of D x M ranks
+(:func:`serve_on_mesh`, ``runtime.mesh_serve.MeshServeEngine``): spawned
+here (``launch.mesh.run_ranks``; under ``torchrun`` this process is one of
+them), gloo on the host with ``--device cpu``, on the card nccl with a card
+per rank or gloo on CUDA tensors with more ranks than cards.  The slots
+split over the D data rows, every weight GEMM's output columns over the M
+model ranks; the tokens are the single-device engine's, and ``--parity``
+holds rank 0's against ``greedy_generate`` on the whole weights after the
+ranks' host states are held equal.  ``--model-parallel P`` plans the mesh
+(``runtime.elastic.plan_mesh``) over the cards (on the host: P ranks)
+when ``--mesh`` is not given; ``--spmd-fallback`` sends the mesh's GEMMs
+through the decompaction / dense-product oracle instead of the kernels'
+shard entries (the parity baseline).  ``--remesh-model-parallel`` (the
+mesh after a device loss) is ROADMAP 1.15b and exits.
 """
 from __future__ import annotations
 
@@ -61,18 +76,23 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..kernels import launch_counts
 from ..models import build_model
 from ..models.common import kernel_dispatch_counts
 from ..runtime import slo
 from ..runtime.config import EngineConfig
+from ..runtime.elastic import plan_mesh
 from ..runtime.engine import ServeEngine, synthetic_trace
 from ..runtime.fault import parse_fault_spec
+from ..runtime.mesh_serve import MeshServeEngine, host_digest
+from ..runtime.sharding import griffin_leaves, sharded_leaves
 from ..runtime.router import RouterEngine
 from ..runtime.serve import greedy_generate
 from ..runtime.slo import DegradationConfig
 from ..runtime.straggler import StragglerConfig, StragglerDetector
 from ..sparsity import init_sparse_params, prune_for, sparsify_params
 from ..tuning import load_plan
+from .mesh import backend_line, mesh_spec, run_ranks, serve_mesh
 
 
 def _lens(spec: str):
@@ -194,13 +214,16 @@ def _sync(api) -> None:
 @dataclasses.dataclass
 class ServeRun:
     """What :func:`serve` did: the engine (its ``stats``, outputs and
-    ``mode_history``), the trace, the served params and the wall time."""
+    ``mode_history``), the trace, the served params, the wall time, and
+    the GEMM dispatch and kernel launch counts of the engine's run alone
+    (not the build's or the engine's construction)."""
 
     engine: ServeEngine
     requests: List
     params: Dict
     seconds: float
     dispatch: Dict[str, int]
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def tokens_per_second(self) -> float:
@@ -219,7 +242,7 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
           sparsity: float = 0.8, seed: int = 0, trace_seed: int = 1,
           device: Optional[str] = "cuda",
           config: Optional[EngineConfig] = None, evict_after: int = 3,
-          params: Optional[Dict] = None, **trace_kw) -> ServeRun:
+          params: Optional[Dict] = None, mesh=None, **trace_kw) -> ServeRun:
     """Build the model with seeded random weights on ``device``, prune
     (compact with ``config.kernels.use_kernels``), and serve a synthetic
     trace through one engine.  ``config`` (default ``EngineConfig()``)
@@ -233,19 +256,30 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
     arrival process and SLO fields on to ``synthetic_trace``.  ``params``,
     an earlier run's weights for the same ``arch``, ``reduced``,
     ``sparsity``, ``seed`` and kernels, are served instead of a new draw
-    (which would give the same bits)."""
+    (which would give the same bits).  ``mesh``: this rank's joined mesh
+    (inside :func:`serve_on_mesh`'s ranks); the run serves through a
+    ``MeshServeEngine`` on the mesh's device, and ``params`` in the result
+    are the rank's share."""
     econf = config or EngineConfig()
     if econf.fault.inject is not None and \
             parse_fault_spec(econf.fault.inject).kind == "replica":
         raise ValueError("a replica fault needs the router "
                          "(router.replicas > 0)")
+    if mesh is not None:
+        device = mesh.device
     api, params, reqs, econf, plan = _setup(
         arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
         gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw,
         params)
-    engine = ServeEngine(api, params, econf, plan=plan,
-                         **fault_hooks(econf, api.device, evict_after))
+    hooks = fault_hooks(econf, api.device, evict_after)
+    if mesh is not None:
+        engine = MeshServeEngine(api, params, mesh=mesh, config=econf,
+                                 plan=plan, **hooks)
+        params = engine.params
+    else:
+        engine = ServeEngine(api, params, econf, plan=plan, **hooks)
     before = kernel_dispatch_counts()
+    l0 = launch_counts()
     _sync(api)
     t0 = time.perf_counter()
     engine.run(reqs)
@@ -253,7 +287,71 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
     dt = time.perf_counter() - t0
     after = kernel_dispatch_counts()
     dispatch = {k: after.get(k, 0) - before.get(k, 0) for k in after}
-    return ServeRun(engine, reqs, params, dt, dispatch)
+    launches = {k: v - l0.get(k, 0) for k, v in launch_counts().items()}
+    return ServeRun(engine, reqs, params, dt, dispatch, launches)
+
+
+def mesh_rank(mesh, kw: Dict) -> Dict:
+    """One rank of :func:`serve_on_mesh`: :func:`serve` on this rank's
+    mesh and device, then what the caller reads, as plain values: the
+    tokens, the counters, the GEMM dispatch and kernel launch counts of
+    the engine's run, the host-state digest (held equal on every rank
+    here), the rank's prefills, its shares of the weights, its gathers and
+    their seconds by axis, and the wall seconds."""
+    import torch.distributed as dist
+
+    mesh.reset_counts()
+    run = serve(mesh=mesh, **kw)
+    eng = run.engine
+    digest = host_digest(eng)
+    if mesh.size > 1:
+        digests = [None] * mesh.size
+        dist.all_gather_object(digests, digest)
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the ranks' host states differ after the "
+                               f"run: {digests}")
+    return {"rank": mesh.rank, "mesh": mesh_spec(mesh),
+            "backend": mesh.backend, "device": str(mesh.device),
+            "tokens": {r: list(o.tokens) for r, o in eng.outputs.items()},
+            "stats": dict(eng.stats), "mode": eng.mode.value,
+            "mode_history": [(c, m.value) for c, m in eng.mode_history],
+            "b_sparsity": eng.b_sparsity, "peak_active": eng.peak_active,
+            "buckets": sorted(eng.prefill_buckets),
+            "cache_len": eng.cache_len, "dispatch": run.dispatch,
+            "launches": run.launches, "digest": digest,
+            "prefills_here": eng.prefills_here,
+            "sharded_leaves": sharded_leaves(eng.params),
+            "griffin_blocks": sorted({(g.block_k, g.block_n, g.a_thr)
+                                      for g in griffin_leaves(eng.params)},
+                                     key=str),
+            "gathers": dict(mesh.gathers), "gather_s": dict(mesh.gather_s),
+            "seconds": run.seconds}
+
+
+def serve_on_mesh(spec: str, device: Optional[str] = "cuda",
+                  threads: int = 1, **kw) -> List[Dict]:
+    """:func:`serve` (``kw``: its arguments) on a ``"DxM"`` mesh, one
+    rank a position (``launch.mesh.run_ranks``): every rank draws the
+    seeded weights on its device, keeps its share and serves the trace.
+    Returns each rank's :func:`mesh_rank` record in rank order (under
+    ``torchrun``, this rank's alone).  Raises when a rank fails."""
+    return mesh_cells_on(spec, [dict(kw, device=device)], device=device,
+                         threads=threads)[0]
+
+
+def mesh_cells_on(spec: str, cells: Sequence[Dict], device="cuda",
+                  threads: int = 1) -> List[List[Dict]]:
+    """Several :func:`mesh_rank` runs (each cell a dict of :func:`serve`
+    arguments) in turn on one set of ranks, to pay for one spawn: a list
+    per cell of the ranks' records."""
+    per_rank = run_ranks(mesh_cells, serve_mesh(spec), list(cells),
+                         device=device, threads=threads)
+    return [[recs[i] for recs in per_rank] for i in range(len(cells))]
+
+
+def mesh_cells(mesh, cells: Sequence[Dict]) -> List[Dict]:
+    """The ranks' side of :func:`mesh_cells_on`."""
+    return [mesh_rank(mesh, kw) for kw in cells]
 
 
 @dataclasses.dataclass
@@ -503,6 +601,67 @@ def _main_router(args, econf: EngineConfig, trace: Dict) -> None:
               "greedy_generate")
 
 
+def _main_mesh(args, econf: EngineConfig, trace: Dict) -> None:
+    """``--mesh DxM``: serve on the mesh's ranks and print rank 0's
+    record (every rank's host state was held equal), then the parity
+    check: rank 0's tokens against ``greedy_generate`` on the whole
+    weights, on this process's device."""
+    import os
+    lead = int(os.environ.get("RANK", "0")) == 0
+    if lead:
+        print(backend_line(serve_mesh(econf.mesh), args.device))
+    recs = serve_on_mesh(econf.mesh, device=args.device, arch=args.arch,
+                         reduced=args.reduced, sparsity=args.sparsity,
+                         seed=args.seed, config=econf,
+                         evict_after=args.evict_after, **trace)
+    rec = recs[0]
+    if not lead:
+        return
+    if any(r["tokens"] != rec["tokens"] for r in recs):
+        raise SystemExit("the ranks' tokens differ")
+    st = rec["stats"]
+    calls = max(rec["prefills_here"] + st["decode_steps"], 1)
+    syncs = st["host_syncs"] / max(st["emitted"], 1)
+    print(f"engine: {econf.arena.num_slots} slots x cache_len "
+          f"{rec['cache_len']} on {len(recs)} rank(s) of mesh {rec['mesh']}"
+          f" ({rec['device']}), weight sparsity {rec['b_sparsity']:.2f} -> "
+          f"mode {rec['mode']}, {rec['sharded_leaves']} sharded leaves a "
+          f"rank")
+    print(f"served {len(rec['tokens'])} requests / {st['emitted']} tokens "
+          f"in {rec['seconds']:.2f}s "
+          f"({st['emitted'] / max(rec['seconds'], 1e-9):.1f} tok/s); "
+          f"{st['decode_steps']} decode steps in {st['chunk_calls']} fused "
+          f"chunks, {st['prefill_calls']} prefills over buckets "
+          f"{rec['buckets']}, {syncs:.3f} host syncs/token, dispatch "
+          f"{rec['dispatch']}; rank 0: {rec['gathers']['model']} "
+          f"model-axis gathers ({rec['gathers']['model'] / calls:.1f} a "
+          f"model call, {1e3 * rec['gather_s']['model'] / calls:.3f} ms), "
+          f"{rec['gathers']['data']} data-axis gathers; host states equal "
+          f"on every rank")
+    if args.max_syncs_per_token > 0 and syncs > args.max_syncs_per_token:
+        raise SystemExit(f"host syncs/token {syncs:.3f} exceeds "
+                         f"{args.max_syncs_per_token}")
+    if not args.parity:
+        print(f"done: mesh {rec['mesh']}")
+        return
+    if len(rec["mode_history"]) > 1:
+        print(f"parity SKIPPED: execution mode changed mid-run "
+              f"({rec['mode_history']}); mesh {rec['mesh']}")
+        return
+    kw = {k: v for k, v in trace.items()
+          if k not in ("requests", "prompt_lens", "gen_lens",
+                       "arrival_every", "length_dist")}
+    api, params, reqs, ec, plan = _setup(
+        args.arch, args.reduced, args.sparsity, args.seed, args.device,
+        dataclasses.replace(econf, mesh=None), trace["requests"],
+        trace["prompt_lens"], trace["gen_lens"], trace["arrival_every"],
+        trace["length_dist"], None, 1, kw)
+    eng = ServeEngine(api, params, ec, plan=plan)
+    n = replay_oracle([eng], params, reqs, rec["tokens"])
+    print(f"parity OK: all {n} requests token-identical to greedy_generate "
+          f"on the whole weights; mesh {rec['mesh']}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=None, metavar="PATH",
@@ -613,10 +772,30 @@ def main(argv=None) -> None:
                          "weight-compaction granularity and Mode-selection "
                          "thresholds; griffin_spmm gives the default "
                          "compaction's bits at every granularity")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a data x model mesh of D*M ranks (e.g. "
+                         "2x2; spawned here, gloo on the host, nccl with a "
+                         "card per rank, else gloo on CUDA tensors); '1x1' "
+                         "is the single-device engine")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="without --mesh: plan the mesh over the cards "
+                         "(on the host: this many ranks) with at most this "
+                         "model-parallel degree")
+    ap.add_argument("--spmd-fallback", action="store_true",
+                    help="serve >1 meshes through the decompaction / "
+                         "dense-product oracle instead of the kernels' "
+                         "shard entries (the parity baseline)")
+    ap.add_argument("--remesh-model-parallel", type=int, default=None,
+                    help="model-parallel cap of the mesh after a device "
+                         "loss: remeshing is not ported yet (ROADMAP 1.15b)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.remesh_model_parallel is not None:
+        raise SystemExit("--remesh-model-parallel: remeshing onto the "
+                         "survivors of a device loss is not ported yet "
+                         "(ROADMAP 1.15b)")
     econf = EngineConfig.from_args(
         args, defaults={d: ap.get_default(d) for d in vars(args)})
     ttft, slack = _parse_slo(args.slo) if args.slo else (None, None)
@@ -628,6 +807,19 @@ def main(argv=None) -> None:
                  burst_rate=args.burst_rate, length_dist=args.length_dist,
                  priorities=_lens(args.priorities), deadline_slack=slack,
                  ttft_deadline=ttft)
+    if args.spmd_fallback:
+        econf = econf.with_fields(spmd_kernels=False)
+    if econf.mesh is None and args.model_parallel > 1:
+        cards = (torch.cuda.device_count() if args.device != "cpu"
+                 else args.model_parallel)
+        econf = econf.with_fields(
+            mesh=plan_mesh(max(cards, 1), args.model_parallel).spec)
+    if econf.mesh is not None and econf.mesh != "1x1":
+        if econf.router.replicas > 0:
+            raise SystemExit("the router serves single-device replicas; "
+                             "--mesh and --replicas do not combine")
+        _main_mesh(args, econf, trace)
+        return
     if econf.router.replicas > 0:
         _main_router(args, econf, trace)
         return

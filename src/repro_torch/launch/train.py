@@ -12,7 +12,8 @@ Griffin pruning schedule.
 trains full-width llama3.2-1b on the CUDA card (bf16 parameters, float32
 moments); run again, it resumes from step 20.  ``--reduced --device cpu``
 trains the reduced config on the host.  ``--model-parallel`` other than 1
-needs the mesh (ROADMAP 1.15).
+needs the training layout on a mesh (ROADMAP 1.18; the serving mesh is
+``launch/serve.py --mesh``).
 """
 from __future__ import annotations
 
@@ -75,8 +76,8 @@ def main(argv=None, on_step: Optional[Callable] = None) -> Dict:
     each step and its pruning."""
     args = parse_args(argv)
     if args.model_parallel != 1:
-        raise SystemExit("--model-parallel > 1 needs the mesh, which comes "
-                         "with mesh serving (ROADMAP 1.15)")
+        raise SystemExit("--model-parallel > 1 needs the training layout "
+                         "on a mesh, not ported yet (ROADMAP 1.18)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

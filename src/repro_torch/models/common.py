@@ -25,10 +25,14 @@ import torch.nn.functional as F
 
 from ..core.hybrid import SPARSE_THRESHOLD, select_mode
 from ..core.spec import Mode
-from ..kernels.dense_gemm.ops import dense_matmul
-from ..kernels.griffin_spmm.ops import GriffinWeights, griffin_matmul
+from ..kernels.dense_gemm.ops import (DenseShard, dense_matmul,
+                                      dense_matmul_shard)
+from ..kernels.dense_gemm.ref import dense_matmul_ref
+from ..kernels.griffin_spmm.ops import (GriffinShard, GriffinWeights,
+                                        griffin_matmul, griffin_matmul_shard)
+from ..kernels.griffin_spmm.ref import griffin_spmm_ref
 from ..kernels.sparse_a.ops import (ActivationMeta, compact_activations,
-                                    sparse_a_matmul)
+                                    sparse_a_matmul, sparse_a_matmul_shard)
 from ..optim.compression import dequantize_rows, quantize_rows
 
 
@@ -42,12 +46,24 @@ class SparseExecution:
     through the kernels too (off: plain ``x @ w``); ``a_sparsity`` is the
     declared activation sparsity of the workload category; ``block_m`` is
     the M-tile height of Sparse.A's activation metadata.  PyTorch runs
-    eagerly, so the scope is read on every call."""
+    eagerly, so the scope is read on every call.
+
+    ``spmd_mesh`` (a joined ``launch.mesh.Mesh`` of more than one rank)
+    is the serving mesh whose model group the shards of a weight
+    (``runtime.sharding.shard_params``) gather their columns over: each
+    rank runs the kernel's shard entry on its columns, then the columns
+    are gathered (and a compacted weight's balance shuffle undone).  A
+    leaf that stays whole runs the whole kernel on every model rank.
+    ``spmd_kernels=False`` (``--spmd-fallback``) replaces every kernel
+    under the mesh by the decompaction / dense-product oracle, the parity
+    baseline, on the same slices."""
 
     use_kernels: bool = False
     a_sparsity: float = 0.0
     block_m: int = 128
     a_threshold: float = SPARSE_THRESHOLD
+    spmd_mesh: Optional[Any] = None
+    spmd_kernels: bool = True
 
 
 _EXEC_STACK = [SparseExecution()]
@@ -56,13 +72,17 @@ _EXEC_STACK = [SparseExecution()]
 @contextlib.contextmanager
 def sparse_execution(use_kernels: bool = True, a_sparsity: float = 0.0,
                      block_m: int = 128,
-                     a_threshold: float = SPARSE_THRESHOLD):
+                     a_threshold: float = SPARSE_THRESHOLD,
+                     spmd_mesh: Optional[Any] = None,
+                     spmd_kernels: bool = True):
     """Scope under which ``griffin_linear`` dispatches to the kernels
     (mode per GEMM via ``core.hybrid.select_mode``)."""
     _EXEC_STACK.append(SparseExecution(use_kernels=use_kernels,
                                        a_sparsity=a_sparsity,
                                        block_m=block_m,
-                                       a_threshold=a_threshold))
+                                       a_threshold=a_threshold,
+                                       spmd_mesh=spmd_mesh,
+                                       spmd_kernels=spmd_kernels))
     try:
         yield _EXEC_STACK[-1]
     finally:
@@ -70,9 +90,16 @@ def sparse_execution(use_kernels: bool = True, a_sparsity: float = 0.0,
 
 
 # Dispatch telemetry, one bucket bump per GEMM call:
-#   "kernel"  a kernel wrapper (which runs its plain version on CPU tensors)
-#   "plain"   a plain ``x @ w`` (no kernel requested)
-#   "dual"    GriffinWeights GEMMs whose Mode came out AB
+#   "kernel"      a kernel wrapper (which runs its plain version on CPU
+#                 tensors), no mesh
+#   "shard"       a kernel's shard entry on this rank's columns of a
+#                 weight, then the gather over the mesh's model group
+#   "replicated"  the whole kernel on every model rank (a leaf that stays
+#                 whole under a mesh)
+#   "spmd_oracle" the decompaction / dense-product oracle under a mesh
+#                 (``spmd_kernels=False`` only)
+#   "plain"       a plain ``x @ w`` (no kernel requested)
+#   "dual"        GriffinWeights GEMMs whose Mode came out AB
 # Unlike the reference, which counts at trace time and leaves plain
 # single-device dots uncounted, eager calls are counted every time and
 # "plain" counts every plain dot, so a run can show no GEMM bypassed the
@@ -128,6 +155,8 @@ def griffin_linear(x: torch.Tensor, w,
                            ``use_kernels``; then the sparse_a kernel
                            (runtime-compacted A) when it declares sparse
                            activations (Sparse.A), else dense_gemm
+      a weight shard    -> the same kernel's shard entry on this rank's
+                           columns, gathered over the scope's mesh
 
     Leading batch/sequence axes are flattened into the GEMM M axis.
     ``meta``: the Sparse.A metadata of ``x`` from
@@ -138,7 +167,13 @@ def griffin_linear(x: torch.Tensor, w,
     can never drop one; training takes the plain route.
     """
     ctx = _EXEC_STACK[-1]
-    if isinstance(w, GriffinWeights) or ctx.use_kernels:
+    mesh = ctx.spmd_mesh
+    spmd = mesh is not None and mesh.size > 1
+    shard = isinstance(w, (GriffinShard, DenseShard))
+    if shard and not spmd:
+        raise ValueError("a weight shard needs its serving mesh in scope "
+                         "(sparse_execution(spmd_mesh=...))")
+    if isinstance(w, GriffinWeights) or ctx.use_kernels or shard:
         _no_grad_wanted(x, w)
     lead = x.shape[:-1]
     x2 = _rows(x)
@@ -147,24 +182,60 @@ def griffin_linear(x: torch.Tensor, w,
         dual = select_mode(ctx.a_sparsity, 1.0, threshold=thr) == Mode.AB
         if dual:
             _dispatched("dual")
-        _dispatched("kernel")
-        out = griffin_matmul(x2, w, dual=dual)
+        oracle = spmd and not ctx.spmd_kernels
+        if shard:
+            _dispatched("spmd_oracle" if oracle else "shard")
+            local = dataclasses.replace(w, n=w.b_comp.shape[-1])
+            out = _gather_cols(griffin_spmm_ref(x2, local) if oracle else
+                               griffin_matmul_shard(x2, w, dual=dual), mesh)
+            if w.gather_inv is not None:
+                out = out.index_select(1, w.gather_inv)
+            out = out[:, :w.n]
+        elif oracle:
+            _dispatched("spmd_oracle")
+            out = griffin_spmm_ref(x2, w)
+        else:
+            _dispatched("replicated" if spmd else "kernel")
+            out = griffin_matmul(x2, w, dual=dual)
         return out.reshape(*lead, w.n).to(x.dtype)
     if not ctx.use_kernels:
         _dispatched("plain")
         # promoted to the wider dtype, as jnp does (fp32 A, bf16 weight)
         dt = torch.promote_types(x.dtype, w.dtype)
+        if shard:
+            out = _gather_cols(x2.to(dt) @ w.local.to(dt), mesh)
+            return out.reshape(*lead, w.n)
         return x.to(dt) @ w.to(dt)
-    _dispatched("kernel")
-    if _mode_a(ctx):
-        out = sparse_a_matmul(x2, w, block_m=ctx.block_m, meta=meta)
+    if spmd and not ctx.spmd_kernels:
+        _dispatched("spmd_oracle")
+        out = dense_matmul_ref(x2, w.local) if shard else \
+            dense_matmul_ref(x2, w)
+        if shard:
+            out = _gather_cols(out, mesh)
+    elif shard:
+        _dispatched("shard")
+        out = _gather_cols(
+            sparse_a_matmul_shard(x2, w, block_m=ctx.block_m, meta=meta)
+            if _mode_a(ctx) else dense_matmul_shard(x2, w), mesh)
     else:
-        out = dense_matmul(x2, w)
+        _dispatched("replicated" if spmd else "kernel")
+        if _mode_a(ctx):
+            out = sparse_a_matmul(x2, w, block_m=ctx.block_m, meta=meta)
+        else:
+            out = dense_matmul(x2, w)
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 
+def _gather_cols(local: torch.Tensor, mesh) -> torch.Tensor:
+    """(M, S x n) from every model rank's (M, n) columns, in rank order:
+    the one collective of a sharded GEMM (``Mesh.gather``)."""
+    g = mesh.gather(local, "model")                     # (S, M, n)
+    return g.permute(1, 0, 2).reshape(local.shape[0], -1)
+
+
 def _no_grad_wanted(x: torch.Tensor, w) -> None:
-    ws = [w.b_comp] if isinstance(w, GriffinWeights) else [w]
+    ws = [w.b_comp] if isinstance(w, GriffinWeights) else \
+        [w.local] if isinstance(w, DenseShard) else [w]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x] + ws):
         raise RuntimeError(
             "griffin_linear: the kernels have no backward (as in the "

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import MoEConfig
+from ..kernels.dense_gemm.ops import DenseShard
 from ..kernels.griffin_spmm.ops import GriffinWeights
 from .common import _EXEC_STACK, _dispatched, act_fn, griffin_linear, tree_sum
 
@@ -33,13 +34,16 @@ def expert_linear(xe: torch.Tensor, w) -> torch.Tensor:
 
     ``w`` may be a stacked ``GriffinWeights`` (leading expert axis), whose
     experts each run the Sparse.B kernel, or a plain stack: under a
-    ``sparse_execution`` scope with kernels each expert goes through
-    ``griffin_linear`` too, else one batched product (the reference's
+    ``sparse_execution`` scope with kernels (or for a mesh rank's
+    ``DenseShard``) each expert goes through ``griffin_linear`` too, else
+    one batched product (the reference's
     einsum), promoted to the wider dtype."""
     if isinstance(w, GriffinWeights):
         return torch.stack([griffin_linear(xe[e], w[e])
                             for e in range(w.b_comp.shape[0])])
-    if _EXEC_STACK[-1].use_kernels:
+    if _EXEC_STACK[-1].use_kernels or isinstance(w, DenseShard):
+        # a mesh rank's shard of the experts goes through griffin_linear's
+        # gather per expert, with or without kernels
         return torch.stack([griffin_linear(xe[e], w[e])
                             for e in range(w.shape[0])])
     _dispatched("plain")

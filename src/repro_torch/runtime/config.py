@@ -7,12 +7,14 @@ several such engines behind the multi-replica router (``RouterConfig``,
 ``runtime.router``).  ``FaultConfig.inject`` is a fault spec: ``kill:`` or
 ``delay:`` arms an engine's recovery, ``replica:`` kills a router replica;
 ``snapshot_dir`` sends the engine's tick-start snapshots to disk.
-``recovery_model_parallel`` and the mesh keep the reference's shape and
-raise ``NotImplementedError`` when set: remeshing and mesh serving are
-not ported.  The reference's kernel fields ``interpret`` and
-``spmd_kernels`` have no counterpart: a JSON file may carry them at their
-defaults, and any other value raises; ``launch/serve.py`` defines no flag
-for an unported field.  ``kernels.plan`` names a tuned kernel plan file
+``mesh`` ("DxM") serves through ``runtime.mesh_serve.MeshServeEngine``
+and ``kernels.spmd_kernels=False`` sends its GEMMs through the parity
+oracle (``--spmd-fallback``).  ``recovery_model_parallel`` (the mesh
+after a device loss) keeps the reference's shape and raises
+``NotImplementedError`` when set: remeshing is ROADMAP 1.15b.  The
+reference's kernel field ``interpret`` has no counterpart: a JSON file may
+carry it at its default, and any other value raises; ``launch/serve.py``
+defines no flag for an unported field.  ``kernels.plan`` names a tuned kernel plan file
 (``repro_torch.tuning``), read by ``launch/serve.py``.
 ``to_json``/``from_json`` round-trip the config and power
 ``launch/serve.py --config engine.json``.
@@ -64,6 +66,7 @@ class KernelConfig:
     use_kernels: bool = False
     a_sparsity: Optional[float] = None
     block_m: int = 128
+    spmd_kernels: bool = True
     plan: Optional[str] = None
 
 
@@ -74,7 +77,7 @@ class FaultConfig:
     the router's replica kill.  ``snapshot_dir`` writes every tick-start
     snapshot through ``checkpoint.save`` and recovers through
     ``checkpoint.restore``.  ``recovery_model_parallel`` (the post-loss
-    mesh) is not ported."""
+    mesh) is not ported yet (ROADMAP 1.15b)."""
 
     inject: Optional[str] = None
     snapshot_dir: Optional[str] = None
@@ -100,7 +103,7 @@ _SECTIONS = {"arena": ArenaConfig, "sched": SchedConfig,
              "router": RouterConfig}
 
 # reference fields the port has no counterpart for, with their defaults
-_UNPORTED_DEFAULTS = {"kernels": {"interpret": False, "spmd_kernels": True}}
+_UNPORTED_DEFAULTS = {"kernels": {"interpret": False}}
 
 # launch/serve.py flag dest -> flat field name
 _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
@@ -110,7 +113,7 @@ _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
           "replicas": "replicas", "queue_bound": "queue_bound",
           "hedge_ms": "hedge_after", "shed_policy": "shed_policy",
           "inject_fault": "inject", "snapshot_dir": "snapshot_dir",
-          "plan": "plan"}
+          "plan": "plan", "mesh": "mesh"}
 
 # flags whose 0 means "off" (None in the config), as in the reference
 _ZERO_IS_NONE = ("queue_bound", "hedge_after")
@@ -131,6 +134,7 @@ _FIELDS = {
     "use_kernels": ("kernels", "use_kernels"),
     "a_sparsity": ("kernels", "a_sparsity"),
     "block_m": ("kernels", "block_m"),
+    "spmd_kernels": ("kernels", "spmd_kernels"),
     "plan": ("kernels", "plan"),
     "inject": ("fault", "inject"),
     "snapshot_dir": ("fault", "snapshot_dir"),
@@ -154,14 +158,13 @@ class EngineConfig:
     def __post_init__(self):
         if self.fault.inject is not None:
             parse_fault_spec(self.fault.inject)
-        unported = []
-        if self.fault.recovery_model_parallel is not None:
-            unported.append("recovery_model_parallel (remeshing)")
         if self.mesh is not None:
-            unported.append("mesh serving")
-        if unported:
-            raise NotImplementedError("not ported yet (ROADMAP 1.15): "
-                                      + ", ".join(unported))
+            from ..launch.mesh import parse_mesh
+            parse_mesh(self.mesh)
+        if self.fault.recovery_model_parallel is not None:
+            raise NotImplementedError(
+                "not ported yet (ROADMAP 1.15b): recovery_model_parallel "
+                "(remeshing onto the survivors of a device loss)")
 
     def with_fields(self, **kv: Any) -> "EngineConfig":
         """Functional update by flat field name (``num_slots=8``)."""

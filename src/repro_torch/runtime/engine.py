@@ -45,7 +45,7 @@ from ..kernels.griffin_spmm.ops import GriffinWeights
 from ..models.common import sparse_execution
 from ..models.registry import ModelApi
 from ..optim.compression import quantize_rows
-from ..sparsity.pruning import GEMM_WEIGHTS, sparsity_of
+from ..sparsity.pruning import GEMM_WEIGHTS
 from .config import EngineConfig
 from .fault import DeviceLoss, FaultInjector
 from .paging import PageAllocator, build_spec, paged_tree
@@ -548,10 +548,11 @@ class ServeEngine:
         # zeroes the B-side Mode threshold (level 2)
         self.chunk_cap: Optional[int] = None
         self.degraded = False
+        self.spmd_kernels = config.kernels.spmd_kernels
         self.sched = Scheduler(self.num_slots, config.sched.policy,
                                config.sched.max_admissions_per_step)
         self._mode_fns: Dict[Mode, Tuple[Callable, ...]] = {}
-        self.b_sparsity = weight_sparsity(params)
+        self.b_sparsity = self._weight_sparsity(params)
         self.a_measured = 0.0
         self.mode = self._select_mode()
         self.mode_history: List[Tuple[int, Mode]] = [(0, self.mode)]
@@ -584,12 +585,12 @@ class ServeEngine:
         self._reserved_pages: Dict[int, List[int]] = {}
         self._dirty_slots: set = set()
         self._page_rows = (torch.zeros(
-            (self.num_slots, self._paged.max_pages), dtype=torch.int32,
+            (self._rows_here(), self._paged.max_pages), dtype=torch.int32,
             pin_memory=self.device.type == "cuda")
             if self._paged is not None else None)
-        self._tokens = torch.zeros((self.num_slots, 1), dtype=torch.int64,
+        self._tokens = torch.zeros((self._rows_here(), 1), dtype=torch.int64,
                                    device=self.device)
-        self._remaining = torch.zeros((self.num_slots,), dtype=torch.int32,
+        self._remaining = torch.zeros((self._rows_here(),), dtype=torch.int32,
                                       device=self.device)
         # failure handling: armed by any of these three
         self.faults = fault_injector
@@ -608,19 +609,67 @@ class ServeEngine:
                              if self.snapshot_dir is not None else None)
 
     def _arena(self) -> Dict[str, torch.Tensor]:
-        """The zeroed device arena: ``init_cache``'s tree with counters
+        """The zeroed device arena of the slots this engine decodes
+        (:meth:`_rows_here`): ``init_cache``'s tree with counters
         promoted per slot, rewritten into pools and a page table when the
         arena is paged (built on the meta device, then allocated once)."""
+        rows = self._rows_here()
         if self._paged is None:
             return _promote_arena(
-                self.api.init_cache(self.num_slots, self.cache_len),
-                self.num_slots)
+                self.api.init_cache(rows, self.cache_len), rows)
         base = _promote_arena(self.api.init_cache(
-            self.num_slots, self.cache_len, device=torch.device("meta")),
-            self.num_slots)
+            rows, self.cache_len, device=torch.device("meta")), rows)
         return {k: torch.zeros(v.shape, dtype=v.dtype, device=self.device)
-                for k, v in paged_tree(base, self.num_slots,
-                                       self._paged).items()}
+                for k, v in paged_tree(base, rows, self._paged).items()}
+
+    # -- hooks of a mesh-parallel engine (runtime.mesh_serve) ---------------
+    # The single-device engine decodes every slot and reads its own device
+    # values back; a mesh rank decodes its data row's slots and gathers the
+    # rest at the same sync points, so every rank's host state stays equal.
+
+    def _rows_here(self) -> int:
+        """How many slots this engine's arena holds (all of them here)."""
+        return self.num_slots
+
+    def _slot_row(self, slot: int) -> Optional[int]:
+        """The arena row of global ``slot``, or None where another rank's
+        arena holds it."""
+        return slot
+
+    def _weight_sparsity(self, params: Any) -> float:
+        return weight_sparsity(params)
+
+    def _fetch_tick(self, ring: torch.Tensor,
+                    pending: Sequence[Tuple[int, Optional[torch.Tensor]]],
+                    zf_num: torch.Tensor, zf_den: torch.Tensor
+                    ) -> Tuple[np.ndarray, List[int], int, int]:
+        """A fused tick's one host transfer: the (chunk, num_slots) token
+        ring, the admissions' first tokens and the two measurement counts
+        (exact-zero logits of the live rows, and their logits)."""
+        parts = [ring.reshape(-1).double()]
+        parts += [t.double() for _, t in pending]
+        parts += [zf_num.double().reshape(1), zf_den.double().reshape(1)]
+        host = torch.cat(parts).cpu().numpy()
+        ring_h = host[:ring.numel()].reshape(ring.shape).astype(np.int64)
+        first = [int(t) for t in host[ring.numel():ring.numel()
+                                      + len(pending)]]
+        return ring_h, first, int(host[-2]), int(host[-1])
+
+    def _fetch_first(self, pending: Sequence[Tuple[int, Optional[
+            torch.Tensor]]]) -> List[int]:
+        """The admissions' first tokens, in one host transfer."""
+        return [int(t) for t in torch.cat([t for _, t in pending]).tolist()]
+
+    def _fetch_rows(self, toks: torch.Tensor) -> np.ndarray:
+        """A stepwise decode step's (num_slots,) tokens on the host."""
+        return toks.cpu().numpy()
+
+    def _zero_counts(self, logits: torch.Tensor, rows: Sequence[int]
+                     ) -> Tuple[int, int]:
+        """(exact zeros, entries) of the logits of arena ``rows``: one host
+        transfer."""
+        live = logits[torch.as_tensor(rows, device=logits.device)]
+        return int((live == 0).sum()), live.numel()
 
     # -- paged-arena bookkeeping --------------------------------------------
 
@@ -646,7 +695,9 @@ class ServeEngine:
         if self._paged is None or not self._dirty_slots:
             return
         for slot in sorted(self._dirty_slots):
-            self.cache["pages"][slot].zero_()
+            row = self._slot_row(slot)
+            if row is not None:
+                self.cache["pages"][row].zero_()
             self._page_alloc.free(self._slot_pages.pop(slot, ()))
         self._dirty_slots.clear()
 
@@ -684,7 +735,9 @@ class ServeEngine:
                        else DEFAULT_DECLARED_A)
         return sparse_execution(use_kernels=self.use_kernels,
                                 a_sparsity=a_scope, block_m=self.block_m,
-                                a_threshold=self._a_threshold)
+                                a_threshold=self._a_threshold,
+                                spmd_mesh=self._spmd_mesh,
+                                spmd_kernels=self.spmd_kernels)
 
     def _fns(self) -> Tuple[Callable, Callable, Callable]:
         """(prefill_fn, decode_fn, chunk_for) of the current Mode.  Eager
@@ -766,11 +819,18 @@ class ServeEngine:
     def _prefill(self, req: Request):
         prefill_fn = self._fns()[0]
         batch = req.as_batch(self.device, self.bucket_for(req.prompt_len))
-        self.prefill_buckets.add(batch["tokens"].shape[-1])
         with self._scope():
             cache1, logits = prefill_fn(self.params, batch)
-        self.stats["prefill_calls"] += 1
+        self._count_prefill(req)
         return cache1, logits
+
+    def _count_prefill(self, req: Request) -> None:
+        """A prefill's host bookkeeping (its bucket, the counter), made on
+        every rank of a mesh whichever rank computes it."""
+        bucket = self.bucket_for(req.prompt_len)
+        self.prefill_buckets.add(req.prompt_len if bucket is None
+                                 else bucket)
+        self.stats["prefill_calls"] += 1
 
     def _insert(self, slot: int, sub: Dict[str, torch.Tensor],
                 logits: torch.Tensor, rem: int,
@@ -836,7 +896,9 @@ class ServeEngine:
         when ``rid`` is unknown or already finished."""
         for slot, req in sorted(self.sched.running.items()):
             if req.rid == rid:
-                self._remaining[slot].fill_(0)
+                row = self._slot_row(slot)
+                if row is not None:
+                    self._remaining[row].fill_(0)
                 self.sched.cancel_slot(slot)
                 if self._paged is not None:
                     self._dirty_slots.add(slot)
@@ -867,25 +929,31 @@ class ServeEngine:
         self._observe_hosts(time.perf_counter() - t0)
         return events
 
-    def _admit(self) -> List[Tuple[int, torch.Tensor]]:
+    def _admit(self) -> List[Tuple[int, Optional[torch.Tensor]]]:
         """This tick's admissions, after the finished slots' pages come
         home: each request is prefilled and written into its slot on the
-        device.  Returns (slot, first token on the device) per admission.
-        The admission fault poll comes before the pops, the prefill poll
-        after each prefill and before its slot insert."""
-        pending: List[Tuple[int, torch.Tensor]] = []
+        device.  Returns (slot, first token on the device) per admission
+        (None where another mesh rank's arena holds the slot).  The
+        admission fault poll comes before the pops, the prefill poll after
+        each prefill and before its slot insert."""
+        pending: List[Tuple[int, Optional[torch.Tensor]]] = []
         self._poll_fault("admission")
         self._flush_dirty()
         for slot, req in self.sched.admissions(self.clock,
                                                gate=self._admission_gate()):
-            cache1, logits = self._prefill(req)
+            row = self._slot_row(slot)
+            if row is None:
+                self._fns()
+                self._count_prefill(req)
+            else:
+                cache1, logits = self._prefill(req)
             self._poll_fault("prefill")
             ids = ()
             if self._paged is not None:
                 ids = self._slot_pages[slot] = \
                     self._reserved_pages.pop(req.rid)
-            tok = self._insert(slot, cache1, logits, req.max_new_tokens - 1,
-                               ids)
+            tok = None if row is None else self._insert(
+                row, cache1, logits, req.max_new_tokens - 1, ids)
             self.outputs[req.rid] = RequestOutput(req.rid,
                                                   admitted=self.clock)
             pending.append((slot, tok))
@@ -903,7 +971,7 @@ class ServeEngine:
                 for s in self.sched.active):
             # pure-admission tick: nothing owes a decode step, so fetch the
             # prefill tokens without running a dead chunk
-            first = torch.cat([t for _, t in pending]).tolist()
+            first = self._fetch_first(pending)
             self.stats["host_syncs"] += 1
             for (slot, _), tok in zip(pending, first):
                 self._emit(slot, int(tok))
@@ -919,14 +987,9 @@ class ServeEngine:
             self.stats["decode_steps"] += chunk
             self._poll_fault("decode")
             # the tick's one host transfer: ring, first tokens, measurement
-            parts = [ring.reshape(-1).double()]
-            parts += [t.double() for _, t in pending]
-            parts += [zf_num.double().reshape(1), zf_den.double().reshape(1)]
-            host = torch.cat(parts).cpu().numpy()
+            ring_h, first, zf_num_h, zf_den_h = self._fetch_tick(
+                ring, pending, zf_num, zf_den)
             self.stats["host_syncs"] += 1
-            ring_h = host[:ring.numel()].reshape(ring.shape).astype(np.int64)
-            first = host[ring.numel():ring.numel() + len(pending)]
-            zf_num_h, zf_den_h = float(host[-2]), float(host[-1])
             # prefill-boundary emissions first: the chunk consumed these
             # tokens as its first feedback, so they precede the ring rows
             for (slot, _), tok in zip(pending, first):
@@ -957,7 +1020,7 @@ class ServeEngine:
         ev_start = len(self.events)
         for slot, tok in self._admit():
             self.stats["host_syncs"] += 1
-            self._emit(slot, int(tok))
+            self._emit(slot, self._fetch_first([(slot, tok)])[0])
         active = self.sched.active
         if active:
             decode_fn = self._fns()[1]
@@ -968,12 +1031,14 @@ class ServeEngine:
             self._poll_fault("decode")
             toks = torch.argmax(logits, dim=-1)
             self._tokens.copy_(toks[:, None])
-            host = toks.cpu().numpy()
+            host = self._fetch_rows(toks)
             self.stats["host_syncs"] += 1
             self._since_measure += 1
             if self._since_measure >= self.measure_every:
-                rows = torch.as_tensor(active, device=logits.device)
-                self._measure(float(sparsity_of(logits[rows])))
+                zeros, total = self._zero_counts(
+                    logits, [r for r in map(self._slot_row, active)
+                             if r is not None])
+                self._measure(zeros / total)
                 self.stats["host_syncs"] += 1
             for slot in active:
                 self._emit(slot, int(host[slot]))
@@ -1096,6 +1161,8 @@ class ServeEngine:
         self.recoveries += 1
         self.recovery_log.append({"step": snap.clock, "lost": sorted(lost),
                                   "mesh": self._mesh_desc()})
+
+    _spmd_mesh = None      # a mesh-parallel engine's mesh (more than 1x1)
 
     def _remesh(self, lost: List[int]) -> None:
         """One device has no mesh to shrink: recovery restarts in place

@@ -57,24 +57,25 @@ def make_decode_chunk_fn(api: ModelApi, decode_chunk: int) -> Callable:
     ``chunk_fn(params, cache, tokens (B, 1), remaining (B,))`` updates
     ``cache``, ``tokens`` and ``remaining`` in place (the reference donates
     them) and returns them with the (chunk, B) token ring and the two
-    measurement scalars: the summed exact-zero logit fraction of the live
-    rows (``remaining > 0``) and their count.  Finished and unadmitted rows
-    keep decoding garbage, excluded from the ring drain and the measurement.
+    measurement counts (int64): the exact-zero logits of the live rows
+    (``remaining > 0``) and their logits, so the measured share is exact
+    and counts from several ranks add up exactly (the reference sums
+    float fractions).  Finished and unadmitted rows keep decoding garbage,
+    excluded from the ring drain and the measurement.
     """
 
     def chunk_fn(params, cache, tokens, remaining):
         B = tokens.shape[0]
         ring = torch.empty((decode_chunk, B), dtype=tokens.dtype,
                            device=tokens.device)
-        zf_num = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        zf_den = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        zf_num = torch.zeros((), dtype=torch.int64, device=tokens.device)
+        zf_den = torch.zeros((), dtype=torch.int64, device=tokens.device)
         for t in range(decode_chunk):
             logits, cache = api.decode_step(params, cache, tokens)
             toks = torch.argmax(logits, dim=-1).to(tokens.dtype)
             live = remaining > 0
-            zf_rows = (logits == 0).float().mean(dim=-1)
-            zf_num += (zf_rows * live).sum()
-            zf_den += live.float().sum()
+            zf_num += ((logits == 0).sum(dim=-1) * live).sum()
+            zf_den += live.sum() * logits.shape[-1]
             remaining -= live.to(remaining.dtype)
             tokens.copy_(toks[:, None])
             ring[t] = toks

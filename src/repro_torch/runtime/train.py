@@ -11,7 +11,7 @@ weights, no kernel scope: the kernels have no backward).
 The state's tensors are updated in place, as the reference donates its
 state to the jitted step: a step's input state must not be used after
 it.  The reference's ``state_shardings`` and ``jit_train_step`` place the
-state on a mesh; they come with mesh serving (ROADMAP 1.15).
+state on a mesh; they come with the training layout (ROADMAP 1.18).
 """
 from __future__ import annotations
 

@@ -19,6 +19,7 @@ from repro.sparsity import sparsify_params as jax_sparsify
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core.spec import Mode
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
 from repro_torch.models.common import (kernel_dispatch_counts,
@@ -232,21 +233,29 @@ def test_entry_points_default_to_cuda():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.serve(reduced=True)
+    # the mesh launchers raise before any rank is spawned
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh.run_ranks(tmesh.check_ranks, tmesh.serve_mesh("1x2"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.mesh_cells_on("2x1", [dict(reduced=True)])
 
 
 # ---------------------------------------------------------------------------
 # host-side machinery
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("field", [dict(mesh="1x1"),
+@pytest.mark.parametrize("field", [dict(mesh="2x2",
+                                        recovery_model_parallel=2),
                                    dict(recovery_model_parallel=2)])
 def test_unported_config_fields_raise(field):
-    """Mesh serving and the post-loss mesh's TP degree wait for mesh
-    serving (ROADMAP 1.15); ``snapshot_dir`` is served since 1.13."""
-    with pytest.raises(NotImplementedError, match="1.15"):
+    """The post-loss mesh's TP degree waits for remeshing (ROADMAP
+    1.15b), on a mesh or not; the mesh itself is served since 1.15's
+    serving half, and ``snapshot_dir`` since 1.13."""
+    with pytest.raises(NotImplementedError, match="1.15b"):
         EngineConfig().with_fields(**field)
     assert EngineConfig().with_fields(snapshot_dir="x").fault.snapshot_dir \
         == "x"
+    assert EngineConfig().with_fields(mesh="2x2").mesh == "2x2"
 
 
 @pytest.mark.parametrize("field", [dict(page_size=16, kv_dtype="int8"),
@@ -279,7 +288,7 @@ def test_engine_config_json_round_trip_and_reference_file():
 
 @pytest.mark.parametrize("raw", [
     '{"kernels": {"interpret": true}}',
-    '{"kernels": {"spmd_kernels": false}}',
+    '{"fault": {"recovery_model_parallel": 1}}',
     '{"fault": {"recovery_model_parallel": 2}}'])
 def test_engine_config_json_unported_fields_raise(raw):
     with pytest.raises(NotImplementedError):
@@ -323,7 +332,7 @@ def test_engine_config_from_args_flag_beats_file(tmp_path):
             conf.kernels.a_sparsity, conf.arena.page_size) == (4, 5, 0.5, 8)
     assert (conf.arena.kv_dtype, conf.sched.policy) == ("int8", "static")
     # --snapshot-dir is served (ROADMAP 1.13) and lands in the config;
-    # the CLI defines no flag for an unported field (the post-loss mesh)
+    # the post-loss mesh's flag exits naming ROADMAP 1.15b
     args.snapshot_dir = "s"
     assert EngineConfig.from_args(args, defaults).fault.snapshot_dir == "s"
     with pytest.raises(SystemExit):

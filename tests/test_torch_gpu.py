@@ -1327,6 +1327,50 @@ def test_dense_gemm_and_sparse_a_at_xlstm_gates(cuda, m):
         assert torch.equal(sparse_a_matmul(part, w), k3[:rows])
 
 
+def _free_card() -> None:
+    """Return this process's cached card memory before ranks are spawned
+    on the same card (the module-scoped models further down hold their
+    own, so the mesh tests come before them)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_reduced_mesh_1x2_on_one_card_equals_unsharded(cuda):
+    """Two ranks on one card over gloo (CUDA tensors), reduced llama3.2-1b
+    compacted at 0.8: the unsharded engine's tokens and counters, every
+    GEMM through a shard entry."""
+    _free_card()
+    conf = EngineConfig().with_fields(num_slots=4, cache_len=49,
+                                      decode_chunk=8, use_kernels=True)
+    kw = dict(arch="llama3.2-1b", reduced=True, sparsity=0.8, config=conf,
+              requests=8)
+    ref = serve_cli.serve(device="cuda", **kw)
+    recs = serve_cli.serve_on_mesh("1x2", device="cuda", **kw)
+    want = {r: o.tokens for r, o in ref.engine.outputs.items()}
+    for rec in recs:
+        assert rec["backend"] == "gloo" and rec["device"] == "cuda:0"
+        assert rec["tokens"] == want and rec["stats"] == ref.engine.stats
+        assert rec["dispatch"].get("shard", 0) > 0
+        assert rec["dispatch"].get("spmd_oracle", 0) == 0
+        calls = rec["prefills_here"] + rec["stats"]["decode_steps"]
+        assert rec["launches"]["griffin_spmm"] == 14 * calls
+        assert rec["launches"]["dense_gemm"] == calls
+
+
+@pytest.mark.gpu
+def test_serve_cli_mesh_1x2_full_width_parity(cuda, capsys):
+    """Full-width llama3.2-1b on a 1x2 mesh of two ranks sharing the card,
+    then the CLI's parity pass on the whole weights in this process."""
+    _free_card()
+    serve_cli.main(["--arch", "llama3.2-1b", "--sparsity", "0.8",
+                    "--use-kernels", "--mesh", "1x2", "--parity"])
+    out = capsys.readouterr().out
+    assert "gloo on CUDA tensors" in out
+    assert out.strip().splitlines()[-1].startswith("parity OK")
+
+
 @pytest.fixture(scope="module")
 def xlstm_full():
     """Full-width xlstm-1.3b on the card, seed 0, pruned 0.8 and compacted
@@ -1945,3 +1989,81 @@ def test_train_step_is_deterministic_on_card(cuda):
     assert torch.equal(l1, l2)
     for (path, a), (_, b) in zip(keyed_leaves(g1), keyed_leaves(g2)):
         assert torch.equal(a, b), path
+
+
+# ---------------------------------------------------------------------------
+# mesh serving: the shard entries (the mesh runs, above, come before the
+# module-scoped models)
+# ---------------------------------------------------------------------------
+
+def _shards_of(gw, shards):
+    from repro_torch.runtime.sharding import _griffin_share
+    return [_griffin_share(gw, r, shards) for r in range(shards)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 512), (2048, 8192),
+                                 (8192, 2048), (22016, 8192)])
+def test_shard_entries_bit_equal_to_the_whole_kernel(cuda, k, n, shards):
+    """Every rank's columns gathered equal the whole kernel bit for bit:
+    griffin_spmm (Sparse.B and dual, balanced, 128 x 128 / unit 32 at 0.8;
+    22016 x 8192 takes the CUDA-core route, and its shards with it),
+    sparse_a and dense_gemm on the dense weight, at M 4 and 32."""
+    from repro_torch.kernels.dense_gemm.ops import (DenseShard,
+                                                    dense_matmul_shard)
+    from repro_torch.kernels.griffin_spmm import kernel as k2
+    from repro_torch.kernels.griffin_spmm.ops import griffin_matmul_shard
+    from repro_torch.kernels.sparse_a.ops import sparse_a_matmul_shard
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    w = (torch.randn((k, n), generator=g, device=cuda) / k ** 0.5).to(
+        torch.bfloat16)
+    wp = block_prune(w, 0.8, 128, 32)
+    gw = preprocess_weights(wp, block_k=128, block_n=128, unit=32)
+    per = n // shards
+    cols = [DenseShard(wp[:, r * per:(r + 1) * per].contiguous(), n, shards)
+            for r in range(shards)]
+    for m in (4, 32):
+        a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        a[:, 128:256] = 0
+        route = k2.route(a, gw.b_comp, gw.kidx, n=n, block_k=128,
+                         block_n=128).name
+        assert route == ("core" if k == 22016 else "tc")
+        for dual in (False, True):
+            out = torch.cat([griffin_matmul_shard(a, s, dual=dual)
+                             for s in _shards_of(gw, shards)], 1)
+            out = out.index_select(1, gw.inv_perm.long())[:, :n]
+            assert torch.equal(out, griffin_matmul(a, gw, dual=dual))
+        if k == 22016:
+            continue
+        assert torch.equal(
+            torch.cat([sparse_a_matmul_shard(a, c) for c in cols], 1),
+            sparse_a_matmul(a, wp))
+        assert torch.equal(
+            torch.cat([dense_matmul_shard(a, c) for c in cols], 1),
+            dense_matmul(a, wp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_tied_head_shards_bit_equal_to_the_whole_kernel(cuda, shards):
+    """The tied 2048 x 128256 head, each rank's vocab rows read as embed.T,
+    through dense_gemm's and sparse_a's shard entries."""
+    from repro_torch.kernels.dense_gemm.ops import (DenseShard,
+                                                    dense_matmul_shard)
+    from repro_torch.kernels.sparse_a.ops import sparse_a_matmul_shard
+    g = torch.Generator(device=cuda).manual_seed(shards)
+    V, D = 128256, 2048
+    emb = (torch.randn((V, D), generator=g, device=cuda) * 0.02).to(
+        torch.bfloat16)
+    rows = V // shards
+    heads = [DenseShard(emb[r * rows:(r + 1) * rows].T, V, shards)
+             for r in range(shards)]
+    for m in (4, 32):
+        a = torch.randn((m, D), generator=g, device=cuda).to(torch.bfloat16)
+        assert torch.equal(torch.cat([dense_matmul_shard(a, h)
+                                      for h in heads], 1),
+                           dense_matmul(a, emb.T))
+        assert torch.equal(torch.cat([sparse_a_matmul_shard(a, h)
+                                      for h in heads], 1),
+                           sparse_a_matmul(a, emb.T))

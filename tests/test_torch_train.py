@@ -537,5 +537,5 @@ def test_cli_descends_and_prunes(capsys):
 
 
 def test_cli_refuses_model_parallel():
-    with pytest.raises(SystemExit, match="1.15"):
+    with pytest.raises(SystemExit, match="1.18"):
         train_cli.main(CLI + ["--model-parallel", "2"])
