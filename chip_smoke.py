@@ -169,7 +169,25 @@ Phases, in order; any failure exits non-zero before the result line:
                           oracle pass), every rank's host-state digest
                           equal, at most 0.25 host syncs per token; each
                           rank's tok/s beside sparse_b's and its gathers
-                          per model call with their host ms are printed.
+                          per model call with their host ms are printed;
+               mesh_remesh - in the same spawn, on the weights each rank
+                          drew for mesh_2x2: rank 3's device lost at the
+                          decode poll due at step 3 (it fires at clock 4),
+                          the ranks roll back and remesh onto 1x2 (ranks 0
+                          and 1; rank 2 dropped, after it hands data row
+                          1's tick-start state to both) and replay; gated
+                          on both survivors: sparse_b's tokens, one
+                          recovery logged as {"step": 4, "lost": [3],
+                          "mesh": "1x2"}, 2 model calls replayed,
+                          griffin_spmm 112x and dense_gemm 1x per model
+                          call after the recovery, all through the shard
+                          entries, at most 0.25 host syncs per token,
+                          equal host-state digests; rank 3 "lost" and
+                          rank 2 "dropped", neither launching a kernel or
+                          dispatching a GEMM after the loss; each
+                          survivor's recovery seconds (regroup, handover
+                          with its bytes, reshard), replayed calls and
+                          tok/s before and after the loss are printed.
              Launch counters are zeroed just before and read just after
              each engine run.  A later path of a family on the same seeded
              draw serves the first's weights (built once; a second build
@@ -606,6 +624,17 @@ TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
 # head, a 64128-column shard of embed.T); its tokens must equal sparse_b's.
 MESH = dict(spec="2x2", sparsity=0.8, arena=FIXED, launches=SB_LAUNCHES,
             shard_gemms=113, tokens_of="sparse_b", max_syncs=0.25)
+# remeshing (mesh_remesh): in the same spawn, after mesh_2x2's run and on
+# the weights each rank drew for it, rank 3's device is lost at the decode
+# poll due at step 3.  The trace's ticks start at clocks 0, 2 and 4, so the
+# kill fires at clock 4, which the recovery logs, and the 2 model calls of
+# that tick are replayed (tests/test_torch_remesh.py holds both on the
+# CPU); the survivors plan 1x2 (ranks 0 and 1), rank 2 is dropped.  Per
+# survivor and model call after the recovery: griffin_spmm 112x and
+# dense_gemm 1x, all through the shard entries.
+MESH_REMESH = dict(inject="kill:3@3:decode", log=[{"step": 4, "lost": [3],
+                                                   "mesh": "1x2"}],
+                   replayed=2, left={2: "dropped", 3: "lost"})
 # the kernels' shard entries, each rank's columns gathered against the
 # whole kernel (bit-equal): llama's four SPMM_SHAPES and the tied head at
 # M 4 and 32, over 2 and 4 model ranks, and chameleon-34b's w_down (22016 x
@@ -2428,15 +2457,18 @@ def kernel_shards(torch, gen) -> list:
     return rows
 
 
-def phase_mesh(torch, card: str, want: dict, sb: dict) -> dict:
-    """``MESH``: serve sparse_b's trace through ``launch.serve.serve_on_mesh``
-    (four ranks spawned, each drawing the seeded weights on the card and
-    keeping its share), then gate every rank: tokens equal to sparse_b's,
-    launches per model call exactly ``MESH["launches"]``, every weight GEMM
-    through a shard entry (none replicated, none through the oracle), at
-    most ``max_syncs`` host syncs per token, and one host-state digest on
-    all ranks.  Prints the backend line, each rank's tok/s beside
-    sparse_b's and its gathers per model call with their host ms."""
+def phase_mesh(torch, card: str, want: dict, sb: dict):
+    """``MESH`` and ``MESH_REMESH`` in one spawn of four ranks
+    (``launch.serve.mesh_cells_on``): first sparse_b's trace, each rank
+    drawing the seeded weights on the card and keeping its share, gated
+    on every rank: tokens equal to sparse_b's, launches per model call
+    exactly ``MESH["launches"]``, every weight GEMM through a shard entry
+    (none replicated, none through the oracle), at most ``max_syncs`` host
+    syncs per token, and one host-state digest on all ranks.  Then
+    :func:`check_remesh` on the same weights.  Prints the backend line,
+    each rank's tok/s beside sparse_b's and its gathers per model call
+    with their host ms.  Returns both cells' records (mesh_2x2's,
+    mesh_remesh's)."""
     from repro_torch.launch import serve as launch
     from repro_torch.launch.mesh import backend_line, serve_mesh
     from repro_torch.runtime.config import EngineConfig
@@ -2445,11 +2477,13 @@ def phase_mesh(torch, card: str, want: dict, sb: dict) -> dict:
     print(f"{tag} {backend_line(serve_mesh(MESH['spec']), 'cuda')}; {card}")
     config = EngineConfig().with_fields(decode_chunk=8, use_kernels=True,
                                         **MESH["arena"])
+    cell = dict(arch="llama3.2-1b", sparsity=MESH["sparsity"], seed=SEED,
+                config=config, **TRACE)
+    faulted = dict(cell, config=config.with_fields(
+        inject=MESH_REMESH["inject"]))
     t0 = time.perf_counter()
-    recs = launch.serve_on_mesh(MESH["spec"], device="cuda",
-                                arch="llama3.2-1b",
-                                sparsity=MESH["sparsity"], seed=SEED,
-                                config=config, **TRACE)
+    recs, remesh = launch.mesh_cells_on(MESH["spec"], [cell, faulted],
+                                        device="cuda")
     wall = time.perf_counter() - t0
     if len({r["digest"] for r in recs}) != 1:
         fail(f"mesh_2x2: the ranks' host states differ: "
@@ -2490,13 +2524,104 @@ def phase_mesh(torch, card: str, want: dict, sb: dict) -> dict:
         for k, v in rec["launches"].items():
             total[k] += v
     print(f"{tag} 4 ranks equal to {MESH['tokens_of']} in tokens, one "
-          f"host-state digest; wall {wall:.1f}s with the spawn and the "
-          "ranks' weight builds")
-    return {"launches": total, "wall_s": wall,
-            "ranks": [{k: r[k] for k in ("rank", "stats", "launches",
-                                         "dispatch", "gathers", "gather_s",
-                                         "seconds", "prefills_here",
-                                         "digest")} for r in recs]}
+          f"host-state digest; wall {wall:.1f}s with the spawn, the "
+          "ranks' weight builds and mesh_remesh")
+    record = {"launches": total, "wall_s": wall,
+              "ranks": [{k: r[k] for k in ("rank", "stats", "launches",
+                                           "dispatch", "gathers", "gather_s",
+                                           "seconds", "prefills_here",
+                                           "digest")} for r in recs]}
+    return record, check_remesh(card, want, sb, remesh)
+
+
+def check_remesh(card: str, want: dict, sb: dict, recs: list) -> dict:
+    """``MESH_REMESH``'s gates on its ranks' records: on each survivor
+    sparse_b's tokens, one recovery logged as ``MESH_REMESH["log"]``,
+    ``replayed`` model calls replayed, after the recovery exactly
+    ``MESH["launches"]`` a model call and every weight GEMM through a
+    shard entry (none replicated, none through the oracle), at most
+    ``max_syncs`` host syncs per token, Mode.B, and equal host-state
+    digests; the departing ranks' status (``left``) with no launch and no
+    GEMM after the loss.  Prints, ungated, each survivor's recovery
+    seconds (regroup, handover with its bytes, reshard), the replayed
+    calls and its tok/s before and after the loss."""
+    tag = "[serve mesh_remesh]"
+    served = [r for r in recs if r["status"] == "served"]
+    left = {r["rank"]: r for r in recs if r["status"] != "served"}
+    if {r: x["status"] for r, x in left.items()} != MESH_REMESH["left"]:
+        fail(f"mesh_remesh: ranks left "
+             f"{[(r, x['status']) for r, x in left.items()]}, expected "
+             f"{MESH_REMESH['left']}")
+    if len({r["digest"] for r in served}) != 1 or len(served) != 2:
+        fail(f"mesh_remesh: the survivors' host states differ: "
+             f"{[r['digest'] for r in served]}")
+    total = {k: 0 for k in MESH["launches"]}
+    for rank, rec in sorted(left.items()):
+        after = {k: v for k, v in rec["launches_after_loss"].items() if v}
+        moved = rec["remesh"][0]["transfers"] if rec["remesh"] else []
+        print(f"{tag} rank {rank} {rec['status']} at step {rec['step']}: "
+              f"launches after the loss {after or 0}, GEMMs "
+              f"{sum(rec['dispatch_after_loss'].values())}; sent "
+              f"{[(t['row'], t['dst'], t['bytes']) for t in moved]}")
+        if after or any(rec["dispatch_after_loss"].values()):
+            fail(f"mesh_remesh rank {rank}: launched after the loss: "
+                 f"{rec['launches_after_loss']}, "
+                 f"{rec['dispatch_after_loss']}")
+        for k in total:
+            total[k] += rec["launches"].get(k, 0)
+    for rec in served:
+        st = rec["stats"]
+        calls = rec["calls_after"]
+        want_l = {k: v * calls for k, v in MESH["launches"].items()}
+        got = {k: rec["launches_after"].get(k, 0) for k in want_l}
+        d = rec["dispatch_after"]
+        syncs = st["host_syncs"] / max(st["emitted"], 1)
+        (x,) = rec["remesh"]
+        print(f"{tag} rank {rec['rank']} -> {rec['final_mesh']} position "
+              f"{rec['final_rank']}: recovery {rec['recovery_log']}; "
+              f"regroup {1e3 * x['regroup_s']:.1f} ms, handover "
+              f"{x['handover_bytes']} B in {1e3 * x['handover_s']:.1f} ms "
+              f"({[(t['row'], t['src']) for t in x['transfers']]}), "
+              f"reshard {1e3 * x['reshard_s']:.1f} ms; "
+              f"{rec['replayed_calls']} model calls replayed; tok/s "
+              f"{rec['tok_s_before']:.1f} before the loss, "
+              f"{rec['tok_s_after']:.1f} after (sparse_b "
+              f"{sb['tokens_per_second']:.1f}); the run {rec['seconds']:.2f}"
+              f" s; {calls} model calls after: launches {got}, dispatch "
+              f"{d}; {syncs:.4f} host syncs/token; {card}")
+        if rec["tokens"] != want:
+            fail(f"mesh_remesh rank {rec['rank']}: tokens differ from "
+                 f"{MESH['tokens_of']}'s")
+        if rec["recoveries"] != 1 or \
+                rec["recovery_log"] != MESH_REMESH["log"] or \
+                rec["final_mesh"] != "1x2" or \
+                rec["replayed_calls"] != MESH_REMESH["replayed"]:
+            fail(f"mesh_remesh rank {rec['rank']}: {rec['recoveries']} "
+                 f"recoveries, log {rec['recovery_log']}, final mesh "
+                 f"{rec['final_mesh']}, {rec['replayed_calls']} replayed")
+        if got != want_l:
+            fail(f"mesh_remesh rank {rec['rank']}: launches after the "
+                 f"recovery {got}, expected {want_l}")
+        if d.get("shard", 0) != MESH["shard_gemms"] * calls or \
+                any(d.get(b, 0) for b in ("replicated", "spmd_oracle",
+                                          "kernel", "plain")):
+            fail(f"mesh_remesh rank {rec['rank']}: dispatch after the "
+                 f"recovery {d}")
+        if syncs > MESH["max_syncs"] or rec["mode"] != "B":
+            fail(f"mesh_remesh rank {rec['rank']}: {syncs} syncs/token, "
+                 f"mode {rec['mode']}")
+        for k in total:
+            total[k] += rec["launches"][k]
+    print(f"{tag} 2x2 -> 1x2 after rank 3's loss: both survivors equal to "
+          f"{MESH['tokens_of']} in tokens, one host-state digest")
+    return {"launches": total,
+            "ranks": [{k: r.get(k) for k in (
+                "rank", "status", "final_mesh", "recovery_log",
+                "replayed_calls", "remesh", "launches_after",
+                "dispatch_after", "calls_after", "tok_s_before",
+                "tok_s_after", "launches_after_loss", "stats", "digest",
+                "seconds")}
+                for r in recs]}
 
 
 def kernel_meta(torch, gen, summary):
@@ -4960,8 +5085,8 @@ def main() -> None:
         del run
         torch.cuda.empty_cache()
         clock.done(name)
-    serves["mesh_2x2"] = phase_mesh(torch, card, tokens[MESH["tokens_of"]],
-                                    serves[MESH["tokens_of"]])
+    serves["mesh_2x2"], serves["mesh_remesh"] = phase_mesh(
+        torch, card, tokens[MESH["tokens_of"]], serves[MESH["tokens_of"]])
     clock.done("mesh_2x2")
     phase_dense_configs(torch, clock, serves)
     phase_dense_configs(torch, clock, serves, VLM_PATHS, profile_steps=1)

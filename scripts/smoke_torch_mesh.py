@@ -9,8 +9,9 @@ with ``--no-kernels``), serves ``sparse_b`` with every check of the smoke,
 then ``mesh_2x2`` (``chip_smoke.phase_mesh``: the same trace on four ranks
 sharing the card, gated on sparse_b's tokens, the launches per rank and
 model call, the shard dispatch, the host syncs and the ranks' host-state
-digests).  Prints each phase's seconds; the records go to
-chiprun_out/smoke_torch_mesh.json.
+digests) and, in the same spawn, ``mesh_remesh`` (rank 3's device lost,
+the survivors remeshed onto 1x2; ``chip_smoke.check_remesh``).  Prints
+each phase's seconds; the records go to chiprun_out/smoke_torch_mesh.json.
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ def main() -> None:
     del run
     torch.cuda.empty_cache()
     clock.done("sparse_b")
-    out["mesh_2x2"] = cs.phase_mesh(torch, card, tokens, out["sparse_b"])
+    out["mesh_2x2"], out["mesh_remesh"] = cs.phase_mesh(
+        torch, card, tokens, out["sparse_b"])
     clock.done("mesh_2x2")
     out["phase_s"] = clock.seconds
     dest = ROOT / "chiprun_out"

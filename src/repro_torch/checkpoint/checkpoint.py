@@ -26,7 +26,9 @@ template leaf's own, the CPU for a ``meta`` template).
 The serving engine writes its tick-start snapshots through ``save`` (its
 scheduler and paging state in ``extra``, which ``read_manifest`` returns)
 and recovers through ``restore`` (``runtime.engine.ServeEngine``,
-``FaultConfig.snapshot_dir``); the trainer saves its whole ``TrainState``
+``FaultConfig.snapshot_dir``); on a serving mesh each data row keeps its
+own checkpoints under :func:`row_dir`, the first row the weights too, so a
+smaller mesh restores any row it takes over (``runtime.mesh_serve``); the trainer saves its whole ``TrainState``
 (parameters, AdamW moments and counters) and polls
 :class:`PreemptionGuard`, which SIGTERM flips, to save and exit.
 """
@@ -139,6 +141,12 @@ def _steps(ckpt_dir: str):
 def _retain(ckpt_dir: str, keep: int) -> None:
     for d in _steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def row_dir(ckpt_dir: str, row: int) -> str:
+    """The checkpoint directory of data row ``row`` of a serving mesh:
+    ``<ckpt_dir>/row<row>``."""
+    return os.path.join(ckpt_dir, f"row{row}")
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

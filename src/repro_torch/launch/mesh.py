@@ -29,7 +29,7 @@ import pickle
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,11 +59,15 @@ class Mesh:
 
     data: int
     model: int
-    rank: int = 0
+    rank: int = 0                  # the position in the mesh, row-major
     device: Optional[torch.device] = None      # None: not placed yet
     backend: Optional[str] = None
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     axis_names: Tuple[str, ...] = AXES
+    # the world rank at each position (None: position r is world rank r)
+    # and the gloo group over the whole world, kept whole by regroup
+    ranks: Optional[Tuple[int, ...]] = None
+    world: Any = None
     # collectives made and their host seconds, by axis (the serving path's
     # per-model-call gathers are the "model" axis)
     gathers: Dict[str, int] = dataclasses.field(
@@ -78,6 +82,20 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.data * self.model
+
+    @property
+    def members(self) -> List[int]:
+        """The world ranks of the mesh, in position order."""
+        return list(self.ranks) if self.ranks is not None \
+            else list(range(self.size))
+
+    @property
+    def world_rank(self) -> int:
+        return self.members[self.rank]
+
+    def row_ranks(self, d: int) -> List[int]:
+        """The world ranks of data row ``d``."""
+        return self.members[d * self.model:(d + 1) * self.model]
 
     def index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
@@ -147,6 +165,11 @@ def rank_device(device: torch.device, rank: int) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
+# the process groups this process made after its join (a regroup's, and
+# the names it skipped to stay level with the ranks that made more)
+_GROUPS_MADE = [0]
+
+
 def _join(shape: Mesh, rank: int, device: torch.device, store_dir: str,
           env: bool) -> Mesh:
     """Initialise this rank's process group (a ``FileStore`` under
@@ -168,16 +191,82 @@ def _join(shape: Mesh, rank: int, device: torch.device, store_dir: str,
                                 world_size=world, timeout=timeout)
     mesh = Mesh(shape.data, shape.model, rank=rank, device=dev,
                 backend=backend)
-    D, M = shape.data, shape.model
-    for d in range(D):                   # one "model" group per data row
-        g = dist.new_group([d * M + m for m in range(M)])
-        if d == mesh.index("data"):
-            mesh.groups["model"] = g
-    for m in range(M):                   # one "data" group per model column
-        g = dist.new_group([d * M + m for d in range(D)])
-        if m == mesh.index("model"):
-            mesh.groups["data"] = g
+    _GROUPS_MADE[0] = 0                  # a new world counts afresh
+    _make_groups(mesh, join=True)
+    mesh.world = mesh.groups["host"]
     return mesh
+
+
+def _make_groups(mesh: Mesh, member: bool = True, join: bool = False
+                 ) -> None:
+    """The mesh's groups: a "model" group per data row, a "data" group per
+    model column, and the gloo "host" group over the whole mesh (at the
+    join on gloo, the world group itself).  Every process of the world
+    makes every group in the same order, members or not
+    (``dist.new_group`` names groups by a per-process count); ``member``
+    False walks the groups of a mesh this process is not in."""
+    import torch.distributed as dist
+    D, M = mesh.data, mesh.model
+    ranks = mesh.members
+    groups = {}
+    for d in range(D):
+        g = dist.new_group(mesh.row_ranks(d))
+        if member and d == mesh.index("data"):
+            groups["model"] = g
+    for m in range(M):
+        g = dist.new_group([ranks[d * M + m] for d in range(D)])
+        if member and m == mesh.index("model"):
+            groups["data"] = g
+    made = D + M
+    if join and mesh.backend == "gloo":
+        groups["host"] = dist.group.WORLD
+    else:
+        groups["host"] = dist.new_group(ranks, backend="gloo")
+        made += 1
+    if member:
+        mesh.groups.update(groups)
+    if not join:
+        _GROUPS_MADE[0] += made
+
+
+def regroup(mesh: Mesh, lost: Sequence[int], model_parallel: int
+            ) -> Tuple[Any, Optional[Mesh]]:
+    """The mesh after the world ranks ``lost`` are gone: the plan
+    (``runtime.elastic.plan_mesh`` over the survivors in mesh order, the
+    model axis at most ``model_parallel``) and this rank's view of the new
+    mesh, or None where the plan leaves this rank out (a lost rank, or a
+    survivor beyond the largest mesh that fits).  Every rank of ``mesh``
+    calls this at a recovery, in the same order, the lost and the dropped
+    ones too: ``dist.new_group`` must be called by every process, so the
+    ranks first agree, over the old mesh's host group, on how many groups
+    the most active of them has made, and each makes up the names it
+    missed (a rank that left an earlier remesh of the run made none); the
+    agreement is also the old mesh's barrier, so what its rows wrote to
+    disk is there before anyone reads it.  Then every rank of the old
+    mesh makes every new group.  A position keeps its device.  An unjoined
+    mesh gives an unjoined view."""
+    from ..runtime.elastic import plan_mesh, surviving
+    survivors = surviving(mesh.members, lost)
+    if not survivors:
+        raise RuntimeError(f"no surviving ranks after losing {sorted(lost)}")
+    plan = plan_mesh(len(survivors), model_parallel, devices=survivors)
+    me = mesh.world_rank
+    member = me in plan.devices
+    new = Mesh(plan.data, plan.model,
+               rank=plan.devices.index(me) if member else 0,
+               device=mesh.device, backend=mesh.backend,
+               ranks=tuple(plan.devices), world=mesh.world)
+    if mesh.groups:
+        import torch.distributed as dist
+        made = torch.tensor([_GROUPS_MADE[0]], dtype=torch.int64)
+        dist.all_reduce(made, op=dist.ReduceOp.MAX,
+                        group=mesh.groups["host"])
+        other = [0 if me else 1]
+        for _ in range(int(made[0]) - _GROUPS_MADE[0]):
+            dist.new_group(other)              # a name another rank used
+        _GROUPS_MADE[0] = int(made[0])
+        _make_groups(new, member=member)
+    return plan, (new if member else None)
 
 
 def _rank_main(rank: int, fn: Callable, shape: Mesh, args: tuple,
@@ -289,5 +378,5 @@ def backend_line(mesh: Mesh, device="cuda") -> str:
 
 
 __all__ = ["AXES", "Mesh", "backend_for", "backend_line", "check_ranks",
-           "chips", "mesh_spec", "parse_mesh", "run_ranks",
+           "chips", "mesh_spec", "parse_mesh", "regroup", "run_ranks",
            "serve_mesh"]

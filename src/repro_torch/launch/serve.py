@@ -62,8 +62,14 @@ ranks' host states are held equal.  ``--model-parallel P`` plans the mesh
 (``runtime.elastic.plan_mesh``) over the cards (on the host: P ranks)
 when ``--mesh`` is not given; ``--spmd-fallback`` sends the mesh's GEMMs
 through the decompaction / dense-product oracle instead of the kernels'
-shard entries (the parity baseline).  ``--remesh-model-parallel`` (the
-mesh after a device loss) is ROADMAP 1.15b and exits.
+shard entries (the parity baseline).  On a mesh ``--inject-fault
+kill:<rank>@<step>[:<phase>]`` loses the rank at that mesh position
+(``delay:<row>@<step>`` slows a data row until the straggler detector
+evicts it): the ranks roll back, remesh onto the survivors (the model
+axis at most ``--remesh-model-parallel``, default the mesh's) and finish
+the trace; the run prints the recovery log and the final mesh, and
+``--parity`` holds a surviving rank's tokens against the oracle.
+``--snapshot-dir`` works on a mesh too (a directory a data row).
 """
 from __future__ import annotations
 
@@ -129,21 +135,25 @@ def _devices(device: torch.device) -> List[torch.device]:
 
 
 def fault_hooks(econf: EngineConfig, device: torch.device,
-                evict_after: int = 3) -> Dict:
+                evict_after: int = 3, mesh=None) -> Dict:
     """The engine's ``fault_injector`` and ``straggler`` keywords from a
     ``kill:``/``delay:`` spec in ``fault.inject`` (none for no spec or a
-    router-level ``replica:`` spec).  A delay spec also arms a one-host
-    straggler detector, so the eviction path, not the injector, drives
-    recovery; one host is its own median and is never evicted."""
+    router-level ``replica:`` spec).  A delay spec also arms a straggler
+    detector, so the eviction path, not the injector, drives recovery:
+    one host on one device (its own median, never evicted), a host a data
+    row on a ``mesh``, whose ranks the kill index resolves against."""
     if econf.fault.inject is None:
         return {}
     spec = parse_fault_spec(econf.fault.inject)
     if spec.kind == "replica":
         return {}
-    hooks = {"fault_injector": spec.build(_devices(device))}
+    on_mesh = mesh is not None and mesh.size > 1
+    hooks = {"fault_injector": spec.build(mesh.members if on_mesh
+                                          else _devices(device))}
     if spec.kind == "delay":
         hooks["straggler"] = StragglerDetector(
-            1, StragglerConfig(evict_after=evict_after))
+            mesh.data if on_mesh else 1,
+            StragglerConfig(evict_after=evict_after))
     return hooks
 
 
@@ -216,7 +226,8 @@ class ServeRun:
     """What :func:`serve` did: the engine (its ``stats``, outputs and
     ``mode_history``), the trace, the served params, the wall time, and
     the GEMM dispatch and kernel launch counts of the engine's run alone
-    (not the build's or the engine's construction)."""
+    (not the build's or the engine's construction).  ``whole`` is the
+    whole tree served (on a mesh ``params`` is the rank's share)."""
 
     engine: ServeEngine
     requests: List
@@ -224,6 +235,7 @@ class ServeRun:
     seconds: float
     dispatch: Dict[str, int]
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    whole: Optional[Dict] = None
 
     @property
     def tokens_per_second(self) -> float:
@@ -271,7 +283,8 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
         arch, reduced, sparsity, seed, device, econf, requests, prompt_lens,
         gen_lens, arrival_every, length_dist, max_gen, trace_seed, trace_kw,
         params)
-    hooks = fault_hooks(econf, api.device, evict_after)
+    hooks = fault_hooks(econf, api.device, evict_after, mesh)
+    whole = params
     if mesh is not None:
         engine = MeshServeEngine(api, params, mesh=mesh, config=econf,
                                  plan=plan, **hooks)
@@ -283,34 +296,78 @@ def serve(arch: str = "llama3.2-1b", *, reduced: bool = False,
     _sync(api)
     t0 = time.perf_counter()
     engine.run(reqs)
-    _sync(api)
+    if (getattr(engine, "departed", None) or {}).get("status") != "lost":
+        _sync(api)                  # a lost rank's device is not touched
     dt = time.perf_counter() - t0
     after = kernel_dispatch_counts()
     dispatch = {k: after.get(k, 0) - before.get(k, 0) for k in after}
     launches = {k: v - l0.get(k, 0) for k, v in launch_counts().items()}
-    return ServeRun(engine, reqs, params, dt, dispatch, launches)
+    return ServeRun(engine, reqs, params, dt, dispatch, launches, whole)
 
 
-def mesh_rank(mesh, kw: Dict) -> Dict:
+def _since(now: Dict[str, int], then: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - then.get(k, 0) for k, v in now.items()}
+
+
+def mesh_rank(mesh, kw: Dict, drawn: Optional[Dict] = None) -> Dict:
     """One rank of :func:`serve_on_mesh`: :func:`serve` on this rank's
     mesh and device, then what the caller reads, as plain values: the
     tokens, the counters, the GEMM dispatch and kernel launch counts of
-    the engine's run, the host-state digest (held equal on every rank
-    here), the rank's prefills, its shares of the weights, its gathers and
-    their seconds by axis, and the wall seconds."""
+    the engine's run, the host-state digest (held equal on every rank of
+    the final mesh here), the rank's prefills, its shares of the weights,
+    its gathers and their seconds by axis, and the wall seconds.  After a
+    loss: the final mesh, the recoveries and their log, each remesh's
+    record, and the launches, dispatch counts and model calls since the
+    last recovery.  A rank the remesh left out returns its ``status``
+    (``"lost"`` or ``"dropped"``), its handover, its launches, and its
+    launches and dispatch counts since the loss instead, and makes no
+    further collective here.
+    ``drawn`` (a dict) receives the whole tree served under ``"tree"``."""
     import torch.distributed as dist
 
     mesh.reset_counts()
     run = serve(mesh=mesh, **kw)
+    if drawn is not None:
+        drawn["tree"] = run.whole
     eng = run.engine
+    left = eng.departed
+    if left is not None:
+        return {"rank": mesh.rank, "mesh": mesh_spec(mesh),
+                "status": left["status"], "step": left["step"],
+                "final_mesh": left["mesh"], "remesh": list(eng.remesh_log),
+                "launches": run.launches,
+                "launches_after_loss": _since(launch_counts(),
+                                              left["launches"]),
+                "dispatch_after_loss": _since(kernel_dispatch_counts(),
+                                              left["dispatch"])}
+    final = eng.mesh
     digest = host_digest(eng)
-    if mesh.size > 1:
-        digests = [None] * mesh.size
-        dist.all_gather_object(digests, digest)
+    if final.size > 1:
+        digests = [None] * final.size
+        dist.all_gather_object(digests, digest, group=final.groups["host"])
         if len(set(digests)) != 1:
             raise RuntimeError(f"the ranks' host states differ after the "
                                f"run: {digests}")
+    meshes = [mesh] + ([final] if final is not mesh else [])
+    rec = eng.after_recovery
+    recovery = {}
+    if rec is not None:
+        recovery = {
+            "launches_after": _since(launch_counts(), rec["launches"]),
+            "dispatch_after": _since(kernel_dispatch_counts(),
+                                     rec["dispatch"]),
+            "calls_after": eng.prefills_here - rec["prefills"]
+            + eng.stats["decode_steps"] - rec["decode_steps"],
+            "tok_s_before": eng.at_loss["emitted"]
+            / max(eng.at_loss["t"] - eng.run_started, 1e-9),
+            "tok_s_after": (eng.stats["emitted"] - rec["emitted"])
+            / max(eng.run_ended - rec["t"], 1e-9)}
     return {"rank": mesh.rank, "mesh": mesh_spec(mesh),
+            "status": "served", "final_mesh": mesh_spec(final),
+            "final_rank": final.rank, "recoveries": eng.recoveries,
+            "recovery_log": list(eng.recovery_log),
+            "replayed_calls": eng.replayed_calls,
+            "remesh": list(eng.remesh_log), **recovery,
             "backend": mesh.backend, "device": str(mesh.device),
             "tokens": {r: list(o.tokens) for r, o in eng.outputs.items()},
             "stats": dict(eng.stats), "mode": eng.mode.value,
@@ -324,7 +381,10 @@ def mesh_rank(mesh, kw: Dict) -> Dict:
             "griffin_blocks": sorted({(g.block_k, g.block_n, g.a_thr)
                                       for g in griffin_leaves(eng.params)},
                                      key=str),
-            "gathers": dict(mesh.gathers), "gather_s": dict(mesh.gather_s),
+            "gathers": {a: sum(m.gathers[a] for m in meshes)
+                        for a in mesh.gathers},
+            "gather_s": {a: sum(m.gather_s[a] for m in meshes)
+                         for a in mesh.gather_s},
             "seconds": run.seconds}
 
 
@@ -349,9 +409,29 @@ def mesh_cells_on(spec: str, cells: Sequence[Dict], device="cuda",
     return [[recs[i] for recs in per_rank] for i in range(len(cells))]
 
 
+def _draw_key(kw: Dict) -> Tuple:
+    """What :func:`serve`'s draw of the weights depends on (its defaults
+    where ``kw`` leaves them out)."""
+    conf = kw.get("config") or EngineConfig()
+    return (kw.get("arch", "llama3.2-1b"), kw.get("reduced", False),
+            kw.get("sparsity", 0.8), kw.get("seed", 0),
+            conf.kernels.use_kernels, conf.kernels.plan)
+
+
 def mesh_cells(mesh, cells: Sequence[Dict]) -> List[Dict]:
-    """The ranks' side of :func:`mesh_cells_on`."""
-    return [mesh_rank(mesh, kw) for kw in cells]
+    """The ranks' side of :func:`mesh_cells_on`.  A cell that draws the
+    same weights as the cell before it (same arch, width, sparsity, seed,
+    kernels and plan) serves that cell's tree, which a second draw would
+    give bit for bit, and draws nothing."""
+    out, prev = [], None
+    for kw in cells:
+        key, own = _draw_key(kw), "params" in kw
+        if not own and prev is not None and prev[0] == key:
+            kw = dict(kw, params=prev[1])
+        drawn: Dict = {}
+        out.append(mesh_rank(mesh, kw, drawn))
+        prev = None if own else (key, drawn["tree"])
+    return out
 
 
 @dataclasses.dataclass
@@ -602,9 +682,10 @@ def _main_router(args, econf: EngineConfig, trace: Dict) -> None:
 
 
 def _main_mesh(args, econf: EngineConfig, trace: Dict) -> None:
-    """``--mesh DxM``: serve on the mesh's ranks and print rank 0's
-    record (every rank's host state was held equal), then the parity
-    check: rank 0's tokens against ``greedy_generate`` on the whole
+    """``--mesh DxM``: serve on the mesh's ranks and print the record of
+    the first rank that served to the end (every such rank's host state
+    was held equal), after a fault the recovery line, then the parity
+    check: that rank's tokens against ``greedy_generate`` on the whole
     weights, on this process's device."""
     import os
     lead = int(os.environ.get("RANK", "0")) == 0
@@ -614,10 +695,14 @@ def _main_mesh(args, econf: EngineConfig, trace: Dict) -> None:
                          reduced=args.reduced, sparsity=args.sparsity,
                          seed=args.seed, config=econf,
                          evict_after=args.evict_after, **trace)
-    rec = recs[0]
     if not lead:
         return
-    if any(r["tokens"] != rec["tokens"] for r in recs):
+    served = [r for r in recs if r["status"] == "served"]
+    if not served:
+        raise SystemExit(f"no rank served to the end: "
+                         f"{[r['status'] for r in recs]}")
+    rec = served[0]
+    if any(r["tokens"] != rec["tokens"] for r in served):
         raise SystemExit("the ranks' tokens differ")
     st = rec["stats"]
     calls = max(rec["prefills_here"] + st["decode_steps"], 1)
@@ -637,16 +722,30 @@ def _main_mesh(args, econf: EngineConfig, trace: Dict) -> None:
           f"model-axis gathers ({rec['gathers']['model'] / calls:.1f} a "
           f"model call, {1e3 * rec['gather_s']['model'] / calls:.3f} ms), "
           f"{rec['gathers']['data']} data-axis gathers; host states equal "
-          f"on every rank")
+          f"on every rank of mesh {rec['final_mesh']}")
+    if econf.fault.inject is not None:
+        done = sum(len(t) > 0 for t in rec["tokens"].values())
+        if done != trace["requests"]:
+            raise SystemExit(f"fault run finished {done}/"
+                             f"{trace['requests']} requests")
+        left = ", ".join(f"rank {r['rank']} {r['status']}" for r in recs
+                         if r["status"] != "served")
+        print(f"fault injected ({econf.fault.inject}): {rec['recoveries']} "
+              f"recoveries, log {rec['recovery_log']}, final mesh "
+              f"{rec['final_mesh']}; all {done} requests completed"
+              + (f" ({left})" if left else ""))
     if args.max_syncs_per_token > 0 and syncs > args.max_syncs_per_token:
         raise SystemExit(f"host syncs/token {syncs:.3f} exceeds "
                          f"{args.max_syncs_per_token}")
+    where = f"mesh {rec['mesh']}" + (
+        f", final mesh {rec['final_mesh']}"
+        if rec["final_mesh"] != rec["mesh"] else "")
     if not args.parity:
-        print(f"done: mesh {rec['mesh']}")
+        print(f"done: {where}")
         return
     if len(rec["mode_history"]) > 1:
         print(f"parity SKIPPED: execution mode changed mid-run "
-              f"({rec['mode_history']}); mesh {rec['mesh']}")
+              f"({rec['mode_history']}); {where}")
         return
     kw = {k: v for k, v in trace.items()
           if k not in ("requests", "prompt_lens", "gen_lens",
@@ -659,7 +758,7 @@ def _main_mesh(args, econf: EngineConfig, trace: Dict) -> None:
     eng = ServeEngine(api, params, ec, plan=plan)
     n = replay_oracle([eng], params, reqs, rec["tokens"])
     print(f"parity OK: all {n} requests token-identical to greedy_generate "
-          f"on the whole weights; mesh {rec['mesh']}")
+          f"on the whole weights; {where}")
 
 
 def main(argv=None) -> None:
@@ -745,13 +844,15 @@ def main(argv=None) -> None:
                          "-> cheaper Mode -> priority shed)")
     ap.add_argument("--inject-fault", default=None, metavar="SPEC",
                     help="deterministic chaos: 'kill:<dev>@<step>[:<phase>]'"
-                         " raises a device loss for device index <dev> at "
-                         "engine step <step> (phase admission|prefill|"
-                         "decode, default decode), and the engine rolls "
-                         "back to its tick-start snapshot and replays the "
-                         "tick; 'delay:<host>@<step>[:<factor>]' inflates "
-                         "one host's step times for the straggler "
-                         "detector; with --replicas, 'replica:<i>@<tick>"
+                         " raises a device loss for device index <dev> (on "
+                         "--mesh: the rank at that position) at engine "
+                         "step <step> (phase admission|prefill|decode, "
+                         "default decode), and the engine rolls back to "
+                         "its tick-start snapshot, remeshes onto the "
+                         "survivors on a mesh, and replays the tick; "
+                         "'delay:<host>@<step>[:<factor>]' inflates one "
+                         "host's (a mesh's data row's) step times for the "
+                         "straggler detector; with --replicas, 'replica:<i>@<tick>"
                          "[:<during>[:<recover>]]' kills a whole replica "
                          "(during prefill|decode|idle|any)")
     ap.add_argument("--snapshot-dir", default=None,
@@ -786,16 +887,13 @@ def main(argv=None) -> None:
                          "dense-product oracle instead of the kernels' "
                          "shard entries (the parity baseline)")
     ap.add_argument("--remesh-model-parallel", type=int, default=None,
-                    help="model-parallel cap of the mesh after a device "
-                         "loss: remeshing is not ported yet (ROADMAP 1.15b)")
+                    help="model-parallel cap of the mesh the survivors of a "
+                         "device loss or a straggler eviction form on "
+                         "--mesh (default: the mesh's model axis)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.remesh_model_parallel is not None:
-        raise SystemExit("--remesh-model-parallel: remeshing onto the "
-                         "survivors of a device loss is not ported yet "
-                         "(ROADMAP 1.15b)")
     econf = EngineConfig.from_args(
         args, defaults={d: ap.get_default(d) for d in vars(args)})
     ttft, slack = _parse_slo(args.slo) if args.slo else (None, None)

@@ -9,9 +9,9 @@ several such engines behind the multi-replica router (``RouterConfig``,
 ``snapshot_dir`` sends the engine's tick-start snapshots to disk.
 ``mesh`` ("DxM") serves through ``runtime.mesh_serve.MeshServeEngine``
 and ``kernels.spmd_kernels=False`` sends its GEMMs through the parity
-oracle (``--spmd-fallback``).  ``recovery_model_parallel`` (the mesh
-after a device loss) keeps the reference's shape and raises
-``NotImplementedError`` when set: remeshing is ROADMAP 1.15b.  The
+oracle (``--spmd-fallback``).  ``recovery_model_parallel`` caps the
+model axis of the mesh the survivors of a loss form
+(``--remesh-model-parallel``; None keeps the mesh's).  The
 reference's kernel field ``interpret`` has no counterpart: a JSON file may
 carry it at its default, and any other value raises; ``launch/serve.py``
 defines no flag for an unported field.  ``kernels.plan`` names a tuned kernel plan file
@@ -76,8 +76,8 @@ class FaultConfig:
     ``kill:``/``delay:`` arm the engine's rollback and replay, ``replica:``
     the router's replica kill.  ``snapshot_dir`` writes every tick-start
     snapshot through ``checkpoint.save`` and recovers through
-    ``checkpoint.restore``.  ``recovery_model_parallel`` (the post-loss
-    mesh) is not ported yet (ROADMAP 1.15b)."""
+    ``checkpoint.restore``.  ``recovery_model_parallel`` caps the model
+    axis of the post-loss mesh (None: the current one)."""
 
     inject: Optional[str] = None
     snapshot_dir: Optional[str] = None
@@ -113,6 +113,7 @@ _FLAGS = {"slots": "num_slots", "measure_every": "measure_every",
           "replicas": "replicas", "queue_bound": "queue_bound",
           "hedge_ms": "hedge_after", "shed_policy": "shed_policy",
           "inject_fault": "inject", "snapshot_dir": "snapshot_dir",
+          "remesh_model_parallel": "recovery_model_parallel",
           "plan": "plan", "mesh": "mesh"}
 
 # flags whose 0 means "off" (None in the config), as in the reference
@@ -161,10 +162,6 @@ class EngineConfig:
         if self.mesh is not None:
             from ..launch.mesh import parse_mesh
             parse_mesh(self.mesh)
-        if self.fault.recovery_model_parallel is not None:
-            raise NotImplementedError(
-                "not ported yet (ROADMAP 1.15b): recovery_model_parallel "
-                "(remeshing onto the survivors of a device loss)")
 
     def with_fields(self, **kv: Any) -> "EngineConfig":
         """Functional update by flat field name (``num_slots=8``)."""

@@ -5,8 +5,11 @@
 number of devices and a tensor-parallel cap (``launch/serve.py
 --model-parallel``), ``surviving`` lists a mesh's devices minus lost ones,
 and ``reshard`` cuts a host parameter tree down to one rank's share on its
-device (what ``MeshServeEngine`` serves).  Remeshing onto the survivors of
-a loss, which uses them after a fault, is ROADMAP 1.15b.
+device (what ``MeshServeEngine`` serves).  After a device loss or a
+straggler eviction the mesh engine plans the survivors' mesh with
+``plan_mesh`` over ``surviving`` (``launch.mesh.regroup``) and cuts each
+new rank's share from the whole host tree with ``reshard``, whatever the
+new model axis (2x4 -> 2x2 doubles every share's width).
 """
 from __future__ import annotations
 

@@ -499,7 +499,8 @@ class ServeEngine:
     writes the device state back into the live tensors and replays the
     tick, which is deterministic, so the trace ends token-identical to
     an uninterrupted run.  One device has no survivors to remesh onto:
-    recovery restarts in place.  ``recoveries`` and ``recovery_log``
+    recovery restarts in place (a mesh engine remeshes onto the survivors,
+    ``runtime.mesh_serve``).  ``recoveries`` and ``recovery_log``
     record what happened; ``replayed_calls`` counts the model calls
     (prefills, decode steps) whose work a recovery threw away, which the
     replay makes again; ``capture_s``/``save_s`` hold the seconds of the
@@ -568,7 +569,6 @@ class ServeEngine:
         window = api.cfg.window
         self._bucket_cap = min(self.cache_len, window or self.cache_len)
         self._axes = _batch_axes(api)
-        self.cache = self._arena()
         # paged-arena host state: the page allocator, each slot's pages,
         # reservations made by this tick's admission gate, finished slots
         # whose pages return at the next tick's start, and the pinned host
@@ -584,14 +584,7 @@ class ServeEngine:
         self._slot_pages: Dict[int, List[int]] = {}
         self._reserved_pages: Dict[int, List[int]] = {}
         self._dirty_slots: set = set()
-        self._page_rows = (torch.zeros(
-            (self._rows_here(), self._paged.max_pages), dtype=torch.int32,
-            pin_memory=self.device.type == "cuda")
-            if self._paged is not None else None)
-        self._tokens = torch.zeros((self._rows_here(), 1), dtype=torch.int64,
-                                   device=self.device)
-        self._remaining = torch.zeros((self._rows_here(),), dtype=torch.int32,
-                                      device=self.device)
+        self._alloc_state()
         # failure handling: armed by any of these three
         self.faults = fault_injector
         self.straggler = straggler
@@ -605,8 +598,22 @@ class ServeEngine:
         self._snapshot: Optional[EngineSnapshot] = None
         self._snap_host: Optional[Dict[str, Any]] = None
         self._evicted: set = set()
-        self._params_host = (_cpu_tree(params)
-                             if self.snapshot_dir is not None else None)
+        self._params_host = self._host_params(params)
+
+    def _alloc_state(self) -> None:
+        """The zeroed device state of the slots this engine decodes: the
+        arena, the feedback tokens, the owed-token counters, and the
+        pinned page-table rows of a paged arena."""
+        rows = self._rows_here()
+        self.cache = self._arena()
+        self._page_rows = (torch.zeros(
+            (rows, self._paged.max_pages), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+            if self._paged is not None else None)
+        self._tokens = torch.zeros((rows, 1), dtype=torch.int64,
+                                   device=self.device)
+        self._remaining = torch.zeros((rows,), dtype=torch.int32,
+                                      device=self.device)
 
     def _arena(self) -> Dict[str, torch.Tensor]:
         """The zeroed device arena of the slots this engine decodes
@@ -638,6 +645,12 @@ class ServeEngine:
 
     def _weight_sparsity(self, params: Any) -> float:
         return weight_sparsity(params)
+
+    def _host_params(self, params: Any) -> Optional[Any]:
+        """The host copy of the weights that recovery keeps: one device
+        serves its weights as they are after a loss, so only disk
+        snapshots need it."""
+        return _cpu_tree(params) if self.snapshot_dir is not None else None
 
     def _fetch_tick(self, ring: torch.Tensor,
                     pending: Sequence[Tuple[int, Optional[torch.Tensor]]],
@@ -1120,27 +1133,31 @@ class ServeEngine:
                      "clock": self.clock, "mode": self.mode.value}
             if snap.paging is not None:
                 extra["paging"] = snap.paging
-            ckpt_save(self.snapshot_dir, self.clock,
-                      dict(host, params=self._params_host), keep=2,
-                      extra=extra)
+            self._save_snapshot(host, extra)
             snap.ckpt_step = self.clock
             self.save_s.append(time.perf_counter() - t1)
         return snap
 
+    def _save_snapshot(self, host: Dict[str, Any], extra: Dict) -> None:
+        """One tick-start snapshot to disk: the device state and the
+        weights' host copy (the newest two kept)."""
+        ckpt_save(self.snapshot_dir, self.clock,
+                  dict(host, params=self._params_host), keep=2, extra=extra)
+
     def _recover(self, lost: List[int],
                  snap: Optional[EngineSnapshot]) -> None:
         """A device loss: settle the lost tick's work on the stream (its
-        pinned page-table rows included, before a replay rewrites them),
-        roll every host structure back to ``snap`` and write its device
-        state back into the live tensors.  The caller replays from the
+        pinned page-table rows included, before a replay rewrites them;
+        not on a lost device), roll every host structure back to ``snap``,
+        remesh (last, so a remesh may drop the function sets) and write
+        the snapshot's device state back.  The caller replays from the
         snapshot's clock."""
         if snap is None:
             raise RuntimeError("device loss with no snapshot armed")
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self._device_alive(lost):
             torch.cuda.synchronize(self.device)
         self.replayed_calls += _model_calls(self.stats) - \
             _model_calls(snap.stats)
-        self._remesh(lost)
         self.sched = copy.deepcopy(snap.sched)
         self.outputs = copy.deepcopy(snap.outputs)
         del self.events[snap.events_len:]
@@ -1157,6 +1174,7 @@ class ServeEngine:
             if snap.paging is None:
                 raise RuntimeError("paged engine snapshot lacks paging state")
             self._restore_paging(snap.paging)
+        self._remesh(lost)
         self._restore_device(snap)
         self.recoveries += 1
         self.recovery_log.append({"step": snap.clock, "lost": sorted(lost),
@@ -1166,10 +1184,23 @@ class ServeEngine:
 
     def _remesh(self, lost: List[int]) -> None:
         """One device has no mesh to shrink: recovery restarts in place
-        (remeshing onto survivors comes with mesh serving)."""
+        (``MeshServeEngine`` remeshes onto the survivors)."""
+
+    def _device_alive(self, lost: List[int]) -> bool:
+        """Whether this engine's device outlived the loss (one device
+        restarts in place on it)."""
+        return True
 
     def _mesh_desc(self) -> str:
         return "unsharded"
+
+    def _survivors_exist(self, lost: List[int]) -> bool:
+        return True
+
+    def _tick_seconds(self, dt: float) -> float:
+        """The tick's wall seconds the straggler detector reads (a mesh
+        agrees on one value over its ranks)."""
+        return dt
 
     def _host_device_ids(self, host: int) -> List[int]:
         """Device ids owned by straggler host ``host``: the single-device
@@ -1200,6 +1231,7 @@ class ServeEngine:
         where the state is consistent: nothing is replayed."""
         if self.straggler is None:
             return
+        dt = self._tick_seconds(dt)
         for h in range(self.straggler.num_hosts):
             f = (self.faults.host_delay(h, self.clock)
                  if self.faults is not None else 1.0)
@@ -1211,7 +1243,7 @@ class ServeEngine:
             return
         self._evicted.update(evict)
         lost = sorted({d for h in evict for d in self._host_device_ids(h)})
-        if not lost:
+        if not lost or not self._survivors_exist(lost):
             self.recovery_log.append({"step": self.clock, "evicted": evict,
                                       "lost": [], "mesh": self._mesh_desc()})
             return

@@ -94,8 +94,11 @@ class FaultInjector:
 
 
 def device_id(device: Any) -> int:
-    """A device's id: ``.id`` where the object has one, else a
-    ``torch.device``'s index (the CPU, which has none, is device 0)."""
+    """A device's id: an int is its own (a mesh rank), else ``.id`` where
+    the object has one, else a ``torch.device``'s index (the CPU, which
+    has none, is device 0)."""
+    if isinstance(device, int):
+        return device
     idx = getattr(device, "id", None)
     if idx is None:
         idx = getattr(device, "index", None)
@@ -149,7 +152,9 @@ class ReplicaFault:
 class FaultSpec:
     """Parsed ``--inject-fault`` flag.  ``build`` resolves the device
     *index* against the serving device list into the device *id* a
-    :class:`FaultInjector` wants (negative indices count from the end);
+    :class:`FaultInjector` wants (negative indices count from the end): on
+    a mesh the list is its ranks, so ``kill:<i>`` loses the rank at mesh
+    position i and ``delay:<row>`` slows a data row;
     ``build_replica`` turns a ``replica:`` spec into the
     :class:`ReplicaFault` the router polls."""
 

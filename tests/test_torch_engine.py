@@ -4,6 +4,7 @@ block-pruned and compacted (16/16, unit 8), every GEMM through the kernel
 wrappers.  Tokens and the deterministic ``stats`` counters must be equal,
 and every request must match the port's own batch-1 greedy oracle."""
 import argparse
+import dataclasses
 
 import jax
 import numpy as np
@@ -248,11 +249,15 @@ def test_entry_points_default_to_cuda():
                                         recovery_model_parallel=2),
                                    dict(recovery_model_parallel=2)])
 def test_unported_config_fields_raise(field):
-    """The post-loss mesh's TP degree waits for remeshing (ROADMAP
-    1.15b), on a mesh or not; the mesh itself is served since 1.15's
-    serving half, and ``snapshot_dir`` since 1.13."""
-    with pytest.raises(NotImplementedError, match="1.15b"):
-        EngineConfig().with_fields(**field)
+    """The post-loss mesh's TP degree is served since remeshing (ROADMAP
+    1.15b), on a mesh or not, and equals the reference's field; the mesh
+    itself is served since 1.15's serving half, and ``snapshot_dir`` since
+    1.13."""
+    conf = EngineConfig().with_fields(**field)
+    assert conf.fault.recovery_model_parallel == 2
+    assert dataclasses.asdict(conf.fault) == dataclasses.asdict(
+        JaxEngineConfig().with_fields(**field).fault)
+    assert EngineConfig.from_json(conf.to_json()) == conf
     assert EngineConfig().with_fields(snapshot_dir="x").fault.snapshot_dir \
         == "x"
     assert EngineConfig().with_fields(mesh="2x2").mesh == "2x2"
@@ -291,8 +296,16 @@ def test_engine_config_json_round_trip_and_reference_file():
     '{"fault": {"recovery_model_parallel": 1}}',
     '{"fault": {"recovery_model_parallel": 2}}'])
 def test_engine_config_json_unported_fields_raise(raw):
-    with pytest.raises(NotImplementedError):
-        EngineConfig.from_json(raw)
+    """The reference's kernel field ``interpret`` has no counterpart and
+    raises; ``recovery_model_parallel`` is served since remeshing and
+    loads as the reference's file does."""
+    if "interpret" in raw:
+        with pytest.raises(NotImplementedError):
+            EngineConfig.from_json(raw)
+        return
+    conf = EngineConfig.from_json(raw)
+    assert dataclasses.asdict(conf.fault) == dataclasses.asdict(
+        JaxEngineConfig.from_json(raw).fault)
 
 
 @pytest.mark.parametrize("raw,want", [
@@ -331,13 +344,16 @@ def test_engine_config_from_args_flag_beats_file(tmp_path):
     assert (conf.sched.decode_chunk, conf.arena.num_slots,
             conf.kernels.a_sparsity, conf.arena.page_size) == (4, 5, 0.5, 8)
     assert (conf.arena.kv_dtype, conf.sched.policy) == ("int8", "static")
-    # --snapshot-dir is served (ROADMAP 1.13) and lands in the config;
-    # the post-loss mesh's flag exits naming ROADMAP 1.15b
+    # --snapshot-dir (ROADMAP 1.13) and the post-loss mesh's
+    # --remesh-model-parallel (1.15b) land in the config, as in the
+    # reference
     args.snapshot_dir = "s"
-    assert EngineConfig.from_args(args, defaults).fault.snapshot_dir == "s"
-    with pytest.raises(SystemExit):
-        launch_serve.main(["--reduced", "--device", "cpu",
-                           "--remesh-model-parallel", "2"])
+    args.remesh_model_parallel = 2
+    conf = EngineConfig.from_args(args, defaults)
+    assert conf.fault.snapshot_dir == "s"
+    assert conf.fault.recovery_model_parallel == 2
+    assert dataclasses.asdict(conf.fault) == dataclasses.asdict(
+        JaxEngineConfig.from_args(args, defaults).fault)
 
 
 def test_launch_serve_cli_config_selects_sparse_a_on_cpu(tmp_path, capsys):

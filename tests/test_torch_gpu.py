@@ -1371,6 +1371,64 @@ def test_serve_cli_mesh_1x2_full_width_parity(cuda, capsys):
     assert out.strip().splitlines()[-1].startswith("parity OK")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", ["fixed", "paged"])
+def test_remesh_hands_a_row_over_bit_for_bit(cuda, arena):
+    """Two ranks on the card (gloo on CUDA tensors), reduced llama3.2-1b
+    compacted at 0.8 on a 2x1 mesh: rank 1's device is lost at decode step
+    3, so its host snapshot, the only copy of data row 1, goes to rank 0
+    and arrives bit for bit (each leaf's bytes and CRC-32 as sent and as
+    received), rank 1 launches nothing after the loss, and the 1x1
+    survivor gives the unfaulted engine's tokens through the whole
+    kernels."""
+    _free_card()
+    fields = dict(num_slots=4, cache_len=49, decode_chunk=8,
+                  use_kernels=True)
+    if arena == "paged":
+        fields.update(page_size=16)
+    conf = EngineConfig().with_fields(**fields)
+    kw = dict(arch="llama3.2-1b", reduced=True, sparsity=0.8, requests=8)
+    ref = serve_cli.serve(device="cuda", config=conf, **kw)
+    kept, lost = serve_cli.serve_on_mesh(
+        "2x1", device="cuda", config=conf.with_fields(
+            inject="kill:1@3:decode"), **kw)
+    assert (kept["status"], lost["status"]) == ("served", "lost")
+    assert kept["tokens"] == {r: o.tokens
+                              for r, o in ref.engine.outputs.items()}
+    assert kept["recoveries"] == 1 and kept["final_mesh"] == "1x1"
+    (got,) = kept["remesh"][0]["transfers"]
+    (sent,) = lost["remesh"][0]["transfers"]
+    assert (got["row"], got["src"], got["dst"]) == (1, 1, 0)
+    assert got["crc32"] == sent["crc32"] and got["bytes"] == sent["bytes"]
+    assert not any(lost["launches_after_loss"].values())
+    calls = kept["calls_after"]
+    assert kept["launches_after"]["griffin_spmm"] == 14 * calls
+    assert kept["launches_after"]["dense_gemm"] == calls
+
+
+@pytest.mark.gpu
+def test_remesh_1x2_to_1x1_gives_the_unfaulted_tokens(cuda):
+    """Reduced llama3.2-1b compacted at 0.8 on a 1x2 mesh of two ranks on
+    the card: rank 1's device lost at decode step 3, rank 0 serves on
+    alone (1x1, the whole weights cut from its host copy) and finishes
+    with the unfaulted tokens; rank 1 launches nothing after the loss."""
+    _free_card()
+    conf = EngineConfig().with_fields(num_slots=4, cache_len=49,
+                                      decode_chunk=8, use_kernels=True)
+    kw = dict(arch="llama3.2-1b", reduced=True, sparsity=0.8, requests=8)
+    ref = serve_cli.serve(device="cuda", config=conf, **kw)
+    kept, lost = serve_cli.serve_on_mesh(
+        "1x2", device="cuda", config=conf.with_fields(
+            inject="kill:1@3:decode"), **kw)
+    assert (kept["status"], lost["status"]) == ("served", "lost")
+    assert kept["tokens"] == {r: o.tokens
+                              for r, o in ref.engine.outputs.items()}
+    assert kept["recovery_log"][-1]["mesh"] == "1x1"
+    assert kept["remesh"][0]["transfers"] == []     # rank 0 held the row
+    assert not any(lost["launches_after_loss"].values())
+    assert kept["dispatch_after"].get("kernel", 0) == 15 * kept["calls_after"]
+
+
 @pytest.fixture(scope="module")
 def xlstm_full():
     """Full-width xlstm-1.3b on the card, seed 0, pruned 0.8 and compacted

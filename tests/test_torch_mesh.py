@@ -779,13 +779,23 @@ def test_mesh_engine_rejects_wrong_axes_missing_cache_len_and_faults():
     with pytest.raises(ValueError, match="cache_len"):
         MeshServeEngine(api, params, mesh=tmesh.serve_mesh("1x1"),
                         config=EngineConfig())
-    for armed in (dict(fault_injector=object()), dict(straggler=object())):
-        with pytest.raises(NotImplementedError, match="1.15b"):
-            MeshServeEngine(api, params, mesh=tmesh.serve_mesh("2x2"),
-                            config=conf, **armed)
-    with pytest.raises(NotImplementedError, match="1.15b"):
-        MeshServeEngine(api, params, mesh=tmesh.serve_mesh("2x2"),
-                        config=conf.with_fields(snapshot_dir="s"))
+    # armed on a mesh (remeshing, ROADMAP 1.15b): the engine keeps the
+    # whole tree on the host for the survivors' shares and serves its own
+    for armed, fields in ((dict(fault_injector=object()), {}),
+                          (dict(straggler=object()), {}),
+                          ({}, dict(snapshot_dir="s")),
+                          ({}, dict(recovery_model_parallel=1))):
+        eng = MeshServeEngine(api, params, mesh=tmesh.Mesh(2, 2, rank=3),
+                              config=conf.with_fields(**fields), **armed)
+        kept = None if "recovery_model_parallel" in fields else params
+        if kept is None:
+            assert eng._params_host is None
+        else:
+            # on the host the copy is the tree itself (no bytes copied)
+            assert eng._params_host["layers"]["wq"].data_ptr() == \
+                kept["layers"]["wq"].data_ptr()
+        assert isinstance(eng.params["layers"]["wq"], DenseShard)
+        assert eng._recovery_mp == fields.get("recovery_model_parallel")
     placed = dataclasses.replace(tmesh.serve_mesh("1x1"),
                                  device=torch.device("meta"))
     with pytest.raises(ValueError, match="the model on cpu"):
@@ -805,6 +815,21 @@ def test_ranks_check_the_layout_and_a_failing_rank_fails_the_run():
         assert first.startswith("1:") and "failed on purpose" in first
 
 
+def test_a_rank_whose_process_dies_fails_the_armed_run(tmp_path):
+    """A process that dies is no device loss: with recovery armed (a kill
+    due later, snapshots on disk), rank 2, data row 1's saver, dies at its
+    first snapshot (its row's directory is a file), and the run fails
+    with rank 2's error first instead of remeshing."""
+    snap = tmp_path / "snap"
+    snap.mkdir()
+    (snap / "row1").write_text("not a directory")
+    cell = _cell(inject="kill:-1@3:decode", snapshot_dir=str(snap))
+    with pytest.raises(RuntimeError) as err:
+        launch_serve.mesh_cells_on("2x2", [cell], device="cpu")
+    first = str(err.value).split("-- rank ")[1]
+    assert first.startswith("2:") and "row1" in first
+
+
 @pytest.mark.parametrize("argv,want", [
     (["--mesh", "1x2", "--parity"], "parity OK"),
     (["--model-parallel", "2", "--spmd-fallback", "--parity"],
@@ -818,7 +843,16 @@ def test_serve_cli_on_a_mesh(argv, want, capsys):
     assert ("'spmd_oracle'" in out) == ("--spmd-fallback" in argv)
 
 
-def test_serve_cli_remesh_flag_names_its_item():
-    with pytest.raises(SystemExit, match="1.15b"):
-        launch_serve.main(["--reduced", "--device", "cpu", "--mesh", "2x2",
-                           "--remesh-model-parallel", "1"])
+def test_serve_cli_remesh_flag_names_its_item(capsys):
+    """The post-loss mesh's flag on the CLI: rank 3 of a 2x2 mesh lost at
+    decode step 3, the survivors capped at one model rank form 2x1 (rank 2
+    dropped), and the survivors' tokens pass the oracle."""
+    launch_serve.main(["--reduced", "--device", "cpu", "--sparsity", "0.8",
+                       "--use-kernels", "--requests", "4", "--mesh", "2x2",
+                       "--inject-fault", "kill:-1@3:decode",
+                       "--remesh-model-parallel", "1", "--parity"])
+    out = capsys.readouterr().out
+    assert "1 recoveries" in out and "final mesh 2x1" in out
+    assert "rank 2 dropped, rank 3 lost" in out
+    last = out.strip().splitlines()[-1]
+    assert last.startswith("parity OK") and last.endswith("final mesh 2x1")

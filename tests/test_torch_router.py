@@ -699,14 +699,9 @@ def test_router_config_served_and_round_trips():
     '{"fault": {"snapshot_dir": "s"}}',
     '{"fault": {"inject": "replica:0@1", "recovery_model_parallel": 2}}'])
 def test_engine_level_fault_config_raises(raw):
-    """Engine-level fault specs and the snapshot directory load and equal
-    the reference's, both ways through JSON; only the post-loss mesh
-    (``recovery_model_parallel``) still raises, waiting for mesh serving
-    (ROADMAP 1.15)."""
-    if "recovery_model_parallel" in raw:
-        with pytest.raises(NotImplementedError, match="1.15"):
-            EngineConfig.from_json(raw)
-        return
+    """Engine-level fault specs, the snapshot directory and the post-loss
+    mesh (``recovery_model_parallel``, served since remeshing, ROADMAP
+    1.15b) load and equal the reference's, both ways through JSON."""
     conf, jconf = EngineConfig.from_json(raw), JaxEngineConfig.from_json(raw)
     assert dataclasses.asdict(conf.fault) == dataclasses.asdict(jconf.fault)
     assert EngineConfig.from_json(jconf.to_json()) == conf
