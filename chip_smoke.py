@@ -165,18 +165,26 @@ Phases, in order; any failure exits non-zero before the result line:
                           112x through its shard entry on half of every
                           leaf's N tiles and dense_gemm 1x (the tied head's
                           64128-column shard), no GEMM replicated or
-                          through the oracle; tokens equal sparse_b's (no
-                          oracle pass), every rank's host-state digest
-                          equal, at most 0.25 host syncs per token; each
-                          rank's tok/s beside sparse_b's and its gathers
-                          per model call with their host ms are printed;
+                          through the oracle; each rank's arena its data
+                          row's 2 slots at its 4 of the 8 KV heads
+                          (1,605,632 B of K/V), 113 gathers over "model"
+                          a prefill and 129 a decode step (one more a
+                          layer: the attention output of its heads);
+                          tokens equal sparse_b's (no oracle pass), every
+                          rank's host-state digest equal, at most 0.25
+                          host syncs per token; each rank's tok/s beside
+                          sparse_b's and its gathers per model call with
+                          their host ms are printed;
                mesh_remesh - in the same spawn, on the weights each rank
                           drew for mesh_2x2: rank 3's device lost at the
                           decode poll due at step 3 (it fires at clock 4),
                           the ranks roll back and remesh onto 1x2 (ranks 0
-                          and 1; rank 2 dropped, after it hands data row
-                          1's tick-start state to both) and replay; gated
-                          on both survivors: sparse_b's tokens, one
+                          and 1; rank 2 dropped) and replay: each survivor
+                          takes data row 1's tick-start head share it
+                          keeps (1,605,664 B with the counters), rank 0
+                          from rank 2, rank 1 from lost rank 3's host
+                          copy; gated on both survivors: those bytes and
+                          senders, sparse_b's tokens, one
                           recovery logged as {"step": 4, "lost": [3],
                           "mesh": "1x2"}, 2 model calls replayed,
                           griffin_spmm 112x and dense_gemm 1x per model
@@ -618,23 +626,33 @@ TRACE = dict(requests=8, prompt_lens=(8, 16, 32), gen_lens=(4, 8, 16))
 # mesh serving: sparse_b's weights, trace, slots and chunk on a 2x2 mesh of
 # four ranks sharing the one card (gloo on CUDA tensors, launch.mesh's
 # backend rule): the slots split over the two data rows, every weight
-# GEMM's output columns over the two model ranks.  Per rank and model call
-# (its data row's prefills and every decode step) griffin_spmm 112x, each
-# through its shard entry on half the N tiles, and dense_gemm 1x (the tied
-# head, a 64128-column shard of embed.T); its tokens must equal sparse_b's.
+# GEMM's output columns and the arena's 8 KV heads over the two model
+# ranks.  Per rank and model call (its data row's prefills and every decode
+# step) griffin_spmm 112x, each through its shard entry on half the N
+# tiles, and dense_gemm 1x (the tied head, a 64128-column shard of
+# embed.T); 113 gathers over "model" a prefill (one a GEMM) and 129 a
+# decode step (and one a layer for the attention output); each rank's K/V
+# 2 slots x 49 rows x 16 layers x 4 heads x 64 x bf16, k and v; its tokens
+# must equal sparse_b's.
 MESH = dict(spec="2x2", sparsity=0.8, arena=FIXED, launches=SB_LAUNCHES,
-            shard_gemms=113, tokens_of="sparse_b", max_syncs=0.25)
+            shard_gemms=113, tokens_of="sparse_b", max_syncs=0.25,
+            kv_bytes=1_605_632, gathers={"prefill": 113, "decode": 129})
 # remeshing (mesh_remesh): in the same spawn, after mesh_2x2's run and on
 # the weights each rank drew for it, rank 3's device is lost at the decode
 # poll due at step 3.  The trace's ticks start at clocks 0, 2 and 4, so the
 # kill fires at clock 4, which the recovery logs, and the 2 model calls of
 # that tick are replayed (tests/test_torch_remesh.py holds both on the
-# CPU); the survivors plan 1x2 (ranks 0 and 1), rank 2 is dropped.  Per
+# CPU); the survivors plan 1x2 (ranks 0 and 1), rank 2 is dropped.  Each
+# survivor keeps its model rank's heads and takes data row 1's share of
+# them from its holder: (row 1, share 0) from rank 2, (row 1, share 1) from
+# lost rank 3's host copy, each a rank's K/V and 32 B of counters.  Per
 # survivor and model call after the recovery: griffin_spmm 112x and
 # dense_gemm 1x, all through the shard entries.
 MESH_REMESH = dict(inject="kill:3@3:decode", log=[{"step": 4, "lost": [3],
                                                    "mesh": "1x2"}],
-                   replayed=2, left={2: "dropped", 3: "lost"})
+                   replayed=2, left={2: "dropped", 3: "lost"},
+                   handover_bytes=1_605_664,
+                   sources={0: {(1, 0): 2}, 1: {(1, 1): 3}})
 # the kernels' shard entries, each rank's columns gathered against the
 # whole kernel (bit-equal): llama's four SPMM_SHAPES and the tied head at
 # M 4 and 32, over 2 and 4 model ranks, and chameleon-34b's w_down (22016 x
@@ -2457,18 +2475,30 @@ def kernel_shards(torch, gen) -> list:
     return rows
 
 
+def _site_line(sites: dict) -> str:
+    """A rank's gathers by call site: the count, the host ms a gather in
+    all and until the local tensor was ready on the card (the rest waits
+    for the peers and moves the bytes)."""
+    return ", ".join(f"{k} {v['n']} x {1e3 * v['s'] / v['n']:.3f} ms "
+                     f"(ready {1e3 * v['ready_s'] / v['n']:.3f})"
+                     for k, v in sorted(sites.items()) if v["n"])
+
+
 def phase_mesh(torch, card: str, want: dict, sb: dict):
     """``MESH`` and ``MESH_REMESH`` in one spawn of four ranks
     (``launch.serve.mesh_cells_on``): first sparse_b's trace, each rank
     drawing the seeded weights on the card and keeping its share, gated
     on every rank: tokens equal to sparse_b's, launches per model call
     exactly ``MESH["launches"]``, every weight GEMM through a shard entry
-    (none replicated, none through the oracle), at most ``max_syncs`` host
-    syncs per token, and one host-state digest on all ranks.  Then
+    (none replicated, none through the oracle), its K/V arena exactly
+    ``MESH["kv_bytes"]``, its gathers over "model" exactly
+    ``MESH["gathers"]`` a prefill and a decode step, at most
+    ``max_syncs`` host syncs per token, and one host-state digest on all
+    ranks.  Then
     :func:`check_remesh` on the same weights.  Prints the backend line,
     each rank's tok/s beside sparse_b's and its gathers per model call
-    with their host ms.  Returns both cells' records (mesh_2x2's,
-    mesh_remesh's)."""
+    with their host ms, also by call site.  Returns both cells' records
+    (mesh_2x2's, mesh_remesh's)."""
     from repro_torch.launch import serve as launch
     from repro_torch.launch.mesh import backend_line, serve_mesh
     from repro_torch.runtime.config import EngineConfig
@@ -2498,16 +2528,31 @@ def phase_mesh(torch, card: str, want: dict, sb: dict):
         syncs = st["host_syncs"] / max(st["emitted"], 1)
         tps = st["emitted"] / max(rec["seconds"], 1e-9)
         g, gs = rec["gathers"], rec["gather_s"]
+        mg = rec["model_gathers"]
+        kv = rec["arena_bytes"]["k"] + rec["arena_bytes"]["v"]
+        want_g = {"prefill": MESH["gathers"]["prefill"]
+                  * rec["prefills_here"],
+                  "decode": MESH["gathers"]["decode"] * st["decode_steps"]}
         print(f"{tag} rank {rec['rank']} ({rec['device']}, {rec['backend']}"
               f"): {st['emitted']} tokens in {rec['seconds']:.3f}s = "
               f"{tps:.1f} tok/s (sparse_b {sb['tokens_per_second']:.1f}); "
               f"{calls} model calls ({rec['prefills_here']} of its row's "
               f"prefills); launches {got}; dispatch {d}; {g['model']} "
               f"gathers over 'model' = {g['model'] / calls:.1f} a model call"
-              f", {1e3 * gs['model'] / calls:.2f} ms a model call; "
+              f" ({mg['prefill']} in its prefills, {mg['decode']} in "
+              f"{st['decode_steps']} decode steps), "
+              f"{1e3 * gs['model'] / calls:.2f} ms a model call; "
               f"{g['data']} over 'data' ({1e3 * gs['data']:.1f} ms); "
+              f"by site {_site_line(rec['gather_sites'])}; "
+              f"K/V arena {kv} B ({rec['arena_bytes']}); "
               f"{syncs:.4f} host syncs/token; {rec['sharded_leaves']} "
               "sharded leaves")
+        if kv != MESH["kv_bytes"]:
+            fail(f"mesh_2x2 rank {rec['rank']}: K/V arena {kv} B, expected "
+                 f"{MESH['kv_bytes']}")
+        if mg != want_g:
+            fail(f"mesh_2x2 rank {rec['rank']}: gathers over 'model' {mg}, "
+                 f"expected {want_g}")
         if rec["tokens"] != want:
             fail(f"mesh_2x2 rank {rec['rank']}: tokens differ from "
                  f"{MESH['tokens_of']}'s")
@@ -2529,6 +2574,8 @@ def phase_mesh(torch, card: str, want: dict, sb: dict):
     record = {"launches": total, "wall_s": wall,
               "ranks": [{k: r[k] for k in ("rank", "stats", "launches",
                                            "dispatch", "gathers", "gather_s",
+                                           "gather_sites", "model_gathers",
+                                           "arena_bytes",
                                            "seconds", "prefills_here",
                                            "digest")} for r in recs]}
     return record, check_remesh(card, want, sb, remesh)
@@ -2540,11 +2587,12 @@ def check_remesh(card: str, want: dict, sb: dict, recs: list) -> dict:
     ``replayed`` model calls replayed, after the recovery exactly
     ``MESH["launches"]`` a model call and every weight GEMM through a
     shard entry (none replicated, none through the oracle), at most
-    ``max_syncs`` host syncs per token, Mode.B, and equal host-state
-    digests; the departing ranks' status (``left``) with no launch and no
-    GEMM after the loss.  Prints, ungated, each survivor's recovery
-    seconds (regroup, handover with its bytes, reshard), the replayed
-    calls and its tok/s before and after the loss."""
+    ``max_syncs`` host syncs per token, Mode.B, equal host-state digests,
+    and the head shares it received: ``handover_bytes`` from the senders
+    ``sources`` names; the departing ranks' status (``left``) with no
+    launch and no GEMM after the loss.  Prints, ungated, each survivor's
+    recovery seconds (regroup, handover with its bytes, reshard), the
+    replayed calls and its tok/s before and after the loss."""
     tag = "[serve mesh_remesh]"
     served = [r for r in recs if r["status"] == "served"]
     left = {r["rank"]: r for r in recs if r["status"] != "served"}
@@ -2559,10 +2607,11 @@ def check_remesh(card: str, want: dict, sb: dict, recs: list) -> dict:
     for rank, rec in sorted(left.items()):
         after = {k: v for k, v in rec["launches_after_loss"].items() if v}
         moved = rec["remesh"][0]["transfers"] if rec["remesh"] else []
+        sent = [(t["row"], t["share"], t["dst"], t["bytes"]) for t in moved]
         print(f"{tag} rank {rank} {rec['status']} at step {rec['step']}: "
               f"launches after the loss {after or 0}, GEMMs "
-              f"{sum(rec['dispatch_after_loss'].values())}; sent "
-              f"{[(t['row'], t['dst'], t['bytes']) for t in moved]}")
+              f"{sum(rec['dispatch_after_loss'].values())}; sent (row, "
+              f"share, to, bytes) {sent}")
         if after or any(rec["dispatch_after_loss"].values()):
             fail(f"mesh_remesh rank {rank}: launched after the loss: "
                  f"{rec['launches_after_loss']}, "
@@ -2577,11 +2626,14 @@ def check_remesh(card: str, want: dict, sb: dict, recs: list) -> dict:
         d = rec["dispatch_after"]
         syncs = st["host_syncs"] / max(st["emitted"], 1)
         (x,) = rec["remesh"]
+        came = [t for t in x["transfers"] if t["dst"] == rec["rank"]]
+        came_b = sum(t["bytes"] for t in came)
+        sources = {(t["row"], t["share"]): t["src"] for t in came}
         print(f"{tag} rank {rec['rank']} -> {rec['final_mesh']} position "
               f"{rec['final_rank']}: recovery {rec['recovery_log']}; "
               f"regroup {1e3 * x['regroup_s']:.1f} ms, handover "
               f"{x['handover_bytes']} B in {1e3 * x['handover_s']:.1f} ms "
-              f"({[(t['row'], t['src']) for t in x['transfers']]}), "
+              f"(received {came_b} B, (row, share): sender {sources}), "
               f"reshard {1e3 * x['reshard_s']:.1f} ms; "
               f"{rec['replayed_calls']} model calls replayed; tok/s "
               f"{rec['tok_s_before']:.1f} before the loss, "
@@ -2589,6 +2641,12 @@ def check_remesh(card: str, want: dict, sb: dict, recs: list) -> dict:
               f"{sb['tokens_per_second']:.1f}); the run {rec['seconds']:.2f}"
               f" s; {calls} model calls after: launches {got}, dispatch "
               f"{d}; {syncs:.4f} host syncs/token; {card}")
+        if came_b != MESH_REMESH["handover_bytes"] or \
+                sources != MESH_REMESH["sources"].get(rec["rank"]):
+            fail(f"mesh_remesh rank {rec['rank']}: received {came_b} B "
+                 f"from {sources}, expected "
+                 f"{MESH_REMESH['handover_bytes']} B from "
+                 f"{MESH_REMESH['sources'].get(rec['rank'])}")
         if rec["tokens"] != want:
             fail(f"mesh_remesh rank {rec['rank']}: tokens differ from "
                  f"{MESH['tokens_of']}'s")

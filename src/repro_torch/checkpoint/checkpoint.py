@@ -27,8 +27,10 @@ The serving engine writes its tick-start snapshots through ``save`` (its
 scheduler and paging state in ``extra``, which ``read_manifest`` returns)
 and recovers through ``restore`` (``runtime.engine.ServeEngine``,
 ``FaultConfig.snapshot_dir``); on a serving mesh each data row keeps its
-own checkpoints under :func:`row_dir`, the first row the weights too, so a
-smaller mesh restores any row it takes over (``runtime.mesh_serve``); the trainer saves its whole ``TrainState``
+own checkpoints under :func:`row_dir`, one a head share (share 0 alone
+where the arena's heads are not split), the first row's first share the
+weights too, so a smaller mesh restores any row it takes over, whole
+(``runtime.mesh_serve``); the trainer saves its whole ``TrainState``
 (parameters, AdamW moments and counters) and polls
 :class:`PreemptionGuard`, which SIGTERM flips, to save and exit.
 """
@@ -143,10 +145,11 @@ def _retain(ckpt_dir: str, keep: int) -> None:
         shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
 
 
-def row_dir(ckpt_dir: str, row: int) -> str:
-    """The checkpoint directory of data row ``row`` of a serving mesh:
-    ``<ckpt_dir>/row<row>``."""
-    return os.path.join(ckpt_dir, f"row{row}")
+def row_dir(ckpt_dir: str, row: int, share: int) -> str:
+    """The checkpoint directory of head share ``share`` of data row
+    ``row`` of a serving mesh: ``<ckpt_dir>/row<row>-share<share>`` (share
+    0 alone where the row's arena splits no head axis)."""
+    return os.path.join(ckpt_dir, f"row{row}-share{share}")
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

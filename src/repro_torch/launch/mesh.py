@@ -74,6 +74,10 @@ class Mesh:
         default_factory=lambda: {a: 0 for a in AXES})
     gather_s: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {a: 0.0 for a in AXES})
+    # the same gathers by call site (a sharded GEMM's columns "gemm", a
+    # head share's output "heads", else the axis): [count, host seconds
+    # until the local tensor was ready on its device, host seconds in all]
+    sites: Dict[str, List] = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -105,11 +109,14 @@ class Mesh:
     def reset_counts(self) -> None:
         for a in AXES:
             self.gathers[a], self.gather_s[a] = 0, 0.0
+        self.sites.clear()
 
-    def gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+    def gather(self, t: torch.Tensor, axis: str,
+               site: Optional[str] = None) -> torch.Tensor:
         """(S, *t.shape): ``t`` from every rank of this rank's ``axis``
         group, in coordinate order (S the axis size).  Every rank of the
-        group must call it with a tensor of the same shape and dtype."""
+        group must call it with a tensor of the same shape and dtype.
+        ``site`` names the caller in :attr:`sites` (default: ``axis``)."""
         size = self.shape[axis]
         if size == 1:
             return t[None]
@@ -120,10 +127,18 @@ class Mesh:
         import torch.distributed as dist
         t0 = time.perf_counter()
         t = t.contiguous()
+        if t.is_cuda and self.backend == "gloo":
+            # gloo copies a CUDA tensor to the host, so the collective
+            # waits for it anyway; waiting here splits that time out
+            torch.cuda.current_stream(t.device).synchronize()
+        ready = time.perf_counter() - t0
         parts = [torch.empty_like(t) for _ in range(size)]
         dist.all_gather(parts, t, group=group)
+        dt = time.perf_counter() - t0
         self.gathers[axis] += 1
-        self.gather_s[axis] += time.perf_counter() - t0
+        self.gather_s[axis] += dt
+        n = self.sites.setdefault(site or axis, [0, 0.0, 0.0])
+        n[0], n[1], n[2] = n[0] + 1, n[1] + ready, n[2] + dt
         return torch.stack(parts)
 
 

@@ -55,8 +55,9 @@ the weight's (K, N) alone, so every compaction gives the default's bits
 here (``launch.mesh.run_ranks``; under ``torchrun`` this process is one of
 them), gloo on the host with ``--device cpu``, on the card nccl with a card
 per rank or gloo on CUDA tensors with more ranks than cards.  The slots
-split over the D data rows, every weight GEMM's output columns over the M
-model ranks; the tokens are the single-device engine's, and ``--parity``
+split over the D data rows, every weight GEMM's output columns and the
+arena's head axes over the M model ranks; the tokens are the
+single-device engine's, and ``--parity``
 holds rank 0's against ``greedy_generate`` on the whole weights after the
 ranks' host states are held equal.  ``--model-parallel P`` plans the mesh
 (``runtime.elastic.plan_mesh``) over the cards (on the host: P ranks)
@@ -69,7 +70,8 @@ evicts it): the ranks roll back, remesh onto the survivors (the model
 axis at most ``--remesh-model-parallel``, default the mesh's) and finish
 the trace; the run prints the recovery log and the final mesh, and
 ``--parity`` holds a surviving rank's tokens against the oracle.
-``--snapshot-dir`` works on a mesh too (a directory a data row).
+``--snapshot-dir`` works on a mesh too (a directory a data row's head
+share).
 """
 from __future__ import annotations
 
@@ -315,7 +317,10 @@ def mesh_rank(mesh, kw: Dict, drawn: Optional[Dict] = None) -> Dict:
     tokens, the counters, the GEMM dispatch and kernel launch counts of
     the engine's run, the host-state digest (held equal on every rank of
     the final mesh here), the rank's prefills, its shares of the weights,
-    its gathers and their seconds by axis, and the wall seconds.  After a
+    its arena's bytes by leaf, its gathers and their seconds by axis (the
+    "model" axis's also split into its prefills' and its decode steps')
+    and by call site (``Mesh.sites``),
+    and the wall seconds.  After a
     loss: the final mesh, the recoveries and their log, each remesh's
     record, and the launches, dispatch counts and model calls since the
     last recovery.  A rank the remesh left out returns its ``status``
@@ -381,11 +386,31 @@ def mesh_rank(mesh, kw: Dict, drawn: Optional[Dict] = None) -> Dict:
             "griffin_blocks": sorted({(g.block_k, g.block_n, g.a_thr)
                                       for g in griffin_leaves(eng.params)},
                                      key=str),
+            "arena_bytes": {k: t.numel() * t.element_size()
+                            for k, t in eng.cache.items()},
             "gathers": {a: sum(m.gathers[a] for m in meshes)
                         for a in mesh.gathers},
+            "model_gathers": {
+                "prefill": eng.prefill_gathers,
+                "decode": sum(m.gathers["model"] for m in meshes)
+                - eng.prefill_gathers},
             "gather_s": {a: sum(m.gather_s[a] for m in meshes)
                          for a in mesh.gather_s},
+            "gather_sites": _sum_sites(meshes),
             "seconds": run.seconds}
+
+
+def _sum_sites(meshes) -> Dict[str, Dict[str, float]]:
+    """The meshes' gathers by call site (``Mesh.sites``), summed: the
+    count, the host seconds until the local tensor was ready and in all."""
+    out: Dict[str, Dict[str, float]] = {}
+    for m in meshes:
+        for site, (n, ready, total) in m.sites.items():
+            o = out.setdefault(site, {"n": 0, "ready_s": 0.0, "s": 0.0})
+            o["n"] += n
+            o["ready_s"] += ready
+            o["s"] += total
+    return out
 
 
 def serve_on_mesh(spec: str, device: Optional[str] = "cuda",
@@ -707,6 +732,7 @@ def _main_mesh(args, econf: EngineConfig, trace: Dict) -> None:
     st = rec["stats"]
     calls = max(rec["prefills_here"] + st["decode_steps"], 1)
     syncs = st["host_syncs"] / max(st["emitted"], 1)
+    mg = rec["model_gathers"]
     print(f"engine: {econf.arena.num_slots} slots x cache_len "
           f"{rec['cache_len']} on {len(recs)} rank(s) of mesh {rec['mesh']}"
           f" ({rec['device']}), weight sparsity {rec['b_sparsity']:.2f} -> "
@@ -720,8 +746,11 @@ def _main_mesh(args, econf: EngineConfig, trace: Dict) -> None:
           f"{rec['buckets']}, {syncs:.3f} host syncs/token, dispatch "
           f"{rec['dispatch']}; rank 0: {rec['gathers']['model']} "
           f"model-axis gathers ({rec['gathers']['model'] / calls:.1f} a "
-          f"model call, {1e3 * rec['gather_s']['model'] / calls:.3f} ms), "
-          f"{rec['gathers']['data']} data-axis gathers; host states equal "
+          f"model call, {1e3 * rec['gather_s']['model'] / calls:.3f} ms; "
+          f"{mg['prefill'] / max(rec['prefills_here'], 1):.1f} a prefill, "
+          f"{mg['decode'] / max(st['decode_steps'], 1):.1f} a decode step),"
+          f" {rec['gathers']['data']} data-axis gathers; arena "
+          f"{sum(rec['arena_bytes'].values())} B a rank; host states equal "
           f"on every rank of mesh {rec['final_mesh']}")
     if econf.fault.inject is not None:
         done = sum(len(t) > 0 for t in rec["tokens"].values())

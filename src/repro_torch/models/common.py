@@ -229,8 +229,43 @@ def griffin_linear(x: torch.Tensor, w,
 def _gather_cols(local: torch.Tensor, mesh) -> torch.Tensor:
     """(M, S x n) from every model rank's (M, n) columns, in rank order:
     the one collective of a sharded GEMM (``Mesh.gather``)."""
-    g = mesh.gather(local, "model")                     # (S, M, n)
+    g = mesh.gather(local, "model", "gemm")             # (S, M, n)
     return g.permute(1, 0, 2).reshape(local.shape[0], -1)
+
+
+def head_share(local: int, whole: int) -> Optional[slice]:
+    """The heads a decode step computes when its arena holds ``local`` of
+    a layer's ``whole`` heads: None where it holds them all, else the
+    share a rank of the scope's serving mesh holds under the arena's
+    decode layout (``runtime.sharding.model_share``), ``[m local, (m + 1)
+    local)`` at the rank's model coordinate m.  Heads are batch-like in
+    every per-head product, so a share computes its heads' bits as the
+    whole does."""
+    if local == whole:
+        return None
+    mesh = _EXEC_STACK[-1].spmd_mesh
+    if mesh is None or local * mesh.model != whole:
+        raise ValueError(f"an arena of {local} of {whole} heads needs the "
+                         "serving mesh whose model ranks split them in "
+                         "scope (sparse_execution(spmd_mesh=...))")
+    m = mesh.index("model")
+    return slice(m * local, (m + 1) * local)
+
+
+def take_heads(t, heads: Optional[slice], dim: int):
+    """``t``'s ``heads`` (:func:`head_share`) along ``dim``: ``t`` itself
+    where ``heads`` is None."""
+    if heads is None:
+        return t
+    return t.narrow(dim, heads.start, heads.stop - heads.start)
+
+
+def gather_heads(o: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's heads of ``o`` along ``dim``, in rank order:
+    the whole heads a share (:func:`head_share`) computed part of, over
+    the scope's mesh (one ``Mesh.gather``)."""
+    g = _EXEC_STACK[-1].spmd_mesh.gather(o, "model", "heads")
+    return torch.cat(g.unbind(0), dim=dim)
 
 
 def _no_grad_wanted(x: torch.Tensor, w) -> None:
@@ -450,19 +485,22 @@ def paged_slot(pages: torch.Tensor, pos: torch.Tensor, page_size: int
 
 def paged_write(pool: torch.Tensor, scale: Optional[torch.Tensor],
                 slot: Tuple[torch.Tensor, torch.Tensor],
-                update: torch.Tensor) -> None:
+                update: torch.Tensor, heads: Optional[slice] = None
+                ) -> None:
     """Write a one-token K/V update into a paged pool, in place (the
     reference's ``paged_write`` returns an updated copy).  ``pool``:
     (num_pages, page_size, ...); ``slot``: :func:`paged_slot`'s (page,
-    offset) pair; ``update``: (B, 1, ...).  With ``scale`` (num_pages,
-    page_size) the pool is int8: each row is quantized on the way in
-    (``optim.compression.quantize_rows``) and its scale stored beside."""
+    offset) pair; ``update``: (B, 1, heads, hd).  With ``scale``
+    (num_pages, page_size) the pool is int8: each row is quantized on the
+    way in (``optim.compression.quantize_rows``) and its scale stored
+    beside.  ``heads`` (:func:`head_share`): the pool holds those heads of
+    the update; an int8 row's scale is still taken over all of them."""
     row = update[:, 0]
     if scale is None:
-        pool[slot] = row.to(pool.dtype)
+        pool[slot] = take_heads(row, heads, 1).to(pool.dtype)
         return
     q, s = quantize_rows(row, 1)
-    pool[slot] = q
+    pool[slot] = take_heads(q, heads, 1)
     scale[slot] = s
 
 

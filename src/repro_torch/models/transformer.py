@@ -29,11 +29,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import attention, decode_attention
-from .common import (Draw, act_fn, dense_init, griffin_linear,
-                     init_from_draws, length_mask, paged_slot, paged_view,
-                     paged_write, remat_fn, rms_norm, rope,
-                     shared_activation_meta, take_last, unstack,
-                     write_kv_slot)
+from .common import (Draw, act_fn, dense_init, gather_heads,
+                     griffin_linear, head_share, init_from_draws,
+                     length_mask, paged_slot, paged_view, paged_write,
+                     remat_fn, rms_norm, rope, shared_activation_meta,
+                     take_heads, take_last, unstack, write_kv_slot)
 from .moe import moe_ffn
 
 Params = Dict[str, Any]
@@ -195,36 +195,46 @@ def block_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  pos: torch.Tensor, kv, attend_pos: torch.Tensor,
-                 window: Optional[int]) -> torch.Tensor:
+                 window: Optional[int], heads: Optional[slice] = None
+                 ) -> torch.Tensor:
     """One-token block.  ``pos``: scalar, or (B,) per-row positions (slot
     pools).  ``kv(k, v)`` writes the token's K and V into this layer's
     cache in place and returns the (B, S_cache, KVH, hd) K and V to attend
     at ``attend_pos`` under ``window`` (:func:`decode_step` builds it for
-    the fixed or the paged arena)."""
+    the fixed or the paged arena).  ``heads``: the KV heads the arena
+    holds (``common.head_share``; None: all): the block attends with
+    their query heads alone (contiguous under GQA) and gathers every
+    model rank's heads before ``wo``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h,
                    positions=pos[:, None] if pos.dim() else pos[None])
+    if heads is not None:
+        g = cfg.num_heads // cfg.num_kv_heads
+        q = take_heads(q, slice(heads.start * g, heads.stop * g), 2)
     o = decode_attention(q, *kv(k, v), attend_pos, window=window)
+    if heads is not None:
+        o = gather_heads(o, 2)
     B = x.shape[0]
     x = x + griffin_linear(o.reshape(B, 1, -1), p["wo"]).to(x.dtype)
     f, _ = _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps), decode=True)
     return (x + f).to(x.dtype)
 
 
-def _fixed_kv(slot: torch.Tensor, k_cache: torch.Tensor,
-              v_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    write_kv_slot(k_cache, k, slot)
-    write_kv_slot(v_cache, v, slot)
+def _fixed_kv(slot: torch.Tensor, heads: Optional[slice],
+              k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor):
+    write_kv_slot(k_cache, take_heads(k, heads, 2), slot)
+    write_kv_slot(v_cache, take_heads(v, heads, 2), slot)
     return k_cache, v_cache
 
 
 def _paged_kv(pages: torch.Tensor, slot, dtype: torch.dtype,
-              k_pool: torch.Tensor, v_pool: torch.Tensor,
-              k_scale: Optional[torch.Tensor],
+              heads: Optional[slice], k_pool: torch.Tensor,
+              v_pool: torch.Tensor, k_scale: Optional[torch.Tensor],
               v_scale: Optional[torch.Tensor], k: torch.Tensor,
               v: torch.Tensor):
-    paged_write(k_pool, k_scale, slot, k)
-    paged_write(v_pool, v_scale, slot, v)
+    paged_write(k_pool, k_scale, slot, k, heads)
+    paged_write(v_pool, v_scale, slot, v, heads)
     return (paged_view(k_pool, k_scale, pages, dtype),
             paged_view(v_pool, v_scale, pages, dtype))
 
@@ -311,10 +321,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 token: torch.Tensor) -> Tuple[torch.Tensor, Params]:
     """One decode step for the whole batch.  token: (B, 1).  The cache's
     K/V tensors are updated in place; the returned cache shares them.  A
-    ``"pages"`` key marks a paged cache."""
+    ``"pages"`` key marks a paged cache.  A cache of fewer KV heads than
+    the model's is a rank's share on a serving mesh (``common.head_share``,
+    one more gather a layer)."""
     x = params["embed"][token]
     pos = cache["pos"] + 1
     out = dict(cache, pos=pos)
+    heads = head_share(cache["k"].shape[3], cfg.num_kv_heads)
     if "pages" in cache:
         # paging is on only where the arch has no rolling window at this
         # cache length, so for every live row the fixed arena's window
@@ -326,8 +339,9 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         ks, vs = cache.get("k_scale"), cache.get("v_scale")
 
         def kv(i):
-            return partial(_paged_kv, pages, slot, x.dtype, cache["k"][i],
-                           cache["v"][i], None if ks is None else ks[i],
+            return partial(_paged_kv, pages, slot, x.dtype, heads,
+                           cache["k"][i], cache["v"][i],
+                           None if ks is None else ks[i],
                            None if vs is None else vs[i])
         attend_pos, window = pos, None
     else:
@@ -340,10 +354,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
             attend_pos, window = pos, cfg.window
 
         def kv(i):
-            return partial(_fixed_kv, slot, cache["k"][i], cache["v"][i])
+            return partial(_fixed_kv, slot, heads, cache["k"][i],
+                           cache["v"][i])
     for i in range(cfg.num_layers):
         x = block_decode(cfg, _layer(params, i), x, pos, kv(i), attend_pos,
-                         window)
+                         window, heads)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = griffin_linear(x[:, 0], unembed(cfg, params))
     return logits, out

@@ -40,9 +40,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import attention, decode_attention
-from .common import (Draw, act_fn, griffin_linear, init_from_draws,
-                     paged_slot, paged_view, paged_write, remat_fn, rms_norm,
-                     rope, shared_activation_meta, take_last, unstack,
+from .common import (Draw, act_fn, gather_heads, griffin_linear,
+                     head_share, init_from_draws, paged_slot, paged_view,
+                     paged_write, remat_fn, rms_norm, rope,
+                     shared_activation_meta, take_heads, take_last, unstack,
                      write_kv_slot)
 
 Params = Dict[str, Any]
@@ -256,12 +257,17 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     per-row positions (slot pools).  The self-attention K/V are written in
     place (fixed arena, or pools through the ``"pages"`` table, int8 with
     their scales); cross-attention attends every one of the F encoder
-    frames of the fixed ``xk``/``xv``."""
+    frames of the fixed ``xk``/``xv``.  A cache of fewer heads than the
+    model's is a rank's share on a serving mesh (``common.head_share``):
+    both attentions run on its heads, and every model rank's heads are
+    gathered before each ``wo`` (two more gathers a layer)."""
     x = params["embed"][token]
     pos = cache["pos"] + 1
     out = dict(cache, pos=pos)
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.hd
+    heads = head_share(cache["k"].shape[3], H)
+    xheads = head_share(cache["xk"].shape[3], H)
     posv = pos[:, None] if pos.dim() else pos[None]
     paged = "pages" in cache
     if paged:
@@ -282,25 +288,31 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         k = rope(griffin_linear(h, p["wk"], meta=meta).reshape(B, 1, H, hd),
                  posv, cfg.rope_theta)
         v = griffin_linear(h, p["wv"], meta=meta).reshape(B, 1, H, hd)
+        q = take_heads(q, heads, 2)
         if paged:
             ks = None if kscale is None else kscale[i]
             vs = None if vscale is None else vscale[i]
-            paged_write(cache["k"][i], ks, slot, k)
-            paged_write(cache["v"][i], vs, slot, v)
+            paged_write(cache["k"][i], ks, slot, k, heads)
+            paged_write(cache["v"][i], vs, slot, v, heads)
             o = decode_attention(q, paged_view(cache["k"][i], ks, pages,
                                                x.dtype),
                                  paged_view(cache["v"][i], vs, pages,
                                             x.dtype), pos)
         else:
-            write_kv_slot(cache["k"][i], k, slot)
-            write_kv_slot(cache["v"][i], v, slot)
+            write_kv_slot(cache["k"][i], take_heads(k, heads, 2), slot)
+            write_kv_slot(cache["v"][i], take_heads(v, heads, 2), slot)
             o = decode_attention(q, cache["k"][i], cache["v"][i], pos)
+        if heads is not None:
+            o = gather_heads(o, 2)
         x = (x + griffin_linear(o.reshape(B, 1, -1), p["wo"])).to(x.dtype)
         # cross-attention against the fixed encoder K/V
         p = lp["cross"]
         qx = griffin_linear(rms_norm(x, lp["ln_x"], cfg.norm_eps),
                             p["wq"]).reshape(B, 1, H, hd)
-        ox = decode_attention(qx, cache["xk"][i], cache["xv"][i], every)
+        ox = decode_attention(take_heads(qx, xheads, 2), cache["xk"][i],
+                              cache["xv"][i], every)
+        if xheads is not None:
+            ox = gather_heads(ox, 2)
         x = (x + griffin_linear(ox.reshape(B, 1, -1), p["wo"])).to(x.dtype)
         f = _mlp(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
         x = (x + f).to(x.dtype)

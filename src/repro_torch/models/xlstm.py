@@ -37,9 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import (dense_init, griffin_linear, length_mask, remat_fn,
-                     rms_norm, shared_activation_meta, stack_layers,
-                     stack_slice, take_last, tree_sum, unstack)
+from .common import (dense_init, gather_heads, griffin_linear,
+                     head_share, length_mask, remat_fn, rms_norm,
+                     shared_activation_meta, stack_layers, stack_slice,
+                     take_heads, take_last, tree_sum, unstack)
 
 Params = Dict[str, Any]
 MIN_NORM = 1e-6
@@ -138,14 +139,21 @@ def init_mlstm(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
 
 
-def _mlstm_chunk(q, k, v, i_pre, f_pre, state):
+def _mlstm_chunk(q, k, v, i_pre, f_pre, state, heads=None):
     """One chunk of stabilised chunkwise mLSTM, in fp32.
 
     q, k, v: (B, L, H, hd) (k pre-scaled by 1/sqrt(hd)); i_pre, f_pre:
     (B, L, H) gate pre-activations; state: (C (B, H, hd, hd), n (B, H,
     hd), m (B, H)), or None for the zero state (a prefill's first chunk),
-    whose inter-chunk terms are exact zeros and are not computed."""
-    B, L, H, hd = q.shape
+    whose inter-chunk terms are exact zeros and are not computed.
+
+    ``heads`` (``common.head_share``): q, k, v, C and n hold those heads
+    alone, while the gates and the stabiliser m hold every head.  m is a
+    function of the gates alone, so it is computed for every head here and
+    the rest on the share; returns the share's h, C and n beside the whole
+    m."""
+    B, L, _, hd = q.shape
+    H = i_pre.shape[-1]
     qf, kf, vf = q.float(), k.float(), v.float()
     tmask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     lf = F.logsigmoid(f_pre.float())                         # (B, L, H)
@@ -162,6 +170,14 @@ def _mlstm_chunk(q, k, v, i_pre, f_pre, state):
         C_prev, n_prev, m_prev = state
     a = m_prev[:, None, :] + b                               # (B, L, H)
     m_t = torch.maximum(m_intra, a)
+    # the state's stabiliser at the end of the chunk, every head
+    w = total[:, None, :] - b + i32                          # (B, L, H)
+    m_next = torch.maximum(m_prev + total, w.amax(dim=1))
+    if heads is not None:
+        Dlog, a, m_t, w, total, m_prev = (
+            take_heads(t, heads, t.dim() - 1)
+            for t in (Dlog, a, m_t, w, total, m_prev))
+        H = heads.stop - heads.start
 
     def qk_part(lo, hi):                                     # (B, l, S, H)
         return tree_sum(qf[:, lo:hi, None] * kf[:, None])
@@ -184,9 +200,8 @@ def _mlstm_chunk(q, k, v, i_pre, f_pre, state):
     denom = torch.maximum(qn.abs(), torch.exp(-m_t)) + MIN_NORM
     h = h / denom[..., None]
     # state update to the end of the chunk
-    w = total[:, None, :] - b + i32                          # (B, L, H)
-    m_next = torch.maximum(m_prev + total, w.amax(dim=1))
-    ks = (torch.exp(w - m_next[:, None, :])[..., None] * kf) \
+    m_share = take_heads(m_next, heads, 1)
+    ks = (torch.exp(w - m_share[:, None, :])[..., None] * kf) \
         .permute(0, 2, 3, 1)                                 # (B, H, d, L)
 
     def kv_part(lo, hi):                                     # (B, H, d, e)
@@ -195,7 +210,7 @@ def _mlstm_chunk(q, k, v, i_pre, f_pre, state):
     C_next = _tiled(kv_part, hd, 4 * B * H * hd * L, dim=2)
     n_next = tree_sum(ks)
     if state is not None:
-        decay_old = torch.exp(m_prev + total - m_next)       # (B, H)
+        decay_old = torch.exp(m_prev + total - m_share)      # (B, H)
         C_next = decay_old[:, :, None, None] * C_prev + C_next
         n_next = decay_old[:, :, None] * n_prev + n_next
     return h, (C_next, n_next, m_next)
@@ -213,7 +228,13 @@ def mlstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor, state=None,
     update) and the forget gate to +1e30 (log-sigmoid exactly 0, identity
     decay), so (C, n, m) after the padded sequence equal the state at the
     last real token.  S must be a multiple of min(chunk, S), as in the
-    reference; nothing is padded or cut."""
+    reference; nothing is padded or cut.
+
+    A ``state`` whose C holds fewer heads than the model's is a rank's
+    share on a serving mesh (``common.head_share``): the block runs its
+    heads' state, with their blocks of the per-head mats, and gathers
+    every model rank's heads before ``gn`` (an ``rms_norm`` across them);
+    the stabiliser m stays whole."""
     B, S, D = x.shape
     H = cfg.num_heads
     din = int(cfg.proj_factor * D)
@@ -223,16 +244,21 @@ def mlstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor, state=None,
     if S % L:
         raise ValueError(f"mlstm_seq: sequence length {S} is not a multiple "
                          f"of the chunk {L}")
+    heads = None if state is None else head_share(state[0].shape[1], H)
     h_in = rms_norm(x, p["ln"], cfg.norm_eps)
     up = griffin_linear(h_in, p["w_up"])
     xm, z = up[..., :din], up[..., din:]
-    xh = xm.reshape(B, S, H, hd)
+    xh = take_heads(xm.reshape(B, S, H, hd), heads, 2)
     # k is divided by sqrt(hd) rounded to the model's dtype, as in the
     # reference (a host scalar: no device work)
     root = torch.tensor(math.sqrt(hd), dtype=dt).item()
-    q = _headwise(xh, _blockdiag_t(p["wq"])).to(dt)
-    k = _headwise(xh, _blockdiag_t(p["wk"])).to(dt) / root
-    v = _headwise(xh, _blockdiag_t(p["wv"])).to(dt)
+
+    def mats(name):
+        return _blockdiag_t(take_heads(p[name], heads, 0))
+
+    q = _headwise(xh, mats("wq")).to(dt)
+    k = _headwise(xh, mats("wk")).to(dt) / root
+    v = _headwise(xh, mats("wv")).to(dt)
     meta = shared_activation_meta(xm, p["wi"], p["wf"])
     i_pre = griffin_linear(xm, p["wi"], meta=meta)
     f_pre = griffin_linear(xm, p["wf"], meta=meta)
@@ -244,9 +270,12 @@ def mlstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor, state=None,
     for c in range(S // L):
         cs = slice(c * L, (c + 1) * L)
         h, state = _mlstm_chunk(q[:, cs], k[:, cs], v[:, cs], i_pre[:, cs],
-                                f_pre[:, cs], state)
+                                f_pre[:, cs], state, heads)
         hs.append(h)
-    h = torch.cat(hs, dim=1).reshape(B, S, din)
+    h = torch.cat(hs, dim=1)
+    if heads is not None:
+        h = gather_heads(h, 2)
+    h = h.reshape(B, S, din)
     h = rms_norm(h, p["gn"], cfg.norm_eps)
     # h is fp32, so w_down takes an fp32 A against its bf16 weight and the
     # residual add rounds once, as in the reference
@@ -311,20 +340,27 @@ def slstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor, state=None,
     (bucketed prefill).  The hidden state feeds back into the gates, so pad
     steps must hold the *entire* carried state — each step computes
     normally and then selects old-vs-new per row, leaving (c, n, h, m)
-    after the padded sequence exactly the state at the last real token."""
+    after the padded sequence exactly the state at the last real token.
+
+    A ``state`` of fewer heads than the model's is a rank's share on a
+    serving mesh (``common.head_share``): the recurrence runs its heads
+    (the recurrent mats are block-diagonal) and every model rank's heads
+    of h are gathered before ``gn``."""
     B, S, D = x.shape
     H = cfg.num_heads
     hd = D // H
     dt = x.dtype
+    heads = None if state is None else head_share(state[0].shape[1], H)
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     # input contributions of the four gates, (B, S, H, hd) each
-    pre = [griffin_linear(xin, p["w" + g]).reshape(B, S, H, hd).float()
+    pre = [take_heads(griffin_linear(xin, p["w" + g]).reshape(B, S, H, hd)
+                      .float(), heads, 2)
            for g in ("z", "i", "f", "o")]
     if state is None:
         state = slstm_zero_state(cfg, B, x.device)
     # the four recurrent mats side by side, transposed: (H, 4 hd, hd)
-    rt = _blockdiag_t(torch.cat([p["r" + g] for g in ("z", "i", "f", "o")],
-                                dim=-1))
+    rt = _blockdiag_t(torch.cat([take_heads(p["r" + g], heads, 0)
+                                 for g in ("z", "i", "f", "o")], dim=-1))
     c, n, h, m = state
     hs = []
     for t in range(S):
@@ -347,7 +383,10 @@ def slstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor, state=None,
             m_new = torch.where(sel, m_new, m)
         c, n, h, m = c_new, n_new, h_new, m_new
         hs.append(h)
-    hseq = torch.stack(hs, dim=1).reshape(B, S, D)
+    hseq = torch.stack(hs, dim=1)
+    if heads is not None:
+        hseq = gather_heads(hseq, 2)
+    hseq = hseq.reshape(B, S, D)
     x = x + rms_norm(hseq.to(dt), p["gn"], cfg.norm_eps)
     f = rms_norm(x, p["ln2"], cfg.norm_eps)
     f = F.gelu(griffin_linear(f, p["w_ff1"]).float(),

@@ -399,9 +399,11 @@ class EngineSnapshot:
     tokens and the per-slot owed-token counters under the keys ``cache``,
     ``tokens`` and ``remaining``; the scheduler and outputs are deep
     copies.  Beside the reference's fields, the port keeps the state it
-    adds: ``peak_active`` and the Mode-keyed function sets built so far
-    (so a set first built in a lost tick is built, and counted in
-    ``stats["retraces"]``, again by the replay).  ``ckpt_step`` is set
+    adds: ``peak_active``.  The Mode-keyed function sets are not in it, as
+    in the reference: a single-device recovery keeps the sets built before
+    the loss (a set first built in the lost tick included), so the replay
+    builds and counts in ``stats["retraces"]`` none of them again (a
+    remesh drops them, ``MeshServeEngine._remesh``).  ``ckpt_step`` is set
     when the snapshot also went to disk (``FaultConfig.snapshot_dir``):
     recovery then reloads the device state through
     ``checkpoint.restore``.  ``paging`` is the paged arena's host state
@@ -419,7 +421,6 @@ class EngineSnapshot:
     stats: Dict[str, int]
     prefill_buckets: set
     peak_active: int
-    mode_fns: Dict[Mode, Tuple[Callable, ...]]
     ckpt_step: Optional[int] = None
     paging: Optional[Dict] = None
 
@@ -637,6 +638,13 @@ class ServeEngine:
     def _rows_here(self) -> int:
         """How many slots this engine's arena holds (all of them here)."""
         return self.num_slots
+
+    def _cut(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """The part of arena leaf ``key`` (or of a prefilled cache's leaf,
+        or its pages, in the same axis order) that this engine's arena
+        holds: all of it here (a mesh rank holds its share of the head
+        axes)."""
+        return t
 
     def _slot_row(self, slot: int) -> Optional[int]:
         """The arena row of global ``slot``, or None where another rank's
@@ -868,9 +876,11 @@ class ServeEngine:
                 x = x.reshape(x.shape[0], spec.max_pages, spec.page_size,
                               *x.shape[2:])
                 if spec.kv_dtype == "int8":
+                    # a token's scale covers all its heads, held or not
                     x, scale = quantize_rows(x, 3)
                     self.cache[key + "_scale"][:, idx] = scale
-                self.cache[key][:, idx] = x.to(self.cache[key].dtype)
+                self.cache[key][:, idx] = self._cut(key, x).to(
+                    self.cache[key].dtype)
         for key, ax in self._axes.items():
             if spec is not None and key in spec.paged_keys:
                 continue
@@ -878,7 +888,7 @@ class ServeEngine:
                 self.cache[key][slot] = sub[key].reshape(())
             else:
                 self.cache[key].select(ax, slot).copy_(
-                    sub[key].select(ax, 0))
+                    self._cut(key, sub[key]).select(ax, 0))
         tok = torch.argmax(logits, dim=-1)                      # (1,)
         self._tokens[slot] = tok
         self._remaining[slot].fill_(rem)          # no host-to-device copy
@@ -1123,7 +1133,7 @@ class ServeEngine:
             a_measured=self.a_measured, since_measure=self._since_measure,
             mode_history=list(self.mode_history), stats=dict(self.stats),
             prefill_buckets=set(self.prefill_buckets),
-            peak_active=self.peak_active, mode_fns=dict(self._mode_fns),
+            peak_active=self.peak_active,
             paging=(self._paging_state() if self._paged is not None
                     else None))
         self.capture_s.append(time.perf_counter() - t0)
@@ -1169,7 +1179,6 @@ class ServeEngine:
         self.stats = dict(snap.stats)
         self.prefill_buckets = set(snap.prefill_buckets)
         self.peak_active = snap.peak_active
-        self._mode_fns = dict(snap.mode_fns)
         if self._paged is not None:
             if snap.paging is None:
                 raise RuntimeError("paged engine snapshot lacks paging state")

@@ -10,11 +10,23 @@ D)`` and prefills the admissions into them.  The weights split over
 (``runtime.sharding.shard_params``: the output columns, or a compacted
 weight's N tiles), runs the kernel's shard entry on it and gathers the
 columns over its data row (``models.common.griffin_linear``), so every
-model rank of a row computes the same activations and holds the row's
-whole arena (the head-axis split of the arena is a spec here, not
-applied).  No reduction is ever split, and each shard launches with the
-whole weight's plan and route, so the tokens are the single-device
-engine's.
+model rank of a row computes the same activations.  The arena takes the
+reference's decode layout (``cache_spec(decode=True,
+heads=cache_heads(api))``): a leaf whose spec puts an axis on "model" (the
+KV heads of ``k``/``v`` and their pools, whisper's cross ``xk``/``xv``, the
+heads of xlstm's states) holds the rank's share of the heads
+(``sharding.model_share``), every
+other leaf (int8 scales, the page table, ``pos``, xlstm's stabiliser
+``mm``, a single KV head) whole.  The admission prefill stays whole, as
+the reference's does, and the admission cuts the rank's heads out of it
+(an int8 row's scale is taken over all its heads first).  A decode step
+runs attention, or the recurrent state, on the rank's heads alone and
+gathers every model rank's heads over "model" before the output
+projection (``common.head_share``/``gather_heads``): one more gather a
+layer, two for whisper's self- and cross-attention.  Heads are batch-like
+in every per-head product, no reduction is ever split, and each shard
+launches with the whole weight's plan and route, so the tokens are the
+single-device engine's.
 
 The host side is the single-device engine's, untouched ("sharding is a
 placement concern, not a scheduling one"), and must stay equal on every
@@ -35,15 +47,21 @@ roll back to their tick-start snapshot and remesh
 model axis capped by ``FaultConfig.recovery_model_parallel``, default the
 current one).  A straggler eviction (hosts are data rows; the ranks agree
 on one tick time) does the same at a tick boundary, its row's ranks alive
-but left out.  Where a row's state comes from: every model rank of a data
-row holds the row's whole arena and copies it to the host at each tick
-start, so a surviving rank of the row sends its tick-start copy to each
-rank of the new mesh that takes over slots of the row, over the world's
-gloo group, at the recovery only; the lost rank's copy is used only where
-no survivor holds the row (one model rank a row).  With
-``FaultConfig.snapshot_dir`` each row's first model rank also saves its
-row's snapshot (``checkpoint.row_dir``, the first row the weights too),
-and the new mesh restores from disk instead.  The weights come from the
+but left out.  Where a row's state comes from: every rank copies its
+share of its row's arena (and the row's counters) to the host at each
+tick start.  A rank of the new mesh that takes over slots of a row needs
+the old head shares its new share covers (the same share on a mesh of as
+many model ranks; on a smaller model axis, 2x4 -> 2x2 or ``--remesh-model-
+parallel 1``, it merges two or more): each comes from the old rank that
+held it, its own snapshot where that is this rank, over the world's gloo
+group where it survived, and from the lost rank's tick-start host copy
+where it did not (its process lives on, :class:`LeftMesh`); an arena with
+no split head axis is whole on every rank of its row, which any survivor
+of the row sends.  With ``FaultConfig.snapshot_dir`` each rank also saves
+its share (``checkpoint.row_dir(dir, row, share)``; share 0 alone, its
+row's first rank, where the heads are not split; the first row's first
+rank the weights too), so a row is whole on disk, and the new mesh restores the
+shares it needs from disk instead.  The weights come from the
 whole host tree kept while recovery is armed, cut for the new mesh
 (``elastic.reshard``).  Ranks the new mesh leaves out make no launch and
 no allocation after the loss (the lost one none on its device at all)
@@ -73,7 +91,8 @@ from .elastic import reshard, surviving
 from .engine import (EngineSnapshot, ServeEngine, _cpu_tree, _leaf_pairs,
                      _promote_arena, weight_sparsity)
 from .paging import paged_tree
-from .sharding import cache_spec, slot_home, slots_per_row
+from .sharding import (cache_spec, model_axis, model_share, slot_home,
+                       slots_per_row)
 
 
 def cache_heads(api: ModelApi) -> int:
@@ -118,6 +137,20 @@ def _crc(t: torch.Tensor) -> int:
     return zlib.crc32(t.contiguous().view(torch.uint8).numpy())
 
 
+def _share_count(axes: Dict[str, Optional[int]], model: int) -> int:
+    """How many head shares a data row's arena splits into under the
+    layout ``axes`` (arena leaf -> the axis on "model"): the model ranks,
+    or 1 where no leaf splits."""
+    return model if any(a is not None for a in axes.values()) else 1
+
+
+def _covered(share: int, new: int, old: int) -> List[int]:
+    """The shares of ``old`` a row's heads split into that share
+    ``share`` of ``new`` takes heads from."""
+    return [j for j in range(old)
+            if j * new < (share + 1) * old and (j + 1) * new > share * old]
+
+
 class MeshServeEngine(ServeEngine):
     """``ServeEngine`` on one rank of a ("data", "model") mesh (see the
     module docstring).  ``params`` is the whole tree on this rank's device
@@ -130,10 +163,14 @@ class MeshServeEngine(ServeEngine):
     rank computed (its data row's admissions), ``stats["prefill_calls"]``
     all of them.
 
+    ``prefill_gathers`` counts the gathers over "model" this rank made in
+    its prefills (the rest of ``mesh.gathers["model"]`` were its decode
+    steps).
+
     After a loss ``remesh_log`` holds each remesh's seconds (``regroup_s``,
-    ``handover_s``, ``reshard_s``) and the rows handed over
-    (``transfers``: row, sender, receiver, bytes and CRC-32 as this rank
-    sent or received them); ``after_recovery`` the launch and dispatch
+    ``handover_s``, ``reshard_s``) and the head shares of rows handed over
+    (``transfers``: row, share, sender, receiver, bytes and CRC-32 as this
+    rank sent or received them); ``after_recovery`` the launch and dispatch
     counts, prefills, decode steps, emitted tokens and time at the end of
     the last recovery, ``at_loss`` the same counts at the last loss;
     ``departed`` (None while serving) the status and step of a rank the
@@ -159,6 +196,8 @@ class MeshServeEngine(ServeEngine):
             self._spmd_mesh = mesh
         self._b_sparsity = weight_sparsity(params)
         self.prefills_here = 0
+        self.prefill_gathers = 0
+        self._heads_ax: Dict[str, Optional[int]] = {}
         self._recovery_mp = config.fault.recovery_model_parallel
         # the whole tree, kept before it is cut: a new mesh's shares
         self._whole = _cpu_tree(params) if armed else None
@@ -179,12 +218,54 @@ class MeshServeEngine(ServeEngine):
     def _slot_row(self, slot: int) -> Optional[int]:
         return slot_home(self.mesh, self.num_slots, slot)[1]
 
+    def _layout(self, mesh) -> Dict[str, Optional[int]]:
+        """Arena leaf -> the axis its decode spec puts on "model" on
+        ``mesh`` (None: whole)."""
+        specs = serve_shardings(self.api, mesh, self.num_slots,
+                                self.cache_len, paged=self._paged)
+        return {k: model_axis(v) for k, v in specs.items()}
+
+    def _arena(self) -> Dict[str, torch.Tensor]:
+        """The data row's arena (``ServeEngine._arena``) with each leaf
+        that the layout splits over "model" allocated as the rank's share
+        alone: the shapes come from the meta device and each leaf is
+        allocated at its share, so no device or host ever holds the row's
+        whole arena.  A leaf that ``init_cache`` does not start at zero
+        (xlstm's states, which have no length axis) is filled from a
+        one-slot, length-1 ``init_cache`` expanded over the slots."""
+        self._heads_ax = self._layout(self.mesh)
+        if _share_count(self._heads_ax, self.mesh.model) == 1:
+            return super()._arena()
+        rows = self._rows_here()
+        base = _promote_arena(self.api.init_cache(
+            rows, self.cache_len, device=torch.device("meta")), rows)
+        if self._paged is not None:
+            base = paged_tree(base, rows, self._paged)
+            init = {}
+        else:
+            init = _promote_arena(self.api.init_cache(
+                1, 1, device=torch.device("cpu")), 1)
+        out = {}
+        for k, v in base.items():
+            shape = model_share(v, self._heads_ax[k], self.mesh).shape
+            out[k] = torch.zeros(shape, dtype=v.dtype, device=self.device)
+            if k in init and init[k].any():
+                one = model_share(init[k], self._heads_ax[k], self.mesh)
+                out[k].copy_(one.to(self.device).expand(shape))
+        return out
+
+    def _cut(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        return model_share(t, self._heads_ax.get(key), self.mesh)
+
     def _weight_sparsity(self, params: Any) -> float:
         return self._b_sparsity
 
     def _prefill(self, req):
         self.prefills_here += 1
-        return super()._prefill(req)
+        g0 = self.mesh.gathers["model"]
+        out = super()._prefill(req)
+        self.prefill_gathers += self.mesh.gathers["model"] - g0
+        return out
 
     def _owner(self, slot: int) -> int:
         return slot_home(self.mesh, self.num_slots, slot)[0]
@@ -269,15 +350,20 @@ class MeshServeEngine(ServeEngine):
         return float(t[0])
 
     def _save_snapshot(self, host: Dict[str, Any], extra: Dict) -> None:
-        """Each data row's first model rank saves its row's snapshot under
-        ``checkpoint.row_dir``; the first row's carries the weights' host
-        copy, the whole tree."""
-        if self.mesh.index("model"):
+        """Model rank m of a row saves head share m of the row's snapshot
+        under ``checkpoint.row_dir(dir, row, m)``: every rank where the
+        heads are split, the row's first rank alone (share 0, the whole
+        arena) where they are not; the first row's first rank adds the
+        weights' host copy, the whole tree."""
+        share = self.mesh.index("model")
+        if share >= _share_count(self._heads_ax, self.mesh.model):
             return
         row = self.mesh.index("data")
-        state = dict(host, params=self._params_host) if row == 0 else host
-        ckpt_save(row_dir(self.snapshot_dir, row), self.clock, state, keep=2,
-                  extra=dict(extra, mesh=self._mesh_desc(), row=row))
+        state = dict(host, params=self._params_host) \
+            if row == 0 and share == 0 else host
+        ckpt_save(row_dir(self.snapshot_dir, row, share), self.clock, state,
+                  keep=2, extra=dict(extra, mesh=self._mesh_desc(), row=row,
+                                     share=share))
 
     def _recover(self, lost: List[int],
                  snap: Optional[EngineSnapshot]) -> None:
@@ -302,19 +388,22 @@ class MeshServeEngine(ServeEngine):
         old = self.mesh
         plan, new = regroup(old, lost, self._recovery_mp or old.model)
         self._mode_fns.clear()
-        self._pending = (old, plan, new, lost, time.perf_counter() - t0)
+        self._pending = (old, dict(self._heads_ax), plan, new, lost,
+                         time.perf_counter() - t0)
 
     def _restore_device(self, snap: EngineSnapshot) -> None:
-        """Hand the old rows' tick-start state to the ranks that take them
-        over (:meth:`_handover`); then a rank the plan leaves out leaves
-        (:class:`LeftMesh`), and a rank of the new mesh cuts its share of
-        the weights from the whole host tree (read back from disk with
-        snapshots on disk), allocates the arena of its new data row and
-        writes the merged rows into it (:meth:`_merge`)."""
-        old, plan, new, lost, regroup_s = self._pending
+        """Hand the old rows' tick-start head shares to the ranks that
+        take them over (:meth:`_handover`); then a rank the plan leaves
+        out leaves (:class:`LeftMesh`), and a rank of the new mesh cuts its
+        share of the weights from the whole host tree (read back from disk
+        with snapshots on disk), allocates the arena of its new data row
+        and head share and writes the old shares into it, each old row's
+        put together (:meth:`_rows_from_shares`), then the rows merged
+        (:meth:`_merge`)."""
+        old, old_axes, plan, new, lost, regroup_s = self._pending
         self._pending = None
         t0 = time.perf_counter()
-        rows, transfers = self._handover(old, plan, lost, snap)
+        shares, transfers = self._handover(old, old_axes, plan, lost, snap)
         t1 = time.perf_counter()
         record = {"step": snap.clock, "mesh": plan.spec,
                   "regroup_s": regroup_s, "handover_s": t1 - t0,
@@ -329,7 +418,7 @@ class MeshServeEngine(ServeEngine):
         self._per_row = slots_per_row(new, self.num_slots)
         weights = self._params_host
         if snap.ckpt_step is not None:
-            weights = ckpt_restore(row_dir(self.snapshot_dir, 0),
+            weights = ckpt_restore(row_dir(self.snapshot_dir, 0, 0),
                                    {"params": weights}, step=snap.ckpt_step,
                                    device="cpu")["params"]
         # the old shares and arena go before the new ones are allocated
@@ -337,7 +426,8 @@ class MeshServeEngine(ServeEngine):
         self.params = reshard(weights, new)
         self._alloc_state()
         self._snap_host = None
-        merged = self._merge(rows, old.data)
+        merged = self._merge(self._rows_from_shares(shares, old, old_axes),
+                             old.data)
         for dst, src in _leaf_pairs(self._device_tree(), merged):
             dst.copy_(src, non_blocking=True)
         if snap.ckpt_step is not None and new.groups:
@@ -347,65 +437,116 @@ class MeshServeEngine(ServeEngine):
         self.remesh_log.append(dict(record,
                                     reshard_s=time.perf_counter() - t1))
 
-    def _handover(self, old, plan, lost: List[int], snap: EngineSnapshot
-                  ) -> Tuple[Dict[int, Dict[str, Any]], List[Dict]]:
-        """{old data row: its tick-start state on the host} for every row
-        whose slots this rank's new data row takes over, and the transfers
-        this rank made.  With snapshots on disk each row is read back
-        (``checkpoint.restore``).  Else a row comes from this rank's own
-        snapshot where it was in the row, or over the world's gloo group
-        from the row's first surviving rank (its first rank where none
-        survives); every rank of the old mesh walks the same list of
-        (row, sender, receiver) in the same order, each send or receive
-        made by its two ranks alone."""
+    def _handover(self, old, old_axes: Dict[str, Optional[int]], plan,
+                  lost: List[int], snap: EngineSnapshot
+                  ) -> Tuple[Dict[Tuple[int, int], Dict[str, Any]],
+                             List[Dict]]:
+        """{(old data row, head share): its tick-start state on the host}
+        for every share of a row whose slots this rank's new data row takes
+        over that its new head share covers (``old_axes``: the old
+        layout), and the transfers this rank made.  With snapshots on disk
+        each share is read back (``checkpoint.restore``).  Else a share
+        comes from this rank's own snapshot where it held it, or over the
+        world's gloo group from the rank that held it, where it survived,
+        and from the lost holder's host copy where it did not (an arena
+        with no split head axis: from the row's first surviving rank, its
+        first rank where none survives); every rank of the old mesh walks
+        the same list of (row, share, sender, receiver) in the same
+        order, each send or receive made by its two ranks alone."""
         import torch.distributed as dist
+        from ..launch.mesh import Mesh
         P = self.num_slots // old.data
         P2 = self.num_slots // plan.data
-        need = {w: sorted({s // P for s in range((q // plan.model) * P2,
-                                                 (q // plan.model + 1) * P2)})
-                for q, w in enumerate(plan.devices)}
+        s_old = _share_count(old_axes, old.model)
+        s_new = _share_count(self._layout(Mesh(plan.data, plan.model)),
+                             plan.model)
+        need = {}
+        for q, w in enumerate(plan.devices):
+            d, m = divmod(q, plan.model)
+            rows = sorted({s // P for s in range(d * P2, (d + 1) * P2)})
+            js = _covered(m if s_new > 1 else 0, s_new, s_old)
+            need[w] = [(r, j) for r in rows for j in js]
+
+        def holders(r: int, j: int) -> List[int]:
+            ranks = old.row_ranks(r)
+            return [ranks[j]] if s_old > 1 else ranks
+
         me = old.world_rank
         mine = need.get(me, [])
         transfers: List[Dict] = []
 
-        def record(r, src, dst, tree):
+        def record(r, j, src, dst, tree):
             leaves = [t for t, _ in _leaf_pairs(tree, tree)]
             transfers.append({
-                "row": r, "src": src, "dst": dst,
+                "row": r, "share": j, "src": src, "dst": dst,
                 "bytes": sum(t.numel() * t.element_size() for t in leaves),
                 "crc32": [_crc(t) for t in leaves]})
 
         if snap.ckpt_step is not None:
-            rows = {r: ckpt_restore(row_dir(self.snapshot_dir, r),
-                                    snap.device, step=snap.ckpt_step,
-                                    device="cpu") for r in mine}
-            for r, tree in rows.items():
-                record(r, "disk", me, tree)
-            return rows, transfers
-        own = old.index("data")
-        rows = {own: snap.device} if own in mine else {}
+            shares = {(r, j): ckpt_restore(
+                row_dir(self.snapshot_dir, r, j), snap.device,
+                step=snap.ckpt_step, device="cpu")
+                for r, j in mine}
+            for (r, j), tree in shares.items():
+                record(r, j, "disk", me, tree)
+            return shares, transfers
+        shares = {key: snap.device for key in mine if me in holders(*key)}
         for r in range(old.data):
-            holders = old.row_ranks(r)
-            src = ([w for w in holders if w not in lost] or holders)[0]
-            for dst in plan.devices:
-                if r not in need[dst] or dst in holders or me not in (src,
-                                                                      dst):
-                    continue
-                if me == src:
-                    tree = snap.device
-                    for t, _ in _leaf_pairs(tree, tree):
-                        dist.send(t, dst, group=old.world)
-                else:
-                    tree = {"cache": {k: torch.empty_like(v) for k, v in
-                                      snap.device["cache"].items()},
-                            "tokens": torch.empty_like(snap.device["tokens"]),
-                            "remaining": torch.empty_like(
-                                snap.device["remaining"])}
-                    for t, _ in _leaf_pairs(tree, tree):
-                        dist.recv(t, src, group=old.world)
-                    rows[r] = tree
-                record(r, src, dst, tree)
-        return rows, transfers
+            for j in range(s_old):
+                held = holders(r, j)
+                src = ([w for w in held if w not in lost] or held)[0]
+                for dst in plan.devices:
+                    if (r, j) not in need[dst] or dst in held or \
+                            me not in (src, dst):
+                        continue
+                    if me == src:
+                        tree = snap.device
+                        for t, _ in _leaf_pairs(tree, tree):
+                            dist.send(t, dst, group=old.world)
+                    else:
+                        tree = {"cache": {k: torch.empty_like(v) for k, v
+                                          in snap.device["cache"].items()},
+                                "tokens": torch.empty_like(
+                                    snap.device["tokens"]),
+                                "remaining": torch.empty_like(
+                                    snap.device["remaining"])}
+                        for t, _ in _leaf_pairs(tree, tree):
+                            dist.recv(t, src, group=old.world)
+                        shares[(r, j)] = tree
+                    record(r, j, src, dst, tree)
+        return shares, transfers
+
+    def _rows_from_shares(self, shares: Dict[Tuple[int, int],
+                                             Dict[str, Any]], old,
+                          old_axes: Dict[str, Optional[int]]
+                          ) -> Dict[int, Dict[str, Any]]:
+        """{old data row: its state on the host, cut to this rank's new
+        head share}: each old row's shares (``old_axes``: the old layout,
+        ``shares`` keyed (row, share)) joined along the head axis, in
+        share order, and cut to the heads this rank's arena holds on the
+        current mesh (all of them for a leaf the new layout keeps
+        whole); the counters come from any share, each holds them
+        whole."""
+        s_old = _share_count(old_axes, old.model)
+        out = {}
+        for r in sorted({r for r, _ in shares}):
+            js = sorted(j for rr, j in shares if rr == r)
+            first = shares[(r, js[0])]
+            cache = {}
+            for key, leaf in first["cache"].items():
+                ax_o = old_axes[key]
+                offset, extent = 0, None
+                if ax_o is not None:
+                    n = leaf.shape[ax_o]
+                    offset, extent = js[0] * n, s_old * n
+                    leaf = torch.cat([shares[(r, j)]["cache"][key]
+                                      for j in js], ax_o)
+                cache[key] = model_share(leaf, self._heads_ax[key],
+                                         self.mesh, offset=offset,
+                                         extent=extent)
+            out[r] = {"cache": cache, "tokens": first["tokens"],
+                      "remaining": first["remaining"]}
+        return out
 
     def _slot_axis(self, key: str) -> Optional[int]:
         """The slot axis of arena leaf ``key`` (None for a page pool)."""

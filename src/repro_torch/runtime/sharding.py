@@ -23,11 +23,12 @@ split is uneven stays whole and runs the whole kernel on every model rank.
 A tied embedding stays whole for the lookup, and its head (``embed.T``)
 reads the rank's vocab rows in place (:class:`TiedEmbed`).  Other leaves
 (norms, convolutions, per-head mats, the gates the recurrent blocks widen
-first, the MoE router) stay whole.  The arena is split over "data" only and
-replicated over "model": each data row allocates its own contiguous run of
-slots (:func:`slot_home`), a paged row its whole pool beside the page table
-of its slots; the head-axis split is ported as a spec, not applied
-(ROADMAP).  The training layout (``fsdp=True``) is ROADMAP 1.18.
+first, the MoE router) stay whole.  The arena takes its decode layout:
+each data row allocates its own contiguous run of slots (:func:`slot_home`;
+a paged row its own pool beside the page table of its slots), and a leaf
+whose spec puts an axis on "model" (the KV heads, the heads of recurrent
+states) holds the rank's share of that axis (:func:`model_share`), every
+other leaf whole.  The training layout (``fsdp=True``) is ROADMAP 1.18.
 """
 from __future__ import annotations
 
@@ -198,6 +199,33 @@ def cache_spec(path: str, leaf, mesh, batch: int, decode: bool = False,
         if cand:
             spec[max(cand)[1]] = "model"
     return tuple(spec)
+
+
+def model_axis(spec: Spec) -> Optional[int]:
+    """The axis a spec puts on "model", or None."""
+    return spec.index("model") if "model" in spec else None
+
+
+def model_share(t: torch.Tensor, axis: Optional[int], mesh, *,
+                offset: int = 0, extent: Optional[int] = None
+                ) -> torch.Tensor:
+    """This rank's share of an axis a spec puts on "model"
+    (:func:`model_axis`): of the axis's extent n, the entries ``[m n / M,
+    (m + 1) n / M)`` at the rank's model coordinate m of M, as a view of
+    ``t``; ``t`` itself where ``axis`` is None.  ``t`` holds the entries
+    ``[offset, offset + t.shape[axis])`` of an axis of ``extent`` (default:
+    all of it), as the joined head shares of a smaller model axis do.  The
+    arena allocates each leaf's share by it, an admission cuts the
+    prefilled cache by it, and a remesh cuts a new share from old ones."""
+    if axis is None:
+        return t
+    extent = t.shape[axis] if extent is None else extent
+    n = extent // mesh.shape["model"]
+    lo = mesh.index("model") * n - offset
+    if lo < 0 or lo + n > t.shape[axis]:
+        raise ValueError(f"share [{lo + offset}, {lo + offset + n}) is not "
+                         f"within [{offset}, {offset + t.shape[axis]})")
+    return t.narrow(axis, lo, n)
 
 
 def spmm_shard_specs(axis: str = "model"):
@@ -383,6 +411,7 @@ def slot_home(mesh, num_slots: int, slot: int) -> Tuple[int, Optional[int]]:
 
 __all__ = ["APPLIED", "TiedEmbed", "cache_spec", "dp_axes",
            "gemm_shard_specs", "griffin_leaves", "kernel_shardable",
-           "param_spec", "param_specs", "shard_params", "sharded_leaves",
-           "slot_home", "slots_per_row", "spmm_shard_specs"]
+           "model_axis", "model_share", "param_spec", "param_specs",
+           "shard_params", "sharded_leaves", "slot_home", "slots_per_row",
+           "spmm_shard_specs"]
 

@@ -466,28 +466,37 @@ def test_checkpoint_retention_and_errors(tmp_path):
 # kills: rollback and replay
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("phase", PHASES)
+# (phase, step) of the kills held against the reference: every phase at
+# step 2, and the prefill and decode polls of the first tick, whose lost
+# tick built the first function set (the recovery keeps it, so the replay
+# counts no retrace, as in the reference)
+KILLS = [pytest.param(p, 2, id=p) for p in PHASES] + \
+    [pytest.param(p, 0, id=f"{p}-step0") for p in ("prefill", "decode")]
+
+
+@pytest.mark.parametrize("phase,step", KILLS)
 @pytest.mark.parametrize("kind", list(ENGINES))
 def test_kill_recovers_as_reference(small, reference, tmp_path, kind,
-                                    phase):
-    """A kill at step 2 on each engine: one recovery, the reference's
-    faulted engine's ``recovery_log`` and stats, and the reference's
-    uninterrupted tokens (int8 pages: the port's unfaulted int8 run's).
-    The disk engine's newest manifest equals the reference's, scheduler
-    and paging state included."""
+                                    phase, step):
+    """A kill at step 2 (and at step 0) on each engine: one recovery, the
+    reference's faulted engine's ``recovery_log`` and stats (``retraces``
+    among them), and the reference's uninterrupted tokens (int8 pages:
+    the port's unfaulted int8 run's).  The disk engine's newest manifest
+    equals the reference's, scheduler and paging state included."""
     japi, jparams, tapi, tparams = small
     jconf = JaxEngineConfig().with_fields(**ENGINE).with_fields(
         **ENGINES[kind])
     if kind == "disk":
         jconf = jconf.with_fields(snapshot_dir=str(tmp_path / "jax"))
-    jinj = jax_fault.FaultInjector(kill_devices=(0,), at_step=2, phase=phase)
+    jinj = jax_fault.FaultInjector(kill_devices=(0,), at_step=step,
+                                   phase=phase)
     jeng = JaxServeEngine(japi, jparams, config=jconf, fault_injector=jinj)
     jeng.run(jax_synthetic_trace(japi.cfg, **TRACE))
-    inj = _kill(phase)
+    inj = _kill(phase, step)
     eng = ServeEngine(tapi, tparams, _conf(kind, tmp_path),
                       fault_injector=inj)
     out = eng.run(_trace(tapi))
-    assert inj.fired_at == jinj.fired_at == 2
+    assert inj.fired_at == jinj.fired_at == step
     assert eng.recoveries == jeng.recoveries == 1
     assert eng.recovery_log == jeng.recovery_log
     assert eng.stats == jeng.stats

@@ -41,6 +41,7 @@ from repro_torch.runtime.fault import FaultInjector
 from repro_torch.runtime.serve import greedy_generate
 from repro_torch.sparsity import (block_prune, init_sparse_params,
                                   sparsify_params)
+from torch_helpers import TwoPass
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (A, weight) dtypes the kernels take; "mixed" is the mLSTM block's w_down
@@ -1410,8 +1411,10 @@ def test_remesh_hands_a_row_over_bit_for_bit(cuda, arena):
 def test_remesh_1x2_to_1x1_gives_the_unfaulted_tokens(cuda):
     """Reduced llama3.2-1b compacted at 0.8 on a 1x2 mesh of two ranks on
     the card: rank 1's device lost at decode step 3, rank 0 serves on
-    alone (1x1, the whole weights cut from its host copy) and finishes
-    with the unfaulted tokens; rank 1 launches nothing after the loss."""
+    alone (1x1, the whole weights cut from its host copy; the arena's
+    heads put together from its own share and lost rank 1's host copy of
+    the other) and finishes with the unfaulted tokens; rank 1 launches
+    nothing after the loss."""
     _free_card()
     conf = EngineConfig().with_fields(num_slots=4, cache_len=49,
                                       decode_chunk=8, use_kernels=True)
@@ -1424,9 +1427,90 @@ def test_remesh_1x2_to_1x1_gives_the_unfaulted_tokens(cuda):
     assert kept["tokens"] == {r: o.tokens
                               for r, o in ref.engine.outputs.items()}
     assert kept["recovery_log"][-1]["mesh"] == "1x1"
-    assert kept["remesh"][0]["transfers"] == []     # rank 0 held the row
+    (got,) = kept["remesh"][0]["transfers"]     # rank 0 held share 0
+    (sent,) = lost["remesh"][0]["transfers"]
+    assert (got["row"], got["share"], got["src"], got["dst"]) == (0, 1, 1, 0)
+    assert got["crc32"] == sent["crc32"] and got["bytes"] == sent["bytes"]
     assert not any(lost["launches_after_loss"].values())
     assert kept["dispatch_after"].get("kernel", 0) == 15 * kept["calls_after"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", ["fixed", "paged", "paged_int8"])
+@pytest.mark.parametrize("cache_len", [49, 4096])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_head_share_decode_layer_bit_equal_on_card(cuda, shards, cache_len,
+                                                   arena):
+    """One full-width llama3.2-1b decode layer (32 query heads on 8 KV
+    heads of 64, bf16, dense weights through K1) on CUDA tensors, four
+    rows at different positions of a ``cache_len`` arena: on each of
+    ``shards`` model ranks' share of the KV heads the layer writes the
+    token's K and V into its share (int8 pages: the row's scale over all 8
+    heads, its heads' values), attends with its 32 / ``shards`` query
+    heads and gathers the attention output over the ranks before ``wo``.
+    Every rank's layer output equals the whole layer's bit for bit, and
+    its share of the cache, pools and scales included, equals the whole
+    write's heads."""
+    from functools import partial
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import head_share, paged_slot
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=1)
+    api = build_model(cfg, device="cuda")
+    lp = tr._layer(api.init(api.generator(0)), 0)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, KVH, hd = 4, cfg.num_kv_heads, cfg.hd
+    x = torch.randn(B, 1, cfg.d_model, generator=gen,
+                    device=cuda).bfloat16()
+    pos = torch.tensor([0, 17, cache_len // 2, cache_len - 1],
+                       dtype=torch.int32, device=cuda)
+    if arena == "fixed":
+        cache = {k: torch.randn(B, cache_len, KVH, hd, generator=gen,
+                                device=cuda).bfloat16() for k in ("k", "v")}
+    else:
+        page = 7 if cache_len == 49 else 16
+        maxp = cache_len // page
+        pages = (torch.randperm(B * maxp, generator=gen, device=cuda)
+                 + 1).reshape(B, maxp)
+        shape = (B * maxp + 1, page, KVH, hd)
+        if arena == "paged_int8":
+            cache = {k: torch.randint(-127, 128, shape, generator=gen,
+                                      device=cuda).to(torch.int8)
+                     for k in ("k", "v")}
+            cache.update({f"{k}_scale": torch.rand(
+                shape[:2], generator=gen, device=cuda) for k in ("k", "v")})
+        else:
+            cache = {k: torch.randn(shape, generator=gen,
+                                    device=cuda).bfloat16()
+                     for k in ("k", "v")}
+        slot = paged_slot(pages, pos, page)
+
+    def block(c, heads):
+        if arena == "fixed":
+            kv = partial(tr._fixed_kv, pos, heads, c["k"], c["v"])
+        else:
+            kv = partial(tr._paged_kv, pages, slot, x.dtype, heads, c["k"],
+                         c["v"], c.get("k_scale"), c.get("v_scale"))
+        return tr.block_decode(cfg, lp, x, pos, kv, pos, None, heads)
+
+    ref = {k: v.clone() for k, v in cache.items()}
+    with sparse_execution(use_kernels=True):
+        want = block(ref, None)
+    n = KVH // shards
+    rec: dict = {}
+    for replay in (False, True):
+        for m in range(shards):
+            mine = {k: (v.narrow(2, m * n, n).clone() if k in ("k", "v")
+                        else v.clone()) for k, v in cache.items()}
+            with sparse_execution(use_kernels=True, spmd_mesh=TwoPass(
+                    m, shards, rec, replay)):
+                got = block(mine, head_share(n, KVH))
+            if replay:
+                assert torch.equal(got, want), m
+                for k, v in mine.items():
+                    full = ref[k] if k.endswith("_scale") else \
+                        ref[k].narrow(2, m * n, n)
+                    assert torch.equal(v, full), (m, k)
 
 
 @pytest.fixture(scope="module")

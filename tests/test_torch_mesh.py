@@ -11,9 +11,16 @@
   the arguments each shard hands the C entry (plan, route, split) are the
   whole weight's at every leaf shape of the ten configs (the C entries
   stubbed, the tensors on the meta device);
+* the arena's decode layout: each rank's arena, leaf by leaf, is the
+  single-device arena cut to the reference's decode spec (its data row's
+  slots, its share of the head axis) for every family on 1x2, 2x2 and
+  2x4; one decode block on a rank's share of the KV heads (GQA), its
+  attention gathered over the model ranks, equals the whole block bit
+  for bit on the fixed, paged and int8-paged arenas, cache writes
+  included;
 * ranks under gloo on the host (``launch.mesh.run_ranks``, one torch
   thread each): ``MeshServeEngine`` against the port's unsharded engine on
-  1x2, 2x1 and 2x2 meshes (dense and compacted weights, chunk 1 and 3,
+  1x2, 2x1, 2x2 and 2x4 meshes (dense and compacted weights, chunk 1 and 3,
   the four Modes, the paged arena, the stepwise path, the oracle, four
   more families, the host-sync budget, a tuned plan), once on weights
   bridged from the JAX package against its ``ServeEngine``'s tokens; a
@@ -79,6 +86,7 @@ from repro_torch.runtime.mesh_serve import (MeshServeEngine, cache_heads,
 from repro_torch.runtime.paging import build_spec
 from repro_torch.sparsity.pruning import block_prune
 from repro_torch.tuning import FamilyPlan, GemmRule, KernelPlan
+from torch_helpers import TwoPass
 
 FAMILIES = ("llama3.2-1b", "mixtral-8x7b", "xlstm-1.3b", "recurrentgemma-9b",
             "whisper-large-v3", "chameleon-34b")
@@ -233,6 +241,23 @@ def test_cache_spec_decode_rules():
     spec_eq = sharding.cache_spec("['k']", eq, mesh, batch=4, decode=True,
                                   heads=8)
     assert spec_eq[3] == "model" and spec_eq[2] is None
+
+
+def test_model_share_cuts_whole_and_joined_shares():
+    """``model_share``: a rank's share of an axis, as a view, from the
+    whole axis or from old shares joined along it (a remesh onto fewer
+    model ranks), and a refusal where the joined part does not hold the
+    share."""
+    t = torch.arange(2 * 8 * 3).reshape(2, 8, 3)
+    mesh = tmesh.Mesh(1, 4, rank=2)                  # heads [4, 6)
+    got = sharding.model_share(t, 1, mesh)
+    assert torch.equal(got, t[:, 4:6]) and got.data_ptr() == t[:, 4].data_ptr()
+    assert sharding.model_share(t, None, mesh) is t
+    joined = t[:, 4:8]                                # old shares 1 of 2
+    assert torch.equal(sharding.model_share(joined, 1, mesh, offset=4,
+                                            extent=8), t[:, 4:6])
+    with pytest.raises(ValueError, match="not within"):
+        sharding.model_share(t[:, 0:4], 1, mesh, offset=0, extent=8)
 
 
 @pytest.mark.parametrize("paged", [None, 4], ids=["fixed", "paged"])
@@ -523,8 +548,9 @@ def test_mesh_arena_holds_its_data_rows_slots(paged):
     """A rank's arena is its data row's contiguous run of slots
     (``sharding.slot_home``): the single-device arena cut on each leaf's
     slot axis (a paged row keeps its whole pool beside the page table of
-    its slots); the engine's row and owner of every slot follow the same
-    map."""
+    its slots), at the rank's share of the KV heads (model rank 1 of 2:
+    heads 2 and 3 of 4); the engine's row and owner of every slot follow
+    the same map."""
     api = build_model(get_config("llama3.2-1b").reduced(), device="cpu")
     params = api.init(api.generator(0))
     fields = dict(num_slots=4, cache_len=16)
@@ -551,9 +577,136 @@ def test_mesh_arena_holds_its_data_rows_slots(paged):
                 else leaf[2:]
         else:
             want = leaf
+        if key in ("k", "v"):
+            want = want.narrow(3, 2, 2)
         assert torch.equal(eng.cache[key], want), key
     with pytest.raises(ValueError, match="do not split"):
         sharding.slots_per_row(mesh, 3)
+
+
+@pytest.mark.parametrize("paged", [None, 4], ids=["fixed", "paged"])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 4)],
+                         ids=["1x2", "2x2", "2x4"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_mesh_arena_holds_its_spec_share(arch, shape, paged):
+    """Every rank's arena, leaf by leaf, is the single-device arena cut to
+    the reference's decode spec of the whole arena (``cache_spec(decode=
+    True, heads=cache_heads(api))``): its data row's slots on the axis the
+    spec puts on "data" (a paged row's whole pool and its slots' page
+    table rows, the port's own pool a row), its model rank's share of the
+    axis the spec puts on "model" (the KV heads; whisper's cross K/V too;
+    the heads of xlstm's states; recurrentgemma's single KV head and
+    recurrent state stay whole), every other axis whole: shape, dtype and
+    initial values."""
+    D, M = shape
+    mesh = tmesh.Mesh(D, M)
+    japi = jax_build_model(jax_get_config(arch).reduced())
+    jspec, jlen = jax_build_spec(japi, 4, 24, paged)
+    arena = _promoted_arena_shapes(japi, 4, jlen)
+    pset = frozenset()
+    if jspec is not None:
+        arena = jax_paged_tree(arena, 4, jspec)
+        pset = frozenset(jspec.paged_keys)
+    want = {_keystr(p)[2:-2]: tuple(jax_sharding.cache_spec(
+        _keystr(p), leaf, mesh, 4, decode=True,
+        heads=jax_cache_heads(japi), paged=pset))
+        for p, leaf in _flat(arena)}
+    pools = {k for k in want if k.removesuffix("_scale") in pset}
+    api = build_model(get_config(arch).reduced(), device="cpu")
+    params = api.init(api.generator(0))
+    fields = dict(num_slots=4, cache_len=24)
+    if paged:
+        fields.update(page_size=paged)
+    conf = EngineConfig().with_fields(**fields)
+    whole = ServeEngine(api, params, conf).cache
+    split = arch != "recurrentgemma-9b"
+    assert any("model" in v for v in want.values()) == split
+    for rank in range(D * M):
+        eng = MeshServeEngine(api, params, config=conf,
+                              mesh=tmesh.Mesh(D, M, rank=rank))
+        d, m = divmod(rank, M)
+        assert set(eng.cache) == set(whole) == set(want)
+        for key, leaf in whole.items():
+            for ax, name in enumerate(want[key]):
+                if name == "model":
+                    n = leaf.shape[ax] // M
+                    leaf = leaf.narrow(ax, m * n, n)
+                elif name == "data" and key not in pools:
+                    leaf = leaf.narrow(ax, d * 4 // D, 4 // D)
+            if key == "pages":
+                leaf = leaf[d * 4 // D:(d + 1) * 4 // D]
+            got = eng.cache[key]
+            assert got.dtype == leaf.dtype and torch.equal(got, leaf), \
+                (rank, key, tuple(got.shape), tuple(leaf.shape))
+
+
+@pytest.mark.parametrize("arena", ["fixed", "paged", "paged_int8"])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_decode_block_on_a_head_share_equals_the_whole(shards, arena):
+    """One decode block of a GQA transformer (8 query heads on 4 KV heads,
+    reduced llama widths, two rows at different positions) on each model
+    rank's share of the KV heads: the rank writes the token's K and V into
+    its share of the cache (int8: the whole row's scale, its heads'
+    values), attends with its heads' queries, and gathers the attention
+    output over the model ranks before ``wo``.  Every rank's block output
+    equals the whole block's bit for bit, and so do its share of the
+    cache and the scales."""
+    from functools import partial
+
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import (head_share, paged_slot,
+                                           sparse_execution)
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              num_heads=8, num_kv_heads=4)
+    api = build_model(cfg, device="cpu")
+    lp = tr._layer(api.init(api.generator(0)), 0)
+    gen = torch.Generator().manual_seed(5)
+    B, S, KVH, hd = 2, 16, cfg.num_kv_heads, cfg.hd
+    x = torch.randn(B, 1, cfg.d_model, generator=gen)
+    pos = torch.tensor([6, 11], dtype=torch.int32)
+    if arena == "fixed":
+        cache = {k: torch.randn(B, S, KVH, hd, generator=gen)
+                 for k in ("k", "v")}
+    else:
+        pages = torch.tensor([[3, 1, 0, 0], [2, 4, 5, 0]])
+        dt = torch.int8 if arena == "paged_int8" else torch.float32
+        cache = {k: (torch.randint(-127, 128, (6, 4, KVH, hd),
+                                   generator=gen) if dt == torch.int8
+                     else torch.randn(6, 4, KVH, hd, generator=gen)).to(dt)
+                 for k in ("k", "v")}
+        if dt == torch.int8:
+            cache.update({f"{k}_scale": torch.rand(6, 4, generator=gen)
+                          for k in ("k", "v")})
+        slot = paged_slot(pages, pos, 4)
+
+    def kv(c, heads):
+        if arena == "fixed":
+            return partial(tr._fixed_kv, pos, heads, c["k"], c["v"])
+        return partial(tr._paged_kv, pages, slot, x.dtype, heads, c["k"],
+                       c["v"], c.get("k_scale"), c.get("v_scale"))
+
+    def block(c, heads):
+        return tr.block_decode(cfg, lp, x, pos, kv(c, heads), pos, None,
+                               heads)
+
+    ref = {k: v.clone() for k, v in cache.items()}
+    want = block(ref, None)
+    n = KVH // shards
+    rec: dict = {}
+    for replay in (False, True):
+        for m in range(shards):
+            heads = slice(m * n, (m + 1) * n)
+            mine = {k: (v.narrow(2, m * n, n).clone() if k in ("k", "v")
+                        else v.clone()) for k, v in cache.items()}
+            with sparse_execution(use_kernels=False, spmd_mesh=TwoPass(
+                    m, shards, rec, replay)):
+                got = block(mine, head_share(n, KVH))
+            if replay:
+                assert torch.equal(got, want), m
+                for k, v in mine.items():
+                    full = ref[k] if k.endswith("_scale") else \
+                        ref[k].narrow(2, m * n, n)
+                    assert torch.equal(v, full), (m, k)
 
 
 # ---------------------------------------------------------------------------
@@ -652,7 +805,7 @@ def _mesh_run(spec: str, plan_file: str):
     return _RUNS[spec]
 
 
-@pytest.fixture(scope="module", params=["2x2", "1x2", "2x1"])
+@pytest.fixture(scope="module", params=["2x2", "1x2", "2x1", "2x4"])
 def mesh_run(request, plan_file):
     return _mesh_run(request.param, plan_file)
 
@@ -685,7 +838,7 @@ def _check_cell(spec: str, name: str, recs, ref) -> None:
 
 
 def test_mesh_matrix_cells(mesh_run):
-    """1x2, 2x1 and 2x2 x {dense, compacted} x chunk {1, 3}."""
+    """1x2, 2x1, 2x2 and 2x4 x {dense, compacted} x chunk {1, 3}."""
     spec, recs, refs = mesh_run
     for name in MATRIX:
         _check_cell(spec, name, recs[name], refs[name])
@@ -700,6 +853,34 @@ def test_mesh_2x2_cells(mesh22, name):
         assert st["host_syncs"] / st["emitted"] <= 0.25
 
 
+# the head gathers a decode step adds on a mesh with split heads, over
+# those of the weight GEMMs: one a layer's attention (two, self and
+# cross, for whisper), one an xlstm block, none for recurrentgemma (one
+# KV head: its arena stays whole)
+HEAD_GATHERS = {"llama3.2-1b": 2, "mixtral-8x7b": 2, "whisper-large-v3": 4,
+                "xlstm-1.3b": 2, "recurrentgemma-9b": 0}
+
+
+@pytest.mark.parametrize("arch", list(HEAD_GATHERS))
+def test_mesh_2x2_head_gathers_per_decode_step(mesh22, arch):
+    """Per family on 2x2: the gathers over "model" beyond one a sharded
+    GEMM (its ``shard`` dispatches) are ``HEAD_GATHERS`` a decode step,
+    and none a prefill; ``Mesh.sites`` books them to the heads and the
+    rest to the GEMMs."""
+    _, recs, _ = mesh22
+    name = "sparseB-chunk3" if arch == "llama3.2-1b" else f"family-{arch}"
+    assert sum(rec["prefills_here"] for rec in recs[name]) > 0
+    for rec in recs[name]:
+        mg, steps = rec["model_gathers"], rec["stats"]["decode_steps"]
+        assert steps > 0
+        assert sum(mg.values()) - rec["dispatch"]["shard"] == \
+            HEAD_GATHERS[arch] * steps, (arch, mg, rec["dispatch"])
+        sites = rec["gather_sites"]
+        assert sites["gemm"]["n"] == rec["dispatch"]["shard"]
+        assert sites.get("heads", {"n": 0})["n"] == \
+            HEAD_GATHERS[arch] * steps
+
+
 def test_mesh_2x2_every_mode(mesh22):
     """All four Modes at 2x2, each in its own cell, through the shard
     entries (Mode.A through sparse_a's, Mode.AB dual)."""
@@ -711,15 +892,33 @@ def test_mesh_2x2_every_mode(mesh22):
 
 def test_mesh_launches_and_gathers_per_model_call(mesh_run):
     """Each rank's gathers over "model": one a GEMM (2 layers x 7 + the
-    tied head = 15 a model call of reduced llama), none on a one-model-rank
-    mesh; over "data": one a host sync."""
+    tied head = 15 a prefill of reduced llama), and a decode step's one
+    more a layer for the attention output of the rank's KV heads (17),
+    none on a one-model-rank mesh; over "data": one a host sync; booked
+    by call site (``Mesh.sites``), their ready seconds within their
+    total.  Each rank's arena holds its data row's slots at its share of
+    the heads."""
     spec, recs, _ = mesh_run
     D, M = map(int, spec.split("x"))
+    cfg = get_config("llama3.2-1b").reduced()
     for rec in recs["sparseB-chunk3"]:
-        calls = rec["prefills_here"] + rec["stats"]["decode_steps"]
-        assert rec["gathers"]["model"] == (15 * calls if M > 1 else 0)
+        mg, steps = rec["model_gathers"], rec["stats"]["decode_steps"]
+        assert mg["prefill"] == (15 * rec["prefills_here"] if M > 1 else 0)
+        assert mg["decode"] == (17 * steps if M > 1 else 0)
+        assert rec["gathers"]["model"] == mg["prefill"] + mg["decode"]
         assert rec["gathers"]["data"] == (rec["stats"]["host_syncs"]
                                           if D > 1 else 0)
+        want = {"gemm": 15 * (rec["prefills_here"] + steps),
+                "heads": 2 * steps} if M > 1 else {}
+        if D > 1:
+            want["data"] = rec["gathers"]["data"]
+        sites = rec["gather_sites"]
+        assert {k: v["n"] for k, v in sites.items()} == want
+        assert all(0 <= v["ready_s"] <= v["s"] for v in sites.values())
+        kv = 2 * cfg.num_layers * (4 // D) * 16 * (cfg.num_kv_heads // M) \
+            * cfg.hd * 4
+        assert rec["arena_bytes"] == {"k": kv // 2, "v": kv // 2,
+                                      "pos": 4 * (4 // D)}
     assert sum(r["prefills_here"] for r in recs["sparseB-chunk3"]) == \
         M * recs["sparseB-chunk3"][0]["stats"]["prefill_calls"]
 
@@ -817,12 +1016,13 @@ def test_ranks_check_the_layout_and_a_failing_rank_fails_the_run():
 
 def test_a_rank_whose_process_dies_fails_the_armed_run(tmp_path):
     """A process that dies is no device loss: with recovery armed (a kill
-    due later, snapshots on disk), rank 2, data row 1's saver, dies at its
-    first snapshot (its row's directory is a file), and the run fails
-    with rank 2's error first instead of remeshing."""
+    due later, snapshots on disk), rank 2, the saver of data row 1's first
+    head share, dies at its first snapshot (its share's directory is a
+    file), and the run fails with rank 2's error first instead of
+    remeshing."""
     snap = tmp_path / "snap"
     snap.mkdir()
-    (snap / "row1").write_text("not a directory")
+    (snap / "row1-share0").write_text("not a directory")
     cell = _cell(inject="kill:-1@3:decode", snapshot_dir=str(snap))
     with pytest.raises(RuntimeError) as err:
         launch_serve.mesh_cells_on("2x2", [cell], device="cpu")

@@ -12,9 +12,14 @@ one torch thread a rank):
   recovery from the per-row disk snapshots on 2x2 -> 1x2, whose manifests
   hold the scheduler; the paged arena (fp32 and int8 pages) killed on 2x2
   at every phase; a 2x1 mesh, where the lost rank's host snapshot is the
-  only copy of its row;
+  only copy of its row, and its disk snapshots, whole rows as share 0;
 * a 2x2-saved serving state (compacted weights, the arena, the promoted
   (B,) counters) restored on 1x2 leaf for leaf.
+
+The arena splits its KV heads over the model ranks, so a remesh hands
+over head shares: each share a new rank needs comes from the old rank
+that held it, a survivor, or the lost rank's host copy where the lost
+rank held it; the bytes are the share's and the CRCs agree on both ends.
 
 Every run's tokens are held exactly against the reference's uninterrupted
 unsharded ``ServeEngine`` on the same weights (the oracle of the
@@ -143,6 +148,19 @@ def _check(recs, want, final: str, lost, step=3) -> list:
 _SPAWNS: dict = {}
 
 
+def _share_bytes(spec: str) -> int:
+    """The bytes of one rank's tick-start state on a ``spec`` mesh of the
+    chaos engine: its data row's slots of k and v (fp32) at its share of
+    the KV heads, and the row's positions, feedback tokens and owed-token
+    counters (int32, int64, int32)."""
+    D, M = map(int, spec.split("x"))
+    cfg = get_config("llama3.2-1b").reduced()
+    P = ENGINE["num_slots"] // D
+    kv = 2 * cfg.num_layers * P * ENGINE["cache_len"] * \
+        (cfg.num_kv_heads // M) * cfg.hd * 4
+    return kv + P * (4 + 8 + 4)
+
+
 def _paged_int8_tokens():
     """The port's uninterrupted unsharded int8-paged tokens on the dense
     bridged weights (the reference's int8 oracle is its own int8 run)."""
@@ -178,7 +196,10 @@ def _spawn(spec: str, tmp_path_factory) -> dict:
                     False, inject=f"kill:-1@3:{ph}", page_size=8,
                     kv_dtype=kv)
     if spec == "2x1":
+        snap = str(tmp_path_factory.mktemp("remesh") / "snap")
         cells["lost-only-copy"] = _cell(True, inject="kill:1@3:decode")
+        cells["disk"] = _cell(False, inject="kill:1@3:decode",
+                              snapshot_dir=snap)
     recs = launch_serve.mesh_cells_on(spec, list(cells.values()),
                                       device="cpu")
     _SPAWNS[spec] = dict(zip(cells, recs), snap_dir=snap)
@@ -197,16 +218,36 @@ def test_chaos_matrix(phase, shrink, weights, tmp_path_factory):
     want, _ = _reference(WEIGHTS[weights])
     D, M = map(int, spec.split("x"))
     served = _check(recs, want, final, [D * M - 1])
-    # each new rank of a row it did not hold got the row from the row's
-    # first survivor; the bytes and the sums agree on both ends
-    sent = {(t["row"], t["dst"]): t for r in recs for x in r["remesh"]
-            for t in x["transfers"] if t["src"] == r["rank"]}
+    # each head share of a row a new rank did not hold came from the old
+    # rank that held it (the lost rank's host copy for its own share);
+    # the bytes are the share's, and the sums agree on both ends
+    sent = {(t["row"], t["share"], t["dst"]): t for r in recs
+            for x in r["remesh"] for t in x["transfers"]
+            if t["src"] == r["rank"]}
+    got = [t for rec in served for t in rec["remesh"][0]["transfers"]]
     for rec in served:
         (x,) = rec["remesh"]
         assert x["mesh"] == final and x["regroup_s"] >= 0
         for t in x["transfers"]:
-            assert t["src"] != D * M - 1        # a survivor sent it
-            assert sent[(t["row"], t["dst"])]["crc32"] == t["crc32"]
+            assert t["src"] == t["row"] * M + t["share"]
+            assert t["bytes"] == _share_bytes(spec)
+            assert sent[(t["row"], t["share"], t["dst"])]["crc32"] == \
+                t["crc32"]
+    assert any(t["src"] == D * M - 1 for t in got)
+    # each new rank has every share its new row and heads cover: its own
+    # where it held one of them, the rest received
+    FD, FM = map(int, final.split("x"))
+    slots = ENGINE["num_slots"]
+    for rec in served:
+        d, m = divmod(rec["final_rank"], FM)
+        rows = {s // (slots // D)
+                for s in range(d * slots // FD, (d + 1) * slots // FD)}
+        per = M // FM
+        need = {(r, j) for r in rows for j in range(m * per, (m + 1) * per)}
+        own = divmod(rec["rank"], M)
+        came = {(t["row"], t["share"]) for t in rec["remesh"][0]["transfers"]
+                if t["dst"] == rec["rank"]}
+        assert own not in came and came | ({own} & need) == need
 
 
 def test_chaos_straggler_eviction_drives_remesh(tmp_path_factory):
@@ -220,21 +261,29 @@ def test_chaos_straggler_eviction_drives_remesh(tmp_path_factory):
 
 
 def test_chaos_disk_snapshot_recovery_on_mesh(tmp_path_factory):
-    """Snapshots on disk, a directory a data row: the survivors restore
-    both rows through ``checkpoint.restore`` onto 1x2; each row's
-    manifest holds the scheduler, the first row's arrays the weights."""
+    """Snapshots on disk, a directory a data row's head share: the
+    survivors restore their share of both rows through
+    ``checkpoint.restore`` onto 1x2; each share's manifest holds the
+    scheduler, the first row's first share's arrays the weights."""
     cells = _spawn("2x2", tmp_path_factory)
     want, _ = _reference(False)
     served = _check(cells["disk"], want, "1x2", [3])
     for rec in served:
-        assert {t["src"] for t in rec["remesh"][0]["transfers"]} == {"disk"}
-        assert [t["row"] for t in rec["remesh"][0]["transfers"]] == [0, 1]
+        moved = rec["remesh"][0]["transfers"]
+        assert {t["src"] for t in moved} == {"disk"}
+        assert [(t["row"], t["share"]) for t in moved] == \
+            [(0, rec["final_rank"]), (1, rec["final_rank"])]
+        assert all(t["bytes"] == _share_bytes("2x2") for t in moved)
     snap = cells["snap_dir"]
+    assert sorted(p.name for p in pathlib.Path(snap).iterdir()) == \
+        ["row0-share0", "row0-share1", "row1-share0", "row1-share1"]
     for row in (0, 1):
-        man = read_manifest(row_dir(snap, row))
-        assert "scheduler" in man["extra"]
-        assert any(k.startswith("['params']") for k in man["keys"]) == \
-            (row == 0)
+        for share in (0, 1):
+            man = read_manifest(row_dir(snap, row, share))
+            assert "scheduler" in man["extra"]
+            assert man["extra"]["share"] == share
+            assert any(k.startswith("['params']") for k in man["keys"]) \
+                == (row == 0 and share == 0)
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
@@ -251,6 +300,28 @@ def test_chaos_paged_mesh_kill(phase, kv_dtype, tmp_path_factory):
     _check(recs, want, "1x2", [3])
 
 
+def test_chaos_disk_snapshot_of_an_unsplit_arena(tmp_path_factory):
+    """Snapshots on disk on 2x1, where no head axis splits: each row's one
+    rank saves the whole row as share 0 (the first row the weights too),
+    and the 1x1 survivor restores both rows from disk and finishes with
+    the reference's tokens."""
+    cells = _spawn("2x1", tmp_path_factory)
+    want, _ = _reference(False)
+    (rec,) = _check(cells["disk"], want, "1x1", [1])
+    moved = rec["remesh"][0]["transfers"]
+    assert [(t["row"], t["share"], t["src"]) for t in moved] == \
+        [(0, 0, "disk"), (1, 0, "disk")]
+    assert all(t["bytes"] == _share_bytes("2x1") for t in moved)
+    snap = cells["snap_dir"]
+    assert sorted(p.name for p in pathlib.Path(snap).iterdir()) == \
+        ["row0-share0", "row1-share0"]
+    for row in (0, 1):
+        man = read_manifest(row_dir(snap, row, 0))
+        assert "scheduler" in man["extra"] and man["extra"]["share"] == 0
+        assert any(k.startswith("['params']") for k in man["keys"]) \
+            == (row == 0)
+
+
 def test_chaos_lost_ranks_snapshot_is_the_rows_only_copy(tmp_path_factory):
     """2x1: one model rank a row, so when rank 1's device goes, the only
     copy of row 1's tick-start state is the lost rank's host snapshot; it
@@ -264,11 +335,13 @@ def test_chaos_lost_ranks_snapshot_is_the_rows_only_copy(tmp_path_factory):
 
 
 def test_chaos_checkpoint_reshards_2x2_to_1x2(tmp_path):
-    """A serving state saved from 2x2 (each row's first model rank its
-    row's arena, the first row the whole compacted weights) restores on
-    1x2 leaf for leaf: the weights (``GriffinWeights`` fields), every
-    rank's share of them, and the arena with its promoted (B,) counters,
-    the rows merged into the 1x2 row's four slots."""
+    """A serving state saved from 2x2 (each rank its share of its row's
+    arena: its row's slots, its two of the four KV heads; the first
+    row's first rank the whole compacted weights) restores on 1x2 leaf
+    for leaf: the weights (``GriffinWeights`` fields), every rank's share
+    of them, and on each 1x2 rank the arena with its promoted (B,)
+    counters, the rows' shares put together and merged into the 1x2
+    row's four slots at that rank's heads."""
     cfg = get_config("llama3.2-1b").reduced()
     api = build_model(cfg, device="cpu")
     _, params = _reference(True)
@@ -280,33 +353,44 @@ def test_chaos_checkpoint_reshards_2x2_to_1x2(tmp_path):
     remaining = torch.tensor([3, 1, 0, 2], dtype=torch.int32)
     conf = EngineConfig().with_fields(**ENGINE, use_kernels=True,
                                       snapshot_dir=str(tmp_path))
-    axes = None
+    heads = {"k": 3, "v": 3}            # (L, B, S, KVH, hd); pos whole
+
+    def cut(k, v, row, m, shares):
+        v = v.narrow(max(axes[k], 0), 2 * row, 2)
+        if k in heads:
+            n = cfg.num_kv_heads // shares
+            v = v.narrow(heads[k], m * n, n)
+        return v
+
+    axes = old_axes = None
     for rank in range(4):
         eng = MeshServeEngine(api, params, config=conf,
                               mesh=tmesh.Mesh(2, 2, rank=rank))
-        axes = eng._axes
-        d = rank // 2
+        axes, old_axes = eng._axes, eng._heads_ax
+        assert old_axes == {"k": 3, "v": 3, "pos": None}
+        d, m = divmod(rank, 2)
         for k, v in whole.items():
-            eng.cache[k].copy_(v.narrow(max(axes[k], 0), 2 * d, 2))
+            eng.cache[k].copy_(cut(k, v, d, m, 2))
         eng._remaining.copy_(remaining[2 * d:2 * d + 2])
         eng._capture()
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["row0", "row1"]
-    small = MeshServeEngine(api, params, config=conf,
-                            mesh=tmesh.Mesh(1, 2, rank=1))
-    template = {"cache": small.cache, "tokens": small._tokens,
-                "remaining": small._remaining}
-    rows = {}
-    for d in (0, 1):
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["row0-share0", "row0-share1", "row1-share0", "row1-share1"]
+    for rank in (0, 1):
+        small = MeshServeEngine(api, params, config=conf,
+                                mesh=tmesh.Mesh(1, 2, rank=rank))
         half = {"cache": {k: v.narrow(max(axes[k], 0), 0, 2)
-                          for k, v in template["cache"].items()},
-                "tokens": template["tokens"][:2],
-                "remaining": template["remaining"][:2]}
-        rows[d] = restore(row_dir(str(tmp_path), d), half, step=0)
-    merged = small._merge(rows, 2)
-    for k, v in whole.items():
-        assert torch.equal(merged["cache"][k], v), k
-    assert torch.equal(merged["remaining"], remaining)
-    got = restore(row_dir(str(tmp_path), 0), {"params": params},
+                          for k, v in small.cache.items()},
+                "tokens": small._tokens[:2],
+                "remaining": small._remaining[:2]}
+        shares = {(d, rank): restore(row_dir(str(tmp_path), d, rank), half,
+                                     step=0) for d in (0, 1)}
+        merged = small._merge(small._rows_from_shares(
+            shares, tmesh.Mesh(2, 2), old_axes), 2)
+        for k, v in whole.items():
+            want = v if k not in heads else v.narrow(heads[k], 2 * rank, 2)
+            assert torch.equal(merged["cache"][k], want), (rank, k)
+        assert torch.equal(merged["remaining"], remaining)
+    got = restore(row_dir(str(tmp_path), 0, 0), {"params": params},
                   step=0)["params"]
     flat = dict(keyed_leaves(got))
     for key, leaf in keyed_leaves(params):
